@@ -1,0 +1,8 @@
+"""PyTorch + CUDA port of the additive-GP package ``repro``.
+
+Mirrors ``repro``'s layout module for module and imports nothing of it, nor
+JAX. The serving path (``core.fit`` -> ``core.posterior_mean`` ->
+``core.posterior_var``) runs on an NVIDIA GPU through hand-written CUDA
+kernels (``csrc/``), built at first use; on CPU tensors the plain PyTorch
+versions of the same kernels run.
+"""

@@ -1,0 +1,49 @@
+"""Build the port's ``AdditiveGP`` from a fitted GP's arrays.
+
+``gp_from_arrays`` takes the fields of a GP fitted elsewhere (for example by
+the JAX package) as numpy arrays, so that queries can be compared on
+identical factors. Keys:
+
+  * ``X`` (n, D), ``Y`` (n,), ``omega`` (D,), ``sigma`` (), ``xs`` (D, n),
+    ``sort_idx`` / ``rank_idx`` (D, n), ``bY`` / ``u_sy`` (D, n);
+  * for each band ``N`` in ``A, Phi, SAPhi, B, Psi, Gband, Hband``: the data
+    ``N`` (D, n, lo+hi+1) with its half-widths ``N_lo`` and ``N_hi``.
+
+The GP carries no health state (no solve ran here).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .additive_gp import AdditiveGP, GPConfig, resolve_config
+from .backfitting import DimOps
+from .banded import Banded
+
+__all__ = ["gp_from_arrays", "BAND_KEYS"]
+
+BAND_KEYS = ("A", "Phi", "SAPhi", "B", "Psi", "Gband", "Hband")
+
+
+def gp_from_arrays(arrays: dict[str, np.ndarray], config: GPConfig,
+                   device) -> AdditiveGP:
+    device = torch.device(device)
+
+    def t(key, dtype=torch.float64):
+        return torch.as_tensor(np.array(arrays[key])).to(device=device,
+                                                           dtype=dtype)
+
+    def band(key):
+        return Banded(t(key), int(arrays[f"{key}_lo"]),
+                      int(arrays[f"{key}_hi"]))
+
+    X = t("X")
+    config = resolve_config(config, X.shape[0], device)
+    sigma = t("sigma").reshape(())
+    ops = DimOps(A=band("A"), Phi=band("Phi"), SAPhi=band("SAPhi"),
+                 sort_idx=t("sort_idx", torch.int64),
+                 rank_idx=t("rank_idx", torch.int64), sigma2=sigma ** 2)
+    return AdditiveGP(X=X, Y=t("Y"), omega=t("omega"), sigma=sigma,
+                      xs=t("xs"), ops=ops, B=band("B"), Psi=band("Psi"),
+                      bY=t("bY"), u_sy=t("u_sy"), Gband=band("Gband"),
+                      config=config, Hband=band("Hband"), health=None)

@@ -1,0 +1,72 @@
+"""Solve-health classification and the per-GP ``HealthState``.
+
+Counterpart of ``repro.health.verdict``: a verdict is an integer code
+computed from what the solver already carries (residual and RHS norms,
+whether the iteration cap was hit) plus one nonfinite probe of the state.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+__all__ = ["OK", "STALLED", "DIVERGED", "NONFINITE", "VERDICT_NAMES",
+           "STALL_RTOL", "HealthState", "classify_solve", "verdict_name"]
+
+OK = 0  # converged (or tol-exited) with a finite, small residual
+STALLED = 1  # exited at the iteration cap with the residual still large
+DIVERGED = 2  # residual larger than the RHS itself: worse than x = 0
+NONFINITE = 3  # NaN/Inf in the state or residual
+
+VERDICT_NAMES = ("OK", "STALLED", "DIVERGED", "NONFINITE")
+
+# relative residual separating "converged enough" from STALLED when a solve
+# exits at its iteration cap (the reference's value and rationale)
+STALL_RTOL = 1e-3
+
+
+@dataclasses.dataclass(frozen=True)
+class HealthState:
+    """Per-GP health scalars: latest solve verdict, residual and RHS norms,
+    and the Gband drift accumulators (unused until streaming is ported)."""
+
+    verdict: torch.Tensor  # int32
+    resid: torch.Tensor
+    rhs: torch.Tensor
+    drift: torch.Tensor
+    muts: torch.Tensor  # int32
+
+    @staticmethod
+    def fresh(dtype=torch.float64, device=None) -> "HealthState":
+        z = torch.zeros((), dtype=dtype, device=device)
+        zi = torch.zeros((), dtype=torch.int32, device=device)
+        return HealthState(verdict=zi, resid=z, rhs=z, drift=z, muts=zi)
+
+    def with_solve(self, info) -> "HealthState":
+        """Fold a classified ``SolveInfo`` into the state."""
+        return dataclasses.replace(
+            self, verdict=info.verdict.to(torch.int32),
+            resid=info.resid.to(self.resid.dtype),
+            rhs=info.rhs.to(self.rhs.dtype))
+
+
+def classify_solve(x, resid, rhs, at_cap, stall_rtol: float = STALL_RTOL):
+    """Classify one solve into an int32 verdict code (tensor scalar).
+
+    Severity order NONFINITE > DIVERGED > STALLED > OK; a zero RHS is OK.
+    """
+    resid = torch.as_tensor(resid)
+    rhs = torch.as_tensor(rhs, dtype=resid.dtype, device=resid.device)
+    at_cap = torch.as_tensor(at_cap, device=resid.device)
+    finite = torch.isfinite(resid) & torch.isfinite(x).all()
+    tiny = torch.finfo(resid.dtype).tiny
+    rel = resid / torch.clamp(rhs, min=tiny)
+    code = torch.where(
+        rel > 1.0, DIVERGED,
+        torch.where(at_cap & (rel > stall_rtol), STALLED, OK))
+    return torch.where(finite, code, NONFINITE).to(torch.int32)
+
+
+def verdict_name(code) -> str:
+    i = int(code)
+    return VERDICT_NAMES[i] if 0 <= i < len(VERDICT_NAMES) else f"?{i}"

@@ -1,0 +1,166 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+``sm_90a`` (all started together), and the objects are linked into one
+shared library with a plain C interface, loaded through ``ctypes``. The
+build happens at first use, into ``build/repro_torch/`` at the repository
+root (listed in ``.gitignore``), keyed by a hash of the sources and flags,
+so a changed source never loads a stale library.
+
+Each kernel wrapper adds one to its entry of the launch counts where it
+launches its kernel, and nowhere else; ``reset_launch_counts`` and
+``launch_counts`` let a caller show which kernels a run went through.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+__all__ = ["load_library", "build_library", "check", "expect",
+           "stream_handle", "count_launch", "launch_counts",
+           "reset_launch_counts", "KERNELS"]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("banded_lu.cu", "band_matmul.cu", "rgf.cu", "mega_pcg.cu")
+HEADERS = ("common.cuh", "cr.cuh")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg")
+
+_c_int, _c_ll, _c_dbl, _ptr = (ctypes.c_int, ctypes.c_longlong,
+                                ctypes.c_double, ctypes.c_void_p)
+# C entry points: name -> (restype, argtypes); pointers and the stream are
+# c_void_p so ctypes never truncates them to 32 bits
+_SIGNATURES = {
+    "repro_banded_lu_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _ptr, _c_int,
+                                     _c_int, _c_int, _c_int, _c_int, _ptr]),
+    "repro_band_matmul_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int,
+                                       _c_int, _c_int, _c_int, _c_int, _ptr]),
+    "repro_rgf_blocks_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                                      _ptr, _ptr, _c_int, _c_int, _c_int,
+                                      _ptr]),
+    "repro_mega_pcg_workspace": (_c_ll, [_c_int, _c_int, _c_int, _c_int,
+                                         _c_int]),
+    "repro_mega_pcg_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                                    _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
+                                    _c_int, _c_int, _c_int, _c_int, _c_int,
+                                    _c_int, _c_int, _c_dbl, _c_int, _ptr]),
+    "repro_error_string": (ctypes.c_char_p, [_c_int]),
+}
+
+_lock = threading.Lock()
+_lib = None
+_counts = {k: 0 for k in KERNELS}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels are built at first use on a "
+        "machine with the CUDA toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build_library() -> Path:
+    """Compile every source in parallel and link one shared library; the
+    compiler's output (ptxas register and spill report) goes to a log file
+    beside it."""
+    tag = _digest()
+    out = BUILD_DIR / f"librepro_torch_{tag}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{Path(src).stem}_{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src),
+               "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, _, p in procs:
+        text, _ = p.communicate()
+        logs.append(f"== {src}\n{text}")
+        if p.returncode != 0:
+            failed.append(src)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+    tmp = out.with_suffix(f".tmp{os.getpid()}")
+    link = subprocess.run(
+        [nvcc, "-shared", *[str(o) for _, o, _ in procs], "-o", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    (BUILD_DIR / f"build_{tag}.log").write_text("\n".join(logs))
+    os.replace(tmp, out)
+    return out
+
+
+def load_library():
+    """The loaded kernel library (built at first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            for name, (res, args) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.restype, fn.argtypes = res, args
+            _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = load_library().repro_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def expect(t, name: str, dtype, shape, device) -> None:
+    """Validate a tensor handed to a kernel: device, dtype, shape, layout."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def stream_handle(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def count_launch(name: str) -> None:
+    _counts[name] += 1
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_counts)
+
+
+def reset_launch_counts() -> None:
+    for k in _counts:
+        _counts[k] = 0

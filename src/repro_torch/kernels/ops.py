@@ -1,0 +1,151 @@
+"""Backend resolution and dispatch for the banded algebra of the port.
+
+Counterpart of ``repro.kernels.ops``. Backends resolve by the device of the
+tensors an op is given:
+
+  * ``"auto"`` (the default) — the hand-written CUDA kernels for CUDA
+    tensors, the plain PyTorch versions for CPU tensors;
+  * ``"cuda"`` — the CUDA kernels; CPU tensors raise.
+
+A CUDA tensor never reaches a plain version: an op whose kernel is not
+ported yet raises ``NotImplementedError`` on CUDA tensors. There are no
+environment knobs.
+
+Solve algorithms follow the reference's rule (``resolve_solve_alg``):
+block cyclic reduction ("cr") when ``lo == hi >= 1``, the LU kernel ("lu")
+otherwise.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["BACKENDS", "SOLVE_ALGS", "PRECOND_MODES", "KMG_AUTO_MIN_N",
+           "resolve_backend", "resolve_solve_alg", "resolve_precond",
+           "banded_matvec", "banded_solve", "banded_logdet",
+           "band_band_matmul"]
+
+BACKENDS = ("auto", "cuda")
+SOLVE_ALGS = ("auto", "lu", "cr")
+PRECOND_MODES = ("auto", "none", "kmg")
+
+# the reference's "auto" precond gate: kernel multigrid at q == 0 from this n
+KMG_AUTO_MIN_N = 4096
+
+
+def resolve_backend(backend: str | None, device) -> str:
+    """"cuda" (launch the kernel) or "plain" (run the plain version) for an
+    op on tensors that live on ``device``."""
+    b = "auto" if backend is None else backend
+    if b not in BACKENDS:
+        raise ValueError(f"unknown backend {b!r}; expected one of {BACKENDS}")
+    kind = torch.device(device).type
+    if kind == "cuda":
+        return "cuda"
+    if kind != "cpu":
+        raise ValueError(f"unsupported device {device!r}")
+    if b == "cuda":
+        raise ValueError("backend='cuda' needs CUDA tensors; got CPU tensors")
+    return "plain"
+
+
+def resolve_solve_alg(alg: str | None, lo: int, hi: int) -> str:
+    """"cr" (block cyclic reduction) or "lu" for a (lo, hi) band."""
+    a = "auto" if alg is None else alg
+    if a not in SOLVE_ALGS:
+        raise ValueError(
+            f"unknown solve alg {a!r}; expected one of {SOLVE_ALGS}")
+    if a == "auto":
+        return "cr" if lo == hi and lo > 0 else "lu"
+    if a == "cr" and lo == hi == 0:
+        return "lu"  # diagonal: the LU kernel is loop-free there
+    if a == "cr" and lo != hi:
+        raise ValueError(
+            f"solve alg 'cr' requires a symmetric bandwidth (lo == hi); "
+            f"got lo={lo}, hi={hi}")
+    return a
+
+
+def resolve_precond(precond: str | None, *, q: int, n: int) -> str:
+    """"none" | "kmg"; "auto" enables kmg at q == 0 and n >= KMG_AUTO_MIN_N."""
+    p = "auto" if precond is None else precond
+    if p not in PRECOND_MODES:
+        raise ValueError(
+            f"unknown precond mode {p!r}; expected one of {PRECOND_MODES}")
+    if p == "auto":
+        return "kmg" if q == 0 and n >= KMG_AUTO_MIN_N else "none"
+    return p
+
+
+def _flatten_batch(arrs, core_dims):
+    """Broadcast leading batch dims and flatten them to one G axis."""
+    batch = torch.broadcast_shapes(
+        *[a.shape[:-d] for a, d in zip(arrs, core_dims)])
+    flats = [a.expand(batch + a.shape[-d:]).reshape((-1,) + a.shape[-d:])
+             .contiguous() for a, d in zip(arrs, core_dims)]
+    return batch, flats
+
+
+def _no_pivot(pivot: bool):
+    if pivot:
+        raise NotImplementedError(
+            "pivot=True is not ported yet (ROADMAP Queue 1, pivoted solves)")
+
+
+def banded_matvec(band, x, lo: int, hi: int, backend: str | None = None):
+    """y = M x. band (..., n, lo+hi+1); x (..., n) or (..., n, k)."""
+    if resolve_backend(backend, band.device) != "plain":
+        raise NotImplementedError(
+            "banded matvec on CUDA is not ported yet (ROADMAP Queue 2, "
+            "kernel #6 banded_matvec_pallas)")
+    from ..core.banded import Banded, _matvec_scan
+
+    return _matvec_scan(Banded(band, lo, hi), x)
+
+
+def banded_solve(band, rhs, lo: int, hi: int, pivot: bool = False,
+                 backend: str | None = None, alg: str | None = None):
+    """Solve M x = rhs. band (..., n, w); rhs (..., n) or (..., n, k)."""
+    from .banded_lu import banded_lu
+    from .block_cr import block_cr_solve
+
+    _no_pivot(pivot)
+    n = band.shape[-2]
+    vec_in = rhs.shape[-1] == n and rhs.ndim == band.ndim - 1
+    rb = rhs[..., None] if vec_in else rhs
+    batch, (bf, rf) = _flatten_batch((band, rb), (2, 2))
+    if resolve_solve_alg(alg, lo, hi) == "cr":
+        x = block_cr_solve(bf, rf, lo, backend=backend)
+    else:
+        x, _ = banded_lu(bf, rf, lo, hi, backend=backend)
+    out = x.reshape(batch + x.shape[-2:])
+    return out[..., 0] if vec_in else out
+
+
+def banded_logdet(band, lo: int, hi: int, pivot: bool = False,
+                  backend: str | None = None, alg: str | None = None):
+    """log |det M|, batched over the leading dims of band."""
+    from .banded_lu import banded_lu
+    from .block_cr import block_cr_logdet
+
+    _no_pivot(pivot)
+    batch, (bf,) = _flatten_batch((band,), (2,))
+    if resolve_solve_alg(alg, lo, hi) == "cr":
+        ld = block_cr_logdet(bf, lo, backend=backend)
+    else:
+        dummy = bf.new_zeros(bf.shape[:2] + (1,))
+        _, ld = banded_lu(bf, dummy, lo, hi, backend=backend)
+    return ld.reshape(batch)
+
+
+def band_band_matmul(a_band, b_band, a_lo: int, a_hi: int, b_lo: int,
+                     b_hi: int, backend: str | None = None):
+    """C = A @ B in band form; returns band data (..., n, wa + wb - 1),
+    masked to in-range entries."""
+    from ..core.banded import _band_mask
+    from .band_matmul import band_matmul
+
+    batch, (af, bf) = _flatten_batch((a_band, b_band), (2, 2))
+    out = band_matmul(af, bf, a_lo, a_hi, b_lo, b_hi, backend=backend)
+    out = out.reshape(batch + out.shape[-2:])
+    n = a_band.shape[-2]
+    return out * _band_mask(n, a_lo + b_lo, a_hi + b_hi, device=out.device)

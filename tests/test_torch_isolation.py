@@ -1,0 +1,115 @@
+"""The port stands alone and refuses what it cannot do.
+
+* ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
+  package: every module imports in a subprocess where ``jax`` is blocked,
+  and a scan of their sources finds no such import.
+* Device rule: the entry points run on CUDA unless told ``device="cpu"``,
+  and raise without a GPU; ``backend="cuda"`` on CPU tensors raises.
+* Configurations whose path is not ported raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import GPConfig, fit, posterior_mean, posterior_var
+from repro_torch.core.additive_gp import resolve_config
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.banded_lu import banded_lu
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+_FORBIDDEN = re.compile(r"^\s*(?:from|import)\s+(?:jax|repro)(?:\.|\s|$)",
+                        re.MULTILINE)
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_every_module_imports_without_jax():
+    code = ("import sys, importlib\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            f"for name in {_modules()!r}:\n"
+            "    importlib.import_module(name)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    assert len(_modules()) >= 17
+
+
+def test_sources_name_no_jax_or_reference_import():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
+    assert offenders == []
+
+
+def _tiny():
+    rng = np.random.default_rng(0)
+    return rng.uniform(0, 1, (20, 2)), rng.standard_normal(20), np.ones(2)
+
+
+def test_fit_without_device_needs_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X, Y, om = _tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fit(GPConfig(precond="none"), X, Y, om, 1.0)
+    gp = fit(GPConfig(precond="none", solver_iters=5), X, Y, om, 1.0,
+             device="cpu")
+    with pytest.raises(RuntimeError):
+        posterior_mean(gp, X[:3])
+    with pytest.raises(RuntimeError):
+        posterior_var(gp, X[:3])
+
+
+def test_cuda_backend_on_cpu_tensors_raises():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.resolve_backend("cuda", "cpu")
+    band = torch.ones((1, 4, 1), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        banded_lu(band, torch.ones((1, 4, 1), dtype=torch.float64), 0, 0,
+                  backend="cuda")
+    X, Y, om = _tiny()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fit(GPConfig(backend="cuda", precond="none"), X, Y, om, 1.0,
+            device="cpu")
+
+
+@pytest.mark.parametrize("cfg,n,device", [
+    (GPConfig(solver="jacobi", precond="none"), 20, "cpu"),
+    (GPConfig(solver="gauss_seidel", precond="none"), 20, "cpu"),
+    (GPConfig(fused="on", precond="none"), 20, "cpu"),
+    (GPConfig(fused="off", precond="none"), 20, "cpu"),
+    (GPConfig(pivot=True, precond="none"), 20, "cpu"),
+    (GPConfig(precond="kmg"), 20, "cpu"),
+    (GPConfig(), 4096, "cpu"),  # "auto" resolves to kmg at q = 0, n >= 4096
+    (GPConfig(q=1, precond="none"), 20, "cuda"),
+])
+def test_unported_paths_raise(cfg, n, device):
+    with pytest.raises(NotImplementedError):
+        resolve_config(cfg, n, device)
+
+
+def test_plain_path_launches_no_kernel():
+    _build.reset_launch_counts()
+    X, Y, om = _tiny()
+    gp = fit(GPConfig(precond="none", solver_iters=5), X, Y, om, 1.0,
+             device="cpu")
+    posterior_var(gp, X[:3], device="cpu")
+    assert set(_build.launch_counts()) == set(_build.KERNELS)
+    assert all(v == 0 for v in _build.launch_counts().values())
