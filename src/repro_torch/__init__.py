@@ -2,7 +2,8 @@
 
 Mirrors ``repro``'s layout module for module and imports nothing of it, nor
 JAX. The serving path (``core.fit`` -> ``core.posterior_mean`` ->
-``core.posterior_var``) runs on an NVIDIA GPU through hand-written CUDA
-kernels (``csrc/``), built at first use; on CPU tensors the plain PyTorch
-versions of the same kernels run.
+``core.posterior_var``) and hyperparameter learning (``core.log_likelihood``
+-> ``core.mll_gradients`` -> ``core.fit_hyperparams``) run on an NVIDIA GPU
+through hand-written CUDA kernels (``csrc/``), built at first use; on CPU
+tensors the plain PyTorch versions of the same kernels run.
 """

@@ -1,20 +1,31 @@
-"""Additive Matérn GP with sparse (Kernel Packet) algebra: the serving path.
+"""Additive Matérn GP with sparse (Kernel Packet) algebra.
 
-Counterpart of ``repro.core.additive_gp``'s fit and query half (paper Sec.
-5, Eqs. (12)-(13)):
+Counterpart of ``repro.core.additive_gp`` (paper Sec. 5, Eqs. (12)-(15)):
 
     mean      mu(x*) = sum_d phi_d(x*)^T b_d,  b = Phi^{-T} P^T Mhat^{-1} S Y / s^2
     variance  s(x*)  = sum_d k_d(x*,x*) - sum_d phi_d^T G_d phi_d + w^T Mhat^{-1} w
+    likelihood l     = -1/2 [ Y^T R Y + log|Mhat| + sum_d(log|Phi_d|-log|A_d|)
+                              + 2n log s + n log 2pi ]
+    gradient  dl/dw_d = 1/2 [ u^T (dK_d) u - tr(R dK_d) ],   u = R Y,
+                        dK_d = P^T B_d^{-1} Psi_d P   (generalized KPs)
 
-Device rule: ``fit``, ``posterior_mean`` and ``posterior_var`` run on
-``cuda`` unless the caller passes ``device="cpu"``; with no GPU and no such
-argument they raise. On CUDA every banded kernel of the path is a
-hand-written CUDA kernel; on the CPU the plain versions run. Paths that
-are not ported yet raise ``NotImplementedError`` at ``fit``.
+Device rule: ``fit``, ``posterior_mean``, ``posterior_var`` and
+``fit_hyperparams`` run on ``cuda`` unless the caller passes
+``device="cpu"``; with no GPU and no such argument they raise. The
+likelihood and its gradients run where the fitted GP lives. On CUDA every
+banded kernel of the path is a hand-written CUDA kernel; on the CPU the
+plain versions run. Paths that are not ported yet raise
+``NotImplementedError`` at ``fit``.
+
+Randomness: where the reference takes a ``jax.random`` key, the port takes
+a ``torch.Generator``; every probe is drawn through
+``stochastic.rademacher_rows``. The private ``_log_likelihood`` and
+``_mll_gradients`` take the probe blocks themselves.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -22,14 +33,18 @@ import torch
 from ..health import verdict as hv
 from ..kernels import ops as _kops
 from . import matern as mk
-from .backfitting import DimOps, SolveConfig, check_solve_config, solve_mhat
+from . import stochastic as st
+from .backfitting import (DimOps, SolveConfig, check_solve_config, mhat_matvec,
+                          solve_mhat)
 from .band_inverse import variance_band
-from .banded import Banded, add, scale, solve, transpose
+from .banded import Banded, add, logdet, matvec, scale, solve, transpose
 from .kernel_packets import gkp_factors, kp_factors, phi_at
 
 __all__ = ["GPConfig", "AdditiveGP", "fit", "mean_caches", "posterior_caches",
            "posterior_mean", "posterior_var", "prior_var", "resolve_device",
-           "TIE_EPS"]
+           "log_likelihood", "mll_gradients", "fit_hyperparams", "TIE_EPS"]
+
+LOGDET_METHODS = ("taylor", "taylor_pc")
 
 # span-relative separation applied to exactly-tied sorted coordinates
 TIE_EPS = 1e-9
@@ -46,7 +61,7 @@ class GPConfig:
     Values whose path is not ported raise ``NotImplementedError`` at
     ``fit``: ``solver`` other than "pcg", ``fused`` "on"/"off",
     ``pivot=True``, a ``precond`` that resolves to "kmg" (so ``q == 0,
-    n >= 4096`` with "auto" raises: pass ``precond="none"``), and ``q >= 1``
+    n >= 4096`` with "auto" raises: pass ``precond="none"``), and ``q >= 2``
     on CUDA. ``backend``: "auto" (by tensor device) | "cuda".
     """
 
@@ -135,10 +150,15 @@ def resolve_config(config: GPConfig, n: int, device) -> GPConfig:
     _kops.resolve_backend(config.backend, device)
     if config.q not in mk.SUPPORTED_Q:
         raise ValueError(f"q={config.q} not in {mk.SUPPORTED_Q}")
-    if config.q >= 1 and torch.device(device).type == "cuda":
+    if config.q >= 2 and torch.device(device).type == "cuda":
         raise NotImplementedError(
-            "q >= 1 on CUDA needs the standalone block-CR kernel for its Phi "
-            "solves (ROADMAP Queue 2, kernel #5); run q >= 1 on the CPU")
+            "q >= 2 on CUDA exceeds the kernels' widths: cr.cuh and mega_pcg "
+            "take half-widths <= 3 and the generalized-KP B at q = 2 has "
+            "w = 4; rgf.cu takes blocks w <= 4 and q = 2 needs 5 (ROADMAP "
+            "Queue 3); run q >= 2 on the CPU")
+    if config.logdet_method not in LOGDET_METHODS:
+        raise ValueError(f"unknown logdet_method {config.logdet_method!r}; "
+                         f"expected one of {LOGDET_METHODS}")
     gband = "windowed" if config.gband == "auto" else config.gband
     health = "on" if config.health == "auto" else config.health
     if gband not in ("windowed", "full") or health not in ("on", "off"):
@@ -285,3 +305,174 @@ def prior_var(gp: AdditiveGP, dtype=torch.float64):
     """Prior variance sum_d k_d(x*, x*) from the kernel itself."""
     zero = torch.zeros((), dtype=dtype, device=gp.device)
     return mk.matern(gp.config.q, gp.omega, zero, zero).sum().to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Likelihood + gradients (Sec. 5.1, Eqs. (14)-(15))
+# ---------------------------------------------------------------------------
+
+
+def _r_apply(gp: AdditiveGP, v, cfg: SolveConfig):
+    """R v = sigma^{-2} v - sigma^{-4} S^T Mhat^{-1} S v, v: (n,) or (n, B)."""
+    SV = v[None].expand((gp.D,) + tuple(v.shape))
+    z = solve_mhat(gp.ops, SV, cfg)
+    return v / gp.sigma ** 2 - z.sum(dim=0) / gp.sigma ** 4
+
+
+def _probe_block(gp: AdditiveGP, generator: torch.Generator, Q: int):
+    """Rademacher probes (D, n, Q), drawn as (n, D, Q) like the reference."""
+    v = st.rademacher_rows(generator, gp.n, (gp.D, Q), dtype=gp.Y.dtype,
+                           device=gp.device)
+    return v.permute(1, 0, 2).contiguous()
+
+
+def _logdet_mhat(gp: AdditiveGP, pm_v0, probe_v):
+    """log|Mhat| — paper Alg 8 ("taylor") or preconditioned ("taylor_pc"),
+    with the power method's restarts ``pm_v0`` (D, n, 4) and the Hutchinson
+    probes ``probe_v`` (D, n, Q) given."""
+    c = gp.config
+    n, D = gp.n, gp.D
+    kw = dict(order=c.logdet_order, probes=probe_v.shape[-1],
+              power_iters=c.power_iters, dtype=gp.Y.dtype, probe_v=probe_v,
+              power_v0=pm_v0)
+    if c.logdet_method == "taylor":
+        mv = lambda u: mhat_matvec(gp.ops, u, backend=c.backend,
+                                   alg=c.solve_alg)
+        return st.logdet_taylor(mv, D * n, (D, n), None, **kw)
+    # taylor_pc: C = Khat^{-1} + sigma^{-2} I (block diagonal), log|C| exact:
+    # log|K_d^{-1} + s^{-2} I| = log|A_d + s^{-2} Phi_d| - log|Phi_d|
+    lk = dict(pivot=c.pivot, backend=c.backend, alg=c.solve_alg)
+    APhi = add(gp.ops.A, scale(gp.ops.Phi, 1.0 / gp.sigma ** 2))
+    ld_c = logdet(APhi, **lk).sum() - logdet(gp.ops.Phi, **lk).sum()
+    nv = lambda u: gp.ops.block_solve(
+        mhat_matvec(gp.ops, u, backend=c.backend, alg=c.solve_alg),
+        backend=c.backend, alg=c.solve_alg)
+    return ld_c + st.logdet_taylor(nv, D * n, (D, n), None, **kw)
+
+
+def _log_likelihood(gp: AdditiveGP, pm_v0, probe_v,
+                    return_verdict: bool = False):
+    """Eq. (14) with the log-determinant's probe blocks given."""
+    n = gp.n
+    um = gp.u_sy.sum(dim=0)
+    quad = gp.Y @ gp.Y / gp.sigma ** 2 - (gp.Y @ um) / gp.sigma ** 4
+    ld_mhat = _logdet_mhat(gp, pm_v0, probe_v)
+    lk = dict(pivot=gp.config.pivot, backend=gp.config.backend,
+              alg=gp.config.solve_alg)
+    ld_k = logdet(gp.ops.Phi, **lk).sum() - logdet(gp.ops.A, **lk).sum()
+    ll = -0.5 * (quad + ld_mhat + ld_k + 2.0 * n * torch.log(gp.sigma)
+                 + n * math.log(2.0 * math.pi))
+    if not return_verdict:
+        return ll
+    verdict = torch.where(torch.isfinite(ll), hv.OK, hv.NONFINITE).to(
+        torch.int32)
+    return ll, verdict
+
+
+def log_likelihood(gp: AdditiveGP, generator: torch.Generator,
+                   return_verdict: bool = False):
+    """Eq. (14): exact quadratic term + stochastic log-det (Algs 6-8).
+
+    The power method's 4 restarts and the ``logdet_probes`` Hutchinson
+    probes are drawn from ``generator`` in that order.
+    ``return_verdict=True`` also returns an int32 health code: the value
+    reuses the fitted ``u_sy`` cache (no fresh Mhat solve), so the verdict is
+    a nonfinite probe of it — NONFINITE or OK.
+    """
+    pm_v0 = _probe_block(gp, generator, 4)  # power_method's default restarts
+    probe_v = _probe_block(gp, generator, gp.config.logdet_probes)
+    return _log_likelihood(gp, pm_v0, probe_v, return_verdict=return_verdict)
+
+
+def _dk_apply(gp: AdditiveGP, v):
+    """Apply dK_d = P^T B_d^{-1} Psi_d P to v for all d: v (n, B) -> (D, n, B)."""
+    c = gp.config
+    vs = gp.ops.to_sorted(v[None].expand((gp.D,) + tuple(v.shape)))
+    w = solve(gp.B, matvec(gp.Psi, vs, backend=c.backend), pivot=c.pivot,
+              backend=c.backend, alg=c.solve_alg)
+    return gp.ops.from_sorted(w)
+
+
+def _mll_gradients(gp: AdditiveGP, V, return_info: bool = False):
+    """Eq. (15) with the Hutchinson probe block ``V`` (n, Q) given."""
+    cfg = gp.config.solve_cfg()
+    n, D = gp.n, gp.D
+    Q = V.shape[-1]
+    s2, s4 = gp.sigma ** 2, gp.sigma ** 4
+    # u = R Y (exact, reusing the fitted Mhat^{-1} S Y)
+    u = gp.Y / s2 - gp.u_sy.sum(dim=0) / s4
+    gu = _dk_apply(gp, u[:, None])[..., 0]  # (D, n)
+    term1 = gu @ u  # (D,)
+
+    # Hutchinson trace of R dK_d (Eq. (24)), batched over probes AND dims
+    Wd = _dk_apply(gp, V)  # (D, n, Q)
+    first = torch.einsum("nq,dnq->dq", V, Wd) / s2
+    rhs = Wd.permute(1, 0, 2).reshape(1, n, D * Q).expand(D, n, D * Q)
+    rz = solve_mhat(gp.ops, rhs, cfg, return_info=return_info)
+    z, info_z = rz if return_info else (rz, None)
+    stz = z.sum(dim=0).reshape(n, D, Q)
+    second = torch.einsum("nq,ndq->dq", V, stz) / s4
+    trace = (first - second).mean(dim=1)  # (D,)
+    grad_omega = 0.5 * (term1 - trace)
+
+    # sigma: dMLL/dsigma^2 = 0.5 (||u||^2 - tr R), tr R with the same probes
+    rzs = solve_mhat(gp.ops, V[None].expand(D, n, Q), cfg,
+                     return_info=return_info)
+    zs, info_s = rzs if return_info else (rzs, None)
+    quadS = torch.einsum("nq,nq->q", V, zs.sum(dim=0))
+    tr_r = n / s2 - quadS.mean() / s4
+    grad_sigma = 0.5 * (u @ u - tr_r) * 2.0 * gp.sigma
+    if not return_info:
+        return grad_omega, grad_sigma
+    fin = torch.isfinite(grad_omega).all() & torch.isfinite(grad_sigma)
+    verdict = torch.maximum(
+        torch.maximum(info_z.verdict, info_s.verdict),
+        torch.where(fin, hv.OK, hv.NONFINITE).to(torch.int32))
+    return grad_omega, grad_sigma, info_z._replace(verdict=verdict)
+
+
+def mll_gradients(gp: AdditiveGP, generator: torch.Generator,
+                  return_info: bool = False):
+    """(d MLL / d omega (D,), d MLL / d sigma) — Eq. (15) + Hutchinson traces.
+
+    The ``trace_probes`` probes (n, Q) are drawn from ``generator``.
+    ``return_info=True`` also returns a :class:`SolveInfo` whose verdict is
+    the worst over the two trace-probe Mhat solves and a nonfinite probe of
+    the gradients.
+    """
+    V = st.rademacher_rows(generator, gp.n, (gp.config.trace_probes,),
+                           dtype=gp.Y.dtype, device=gp.device)
+    return _mll_gradients(gp, V, return_info=return_info)
+
+
+def fit_hyperparams(config: GPConfig, X, Y, omega0, sigma0,
+                    generator: torch.Generator, steps: int = 50,
+                    lr: float = 0.1, device=None):
+    """Adam ascent on (log omega, log sigma) using the sparse gradients.
+
+    Each step refits and draws fresh gradient probes from ``generator``.
+    Returns (fitted AdditiveGP, (omega, sigma), list of gradient norms).
+    """
+    device = resolve_device(device)
+    X = _as_f64(X, device)
+    Y = _as_f64(Y, device)
+    log_om = torch.log(_as_f64(omega0, device))
+    log_sg = torch.log(_as_f64(sigma0, device).reshape(()))
+    m = torch.zeros(log_om.shape[0] + 1, dtype=X.dtype, device=device)
+    v = torch.zeros_like(m)
+    norms = []
+    for i in range(steps):
+        gp = fit(config, X, Y, torch.exp(log_om), torch.exp(log_sg),
+                 device=device)
+        g_om, g_sg = mll_gradients(gp, generator)
+        g = torch.cat([g_om * torch.exp(log_om),
+                       (g_sg * torch.exp(log_sg))[None]])
+        m = 0.9 * m + 0.1 * g
+        v = 0.999 * v + 0.001 * g * g
+        mh = m / (1 - 0.9 ** (i + 1.0))
+        vh = v / (1 - 0.999 ** (i + 1.0))
+        upd = lr * mh / (torch.sqrt(vh) + 1e-8)
+        log_om, log_sg = log_om + upd[:-1], log_sg + upd[-1]
+        norms.append(float(torch.linalg.norm(g)))
+    omega, sigma = torch.exp(log_om), torch.exp(log_sg)
+    return fit(config, X, Y, omega, sigma, device=device), (omega, sigma), norms

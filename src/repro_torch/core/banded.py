@@ -143,7 +143,9 @@ def solve(b: Banded, rhs: torch.Tensor, pivot: bool = True, *,
           backend: str | None = None, alg: str | None = None):
     """Solve M x = rhs; dispatches through ``ops``.
 
-    ``pivot=True`` is not ported: it raises ``NotImplementedError``.
+    ``pivot=True`` runs the pivoted block-CR mode where ``ops`` resolves the
+    "cr" route (lo == hi >= 1); on the "lu" route it raises
+    ``NotImplementedError`` (the reference's pivoted gbsv scan is not ported).
     """
     from ..kernels import ops as _ops
 

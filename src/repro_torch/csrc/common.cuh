@@ -19,63 +19,18 @@ inline int stride_blocks(long long total, int threads, int cap = 8192) {
   return (int)(b < cap ? b : cap);
 }
 
-// Solve M X = R for a dense W x W block against NR right-hand-side columns
-// by Gaussian elimination with partial pivoting (row-major arrays). This is
-// the rgf recurrences' block solve.
-template <int W, int NR>
-__device__ __forceinline__ void solve_pivot(const double (&M)[W][W],
-                                            const double (&R)[W][NR],
-                                            double (&X)[W][NR]) {
-  double A[W][W], Rr[W][NR];
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-#pragma unroll
-    for (int j = 0; j < W; ++j) A[i][j] = M[i][j];
-#pragma unroll
-    for (int k = 0; k < NR; ++k) Rr[i][k] = R[i][k];
-  }
-#pragma unroll
-  for (int t = 0; t < W; ++t) {
-    int p = t;
-    double best = fabs(A[t][t]);
-#pragma unroll
-    for (int i = t + 1; i < W; ++i) {
-      if (fabs(A[i][t]) > best) { best = fabs(A[i][t]); p = i; }
-    }
-#pragma unroll
-    for (int i = t + 1; i < W; ++i) {
-      if (i == p) {
-#pragma unroll
-        for (int j = 0; j < W; ++j) { double s = A[t][j]; A[t][j] = A[i][j]; A[i][j] = s; }
-#pragma unroll
-        for (int k = 0; k < NR; ++k) { double s = Rr[t][k]; Rr[t][k] = Rr[i][k]; Rr[i][k] = s; }
-      }
-    }
-#pragma unroll
-    for (int i = t + 1; i < W; ++i) {
-      double f = A[i][t] / A[t][t];
-#pragma unroll
-      for (int j = t; j < W; ++j) A[i][j] -= f * A[t][j];
-#pragma unroll
-      for (int k = 0; k < NR; ++k) Rr[i][k] -= f * Rr[t][k];
-    }
-  }
-#pragma unroll
-  for (int t = W - 1; t >= 0; --t) {
-#pragma unroll
-    for (int k = 0; k < NR; ++k) {
-      double acc = Rr[t][k];
-#pragma unroll
-      for (int u = t + 1; u < W; ++u) acc -= A[t][u] * X[u][k];
-      X[t][k] = acc / A[t][t];
-    }
-  }
-}
-
-// Unpivoted Gaussian elimination of a W x W block against NR columns; a
-// zero pivot is replaced by 1 (the reference's block-CR `_small_solve`).
-template <int W, int NR>
-__device__ __forceinline__ void solve_nopivot(const double (&M)[W][W],
+// Gaussian elimination of a dense W x W block M against NR right-hand-side
+// columns R (row-major arrays), one routine for every block solve:
+//   PIVOT: at each step t the first row i >= t of largest |A[i][t]| is
+//     swapped into row t (the rgf recurrences, and the reference block CR's
+//     `_small_solve(pivot=True)`);
+//   SAFE: a zero pivot is replaced by 1 (the reference block CR's
+//     `_small_solve`, both modes);
+//   BACK: back substitution into X; false when only log|det M| is wanted.
+// Returns log|det M| = sum_t log|pivot_t| (-inf at a zero pivot, as in the
+// reference); callers that only solve discard it.
+template <int W, int NR, bool PIVOT, bool SAFE, bool BACK = true>
+__device__ __forceinline__ double block_solve(const double (&M)[W][W],
                                               const double (&R)[W][NR],
                                               double (&X)[W][NR]) {
   double A[W][W], Rr[W][NR];
@@ -86,31 +41,53 @@ __device__ __forceinline__ void solve_nopivot(const double (&M)[W][W],
 #pragma unroll
     for (int k = 0; k < NR; ++k) Rr[i][k] = R[i][k];
   }
+  double ld = 0.0;
 #pragma unroll
   for (int t = 0; t < W; ++t) {
-    double piv = A[t][t];
-    double safe = piv == 0.0 ? 1.0 : piv;
+    if constexpr (PIVOT) {
+      int p = t;
+      double best = fabs(A[t][t]);
+#pragma unroll
+      for (int i = t + 1; i < W; ++i) {
+        if (fabs(A[i][t]) > best) { best = fabs(A[i][t]); p = i; }
+      }
+#pragma unroll
+      for (int i = t + 1; i < W; ++i) {
+        if (i == p) {
+#pragma unroll
+          for (int j = 0; j < W; ++j) { double s = A[t][j]; A[t][j] = A[i][j]; A[i][j] = s; }
+#pragma unroll
+          for (int k = 0; k < NR; ++k) { double s = Rr[t][k]; Rr[t][k] = Rr[i][k]; Rr[i][k] = s; }
+        }
+      }
+    }
+    const double piv = A[t][t];
+    ld += log(fabs(piv));
+    const double safe = (SAFE && piv == 0.0) ? 1.0 : piv;
 #pragma unroll
     for (int i = t + 1; i < W; ++i) {
-      double f = A[i][t] / safe;
+      const double f = A[i][t] / safe;
 #pragma unroll
       for (int j = 0; j < W; ++j) A[i][j] -= f * A[t][j];
 #pragma unroll
       for (int k = 0; k < NR; ++k) Rr[i][k] -= f * Rr[t][k];
     }
   }
+  if constexpr (BACK) {
 #pragma unroll
-  for (int t = W - 1; t >= 0; --t) {
-    double piv = A[t][t];
-    double safe = piv == 0.0 ? 1.0 : piv;
+    for (int t = W - 1; t >= 0; --t) {
+      const double piv = A[t][t];
+      const double safe = (SAFE && piv == 0.0) ? 1.0 : piv;
 #pragma unroll
-    for (int k = 0; k < NR; ++k) {
-      double acc = Rr[t][k];
+      for (int k = 0; k < NR; ++k) {
+        double acc = Rr[t][k];
 #pragma unroll
-      for (int u = t + 1; u < W; ++u) acc -= A[t][u] * X[u][k];
-      X[t][k] = acc / safe;
+        for (int u = t + 1; u < W; ++u) acc -= A[t][u] * X[u][k];
+        X[t][k] = acc / safe;
+      }
     }
   }
+  return ld;
 }
 
 // C = A B for W x W blocks, fixed k order.

@@ -1,7 +1,9 @@
-// Block cyclic-reduction solve as a device function for one thread block.
+// Block cyclic-reduction solve and log-determinant as a device function for
+// one thread block.
 //
-// Replaces (as the body that the whole-solve kernel calls):
-// src/repro/kernels/block_cr.py, cr_solve_values. The band (lo = hi = W) is
+// Replaces: src/repro/kernels/block_cr.py, cr_solve_values, the body that
+// both the standalone launch (block_cr.cu) and the whole-solve kernel
+// (mega_pcg.cu) call. The band (lo = hi = W) is
 // viewed as block-tridiagonal with W x W blocks
 //     A_i x_{i-1} + B_i x_i + C_i x_{i+1} = r_i,   i = 0..nb-1,
 // and eliminated in ceil(log2 nb) levels: at stride s = 2^k every even row
@@ -16,13 +18,37 @@
 // right-hand sides of all (row, column) pairs from the old blocks, then
 // (after a barrier) the blocks themselves, so no thread reads a block that
 // another thread of the same level rewrites.
+//
+// Template flags: PIVOT swaps the unpivoted W x W block solves for the
+// reference's partial-pivot block mode (in the coefficients, the reduced row
+// 0 and the back substitution); SOLVE = false skips every right-hand-side
+// update (log-determinant only); LOGDET reduces log|det| = sum_i log|det B_i|
+// over the frozen blocks, per thread and then in a fixed tree order across
+// the block, so the value does not depend on scheduling. The whole-solve
+// kernel uses the default <W, false, true, false>.
 #pragma once
 
 #include "common.cuh"
 
 namespace repro {
 
-template <int W>
+// The reference's `_small_solve`: a zero pivot is replaced by 1.
+template <int W, int NR, bool PIVOT>
+__device__ __forceinline__ void cr_small_solve(const double (&M)[W][W],
+                                               const double (&R)[W][NR],
+                                               double (&X)[W][NR]) {
+  (void)block_solve<W, NR, PIVOT, true>(M, R, X);
+}
+
+// log|det M| from the same elimination as cr_small_solve (the pivots do not
+// depend on the right-hand side), without the back substitution.
+template <int W, bool PIVOT>
+__device__ __forceinline__ double cr_block_logdet(const double (&M)[W][W]) {
+  double R[W][1] = {}, X[W][1];
+  return block_solve<W, 1, PIVOT, true, false>(M, R, X);
+}
+
+template <int W, bool PIVOT>
 __device__ __forceinline__ void cr_coef(const double* Ab, const double* Bb,
                                         const double* Cb, int i, int s,
                                         int nb, double (&alpha)[W][W],
@@ -39,7 +65,7 @@ __device__ __forceinline__ void cr_coef(const double* Ab, const double* Bb,
   if (i - s >= 0) {
     double Bm[W][W], Binv[W][W], P[W][W];
     load_block<W>(Bb + (long long)(i - s) * WW, Bm);
-    solve_nopivot<W, W>(Bm, Id, Binv);
+    cr_small_solve<W, W, PIVOT>(Bm, Id, Binv);
     mm<W>(Ai, Binv, P);
 #pragma unroll
     for (int r = 0; r < W; ++r)
@@ -54,7 +80,7 @@ __device__ __forceinline__ void cr_coef(const double* Ab, const double* Bb,
   if (i + s < nb) {
     double Bp[W][W], Binv[W][W], P[W][W];
     load_block<W>(Bb + (long long)(i + s) * WW, Bp);
-    solve_nopivot<W, W>(Bp, Id, Binv);
+    cr_small_solve<W, W, PIVOT>(Bp, Id, Binv);
     mm<W>(Ci, Binv, P);
 #pragma unroll
     for (int r = 0; r < W; ++r)
@@ -69,11 +95,14 @@ __device__ __forceinline__ void cr_coef(const double* Ab, const double* Bb,
 }
 
 // Solve with the band (npad, 2W+1) (row-aligned, identity-padded to whole
-// blocks) against R (npad, B), in place: R holds x on return. Ab/Bb/Cb are
-// (npad / W, W, W) scratch. Every thread of the block must call this.
-template <int W>
+// blocks) against R (npad, B), in place: R holds x on return (SOLVE only).
+// Ab/Bb/Cb are (npad / W, W, W) scratch. With LOGDET, *ld receives
+// log|det| and `red` is shared scratch of blockDim.x doubles (a power of
+// two). Every thread of the block must call this.
+template <int W, bool PIVOT = false, bool SOLVE = true, bool LOGDET = false>
 __device__ void cr_block_solve(const double* band, double* R, double* Ab,
-                               double* Bb, double* Cb, int npad, int B) {
+                               double* Bb, double* Cb, int npad, int B,
+                               double* ld = nullptr, double* red = nullptr) {
   constexpr int WW = W * W;
   constexpr int WB = 2 * W + 1;
   const int nb = npad / W;
@@ -100,11 +129,12 @@ __device__ void cr_block_solve(const double* band, double* R, double* Ab,
     const int s = 1 << k;
     const int ne = (nb + 2 * s - 1) / (2 * s);  // even rows i = 2 s j < nb
     // right-hand sides: R_i += alpha R_{i-s} + beta R_{i+s}
-    for (long long e = threadIdx.x; e < (long long)ne * B; e += blockDim.x) {
+    for (long long e = threadIdx.x; SOLVE && e < (long long)ne * B;
+         e += blockDim.x) {
       const int j = (int)(e / B), b = (int)(e - (long long)j * B);
       const int i = 2 * s * j;
       double alpha[W][W], beta[W][W];
-      cr_coef<W>(Ab, Bb, Cb, i, s, nb, alpha, beta);
+      cr_coef<W, PIVOT>(Ab, Bb, Cb, i, s, nb, alpha, beta);
       double ri[W], rm[W], rp[W];
 #pragma unroll
       for (int r = 0; r < W; ++r) {
@@ -129,7 +159,7 @@ __device__ void cr_block_solve(const double* band, double* R, double* Ab,
     for (int j = threadIdx.x; j < ne; j += blockDim.x) {
       const int i = 2 * s * j;
       double alpha[W][W], beta[W][W];
-      cr_coef<W>(Ab, Bb, Cb, i, s, nb, alpha, beta);
+      cr_coef<W, PIVOT>(Ab, Bb, Cb, i, s, nb, alpha, beta);
       double Bi[W][W], Cm[W][W], Ap[W][W], Am[W][W], Cp[W][W];
       double t1[W][W], t2[W][W], nA[W][W], nC[W][W];
       load_block<W>(Bb + (long long)i * WW, Bi);
@@ -162,13 +192,32 @@ __device__ void cr_block_solve(const double* band, double* R, double* Ab,
     __syncthreads();
   }
 
+  // log|det| telescopes over the frozen blocks: per-thread partial sums,
+  // then a fixed-order tree across the block
+  if constexpr (LOGDET) {
+    double acc = 0.0;
+    for (int I = threadIdx.x; I < nb; I += blockDim.x) {
+      double Bi[W][W];
+      load_block<W>(Bb + (long long)I * WW, Bi);
+      acc += cr_block_logdet<W, PIVOT>(Bi);
+    }
+    red[threadIdx.x] = acc;
+    __syncthreads();
+    for (int h = blockDim.x / 2; h > 0; h >>= 1) {
+      if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) *ld = red[0];
+  }
+  if constexpr (!SOLVE) return;
+
   // the fully reduced row 0
   for (int b = threadIdx.x; b < B; b += blockDim.x) {
     double B0[W][W], r0[W][1], x0[W][1];
     load_block<W>(Bb, B0);
 #pragma unroll
     for (int r = 0; r < W; ++r) r0[r][0] = R[(long long)r * B + b];
-    solve_nopivot<W, 1>(B0, r0, x0);
+    cr_small_solve<W, 1, PIVOT>(B0, r0, x0);
 #pragma unroll
     for (int r = 0; r < W; ++r) R[(long long)r * B + b] = x0[r][0];
   }
@@ -200,7 +249,7 @@ __device__ void cr_block_solve(const double* band, double* R, double* Ab,
         }
         rk[r][0] = R[(long long)(i * W + r) * B + b] - am - cp;
       }
-      solve_nopivot<W, 1>(Bi, rk, xi);
+      cr_small_solve<W, 1, PIVOT>(Bi, rk, xi);
 #pragma unroll
       for (int r = 0; r < W; ++r) R[(long long)(i * W + r) * B + b] = xi[r][0];
     }

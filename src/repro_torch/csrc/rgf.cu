@@ -30,9 +30,9 @@ __global__ void rgf_kernel(const double* __restrict__ Dg,
                            double* __restrict__ Gd, double* __restrict__ Gu,
                            double* __restrict__ Gl, double* __restrict__ F,
                            double* __restrict__ Wb, int T) {
+  using repro::block_solve;
   using repro::load_block;
   using repro::mm;
-  using repro::solve_pivot;
   using repro::store_block;
   constexpr int WW = W * W;
   const long long base = (long long)blockIdx.x * T * WW;
@@ -54,7 +54,7 @@ __global__ void rgf_kernel(const double* __restrict__ Dg,
       load_block<W>(D + (long long)j * WW, Dj);
       load_block<W>(Ub + (long long)(j - 1) * WW, Uj);
       load_block<W>(Lb + (long long)j * WW, Lj);
-      solve_pivot<W, W>(Fp, Uj, X);
+      block_solve<W, W, true, false>(Fp, Uj, X);
       mm<W>(Lj, X, LX);
 #pragma unroll
       for (int r = 0; r < W; ++r)
@@ -71,7 +71,7 @@ __global__ void rgf_kernel(const double* __restrict__ Dg,
       load_block<W>(D + (long long)j * WW, Dj);
       load_block<W>(Ub + (long long)j * WW, Uj);
       load_block<W>(Lb + (long long)(j + 1) * WW, Ln);
-      solve_pivot<W, W>(Wn, Ln, X);
+      block_solve<W, W, true, false>(Wn, Ln, X);
       mm<W>(Uj, X, UX);
 #pragma unroll
       for (int r = 0; r < W; ++r)
@@ -94,7 +94,7 @@ __global__ void rgf_kernel(const double* __restrict__ Dg,
         S[r][c] = Fj[r][c] + Wj[r][c] - Dj[r][c];
         Id[r][c] = (r == c) ? 1.0 : 0.0;
       }
-    solve_pivot<W, W>(S, Id, G);
+    block_solve<W, W, true, false>(S, Id, G);
     store_block<W>(Gdb + (long long)j * WW, G);
   }
   __syncthreads();
@@ -107,13 +107,13 @@ __global__ void rgf_kernel(const double* __restrict__ Dg,
       load_block<W>(Ub + (long long)j * WW, Uj);
       load_block<W>(Gdb + (long long)(j + 1) * WW, Gn);
       mm<W>(Uj, Gn, P);
-      solve_pivot<W, W>(Fj, P, Gu_);
+      block_solve<W, W, true, false>(Fj, P, Gu_);
       double Wn[W][W], Ln[W][W], Gj[W][W], Q[W][W];
       load_block<W>(Wk + (long long)(j + 1) * WW, Wn);
       load_block<W>(Lb + (long long)(j + 1) * WW, Ln);
       load_block<W>(Gdb + (long long)j * WW, Gj);
       mm<W>(Ln, Gj, Q);
-      solve_pivot<W, W>(Wn, Q, Gl_);
+      block_solve<W, W, true, false>(Wn, Q, Gl_);
 #pragma unroll
       for (int r = 0; r < W; ++r)
 #pragma unroll

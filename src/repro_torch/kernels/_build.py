@@ -29,12 +29,14 @@ __all__ = ["load_library", "build_library", "check", "expect",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("banded_lu.cu", "band_matmul.cu", "rgf.cu", "mega_pcg.cu")
+SOURCES = ("banded_lu.cu", "band_matmul.cu", "rgf.cu", "mega_pcg.cu",
+           "banded_matvec.cu", "block_cr.cu")
 HEADERS = ("common.cuh", "cr.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg")
+KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
+           "banded_matvec", "block_cr")
 
 _c_int, _c_ll, _c_dbl, _ptr = (ctypes.c_int, ctypes.c_longlong,
                                 ctypes.c_double, ctypes.c_void_p)
@@ -54,6 +56,10 @@ _SIGNATURES = {
                                     _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                                     _c_int, _c_int, _c_int, _c_int, _c_int,
                                     _c_int, _c_int, _c_dbl, _c_int, _ptr]),
+    "repro_banded_matvec_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int,
+                                         _c_int, _c_int, _c_int, _ptr]),
+    "repro_block_cr_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
+                                    _c_int, _c_int, _c_int, _c_int, _ptr]),
     "repro_error_string": (ctypes.c_char_p, [_c_int]),
 }
 

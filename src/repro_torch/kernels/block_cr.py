@@ -1,27 +1,36 @@
-"""Block cyclic-reduction banded solve: the plain version of the elimination.
+"""Block cyclic-reduction banded solve + exact log-determinant: CUDA kernel
+and plain version.
 
-Counterpart of ``repro.kernels.block_cr.cr_solve_values``. A band with
-``lo = hi = w`` is viewed as block-tridiagonal with ``w x w`` blocks
+Counterpart of ``repro.kernels.block_cr`` (``cr_solve_values``,
+``block_cr_pallas``, ``block_cr_solve_pallas``, ``block_cr_logdet_pallas``).
+A band with ``lo = hi = w`` is viewed as block-tridiagonal with ``w x w``
+blocks
 
     A_i x_{i-1} + B_i x_i + C_i x_{i+1} = r_i,      i = 0..nb-1,
 
 and eliminated by even/odd cyclic reduction: at level ``k`` (stride
 ``s = 2^k``) every surviving even row folds its two odd neighbours into
 itself; back substitution replays the levels in reverse. Eliminated rows
-are frozen in place, so ``log|det| = sum_i log|det B_i|``.
+are frozen in place, so ``log|det| = sum_i log|det B_i|``. ``pivot=True``
+runs the ``w x w`` block solves with partial pivoting inside each block.
 
-On the card this elimination is a device function (``csrc/cr.cuh``) inside
-the whole-solve kernel (``csrc/mega_pcg.cu``). The standalone launch
-(``block_cr_pallas`` in the reference) is not ported yet: a standalone
-solve on CUDA tensors raises ``NotImplementedError``.
+On the card the elimination is the device function ``csrc/cr.cuh``: the
+standalone launch is ``csrc/block_cr.cu`` (one thread block per matrix),
+and the whole-solve kernel (``csrc/mega_pcg.cu``) calls the same function.
+The wrappers launch it for CUDA tensors and run :func:`block_cr_plain` for
+CPU tensors.
 """
 from __future__ import annotations
 
 import torch
 
+from . import _build
 from .ops import resolve_backend
 
-__all__ = ["cr_solve_values", "block_cr_solve", "block_cr_logdet"]
+__all__ = ["cr_solve_values", "block_cr", "block_cr_plain", "block_cr_solve",
+           "block_cr_logdet", "MAX_W"]
+
+MAX_W = 3  # w <= 3 (csrc/block_cr.cu instantiations)
 
 
 def _nbr(x, d):
@@ -38,8 +47,10 @@ def _nbr(x, d):
     return out
 
 
-def _small_solve(M, R):
-    """Unpivoted Gaussian elimination of (..., w, w) against (..., w, m).
+def _small_solve(M, R, pivot: bool = False):
+    """Gaussian elimination of (..., w, w) against (..., w, m), optionally
+    with partial pivoting inside each block (the first row of largest
+    magnitude in column t moves to row t, for t < w - 1).
 
     Returns (X, log|det M| per block). A zero pivot is replaced by 1, as in
     the reference's ``_small_solve``.
@@ -49,6 +60,14 @@ def _small_solve(M, R):
     ld = M.new_zeros(M.shape[:-2])
     rows = torch.arange(w, device=M.device)
     for t in range(w):
+        if pivot and t < w - 1:
+            col = torch.where(rows >= t, torch.abs(A[..., :, t]),
+                              torch.full((), -1.0, dtype=A.dtype,
+                                         device=A.device))
+            p = torch.argmax(col, dim=-1)  # first maximum, as jnp.argmax
+            src = torch.where(rows == t, p[..., None],
+                              torch.where(rows == p[..., None], t, rows))
+            A = torch.gather(A, -2, src[..., None].expand(A.shape))
         piv = A[..., t, t]
         ld = ld + torch.log(torch.abs(piv))
         safe = torch.where(piv == 0, torch.ones_like(piv), piv)
@@ -88,9 +107,10 @@ def _bmm(a, b):
 
 
 def cr_solve_values(data, rhs, *, w: int, nb: int, steps: int,
-                    solve: bool = True):
+                    pivot: bool = False, solve: bool = True):
     """Block cyclic reduction on (G, nb*w, 2w+1) bands and (G, nb*w, B)
-    right-hand sides (identity-padded past the real rows).
+    right-hand sides (identity-padded past the real rows); ``pivot`` selects
+    the pivoted block solves.
 
     Returns ``(x (G, nb*w, B), logdet (G,))``.
     """
@@ -102,7 +122,7 @@ def cr_solve_values(data, rhs, *, w: int, nb: int, steps: int,
     for k in range(steps):
         s = 1 << k
         even = ((idx % s) == 0) & (((idx // s) % 2) == 0)
-        Binv, _ = _small_solve(Bb, eye)
+        Binv, _ = _small_solve(Bb, eye, pivot)
         alpha = -_bmm(Ab, _nbr(Binv, -s))
         beta = -_bmm(Cb, _nbr(Binv, s))
         m = even[None, :, None, None]
@@ -112,7 +132,7 @@ def cr_solve_values(data, rhs, *, w: int, nb: int, steps: int,
                         + _bmm(beta, _nbr(R, s)), R)
         Ab = torch.where(m, _bmm(alpha, _nbr(Ab, -s)), Ab)
         Cb = torch.where(m, _bmm(beta, _nbr(Cb, s)), Cb)
-    X0, ld_all = _small_solve(Bb, R)
+    X0, ld_all = _small_solve(Bb, R, pivot)
     ld = ld_all.sum(dim=1)
     if not solve:
         return rhs.new_zeros((G, nb * w, B)), ld
@@ -121,7 +141,7 @@ def cr_solve_values(data, rhs, *, w: int, nb: int, steps: int,
         s = 1 << k
         odd = ((idx % s) == 0) & (((idx // s) % 2) == 1)
         rhs_k = R - _bmm(Ab, _nbr(x, -s)) - _bmm(Cb, _nbr(x, s))
-        Xk, _ = _small_solve(Bb, rhs_k)
+        Xk, _ = _small_solve(Bb, rhs_k, pivot)
         x = torch.where(odd[None, :, None, None], Xk, x)
     return x.reshape(G, nb * w, B), ld
 
@@ -138,27 +158,58 @@ def _padded(band, rhs, w):
     return band_p, rhs_p, nb, max(0, (nb - 1).bit_length())
 
 
-def _standalone(band, backend):
-    if resolve_backend(backend, band.device) != "plain":
-        raise NotImplementedError(
-            "standalone block-CR solve/logdet on CUDA is not ported yet "
-            "(ROADMAP Queue 2, kernel #5 block_cr_pallas); q >= 1 needs it")
-
-
-def block_cr_solve(band, rhs, w: int, backend: str | None = None):
-    """Solve with a (G, n, 2w+1) band, rhs (G, n, B); plain version only."""
-    _standalone(band, backend)
+def block_cr_plain(band, rhs, w: int, pivot: bool = False,
+                   solve: bool = True):
+    """band (G, n, 2w+1), rhs (G, n, B) -> (x (G, n, B), logdet (G,)); x is
+    zeros when ``solve`` is False."""
     n = band.shape[1]
     band_p, rhs_p, nb, steps = _padded(band, rhs, w)
-    x, _ = cr_solve_values(band_p, rhs_p, w=w, nb=nb, steps=steps)
-    return x[:, :n]
+    x, ld = cr_solve_values(band_p, rhs_p, w=w, nb=nb, steps=steps,
+                            pivot=pivot, solve=solve)
+    return x[:, :n], ld
 
 
-def block_cr_logdet(band, w: int, backend: str | None = None):
-    """log|det| of a (G, n, 2w+1) band; plain version only."""
-    _standalone(band, backend)
+def block_cr(band, rhs, w: int, pivot: bool = False, solve: bool = True,
+             backend: str | None = None):
+    """Block cyclic reduction of a (G, n, 2w+1) band (lo = hi = w) against
+    rhs (G, n, B), float64; returns ``(x, logdet)``. CUDA tensors launch
+    ``csrc/block_cr.cu``; with ``solve=False`` only the log-determinant is
+    computed and x is None."""
+    if resolve_backend(backend, band.device) == "plain":
+        x, ld = block_cr_plain(band, rhs, w, pivot=pivot, solve=solve)
+        return (x if solve else None), ld
+    if not 1 <= w <= MAX_W:
+        raise ValueError(f"block_cr kernel takes 1 <= w <= {MAX_W}")
+    G, n, _ = band.shape
+    B = rhs.shape[-1]
+    dev = band.device
+    _build.expect(band, "band", torch.float64, (G, n, 2 * w + 1), dev)
+    _build.expect(rhs, "rhs", torch.float64, (G, n, B), dev)
+    band_p, x_p, nb, _ = _padded(band, rhs, w)
+    npad = nb * w
+    work = torch.empty((3, G, nb, w, w), dtype=torch.float64, device=dev)
+    ld = torch.empty((G,), dtype=torch.float64, device=dev)
+    lib = _build.load_library()
+    err = lib.repro_block_cr_f64(
+        band_p.data_ptr(), x_p.data_ptr(), ld.data_ptr(), work.data_ptr(), G,
+        npad, w, B, int(pivot), int(solve), _build.stream_handle(dev))
+    _build.check(err, "block_cr")
+    _build.count_launch("block_cr")
+    return (x_p[:, :n] if solve else None), ld
+
+
+def block_cr_solve(band, rhs, w: int, pivot: bool = False,
+                   backend: str | None = None):
+    """Solve with a (G, n, 2w+1) band, rhs (G, n, B)."""
+    x, _ = block_cr(band, rhs, w, pivot=pivot, backend=backend)
+    return x
+
+
+def block_cr_logdet(band, w: int, pivot: bool = False,
+                    backend: str | None = None):
+    """log|det| of a (G, n, 2w+1) band (a width-1 dummy right-hand side, no
+    back substitution)."""
     dummy = band.new_zeros(band.shape[:2] + (1,))
-    band_p, rhs_p, nb, steps = _padded(band, dummy, w)
-    _, ld = cr_solve_values(band_p, rhs_p, w=w, nb=nb, steps=steps,
-                            solve=False)
+    _, ld = block_cr(band, dummy, w, pivot=pivot, solve=False,
+                     backend=backend)
     return ld

@@ -121,7 +121,15 @@ def mega_pcg_solve(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
 
 class MegaSolve:
     """Whole-solve dispatch over a :class:`FusedSweep`'s padded operands;
-    states in and out are unpadded (D, n, B)."""
+    states in and out are unpadded (D, n, B).
+
+    A fixed-count solve (``tol == 0``) of more than ``MAX_B`` columns runs
+    as column chunks of at most ``MAX_B`` (the kernel's limit): the columns
+    of a fixed-count PCG are independent, so the result is the same. With
+    ``tol > 0`` the reference's exit waits for every column, so on CUDA a
+    wider solve raises instead of changing when the chunks stop (the plain
+    version takes it whole).
+    """
 
     def __init__(self, fs: FusedSweep):
         self.fs = fs
@@ -130,10 +138,26 @@ class MegaSolve:
         fs = self.fs
         if fs.a is None:
             raise ValueError("PCG needs the A factor stack")
-        v_p = fs.pad_state(v)
-        x0_p = torch.zeros_like(v_p) if x0 is None else fs.pad_state(x0)
-        x, r, it = mega_pcg_solve(
-            fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v_p,
-            x0_p, w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s, iters=iters, tol=tol,
-            warm=x0 is not None, backend=backend)
-        return fs.unpad(x), fs.unpad(r), it
+        B = v.shape[-1]
+        if (B > MAX_B and tol > 0
+                and resolve_backend(backend, v.device) == "cuda"):
+            raise ValueError(
+                f"a tol-exit solve of {B} > {MAX_B} columns cannot be split "
+                "(the exit waits for every column); pass tol=0 or fewer "
+                "columns")
+        step = MAX_B if B > MAX_B and tol == 0 else B
+        xs, rs, its = [], [], []
+        for c0 in range(0, B, step):
+            v_p = fs.pad_state(v[..., c0:c0 + step])
+            x0_p = (torch.zeros_like(v_p) if x0 is None
+                    else fs.pad_state(x0[..., c0:c0 + step]))
+            x, r, it = mega_pcg_solve(
+                fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2,
+                v_p, x0_p, w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s, iters=iters,
+                tol=tol, warm=x0 is not None, backend=backend)
+            xs.append(fs.unpad(x))
+            rs.append(fs.unpad(r))
+            its.append(it)
+        if len(xs) == 1:
+            return xs[0], rs[0], its[0]
+        return torch.cat(xs, dim=-1), torch.cat(rs, dim=-1), its[0]

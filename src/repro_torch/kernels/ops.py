@@ -13,7 +13,9 @@ environment knobs.
 
 Solve algorithms follow the reference's rule (``resolve_solve_alg``):
 block cyclic reduction ("cr") when ``lo == hi >= 1``, the LU kernel ("lu")
-otherwise.
+otherwise. ``pivot=True`` runs the pivoted block-CR mode on the "cr" route;
+on the "lu" route it raises, since the reference's pivoted gbsv scan is not
+ported.
 """
 from __future__ import annotations
 
@@ -85,21 +87,25 @@ def _flatten_batch(arrs, core_dims):
     return batch, flats
 
 
-def _no_pivot(pivot: bool):
+def _no_lu_pivot(pivot: bool):
     if pivot:
         raise NotImplementedError(
-            "pivot=True is not ported yet (ROADMAP Queue 1, pivoted solves)")
+            "pivot=True on a band that is not symmetric (lo != hi) or "
+            "diagonal needs the reference's pivoted gbsv scan, which is not "
+            "ported (ROADMAP Queue 1, pivoted solves)")
 
 
 def banded_matvec(band, x, lo: int, hi: int, backend: str | None = None):
     """y = M x. band (..., n, lo+hi+1); x (..., n) or (..., n, k)."""
-    if resolve_backend(backend, band.device) != "plain":
-        raise NotImplementedError(
-            "banded matvec on CUDA is not ported yet (ROADMAP Queue 2, "
-            "kernel #6 banded_matvec_pallas)")
-    from ..core.banded import Banded, _matvec_scan
+    from .banded_matvec import banded_matvec as matvec_kernel
 
-    return _matvec_scan(Banded(band, lo, hi), x)
+    n = band.shape[-2]
+    mat_form = x.ndim >= 2 and x.shape[-2] == n and x.ndim == band.ndim
+    xb = x if mat_form else x[..., None]
+    batch, (bf, xf) = _flatten_batch((band, xb), (2, 2))
+    out = matvec_kernel(bf, xf, lo, hi, backend=backend)
+    out = out.reshape(batch + out.shape[-2:])
+    return out if mat_form else out[..., 0]
 
 
 def banded_solve(band, rhs, lo: int, hi: int, pivot: bool = False,
@@ -108,13 +114,15 @@ def banded_solve(band, rhs, lo: int, hi: int, pivot: bool = False,
     from .banded_lu import banded_lu
     from .block_cr import block_cr_solve
 
-    _no_pivot(pivot)
+    use_cr = resolve_solve_alg(alg, lo, hi) == "cr"
+    if not use_cr:
+        _no_lu_pivot(pivot)
     n = band.shape[-2]
     vec_in = rhs.shape[-1] == n and rhs.ndim == band.ndim - 1
     rb = rhs[..., None] if vec_in else rhs
     batch, (bf, rf) = _flatten_batch((band, rb), (2, 2))
-    if resolve_solve_alg(alg, lo, hi) == "cr":
-        x = block_cr_solve(bf, rf, lo, backend=backend)
+    if use_cr:
+        x = block_cr_solve(bf, rf, lo, pivot=pivot, backend=backend)
     else:
         x, _ = banded_lu(bf, rf, lo, hi, backend=backend)
     out = x.reshape(batch + x.shape[-2:])
@@ -127,10 +135,12 @@ def banded_logdet(band, lo: int, hi: int, pivot: bool = False,
     from .banded_lu import banded_lu
     from .block_cr import block_cr_logdet
 
-    _no_pivot(pivot)
+    use_cr = resolve_solve_alg(alg, lo, hi) == "cr"
+    if not use_cr:
+        _no_lu_pivot(pivot)
     batch, (bf,) = _flatten_batch((band,), (2,))
-    if resolve_solve_alg(alg, lo, hi) == "cr":
-        ld = block_cr_logdet(bf, lo, backend=backend)
+    if use_cr:
+        ld = block_cr_logdet(bf, lo, pivot=pivot, backend=backend)
     else:
         dummy = bf.new_zeros(bf.shape[:2] + (1,))
         _, ld = banded_lu(bf, dummy, lo, hi, backend=backend)

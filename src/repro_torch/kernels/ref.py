@@ -9,8 +9,13 @@ import torch
 
 from ..core.banded import Banded, from_dense, to_dense
 
-__all__ = ["banded_solve_ref", "banded_logdet_ref", "band_matmul_ref",
-           "rgf_band_inverse_ref"]
+__all__ = ["banded_matvec_ref", "banded_solve_ref", "banded_logdet_ref",
+           "band_matmul_ref", "rgf_band_inverse_ref"]
+
+
+def banded_matvec_ref(band, x, lo: int, hi: int):
+    """band (n, w); x (n,) or (n, B). Dense product oracle."""
+    return to_dense(Banded(band, lo, hi)) @ x
 
 
 def banded_solve_ref(band, rhs, lo: int, hi: int):

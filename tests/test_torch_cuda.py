@@ -12,12 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import GPConfig, fit, posterior_mean, posterior_var
+from repro_torch.core import (GPConfig, fit, log_likelihood, mll_gradients,
+                              posterior_mean, posterior_var)
 from repro_torch.core.band_inverse import _to_blocks
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels.band_matmul import band_matmul, band_matmul_plain
 from repro_torch.kernels.banded_lu import banded_lu, banded_lu_plain
-from repro_torch.kernels.mega_solve import mega_pcg_plain, mega_pcg_solve
+from repro_torch.kernels.banded_matvec import (banded_matvec,
+                                               banded_matvec_plain)
+from repro_torch.kernels.block_cr import block_cr, block_cr_plain
+from repro_torch.kernels.mega_solve import (MegaSolve, mega_pcg_plain,
+                                            mega_pcg_solve)
 from repro_torch.kernels.rgf import rgf_blocks, rgf_blocks_plain
 from torch_port_inputs import band, padded_operands, points, solve_operands
 
@@ -105,10 +110,101 @@ def test_gp_card_matches_cpu(dev):
     c = fit(cfg, X, Y, omega, 0.5, device="cpu")
     assert _rel(mu, posterior_mean(c, Xq, device="cpu")) < 1e-7
     assert _rel(var, posterior_var(c, Xq, device="cpu")) < 1e-7
+    serving = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg")
+    assert all(counts[k] > 0 for k in serving), counts
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 0), (1, 1), (2, 2), (1, 2), (3, 3),
+                                   (8, 8)])
+def test_banded_matvec_kernel(dev, lo, hi):
+    rng = np.random.default_rng(6)
+    bd = torch.as_tensor(band(rng, 3, 301, lo, hi), device=dev)
+    x = torch.as_tensor(rng.standard_normal((3, 301, 7)), device=dev)
+    assert _rel(banded_matvec(bd, x, lo, hi),
+                banded_matvec_plain(bd, x, lo, hi)) < 1e-13
+    # the vector form through ops (a trailing axis of one column)
+    y = ops.banded_matvec(bd, x[..., 0], lo, hi)
+    assert y.shape == (3, 301)
+    assert _rel(y, banded_matvec_plain(bd, x, lo, hi)[..., 0]) < 1e-13
+
+
+@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("n", [8, 301])
+@pytest.mark.parametrize("pivot", [False, True])
+def test_block_cr_kernel(dev, w, n, pivot):
+    rng = np.random.default_rng(7)
+    bd = torch.as_tensor(band(rng, 3, n, w, w), device=dev)
+    rhs = torch.as_tensor(rng.standard_normal((3, n, 5)), device=dev)
+    x, ld = block_cr(bd, rhs, w, pivot=pivot)
+    xr, ldr = block_cr_plain(bd, rhs, w, pivot=pivot)
+    assert _rel(x, xr) < 1e-12 and _rel(ld, ldr) < 1e-12
+    x0, ld0 = block_cr(bd, rhs, w, pivot=pivot, solve=False)
+    assert x0 is None and _rel(ld0, ldr) < 1e-12
+
+
+@pytest.mark.parametrize("B", [160, 300])
+def test_mega_pcg_column_chunks(dev, B):
+    """More than MAX_B = 256 columns: fixed-count solves run in chunks."""
+    rng = np.random.default_rng(8)
+    ops_np = solve_operands(rng, 131, 3, 0)
+    fs, v, _ = padded_operands(ops_np, dev, B, rng)
+    v_t = torch.as_tensor(v, device=dev)
+    _build.reset_launch_counts()
+    x, r, it = MegaSolve(fs).pcg(v_t, None, iters=25, tol=0.0)
+    assert _build.launch_counts()["mega_pcg"] == -(-B // 256)
+    args = (fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2,
+            fs.pad_state(v_t), torch.zeros_like(fs.pad_state(v_t)))
+    xr, rr, itr = mega_pcg_plain(*args, w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s,
+                                 iters=25)
+    assert x.shape == v_t.shape and int(it) == int(itr) == 25
+    assert _rel(x, fs.unpad(xr)) < 1e-9
+    if B > 256:
+        with pytest.raises(ValueError, match="cannot be split"):
+            MegaSolve(fs).pcg(v_t, None, iters=25, tol=1e-8)
+
+
+def _gp_data(rng, n, D):
+    X = points(rng, n, D)
+    Y = np.sin(3 * X).sum(1) + 0.1 * rng.standard_normal(n)
+    return X, Y, rng.uniform(0, 4, (40, D))
+
+
+def test_likelihood_and_gradients_card_match_cpu(dev):
+    """Same probes on the card and the CPU (one CPU generator seed)."""
+    rng = np.random.default_rng(9)
+    X, Y, _ = _gp_data(rng, 700, 3)
+    cfg = GPConfig(q=0, solver_iters=40, precond="none")
+    omega = np.full(3, 2.0)
+    _build.reset_launch_counts()
+    g = fit(cfg, X, Y, omega, 0.5)
+    ll, vd = log_likelihood(g, torch.Generator().manual_seed(0),
+                            return_verdict=True)
+    go, gs, info = mll_gradients(g, torch.Generator().manual_seed(1),
+                                 return_info=True)
+    counts = _build.launch_counts()
+    c = fit(cfg, X, Y, omega, 0.5, device="cpu")
+    llc = log_likelihood(c, torch.Generator().manual_seed(0))
+    goc, gsc = mll_gradients(c, torch.Generator().manual_seed(1))
+    assert int(vd) == 0 and int(info.verdict) == 0
+    assert _rel(ll, llc) < 1e-7
+    assert _rel(go, goc) < 1e-7 and _rel(gs, gsc) < 1e-7
     assert all(v > 0 for v in counts.values()), counts
 
 
-def test_q1_on_card_raises(dev):
-    with pytest.raises(NotImplementedError):
-        fit(GPConfig(q=1, precond="none"), points(np.random.default_rng(0), 50, 2),
+def test_q1_card_matches_cpu(dev):
+    rng = np.random.default_rng(10)
+    X, Y, Xq = _gp_data(rng, 500, 3)
+    cfg = GPConfig(q=1, solver_iters=60, precond="none")
+    omega = np.full(3, 4.0)
+    g = fit(cfg, X, Y, omega, 0.5)
+    c = fit(cfg, X, Y, omega, 0.5, device="cpu")
+    assert _rel(posterior_mean(g, Xq), posterior_mean(c, Xq, device="cpu")) < 1e-7
+    assert _rel(posterior_var(g, Xq), posterior_var(c, Xq, device="cpu")) < 1e-7
+    assert _rel(log_likelihood(g, torch.Generator().manual_seed(2)),
+                log_likelihood(c, torch.Generator().manual_seed(2))) < 1e-7
+
+
+def test_q2_on_card_raises(dev):
+    with pytest.raises(NotImplementedError, match="widths"):
+        fit(GPConfig(q=2, precond="none"), points(np.random.default_rng(0), 50, 2),
             np.zeros(50), np.ones(2), 1.0)

@@ -98,7 +98,7 @@ def test_cuda_backend_on_cpu_tensors_raises():
     (GPConfig(pivot=True, precond="none"), 20, "cpu"),
     (GPConfig(precond="kmg"), 20, "cpu"),
     (GPConfig(), 4096, "cpu"),  # "auto" resolves to kmg at q = 0, n >= 4096
-    (GPConfig(q=1, precond="none"), 20, "cuda"),
+    (GPConfig(q=2, precond="none"), 20, "cuda"),  # widths beyond the kernels
 ])
 def test_unported_paths_raise(cfg, n, device):
     with pytest.raises(NotImplementedError):

@@ -1,0 +1,130 @@
+"""The port's banded matvec and standalone block cyclic reduction against the
+JAX package, on the CPU.
+
+The plain versions that the wrappers run on CPU tensors are held against
+the Pallas kernels in interpret mode (as the package's own tests run them)
+and against the dense oracles of ``repro_torch.kernels.ref``, on the same
+seeded float64 inputs: the matvec to 1e-13 relative, the block-CR solve and
+log-determinant to 1e-12 (a direct method; the pivoted mode swaps rows
+inside the w x w blocks, which reorders the rounding). Also here: the ops
+routing of ``pivot``, and the column chunks of the whole-PCG solve.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.banded_matvec import banded_matvec_pallas
+from repro.kernels.block_cr import block_cr_pallas
+from repro_torch.kernels import mega_solve, ops, ref
+from repro_torch.kernels.banded_matvec import banded_matvec
+from repro_torch.kernels.block_cr import block_cr
+from repro_torch.kernels.mega_solve import MegaSolve
+from torch_port_inputs import band, padded_operands, solve_operands
+
+jax.config.update("jax_enable_x64", True)
+torch.set_num_threads(2)
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b)) / max(np.max(np.abs(b)), 1e-300))
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 0), (1, 1), (2, 2), (1, 2), (3, 3)])
+def test_banded_matvec_plain_matches_pallas(lo, hi):
+    rng = np.random.default_rng(80 + 3 * lo + hi)
+    bd = band(rng, 2, 37, lo, hi)
+    x = rng.standard_normal((2, 37, 4))
+    y = banded_matvec(torch.as_tensor(bd), torch.as_tensor(x), lo, hi)
+    yj = banded_matvec_pallas(jnp.asarray(bd), jnp.asarray(x), lo, hi,
+                              block=16, interpret=True)
+    assert _rel(y, yj) < 1e-13
+    for g in range(2):
+        oracle = ref.banded_matvec_ref(torch.as_tensor(bd[g]),
+                                       torch.as_tensor(x[g]), lo, hi)
+        assert _rel(y[g], oracle) < 1e-13
+    # ops: broadcast batch dims and the vector form reach the same values
+    yv = ops.banded_matvec(torch.as_tensor(bd), torch.as_tensor(x[..., 1]),
+                           lo, hi)
+    assert _rel(yv, y[..., 1]) < 1e-15
+
+
+@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("n", [8, 37, 256])
+@pytest.mark.parametrize("pivot", [False, True])
+def test_block_cr_plain_matches_pallas(w, n, pivot):
+    rng = np.random.default_rng(90 + 7 * w + n + pivot)
+    bd = band(rng, 2, n, w, w)
+    rhs = rng.standard_normal((2, n, 3))
+    x, ld = block_cr(torch.as_tensor(bd), torch.as_tensor(rhs), w,
+                     pivot=pivot)
+    xj, ldj = block_cr_pallas(jnp.asarray(bd), jnp.asarray(rhs), w,
+                              pivot=pivot, interpret=True)
+    assert _rel(x, xj) < 1e-12 and _rel(ld, ldj) < 1e-12
+    x0, ld0 = block_cr(torch.as_tensor(bd), torch.as_tensor(rhs), w,
+                       pivot=pivot, solve=False)
+    assert x0 is None and _rel(ld0, ldj) < 1e-12
+    for g in range(2):
+        b_t = torch.as_tensor(bd[g])
+        assert _rel(x[g], ref.banded_solve_ref(b_t, torch.as_tensor(rhs[g]),
+                                               w, w)) < 1e-12
+        assert _rel(ld[g], ref.banded_logdet_ref(b_t, w, w)) < 1e-12
+
+
+def test_pivoted_block_mode_survives_a_dead_pivot():
+    """An odd block (frozen at the first level) whose leading entry is
+    zero: the unpivoted block solve meets a zero pivot, the pivoted one
+    swaps it away and stays exact."""
+    rng = np.random.default_rng(97)
+    n, w = 40, 2
+    bd = band(rng, 1, n, w, w)
+    bd[0, 2, w] = 0.0  # M[2, 2] = 0 in block 1; row 2 keeps M[2, 3] = 5
+    bd[0, 2, w + 1] = 5.0
+    rhs = rng.standard_normal((1, n, 2))
+    b_t, r_t = torch.as_tensor(bd), torch.as_tensor(rhs)
+    x, ld = ops.banded_solve(b_t, r_t, w, w, pivot=True)[0], \
+        ops.banded_logdet(b_t, w, w, pivot=True)[0]
+    xj = block_cr_pallas(jnp.asarray(bd), jnp.asarray(rhs), w, pivot=True,
+                         interpret=True)[0][0]
+    assert _rel(x, ref.banded_solve_ref(b_t[0], r_t[0], w, w)) < 1e-12
+    assert _rel(ld, ref.banded_logdet_ref(b_t[0], w, w)) < 1e-12
+    assert _rel(x, xj) < 1e-12
+    assert not torch.isfinite(ops.banded_logdet(b_t, w, w)[0])
+
+
+def test_pivot_on_the_lu_route_raises():
+    rng = np.random.default_rng(98)
+    bd = torch.as_tensor(band(rng, 1, 20, 1, 2))
+    rhs = torch.as_tensor(rng.standard_normal((1, 20, 2)))
+    with pytest.raises(NotImplementedError, match="gbsv"):
+        ops.banded_solve(bd, rhs, 1, 2, pivot=True)
+    with pytest.raises(NotImplementedError, match="gbsv"):
+        ops.banded_logdet(torch.as_tensor(band(rng, 1, 20, 0, 0)), 0, 0,
+                          pivot=True)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_mega_pcg_column_chunks_match_one_solve(monkeypatch, warm):
+    """Fixed-count solves wider than MAX_B run as column chunks with the
+    same result; a tol-exit solve is never split."""
+    rng = np.random.default_rng(99)
+    fs, v, x0 = padded_operands(solve_operands(rng, 37, 2, 0), "cpu", 7, rng)
+    v_t, x0_t = torch.as_tensor(v), torch.as_tensor(x0) if warm else None
+    whole = MegaSolve(fs).pcg(v_t, x0_t, iters=15, tol=0.0)
+    calls = []
+    plain = mega_solve.mega_pcg_solve
+    monkeypatch.setattr(mega_solve, "mega_pcg_solve",
+                        lambda *a, **k: calls.append(a[6].shape[-1])
+                        or plain(*a, **k))
+    monkeypatch.setattr(mega_solve, "MAX_B", 3)
+    x, r, it = MegaSolve(fs).pcg(v_t, x0_t, iters=15, tol=0.0)
+    assert calls == [3, 3, 1] and int(it) == int(whole[2]) == 15
+    assert _rel(x, whole[0]) < 1e-12
+    assert np.max(np.abs((r - whole[1]).numpy())) / np.max(np.abs(v)) < 1e-12
+    calls.clear()
+    MegaSolve(fs).pcg(v_t, x0_t, iters=15, tol=1e-8)
+    assert calls == [7]
