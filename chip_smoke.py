@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving and hyperparameter-learning paths on one
-NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, hyperparameter-learning and
+relaxation-solver paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -7,25 +7,36 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
 one process per source), then:
 
 1. kernel phase: each kernel on seeded float64 inputs at the main path's
-   shapes (n = 30000, D = 10, q = 0) and at q = 1 widths, held against its
-   plain PyTorch version on the same CUDA tensors; errors, times, bounds;
+   shapes (n = 30000, D = 10, q = 0) and at q = 1 and q = 2 widths, held
+   against its plain PyTorch version on the same CUDA tensors; errors,
+   times, bounds. The relaxation kernels (one sweep, and the whole solve,
+   of Jacobi and Gauss-Seidel) run on the main path's own operands, where
+   the bar follows the systems' conditioning and the sweeps' backward
+   error is held to the plain version's (``relax_kernel_phase``), and a
+   host loop of single sweeps is held to the whole solve bit for bit;
 2. main path: Schwefel data, n = 30000, D = 10 (the paper's Fig. 5 point),
    the serving path ``fit`` -> ``posterior_mean`` -> ``posterior_var`` on
    100 queries, then the learning path ``log_likelihood`` ->
-   ``mll_gradients`` -> ``fit_hyperparams(steps=3)``, each path with every
-   kernel's launch count over its run;
+   ``mll_gradients`` -> ``fit_hyperparams(steps=3)``, then ``fit`` ->
+   ``posterior_mean(100)`` -> ``posterior_var(32)`` with
+   ``solver="gauss_seidel"`` and ``"jacobi"``, each with ``fused="auto"``
+   (the whole-solve kernels) and ``"on"`` (one launch per sweep); each run
+   with every kernel's launch count over it;
 3. consistency at n = 4000, D = 10, the card against ``device="cpu"``
    (plain versions), all within 1e-7: on the quickstart's Schwefel data the
-   q = 0 mean, variance and log-likelihood; on a jittered grid the q = 0
-   gradients and a q = 1 fit, mean, variance and log-likelihood. The same
-   probe blocks are fed to both sides. On the Schwefel data, whose
-   gradient factor B is ill-conditioned, the gradients are compared from
-   the same factors and the block-CR kernel's backward error on that B is
-   held against its plain version's (``schwefel_same_factors``).
+   q = 0 mean, variance and log-likelihood, and both relaxation solvers in
+   every fused mode; on a jittered grid the q = 0 gradients, a q = 1 and a
+   q = 2 fit, mean, variance and log-likelihood. The same probe blocks are
+   fed to both sides (8 probes for the gradients, one variance chunk of
+   32 queries on the Schwefel data). On the Schwefel data, whose gradient
+   factor B is ill-conditioned, the gradients are compared from the same
+   factors and the block-CR kernel's backward error on that B is held
+   against its plain version's (``schwefel_same_factors``).
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the
-exit code is non-zero and no result line is printed. Needs one card.
+Prints the card's name and power limit, the elapsed time after each
+phase, one ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
+code is non-zero and no result line is printed. Needs one card.
 """
 from __future__ import annotations
 
@@ -41,9 +52,11 @@ import torch
 
 # the main path's shape (the Fig. 5 --full point), the q = 1 check size,
 # and the card-vs-CPU consistency size (the quickstart's); Q_PATH is the
-# probe count of the likelihood path (GPConfig's logdet/trace probes)
+# probe count of the likelihood path (GPConfig's logdet/trace probes),
+# Q_CHECK that of the card-vs-CPU gradients, cut to keep the CPU side's
+# plain gradient solves (D Q columns) inside the script's time
 D_PATH, N_PATH, B_PATH, N_Q1, N_CHECK = 10, 30000, 32, 4000, 4000
-Q_PATH = 16
+Q_PATH, Q_CHECK = 16, 8
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP64_FLOPS = 34e12  # H100 SXM FP64 outside the tensor cores (data sheet)
 
@@ -66,7 +79,7 @@ def _import_port():
     from repro_torch.core.band_inverse import _to_blocks
     from repro_torch.core.convert import BAND_KEYS, gp_from_arrays
     from repro_torch.core.stochastic import rademacher_rows
-    from repro_torch.core.banded import add, scale
+    from repro_torch.core.banded import Banded, add, scale, transpose
     from repro_torch.core.kernel_packets import gkp_factors, kp_factors
     from repro_torch.data import sample_test_function
     from repro_torch.health.verdict import verdict_name
@@ -76,10 +89,23 @@ def _import_port():
     from repro_torch.kernels.banded_matvec import (banded_matvec,
                                                    banded_matvec_plain)
     from repro_torch.kernels.block_cr import block_cr, block_cr_plain
-    from repro_torch.kernels.fused_sweep import FusedSweep
-    from repro_torch.kernels.mega_solve import mega_pcg_plain, mega_pcg_solve
+    from repro_torch.kernels.fused_sweep import (
+        FusedSweep, fused_gauss_seidel_iter, fused_gauss_seidel_iter_plain,
+        fused_jacobi_iter, fused_jacobi_iter_plain, sweep_backward_error)
+    from repro_torch.kernels.mega_solve import (
+        MegaSolve, mega_gauss_seidel_plain, mega_gauss_seidel_solve,
+        mega_jacobi_plain, mega_jacobi_solve, mega_pcg_plain, mega_pcg_solve)
     from repro_torch.kernels.rgf import rgf_blocks, rgf_blocks_plain
     return dict(locals())
+
+
+_T0 = time.perf_counter()
+
+
+def _stamp(phase):
+    """Print the script's elapsed wall time at the end of a phase."""
+    print(f"elapsed {time.perf_counter() - _T0:.1f} s after {phase}",
+          flush=True)
 
 
 def _sync_time(fn):
@@ -116,6 +142,7 @@ def _band(rng, G, n, lo, hi, dev):
 
 
 SERVING_KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg")
+LEARNING_KERNELS = SERVING_KERNELS + ("banded_matvec", "block_cr")
 
 
 def _require_launched(path, counts, names):
@@ -312,7 +339,8 @@ def kernel_phase(P, rng, dev, shapes, ops_path, ops_q1):
             ("path solve w=2 B=16", (n, 2, Q, False, True)),
             ("path logdet w=1", (n, 1, 1, False, False)),
             ("pivot solve w=1 B=16", (n, 1, Q, True, True)),
-            ("q1 solve w=3 B=16", (N_Q1, 3, Q, False, True))):
+            ("q1 solve w=3 B=16", (N_Q1, 3, Q, False, True)),
+            ("q2 solve w=4 B=16", (N_Q1, 4, Q, False, True))):
         bd = _band(rng, D, nn, w, w, dev)
         rhs = torch.as_tensor(rng.standard_normal((D, nn, Bc)), device=dev)
         kw = dict(pivot=pivot, solve=solve)
@@ -335,6 +363,209 @@ def kernel_phase(P, rng, dev, shapes, ops_path, ops_q1):
                              max_abs_err=err, max_rel_err=rel, ms=ms,
                              plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=None))
+
+    # --- rgf at q = 2 (H = A Phi^T has w = 5); drawn after the rows above
+    # so their inputs stay those of earlier runs ---------------------------
+    h = _band(rng, D, N_Q1, 5, 5, dev)
+    blocks = [t.contiguous() for t in P["_to_blocks"](h, 5, 5, 5)]
+    ms, out = _event_ms(lambda: P["rgf_blocks"](*blocks), reps=3)
+    pms, outp = _event_ms(lambda: P["rgf_blocks_plain"](*blocks), reps=1,
+                          warmup=0)
+    err, rel = _errs(torch.stack(out), torch.stack(outp))
+    report("rgf_blocks", "q2 w=5", err, rel, 1e-10, ms, pms)
+    return rows
+
+
+def _sweep_cost(D, npad, B, w_p, w_s, iters, states, elem, final=0,
+                warm=False):
+    """(bytes, flops) of ``iters`` relaxation sweeps: the bands, the
+    permutations and ``states`` (D, npad, B) arrays (each input read once,
+    each output written once); per sweep and element the gathered Phi
+    matvec (4 w_p + 1), the SAPhi solve and ``elem`` elementwise flops, plus
+    ``final`` once (Gauss-Seidel's k, from the last sweep). A warm start
+    adds one SAPhi matvec, one Phi solve and 2 flops."""
+    N = D * npad * B
+    nbytes = 8 * D * npad * (2 * w_p + 2 * w_s + 2) + 4 * 2 * D * npad \
+        + 8 * N * states + 8
+    ops = iters * N * (4 * w_p + 1 + _solve_ops(w_s, B) + elem) + N * final
+    if warm:
+        ops += N * (4 * w_s + 1 + _solve_ops(w_p, B) + 2)
+    return nbytes, ops
+
+
+# elementwise flops per element and sweep (the kernels' phases): the total
+# (1), r (3), the solve's scale by s^2 (1), then Jacobi's damped update of
+# x (3) and of k (5), Gauss-Seidel's running total (2) and, on the final
+# sweep only, its k (2)
+JACOBI_ELEM, JACOBI_K_ELEM = 8, 5
+GS_ELEM, GS_K_FINAL = 7, 2
+
+
+RELAX_KERNELS = {
+    "fused_jacobi_iter": ("src/repro_torch/csrc/jacobi.cu",
+                          "src/repro/kernels/fused_sweep.py:187"),
+    "fused_gauss_seidel_iter": ("src/repro_torch/csrc/gauss_seidel.cu",
+                                "src/repro/kernels/fused_sweep.py:263"),
+    "mega_jacobi": ("src/repro_torch/csrc/jacobi.cu",
+                    "src/repro/kernels/mega_solve.py:129"),
+    "mega_gauss_seidel": ("src/repro_torch/csrc/gauss_seidel.cu",
+                          "src/repro/kernels/mega_solve.py:183"),
+}
+
+
+def _cond_est(P, fs, band, w, steps=40):
+    """Largest 2-norm condition number over the dimensions of a padded band
+    stack (D, npad, 2w+1): power iteration on M^T M and on its inverse, with
+    the plain matvec and the block-CR kernel (w >= 1)."""
+    bt = P["transpose"](P["Banded"](band, w, w)).data.contiguous()
+    g = torch.Generator(device=band.device).manual_seed(0)
+    u = torch.randn((fs.D, fs.npad, 1), generator=g, dtype=band.dtype,
+                    device=band.device)
+    v = u.clone()
+    mv = P["banded_matvec_plain"]
+    for _ in range(steps):
+        u = mv(bt, mv(band, u, w, w), w, w)
+        u = u / u.norm(dim=1, keepdim=True)
+        v = P["block_cr"](band, P["block_cr"](bt, v, w)[0], w)[0]
+        v = v / v.norm(dim=1, keepdim=True)
+    smax = mv(band, u, w, w).norm(dim=1)
+    smin = 1.0 / P["block_cr"](band, v, w)[0].norm(dim=1)
+    return float((smax / smin).max())
+
+
+def relax_kernel_phase(P, rng, dev, ops_path, ops_q1, iters):
+    """The relaxation kernels (one sweep, whole solve) vs their plain
+    versions at the main path's q = 0 shapes (B = 1, 32) and at q = 1
+    widths; then a host loop of single sweeps against the whole solve, bit
+    for bit.
+
+    The bar is max(1e-12, kappa eps), kappa the largest condition number of
+    the SAPhi systems the sweeps solve: two correct float64 solves of a
+    system differ by up to about kappa eps, and the kernel rounds
+    differently from the plain version (fused multiply-adds). On the
+    jittered q = 1 grid kappa is ~1e3 and the bar is 1e-12; on the
+    Schwefel points of the main path kappa is ~1e8. Since kappa is
+    estimated with the block-CR kernel, a second witness does not rest on
+    it: one undamped sweep's backward error on the SAPhi solves
+    (``sweep_backward_error``) must be within 10x the plain version's."""
+    rows = []
+    eps = float(torch.finfo(torch.float64).eps)
+
+    def run(name, tag, fn, plain, nbytes, ops, reps):
+        ms, out = _event_ms(fn, reps=reps)
+        pms, outp = _event_ms(plain, reps=1, warmup=0)
+        out = out if isinstance(out, tuple) else (out,)
+        outp = outp if isinstance(outp, tuple) else (outp,)
+        err, rel = _errs(torch.cat([o.flatten() for o in out]),
+                         torch.cat([o.flatten() for o in outp]))
+        b_ms, b_by = _bound(nbytes, ops)
+        print(f"kernel {name:24s} {tag:22s} max_abs_err={err:.3e} "
+              f"max_rel_err={rel:.3e} (tol {tol:.1e}) kernel_ms={ms:.4f} "
+              f"plain_ms={pms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              "library_ms=none", flush=True)
+        if not rel <= tol:
+            raise RuntimeError(f"{name} {tag}: error {rel:.3e} > {tol:.1e}")
+        return dict(name=name, route="cuda", source=RELAX_KERNELS[name][0],
+                    replaces=RELAX_KERNELS[name][1], max_abs_err=err,
+                    max_rel_err=rel, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None)
+
+    kappa = {id(fs): _cond_est(P, fs, fs.saphi, fs.w_s)
+             for fs in (ops_path, ops_q1)}
+    # the main row at the path's sweep count; the others at 10 sweeps (the
+    # plain Gauss-Seidel runs its D single-system solves per sweep one
+    # after another, ~0.3 s a sweep at n = 30000)
+    for tag, fs, Bc, its in (("path q=0 B=32", ops_path, B_PATH, iters),
+                             ("path q=0 B=1", ops_path, 1, 10),
+                             ("q1 (1,2) B=32", ops_q1, B_PATH, 10)):
+        tol = max(1e-12, kappa[id(fs)] * eps)
+        print(f"relaxation rows {tag}: cond(SAPhi) <= "
+              f"{kappa[id(fs)]:.3e}, bar {tol:.3e}", flush=True)
+        ops = (fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2)
+        v = fs.pad_state(torch.as_tensor(
+            rng.standard_normal((fs.D, fs.n, Bc)), device=dev))
+        x0 = fs.pad_state(torch.as_tensor(
+            0.1 * rng.standard_normal((fs.D, fs.n, Bc)), device=dev))
+        k = fs.pad_state(torch.as_tensor(
+            0.1 * rng.standard_normal((fs.D, fs.n, Bc)), device=dev))
+        kw = dict(w_p=fs.w_p, w_s=fs.w_s)
+        al = 1.0 / fs.D
+        shape = (fs.D, fs.npad, Bc, fs.w_p, fs.w_s)
+        main = tag == "path q=0 B=32"
+        got = [
+            # reads v, x0, k; writes x, k
+            run("fused_jacobi_iter", tag + " k",
+                lambda: P["fused_jacobi_iter"](*ops, v, x0, k, alpha=al, **kw),
+                lambda: P["fused_jacobi_iter_plain"](*ops, v, x0, k, alpha=al,
+                                                     **kw),
+                *_sweep_cost(*shape, 1, 5, JACOBI_ELEM + JACOBI_K_ELEM),
+                reps=10),
+            # reads v, x0; writes x, k
+            run("fused_gauss_seidel_iter", tag + " k",
+                lambda: P["fused_gauss_seidel_iter"](*ops, v, x0,
+                                                     want_resid=True, **kw),
+                lambda: P["fused_gauss_seidel_iter_plain"](
+                    *ops, v, x0, want_resid=True, **kw),
+                *_sweep_cost(*shape, 1, 4, GS_ELEM, GS_K_FINAL), reps=3),
+            run("mega_jacobi", tag + f" warm {its} it",
+                lambda: P["mega_jacobi_solve"](*ops, v, x0, alpha=al,
+                                               iters=its, warm=True, **kw),
+                lambda: P["mega_jacobi_plain"](*ops, v, x0, alpha=al,
+                                               iters=its, warm=True, **kw),
+                *_sweep_cost(*shape, its, 4, JACOBI_ELEM + JACOBI_K_ELEM,
+                             warm=True), reps=3),
+            run("mega_gauss_seidel", tag + f" {its} it",
+                lambda: P["mega_gauss_seidel_solve"](*ops, v, x0,
+                                                     iters=its, **kw),
+                lambda: P["mega_gauss_seidel_plain"](*ops, v, x0,
+                                                     iters=its, **kw),
+                *_sweep_cost(*shape, its, 4, GS_ELEM, GS_K_FINAL), reps=1),
+        ]
+        # second witness to the bar: the SAPhi solves' backward error in one
+        # undamped sweep, the kernel's within 10x the plain version's (a
+        # stable solve reads a few eps at any conditioning; a wrong one not)
+        for name, seq, fn in (
+                ("jacobi", False, lambda f: f(*ops, v, x0, alpha=1.0, **kw)),
+                ("gauss_seidel", True, lambda f: f(*ops, v, x0, **kw))):
+            kern, plain = (P[f"fused_{name}_iter{sfx}"]
+                           for sfx in ("", "_plain"))
+            be = [P["sweep_backward_error"](*ops, v, x0, fn(f), sequential=seq,
+                                            **kw) for f in (kern, plain)]
+            print(f"backward error {name} sweep {tag}: kernel {be[0]:.3e} "
+                  f"plain {be[1]:.3e}", flush=True)
+            if not be[0] <= 10 * max(be[1], eps):
+                raise RuntimeError(f"{name} sweep {tag}: backward error "
+                                   f"{be[0]:.3e} > 10 x {be[1]:.3e}")
+        if main:
+            rows += got
+
+    # whole == host loop of single sweeps, bit for bit (main path shapes)
+    fs = ops_path
+    v = torch.as_tensor(rng.standard_normal((fs.D, fs.n, B_PATH)),
+                        device=dev)
+    x0 = 0.5 * v
+    ms_ = P["MegaSolve"](fs)
+    for warm in (False, True):
+        start = x0 if warm else None
+        u = fs.pad_state(x0 if warm else torch.zeros_like(v))
+        vp = fs.pad_state(v)
+        xw, kwh = ms_.jacobi(v, start, alpha=1.0 / fs.D, iters=5)
+        uj, kj = (fs.jacobi_iter(vp, u, 1.0 / fs.D, warm=True) if warm else
+                  fs.jacobi_iter(vp, u, 1.0 / fs.D, k=torch.zeros_like(u)))
+        for _ in range(4):
+            uj, kj = fs.jacobi_iter(vp, uj, 1.0 / fs.D, k=kj)
+        xg, kg = ms_.gauss_seidel(v, start, iters=5)
+        ug = u
+        for _ in range(4):
+            ug = fs.gauss_seidel_iter(vp, ug)
+        ug, kgi = fs.gauss_seidel_iter(vp, ug, want_resid=True)
+        same = all(torch.equal(a, fs.unpad(b)) for a, b in (
+            (xw, uj), (kwh, kj), (xg, ug), (kg, kgi)))
+        print(f"whole == host loop of sweeps (n={fs.n} D={fs.D} "
+              f"B={B_PATH}, 5 sweeps, warm={warm}): bitwise {same} "
+              "(jacobi x, k; gauss_seidel x, k)", flush=True)
+        if not same:
+            raise RuntimeError("whole solve and per-sweep loop differ")
     return rows
 
 
@@ -511,6 +742,9 @@ def main():
     ops_q1 = _operands(P, _jittered(rng, N_Q1, D)[0], np.full(D, 4.0), sigma,
                        1, dev)
     rows = kernel_phase(P, rng, dev, (D, n, B), ops_path, ops_q1)
+    _stamp("kernel phase")
+    rows += relax_kernel_phase(P, rng, dev, ops_path, ops_q1, iters=40)
+    _stamp("relaxation kernel phase")
     del ops_path, ops_q1
 
     # --- main path at the paper's Fig. 5 point ----------------------------
@@ -563,20 +797,64 @@ def main():
             and np.isfinite(norms).all() and g_om.shape == (D,)
             and all(v == "OK" for v in verdicts.values())):
         raise RuntimeError("learning path output is not finite/OK")
-    _require_launched("learning path", counts_l, _build.KERNELS)
+    _require_launched("learning path", counts_l, LEARNING_KERNELS)
+    _stamp("serving and learning paths")
+
+    # --- the relaxation solvers on the same data: Gauss-Seidel (the paper's
+    # Algorithm 4) and damped Jacobi, each with the whole-solve kernels
+    # (fused="auto" -> "whole") and with one launch per sweep ("on") -------
+    relax_counts = []
+    for solver in ("gauss_seidel", "jacobi"):
+        for fused in ("auto", "on"):
+            rcfg = P["GPConfig"](q=0, solver=solver, solver_iters=40,
+                                 precond="none", fused=fused)
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            rgp, t_f = _sync_time(lambda: P["fit"](rcfg, X, Y, omega, sigma))
+            rmu, t_m = _sync_time(lambda: P["posterior_mean"](rgp, Xq))
+            rvar, t_v = _sync_time(lambda: P["posterior_var"](rgp, Xq[:B]))
+            rc = _build.launch_counts()
+            relax_counts.append(rc)
+            rpeak = torch.cuda.max_memory_allocated()
+            h = rgp.health
+            verdict = P["verdict_name"](h.verdict)
+            rres = float(h.resid) / float(h.rhs)
+            rmu_np, rvar_np = rmu.cpu().numpy(), rvar.cpu().numpy()
+            rrmse = float(np.sqrt(np.mean((rmu_np - f(Xq)) ** 2)))
+            print(f"relaxation path {solver} fused={fused} "
+                  f"(-> {rgp.config.fused}) n={n} D={D} q=0 iters=40: fit "
+                  f"{t_f * 1e3:.1f} ms, posterior_mean(100) {t_m * 1e3:.1f} "
+                  f"ms, posterior_var({B}) {t_v * 1e3:.1f} ms; RMSE "
+                  f"{rrmse:.4f}; fit solve verdict {verdict}, residual "
+                  f"|v - Mhat x| / |v| {rres:.3e}; peak memory "
+                  f"{rpeak / 2**20:.1f} MiB; launches {rc}", flush=True)
+            if not (rmu_np.shape == (100,) and rvar_np.shape == (B,)
+                    and np.isfinite(rmu_np).all()
+                    and np.isfinite(rvar_np).all()
+                    and verdict in ("OK", "STALLED")):
+                raise RuntimeError(f"relaxation path {solver} {fused}: not "
+                                   "finite, or diverged")
+            sweep = ("mega_" if fused == "auto" else "fused_") + solver + (
+                "" if fused == "auto" else "_iter")
+            _require_launched(f"relaxation path {solver} {fused}", rc,
+                              ("banded_lu", "band_matmul", "rgf_blocks",
+                               sweep))
     for row in rows:
-        row["launches"] = counts[row["name"]] + counts_l[row["name"]]
+        row["launches"] = (counts[row["name"]] + counts_l[row["name"]]
+                           + sum(rc[row["name"]] for rc in relax_counts))
+    _stamp("relaxation paths")
 
     # --- consistency: card vs plain CPU at the quickstart's size ----------
     Xc, Yc, _, bc = P["sample_test_function"]("schwefel", N_CHECK, D, seed=0)
     omc = 8.0 / (bc[:, 1] - bc[:, 0])
     Xqc = np.random.default_rng(1).uniform(bc[:, 0], bc[:, 1], (100, D))
+    Xqr = Xqc[:B]  # one variance chunk
     g_card = P["fit"](cfg, Xc, Yc, omc, 1.0)
     g_cpu = P["fit"](cfg, Xc, Yc, omc, 1.0, device="cpu")
-    for name, fn in (("mean", P["posterior_mean"]),
-                     ("var", P["posterior_var"])):
-        _check(f"n={N_CHECK} D={D} {name}", fn(g_card, Xqc),
-               fn(g_cpu, Xqc, device="cpu"))
+    for name, fn, xq in (("mean", P["posterior_mean"], Xqc),
+                         ("var", P["posterior_var"], Xqr)):
+        _check(f"n={N_CHECK} D={D} {name}", fn(g_card, xq),
+               fn(g_cpu, xq, device="cpu"))
     # the same probe blocks, drawn once, fed to the card and the CPU
     gen = torch.Generator().manual_seed(1)
     pm_v0 = P["_probe_block"](g_cpu, gen, 4)
@@ -597,8 +875,9 @@ def main():
           f"{b_rel:.3e} (ill-conditioned; not a gate)", flush=True)
     del g_card
     schwefel_same_factors(P, g_cpu, P["rademacher_rows"](gen, N_CHECK,
-                                                         (Q_PATH,)), dev)
+                                                         (Q_CHECK,)), dev)
     del g_cpu
+    _stamp("consistency: Schwefel")
 
     # jittered grids (see _jittered): q = 0 gradients, then a q = 1 path
     rq = np.random.default_rng(2)
@@ -606,7 +885,7 @@ def main():
     Yj = np.sin(Xj * 6.0 * np.pi / span).sum(1) \
         + 0.1 * rq.standard_normal(N_Q1)
     Xqj = rq.uniform(0.0, span, (40, D))
-    V = P["rademacher_rows"](gen, N_Q1, (Q_PATH,))
+    V = P["rademacher_rows"](gen, N_Q1, (Q_CHECK,))
     q0 = [P["fit"](cfg, Xj, Yj, np.full(D, 4.0), 1.0, device=d)
           for d in (None, "cpu")]
     ga, gb = (P["_mll_gradients"](g, v) for g, v in ((q0[0], V.to(dev)),
@@ -626,6 +905,39 @@ def main():
     _check(f"n={N_Q1} D={D} q=1 log_likelihood",
            P["_log_likelihood"](q1[0], pm1.to(dev), pv1.to(dev)),
            P["_log_likelihood"](q1[1], pm1, pv1))
+    _stamp("consistency: jittered q = 0 gradients, q = 1")
+
+    # relaxation solvers: the card in every fused mode against the CPU's
+    # whole solve on the quickstart's data (the CPU's "on" is a loop of the
+    # same plain sweep, bit for bit, and its "off" is held to "whole" by
+    # the CPU tests)
+    for solver in ("gauss_seidel", "jacobi"):
+        rcfg = {f: P["GPConfig"](q=0, solver=solver, solver_iters=40,
+                                 precond="none", fused=f)
+                for f in ("whole", "on", "off")}
+        g = P["fit"](rcfg["whole"], Xc, Yc, omc, 1.0, device="cpu")
+        want = (P["posterior_mean"](g, Xqc, device="cpu"),
+                P["posterior_var"](g, Xqr, device="cpu"))
+        for fused, rc in rcfg.items():
+            g = P["fit"](rc, Xc, Yc, omc, 1.0)
+            _check(f"n={N_CHECK} D={D} {solver} fused={fused} mean",
+                   P["posterior_mean"](g, Xqc), want[0])
+            _check(f"n={N_CHECK} D={D} {solver} fused={fused} var",
+                   P["posterior_var"](g, Xqr), want[1])
+    _stamp("consistency: relaxation solvers")
+    # q = 2 (Matern-5/2) on the jittered grid: block_cr W = 4, rgf w = 5
+    cfg2 = P["GPConfig"](q=2, solver="pcg", solver_iters=40, precond="none")
+    q2 = [P["fit"](cfg2, Xj, Yj, np.full(D, 4.0), 1.0, device=d)
+          for d in (None, "cpu")]
+    pm2, pv2 = (P["_probe_block"](q2[1], gen, k) for k in (4, Q_PATH))
+    for name, fn in (("mean", P["posterior_mean"]),
+                     ("var", P["posterior_var"])):
+        _check(f"n={N_Q1} D={D} q=2 {name}", fn(q2[0], Xqj[:B]),
+               fn(q2[1], Xqj[:B], device="cpu"))
+    _check(f"n={N_Q1} D={D} q=2 log_likelihood",
+           P["_log_likelihood"](q2[0], pm2.to(dev), pv2.to(dev)),
+           P["_log_likelihood"](q2[1], pm2, pv2))
+    _stamp("consistency: q = 2")
 
     if sorted(r["name"] for r in rows) != sorted(_build.KERNELS):
         raise RuntimeError("the kernels line must list each kernel once")

@@ -1,0 +1,91 @@
+"""Hold the whole-PCG kernel of one checkout against another's, bit for bit.
+
+A refactor of code that ``csrc/mega_pcg.cu`` compiles (``sweep.cuh``,
+``cr.cuh``, ``common.cuh``) should leave its numbers unchanged. Run this
+once per checkout on an NVIDIA GPU, with the same operands file; the first
+run writes the operands (q = 0 at n = 30000 and q = 1 at n = 4000, D = 10,
+on a jittered grid), later runs load them, so both sides solve identical
+systems. Then compare the two output files::
+
+    python scripts/mega_pcg_bitwise.py run  SRC OUT OPERANDS
+    python scripts/mega_pcg_bitwise.py diff OUT_A OUT_B
+
+``SRC`` is the ``src`` directory of the checkout to run (its kernels are
+built beside it, under its own ``build/``).
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+CASES = ((0, 30000, 10, 32), (1, 4000, 10, 16), (1, 4000, 10, 1))
+
+
+def _operands(path, dev):
+    from repro_torch.core.banded import add, scale
+    from repro_torch.core.kernel_packets import kp_factors
+    from repro_torch.kernels.fused_sweep import FusedSweep
+
+    ops = {}
+    for q, n, D, B in CASES:
+        rng = np.random.default_rng(7 + q + B)
+        X = torch.as_tensor(rng.uniform(0, 0.1 * n / 4, (n, D)), device=dev)
+        sort_idx = torch.argsort(X.T, dim=1, stable=True)
+        xs = torch.gather(X.T, 1, sort_idx)
+        om = torch.full((D,), 4.0, dtype=torch.float64, device=dev)
+        A, Phi = kp_factors(q, om, xs)
+        SAPhi = add(scale(A, 0.49), Phi)
+        fs = FusedSweep(Phi.data, SAPhi.data, sort_idx,
+                        torch.argsort(sort_idx, dim=1), 0.49, w_p=Phi.lo,
+                        w_s=SAPhi.lo, a=A.data, w_a=A.lo)
+        v = rng.standard_normal((D, n, B))
+        x0 = 0.1 * rng.standard_normal((D, n, B))
+        ops[(q, n, B)] = dict(
+            t=[t.cpu() for t in (fs.a, fs.phi, fs.saphi, fs.sort_idx,
+                                 fs.rank_idx, fs.sigma2)]
+            + [fs.pad_state(torch.as_tensor(a, device=dev)).cpu()
+               for a in (v, x0)],
+            w=(fs.w_a, fs.w_p, fs.w_s))
+    torch.save(ops, path)
+
+
+def run(src, out, opfile):
+    sys.path.insert(0, src)
+    from repro_torch.kernels.mega_solve import mega_pcg_solve
+
+    dev = torch.device("cuda")
+    if not os.path.exists(opfile):
+        _operands(opfile, dev)
+    res = {}
+    for key, o in torch.load(opfile).items():
+        a, phi, saphi, si, ri, s2, v, x0 = (t.to(dev) for t in o["t"])
+        w_a, w_p, w_s = o["w"]
+        for warm in (False, True):
+            for tol in (0.0, 1e-9):
+                x, r, it = mega_pcg_solve(
+                    a, phi, saphi, si, ri, s2, v,
+                    x0 if warm else torch.zeros_like(v), w_a=w_a, w_p=w_p,
+                    w_s=w_s, iters=40, tol=tol, warm=warm)
+                res[key + (warm, tol)] = (x.cpu(), r.cpu(), int(it))
+    torch.save(res, out)
+
+
+def diff(path_a, path_b):
+    a, b = torch.load(path_a), torch.load(path_b)
+    same_all = True
+    for k in a:
+        same = (torch.equal(a[k][0], b[k][0]) and torch.equal(a[k][1], b[k][1])
+                and a[k][2] == b[k][2])
+        rel = float((a[k][0] - b[k][0]).abs().max() / a[k][0].abs().max())
+        same_all &= same
+        print(f"(q, n, B, warm, tol) = {k}: bitwise {same}, x max rel "
+              f"{rel:.3e}, iterations {a[k][2]} / {b[k][2]}")
+    print(f"all bitwise: {same_all}")
+
+
+if __name__ == "__main__":
+    cmd, *args = sys.argv[1:]
+    {"run": run, "diff": diff}[cmd](*args)

@@ -15,7 +15,7 @@ Device rule: ``fit``, ``posterior_mean``, ``posterior_var`` and
 likelihood and its gradients run where the fitted GP lives. On CUDA every
 banded kernel of the path is a hand-written CUDA kernel; on the CPU the
 plain versions run. Paths that are not ported yet raise
-``NotImplementedError`` at ``fit``.
+``NotImplementedError`` at ``fit`` (see :class:`GPConfig`).
 
 Randomness: where the reference takes a ``jax.random`` key, the port takes
 a ``torch.Generator``; every probe is drawn through
@@ -34,8 +34,8 @@ from ..health import verdict as hv
 from ..kernels import ops as _kops
 from . import matern as mk
 from . import stochastic as st
-from .backfitting import (DimOps, SolveConfig, check_solve_config, mhat_matvec,
-                          solve_mhat)
+from .backfitting import (DimOps, SolveConfig, check_solve_config, fused_mode,
+                          mhat_matvec, solve_mhat)
 from .band_inverse import variance_band
 from .banded import Banded, add, logdet, matvec, scale, solve, transpose
 from .kernel_packets import gkp_factors, kp_factors, phi_at
@@ -58,11 +58,17 @@ _VAR_CHUNK = 32
 class GPConfig:
     """The reference's configuration fields and defaults.
 
-    Values whose path is not ported raise ``NotImplementedError`` at
-    ``fit``: ``solver`` other than "pcg", ``fused`` "on"/"off",
-    ``pivot=True``, a ``precond`` that resolves to "kmg" (so ``q == 0,
-    n >= 4096`` with "auto" raises: pass ``precond="none"``), and ``q >= 2``
-    on CUDA. ``backend``: "auto" (by tensor device) | "cuda".
+    Every ``solver`` ("pcg", "jacobi", "gauss_seidel") runs, with ``fused``
+    "auto" (baked at ``fit`` to "whole" where the bands allow the fused
+    kernels, else "off"), "whole" (one whole-solve launch per solve), "on"
+    (a host loop of one-sweep launches; jacobi and gauss_seidel) or "off"
+    (the unfused host loops). Values whose path is not ported raise
+    ``NotImplementedError`` at ``fit``: ``fused="on"`` with
+    ``solver="pcg"`` (the per-iteration PCG kernel), ``pivot=True`` with
+    ``solve_alg="lu"`` (the pivoted gbsv scan), a ``precond`` that resolves
+    to "kmg" (so ``q == 0, n >= 4096`` with "auto" raises: pass
+    ``precond="none"``), and ``q == 3`` on CUDA. ``backend``: "auto" (by
+    tensor device) | "cuda".
     """
 
     q: int = 0
@@ -89,6 +95,7 @@ class GPConfig:
                            pivot=self.pivot, backend=self.backend,
                            alg=self.solve_alg, fused=self.fused,
                            precond=self.precond)
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,12 +157,20 @@ def resolve_config(config: GPConfig, n: int, device) -> GPConfig:
     _kops.resolve_backend(config.backend, device)
     if config.q not in mk.SUPPORTED_Q:
         raise ValueError(f"q={config.q} not in {mk.SUPPORTED_Q}")
-    if config.q >= 2 and torch.device(device).type == "cuda":
+    if config.q >= 3 and torch.device(device).type == "cuda":
         raise NotImplementedError(
-            "q >= 2 on CUDA exceeds the kernels' widths: cr.cuh and mega_pcg "
-            "take half-widths <= 3 and the generalized-KP B at q = 2 has "
-            "w = 4; rgf.cu takes blocks w <= 4 and q = 2 needs 5 (ROADMAP "
-            "Queue 3); run q >= 2 on the CPU")
+            "q = 3 on CUDA exceeds the kernels' widths: the solve kernels "
+            "take half-widths <= 3 (q = 3 needs 4), block_cr W <= 4 (B needs "
+            "5) and rgf_blocks w <= 5 (H = A Phi^T needs 7: 7 x 7 block "
+            "algebra per thread); and the reference's own KP null vectors at "
+            "q = 3 differ between jaxlib's and torch's LAPACK, so no parity "
+            "test can hold it (ROADMAP Queue 3); run q = 3 on the CPU")
+    if config.pivot and config.solve_alg == "lu":
+        raise NotImplementedError(
+            "pivot=True with solve_alg='lu' needs the reference's pivoted "
+            "gbsv scan on the LU route, which is not ported (ROADMAP Queue "
+            "1, pivoted solves); pivot=True runs with solve_alg 'auto' or "
+            "'cr'")
     if config.logdet_method not in LOGDET_METHODS:
         raise ValueError(f"unknown logdet_method {config.logdet_method!r}; "
                          f"expected one of {LOGDET_METHODS}")
@@ -166,11 +181,15 @@ def resolve_config(config: GPConfig, n: int, device) -> GPConfig:
                          f"{config.health!r}")
     if config.solve_alg not in _kops.SOLVE_ALGS:
         raise ValueError(f"unknown solve alg {config.solve_alg!r}")
-    config = dataclasses.replace(
-        config, precond=_kops.resolve_precond(config.precond, q=config.q, n=n),
-        gband=gband, health=health)
-    check_solve_config(config.solve_cfg())
-    return config
+    precond = _kops.resolve_precond(config.precond, q=config.q, n=n)
+    config = dataclasses.replace(config, precond=precond, gband=gband,
+                                 health=health)
+    cfg = config.solve_cfg()
+    check_solve_config(cfg)
+    # the bands every solve of this GP touches: A (q+1), Phi (q), SAPhi (q+1)
+    q = config.q
+    fused = fused_mode(cfg, (q + 1, q + 1), (q, q), (q + 1, q + 1))
+    return dataclasses.replace(config, fused=fused)
 
 
 def mean_caches(config: GPConfig, ops: DimOps, Y, return_info: bool = False):

@@ -1,12 +1,27 @@
-"""Backfitting solve of the additive-GP system (paper Algorithm 4, PCG form).
+"""Backfitting solvers of the additive-GP system (paper Algorithm 4).
 
 Counterpart of ``repro.core.backfitting``: applies
 ``Mhat^{-1} = [P Phi^{-1} A P^T + sigma^{-2} S S^T]^{-1}`` to (D, n, B)
-stacks in original point order. Only the preconditioned-CG method with the
-block preconditioner is ported, and it always runs as the whole-solve
-kernel (``kernels.mega_solve``): one launch per solve on CUDA tensors, the
-plain version on CPU tensors. ``gauss_seidel``, ``jacobi`` and
-``precond="kmg"`` raise ``NotImplementedError``.
+stacks in original point order, by
+
+  * ``gauss_seidel`` — the paper's Algorithm 4 (sequential over dimensions);
+  * ``jacobi``       — all D block solves at once, damped;
+  * ``pcg``          — conjugate gradients with the block preconditioner.
+
+``SolveConfig.fused`` picks how a solve runs (``kernels.ops.resolve_fused``):
+"whole" (the default that "auto" resolves to) is one launch of the
+whole-solve kernel per solve (``kernels.mega_solve``); "on" is a host loop
+of one-sweep kernels (``kernels.fused_sweep``; jacobi and gauss_seidel
+only: the per-iteration PCG kernel is not ported and raises); "off" is the
+unfused host loop over the banded kernels of ``kernels.ops``. On CUDA
+tensors the kernels launch, on CPU tensors their plain versions run. The
+relaxation solves agree bit for bit between "whole" and "on".
+``precond="kmg"`` raises ``NotImplementedError``.
+
+``return_info=True`` residuals cost no extra matvec: pcg returns the
+recursively updated ``r``, and the relaxation sweeps carry
+``k_d = Khat_d^{-1} x_d``, from which ``v - k - (sum_d x_d)/sigma^2`` is
+the exit residual elementwise (an explicit matvec only for iters == 0).
 """
 from __future__ import annotations
 
@@ -21,18 +36,21 @@ from .banded import Banded, matvec, solve
 
 __all__ = ["SolveConfig", "SolveInfo", "DimOps", "solve_mhat", "mhat_matvec"]
 
+METHODS = ("gauss_seidel", "jacobi", "pcg")
+
 
 @dataclasses.dataclass(frozen=True)
 class SolveConfig:
-    method: str = "pcg"  # only "pcg" is ported
+    method: str = "pcg"  # "gauss_seidel" | "jacobi" | "pcg"
     iters: int = 30
-    pivot: bool = False
+    damping: float = 0.0  # jacobi under-relaxation; 0 -> 1/D
+    pivot: bool = False  # pivoted block solves
     # pcg early exit: stop once every column has |rz_k| <= tol^2 |rz_0|;
-    # 0 -> fixed iteration count
+    # 0 -> fixed iteration count; the relaxation methods always run `iters`
     tol: float = 0.0
     backend: str = "auto"
     alg: str = "auto"
-    fused: str = "auto"  # "auto" | "whole": the whole-solve kernel
+    fused: str = "auto"  # "auto" | "whole" | "on" | "off"
     precond: str = "none"  # "none" (block preconditioner)
 
 
@@ -41,7 +59,7 @@ class SolveInfo(NamedTuple):
 
     iters: torch.Tensor  # iterations executed (== cfg.iters unless tol fired)
     n_active: torch.Tensor  # system size the solve ran over
-    resid: torch.Tensor  # L2 norm of v - Mhat x at exit (the carried r)
+    resid: torch.Tensor  # L2 norm of v - Mhat x at exit
     rhs: torch.Tensor  # L2 norm of v
     verdict: torch.Tensor  # int32 health code
 
@@ -81,27 +99,28 @@ class DimOps:
     def from_sorted(self, u):
         return self._permute(u, self.rank_idx)
 
-    def khat_inv_mv(self, u, backend: str | None = None,
+    def khat_inv_mv(self, u, pivot: bool = False, backend: str | None = None,
                     alg: str | None = None):
         """Khat^{-1} u = P^T Phi^{-1} A P u (per dim), u: (D, n, B)."""
         w = solve(self.Phi, matvec(self.A, self.to_sorted(u), backend=backend),
-                  pivot=False, backend=backend, alg=alg)
+                  pivot=pivot, backend=backend, alg=alg)
         return self.from_sorted(w)
 
-    def block_solve(self, r, backend: str | None = None,
+    def block_solve(self, r, pivot: bool = False, backend: str | None = None,
                     alg: str | None = None):
         """(Khat^{-1} + sigma^{-2} I)^{-1} r = sigma^2 P^T SAPhi^{-1} Phi P r."""
         y = matvec(self.Phi, self.to_sorted(r), backend=backend)
-        w = self.sigma2 * solve(self.SAPhi, y, pivot=False, backend=backend,
+        w = self.sigma2 * solve(self.SAPhi, y, pivot=pivot, backend=backend,
                                 alg=alg)
         return self.from_sorted(w)
 
 
-def mhat_matvec(ops: DimOps, u, backend: str | None = None,
-                alg: str | None = None):
+def mhat_matvec(ops: DimOps, u, pivot: bool = False,
+                backend: str | None = None, alg: str | None = None):
     """Mhat u = Khat^{-1} u + sigma^{-2} S S^T u; u: (D, n, B)."""
     ssT = tree_sum(u, axis=0)[None]
-    return ops.khat_inv_mv(u, backend=backend, alg=alg) + ssT / ops.sigma2
+    return ops.khat_inv_mv(u, pivot=pivot, backend=backend,
+                           alg=alg) + ssT / ops.sigma2
 
 
 def _det_dot(a, b):
@@ -110,46 +129,235 @@ def _det_dot(a, b):
 
 
 def check_solve_config(cfg: SolveConfig) -> None:
-    """Raise ``NotImplementedError`` for solve paths the port lacks."""
-    if cfg.method in ("gauss_seidel", "jacobi"):
-        raise NotImplementedError(
-            f"solver={cfg.method!r} is not ported yet (ROADMAP Queue 2, "
-            "kernels #7/#8/#10/#11); use solver='pcg'")
-    if cfg.method != "pcg":
+    """Reject unknown values, and raise ``NotImplementedError`` for kmg
+    (``kernels.ops.resolve_fused`` raises it for the per-iteration PCG
+    kernel)."""
+    from ..kernels import ops as _kops
+
+    if cfg.method not in METHODS:
         raise ValueError(f"unknown method {cfg.method!r}")
-    if cfg.fused in ("on", "off"):
-        raise NotImplementedError(
-            f"fused={cfg.fused!r} is not ported yet (ROADMAP Queue 2, kernel "
-            "#9 and the unfused dispatch path); every pcg solve takes the "
-            "whole-solve kernel (fused='auto' or 'whole')")
-    if cfg.fused not in ("auto", "whole"):
+    if cfg.fused not in _kops.FUSED_MODES:
         raise ValueError(f"unknown fused mode {cfg.fused!r}")
-    if cfg.pivot:
-        raise NotImplementedError(
-            "pivot=True is not ported yet (ROADMAP Queue 1, pivoted solves)")
+    if cfg.precond not in ("none", "auto", "kmg"):
+        raise ValueError(f"unknown precond {cfg.precond!r}")
+    if cfg.precond == "kmg" and cfg.method != "pcg":
+        raise ValueError(
+            f"precond='kmg' applies to method='pcg' only (got "
+            f"{cfg.method!r}); use precond='none' for relaxation sweeps")
     if cfg.precond == "kmg":
         raise NotImplementedError(
             "precond='kmg' is not ported yet (ROADMAP Queue 1, precond/); "
             "pass precond='none'")
-    if cfg.precond not in ("none", "auto"):
-        raise ValueError(f"unknown precond {cfg.precond!r}")
+
+
+def fused_mode(cfg: SolveConfig, a, phi, saphi) -> str:
+    """``cfg.fused`` resolved for a solve over bands of (lo, hi) widths
+    ``a``, ``phi``, ``saphi``: "whole" | "on" | "off". The fused kernels
+    read A only for pcg and solve Phi and SAPhi by block CR only (w = 0 is
+    a division), so an explicit alg="lu" keeps the unfused path."""
+    from ..kernels import ops as _kops
+
+    cr_ok = all(lo != hi or lo == 0
+                or _kops.resolve_solve_alg(cfg.alg, lo, hi) == "cr"
+                for lo, hi in (phi, saphi))
+    widths = ([a] if cfg.method == "pcg" else []) + [phi, saphi]
+    return _kops.resolve_fused(cfg.fused, widths=widths, method=cfg.method,
+                               cr_ok=cr_ok, precond=cfg.precond)
+
+
+def _maybe_fused(ops: DimOps, v, cfg: SolveConfig):
+    """Resolve ``cfg.fused`` for this solve: ``(mode, FusedSweep|None)``,
+    mode "whole" | "on" | "off" (the FusedSweep is None when off)."""
+    from ..kernels.fused_sweep import FusedSweep
+
+    need_a = cfg.method == "pcg"
+    mode = fused_mode(cfg, *((b.lo, b.hi) for b in (ops.A, ops.Phi,
+                                                     ops.SAPhi)))
+    if mode == "off":
+        return "off", None
+    return mode, FusedSweep(
+        ops.Phi.data, ops.SAPhi.data, ops.sort_idx, ops.rank_idx, ops.sigma2,
+        w_p=ops.Phi.lo, w_s=ops.SAPhi.lo,
+        a=ops.A.data if need_a else None, w_a=ops.A.lo, pivot=cfg.pivot,
+        backend=cfg.backend)
+
+
+def _kinv0(ops: DimOps, x0, cfg: SolveConfig):
+    """Khat^{-1} x0 from the factors in hand (the warm unfused jacobi carry):
+    P^T Phi^{-1} SAPhi P x0 = sigma^2 Khat^{-1} x0 + x0."""
+    x0s = ops.to_sorted(x0)
+    w = solve(ops.Phi, matvec(ops.SAPhi, x0s, backend=cfg.backend),
+              pivot=cfg.pivot, backend=cfg.backend, alg=cfg.alg)
+    return (ops.from_sorted(w) - x0) / ops.sigma2
+
+
+def _resid_from_k(ops: DimOps, v, out, k):
+    """Exit-residual norm from the carried Khat_d^{-1} x_d stack:
+    r = v - k - (sum_d x_d) / sigma^2, elementwise only."""
+    r = v - k - tree_sum(out, axis=0)[None] / ops.sigma2
+    return torch.sqrt(tree_sum(_det_dot(r, r), axis=0))
+
+
+def _gauss_seidel(ops: DimOps, v, cfg: SolveConfig, x0=None,
+                  want_resid: bool = False):
+    """Algorithm 4: block Gauss-Seidel sweeps, sequential over dimensions.
+
+    Returns ``(out, resid|None)``; the residual depends only on the final
+    sweep, so ``want_resid`` instruments just that sweep (None when
+    ``cfg.iters == 0``: the caller falls back to an explicit matvec).
+    """
+    vt = torch.zeros_like(v) if x0 is None else x0
+    want_resid = want_resid and cfg.iters > 0
+
+    mode, fs = _maybe_fused(ops, v, cfg)
+    if mode == "whole":
+        from ..kernels.mega_solve import MegaSolve
+
+        out, k = MegaSolve(fs).gauss_seidel(v, x0, iters=cfg.iters)
+        return out, (_resid_from_k(ops, v, out, k) if want_resid else None)
+    if fs is not None:
+        v_p = fs.pad_state(v)
+        u = fs.pad_state(vt)
+        for _ in range(cfg.iters - 1 if want_resid else cfg.iters):
+            u = fs.gauss_seidel_iter(v_p, u)
+        if want_resid:
+            u, k = fs.gauss_seidel_iter(v_p, u, want_resid=True)
+            out = fs.unpad(u)
+            return out, _resid_from_k(ops, v, out, fs.unpad(k))
+        return fs.unpad(u), None
+
+    kw = dict(pivot=cfg.pivot, backend=cfg.backend, alg=cfg.alg)
+
+    def solve_one_dim(d, r_d):
+        # one dimension's block solve, r_d: (n, B)
+        saphi = Banded(ops.SAPhi.data[d], ops.SAPhi.lo, ops.SAPhi.hi)
+        phi = Banded(ops.Phi.data[d], ops.Phi.lo, ops.Phi.hi)
+        rs = r_d[ops.sort_idx[d]]
+        w = ops.sigma2 * solve(saphi, matvec(phi, rs, backend=cfg.backend),
+                               **kw)
+        return w[ops.rank_idx[d]]
+
+    def sweep(vt, instrument=False):
+        total = tree_sum(vt, axis=0)
+        vt = vt.clone()
+        ks = []
+        for d in range(ops.D):
+            r_d = v[d] - (total - vt[d]) / ops.sigma2
+            new_d = solve_one_dim(d, r_d)
+            total = total - vt[d] + new_d
+            vt[d] = new_d
+            if instrument:
+                # exact by the block solve: Khat_d^{-1} new_d = r_d - new_d/s^2
+                ks.append(r_d - new_d / ops.sigma2)
+        return (vt, torch.stack(ks)) if instrument else vt
+
+    for _ in range(cfg.iters - 1 if want_resid else cfg.iters):
+        vt = sweep(vt)
+    if want_resid:
+        vt, k = sweep(vt, instrument=True)
+        return vt, _resid_from_k(ops, v, vt, k)
+    return vt, None
+
+
+def _jacobi(ops: DimOps, v, cfg: SolveConfig, x0=None,
+            want_resid: bool = False):
+    """Damped block Jacobi: all D block solves at once, alpha = damping or
+    1/D (the iteration matrix's eigenvalues lie in (-(D-1), 1]).
+
+    Returns ``(out, resid|None)``; ``want_resid`` carries the damped
+    ``k ~ Khat^{-1} x`` stack through every sweep, from ``Khat^{-1} x0`` on
+    a warm start.
+    """
+    vt = torch.zeros_like(v) if x0 is None else x0
+    alpha = cfg.damping if cfg.damping > 0 else 1.0 / ops.D
+    want_resid = want_resid and cfg.iters > 0
+
+    mode, fs = _maybe_fused(ops, v, cfg)
+    if mode == "whole":
+        from ..kernels.mega_solve import MegaSolve
+
+        out, k = MegaSolve(fs).jacobi(v, x0, alpha=alpha, iters=cfg.iters)
+        return out, (_resid_from_k(ops, v, out, k) if want_resid else None)
+    if fs is not None:
+        v_p = fs.pad_state(v)
+        u = fs.pad_state(vt)
+        if not want_resid:
+            for _ in range(cfg.iters):
+                u = fs.jacobi_iter(v_p, u, alpha)
+            return fs.unpad(u), None
+        # the first sweep seeds k as the whole solve does: Khat^{-1} x0 on
+        # a warm start, zero on a cold one
+        if x0 is None:
+            u, k = fs.jacobi_iter(v_p, u, alpha, k=torch.zeros_like(u))
+        else:
+            u, k = fs.jacobi_iter(v_p, u, alpha, warm=True)
+        for _ in range(cfg.iters - 1):
+            u, k = fs.jacobi_iter(v_p, u, alpha, k=k)
+        out = fs.unpad(u)
+        return out, _resid_from_k(ops, v, out, fs.unpad(k))
+
+    def sweep(vt):
+        total = tree_sum(vt, axis=0)[None]
+        r = v - (total - vt) / ops.sigma2
+        new = ops.block_solve(r, pivot=cfg.pivot, backend=cfg.backend,
+                              alg=cfg.alg)
+        return (1.0 - alpha) * vt + alpha * new, r, new
+
+    if not want_resid:
+        for _ in range(cfg.iters):
+            vt = sweep(vt)[0]
+        return vt, None
+    k = torch.zeros_like(v) if x0 is None else _kinv0(ops, x0, cfg)
+    for _ in range(cfg.iters):
+        vt, r, new = sweep(vt)
+        k = (1.0 - alpha) * k + alpha * (r - new / ops.sigma2)
+    return vt, _resid_from_k(ops, v, vt, k)
 
 
 def _pcg(ops: DimOps, v, cfg: SolveConfig, x0=None):
-    """Whole-solve PCG; returns ``(x, iters_used, resid)``."""
-    from ..kernels.fused_sweep import FusedSweep
-    from ..kernels.mega_solve import MegaSolve
+    """Preconditioned CG on Mhat x = v with the block preconditioner;
+    returns ``(x, iters_used, resid)``. With ``cfg.tol > 0`` the loop exits
+    once every column has ``|rz_k| <= tol^2 |rz_0|``."""
+    mode, fs = _maybe_fused(ops, v, cfg)
+    if mode == "whole":
+        from ..kernels.mega_solve import MegaSolve
 
-    for b in (ops.A, ops.Phi, ops.SAPhi):
-        if b.lo != b.hi:
-            raise ValueError("the whole-solve kernel needs symmetric bands")
-    fs = FusedSweep(ops.Phi.data, ops.SAPhi.data, ops.sort_idx, ops.rank_idx,
-                    ops.sigma2, w_p=ops.Phi.lo, w_s=ops.SAPhi.lo,
-                    a=ops.A.data, w_a=ops.A.lo)
-    x, r_fin, iters_used = MegaSolve(fs).pcg(v, x0, iters=cfg.iters,
-                                             tol=cfg.tol, backend=cfg.backend)
-    resid = torch.sqrt(tree_sum(_det_dot(r_fin, r_fin), axis=0))
-    return x, iters_used, resid
+        x, r_fin, iters_used = MegaSolve(fs).pcg(v, x0, iters=cfg.iters,
+                                                 tol=cfg.tol)
+        resid = torch.sqrt(tree_sum(_det_dot(r_fin, r_fin), axis=0))
+        return x, iters_used, resid
+
+    kw = dict(pivot=cfg.pivot, backend=cfg.backend, alg=cfg.alg)
+
+    def amv(u):
+        return mhat_matvec(ops, u, **kw)
+
+    def pre(u):
+        return ops.block_solve(u, **kw)
+
+    x = torch.zeros_like(v) if x0 is None else x0
+    # amv(0) == 0 exactly: a cold start skips it
+    r = v if x0 is None else v - amv(x0)
+    z = pre(r)
+    p = z
+    rz = _det_dot(r, z)
+    thresh = cfg.tol ** 2 * torch.abs(rz)
+    i = 0
+    while i < cfg.iters and (cfg.tol <= 0
+                             or bool((torch.abs(rz) > thresh).any())):
+        ap = amv(p)
+        denom = _det_dot(p, ap)
+        alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = pre(r)
+        rz_new = _det_dot(r, z)
+        beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
+        p = z + beta * p
+        rz = rz_new
+        i += 1
+    resid = torch.sqrt(tree_sum(_det_dot(r, r), axis=0))
+    return x, torch.tensor(i, dtype=torch.int32, device=v.device), resid
 
 
 def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
@@ -160,6 +368,8 @@ def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
     :class:`SolveInfo` with the realized iteration count and the verdict.
     """
     check_solve_config(cfg)
+    if cfg.precond == "auto":  # no hierarchy at a raw solve: block precond
+        cfg = dataclasses.replace(cfg, precond="none")
     vec_in = v.ndim == 2
     if vec_in:
         v = v[..., None]
@@ -167,10 +377,22 @@ def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
     dtype = torch.promote_types(v.dtype, ops.SAPhi.data.dtype)
     v = v.to(dtype)
     x0 = None if x0 is None else x0.to(dtype)
-    out, iters_used, resid = _pcg(ops, v, cfg, x0)
+    iters_used = torch.tensor(cfg.iters, dtype=torch.int32, device=v.device)
+    if cfg.method == "gauss_seidel":
+        out, resid = _gauss_seidel(ops, v, cfg, x0, want_resid=return_info)
+    elif cfg.method == "jacobi":
+        out, resid = _jacobi(ops, v, cfg, x0, want_resid=return_info)
+    else:
+        out, iters_used, resid = _pcg(ops, v, cfg, x0)
     result = out[..., 0] if vec_in else out
     if not return_info:
         return result
+    if resid is None:
+        # only the degenerate iters == 0 relaxation solve reaches here (the
+        # sweeps otherwise carry their own residual): one explicit matvec
+        r = v - mhat_matvec(ops, out, pivot=cfg.pivot, backend=cfg.backend,
+                            alg=cfg.alg)
+        resid = torch.sqrt(tree_sum(_det_dot(r, r), axis=0))
     rhs_norm = torch.sqrt(tree_sum(_det_dot(v, v), axis=0))
     verdict = classify_solve(out, resid, rhs_norm,
                              at_cap=iters_used >= cfg.iters)

@@ -16,8 +16,9 @@
 // the elimination of cr.cuh, so G = 10 matrices occupy 10 of the 132 SMs.
 //
 // Design: the elimination is the device function shared with the
-// whole-solve kernel (cr.cuh), instantiated for W in {1, 2, 3}, pivoted or
-// not, solving or log-determinant only. The wrapper pads n to whole blocks
+// whole-solve kernels (cr.cuh), instantiated for W in {1, 2, 3, 4} (W = 4:
+// the generalized-KP B at q = 2), pivoted or not, solving or
+// log-determinant only. The wrapper pads n to whole blocks
 // with identity rows and copies the right-hand sides into the output, which
 // the elimination overwrites with x in place; the block triples live in a
 // workspace the wrapper allocates.
@@ -68,12 +69,13 @@ cudaError_t launch(const double* band, double* x, double* ld, double* work,
 extern "C" int repro_block_cr_f64(const double* band, double* x, double* ld,
                                   double* work, int G, int npad, int w, int B,
                                   int pivot, int solve, void* stream) {
-  if (G < 1 || npad < 1 || w < 1 || w > 3 || npad % w || B < 1)
+  if (G < 1 || npad < 1 || w < 1 || w > 4 || npad % w || B < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (w) {
     case 1: return (int)launch<1>(band, x, ld, work, G, npad, B, pivot, solve, st);
     case 2: return (int)launch<2>(band, x, ld, work, G, npad, B, pivot, solve, st);
-    default: return (int)launch<3>(band, x, ld, work, G, npad, B, pivot, solve, st);
+    case 3: return (int)launch<3>(band, x, ld, work, G, npad, B, pivot, solve, st);
+    default: return (int)launch<4>(band, x, ld, work, G, npad, B, pivot, solve, st);
   }
 }

@@ -2,8 +2,9 @@
 // one thread block.
 //
 // Replaces: src/repro/kernels/block_cr.py, cr_solve_values, the body that
-// both the standalone launch (block_cr.cu) and the whole-solve kernel
-// (mega_pcg.cu) call. The band (lo = hi = W) is
+// the standalone launch (block_cr.cu) and the backfitting kernels
+// (mega_pcg.cu, jacobi.cu, gauss_seidel.cu, through sweep.cuh) call. The
+// band (lo = hi = W) is
 // viewed as block-tridiagonal with W x W blocks
 //     A_i x_{i-1} + B_i x_i + C_i x_{i+1} = r_i,   i = 0..nb-1,
 // and eliminated in ceil(log2 nb) levels: at stride s = 2^k every even row
@@ -24,8 +25,8 @@
 // 0 and the back substitution); SOLVE = false skips every right-hand-side
 // update (log-determinant only); LOGDET reduces log|det| = sum_i log|det B_i|
 // over the frozen blocks, per thread and then in a fixed tree order across
-// the block, so the value does not depend on scheduling. The whole-solve
-// kernel uses the default <W, false, true, false>.
+// the block, so the value does not depend on scheduling. The backfitting
+// kernels use <W, PIVOT, true, false>.
 #pragma once
 
 #include "common.cuh"
@@ -95,17 +96,22 @@ __device__ __forceinline__ void cr_coef(const double* Ab, const double* Bb,
 }
 
 // Solve with the band (npad, 2W+1) (row-aligned, identity-padded to whole
-// blocks) against R (npad, B), in place: R holds x on return (SOLVE only).
-// Ab/Bb/Cb are (npad / W, W, W) scratch. With LOGDET, *ld receives
-// log|det| and `red` is shared scratch of blockDim.x doubles (a power of
-// two). Every thread of the block must call this.
+// blocks) against the B columns of R (npad rows, row stride ldr; ldr = 0
+// means B), in place: R holds x on return (SOLVE only). The columns are
+// independent, so a caller may hand disjoint column ranges of one system to
+// different blocks, each with its own scratch: every block recomputes the
+// same block values. Ab/Bb/Cb are (npad / W, W, W) scratch. With LOGDET,
+// *ld receives log|det| and `red` is shared scratch of blockDim.x doubles (a
+// power of two). Every thread of the block must call this.
 template <int W, bool PIVOT = false, bool SOLVE = true, bool LOGDET = false>
 __device__ void cr_block_solve(const double* band, double* R, double* Ab,
                                double* Bb, double* Cb, int npad, int B,
-                               double* ld = nullptr, double* red = nullptr) {
+                               double* ld = nullptr, double* red = nullptr,
+                               int ldr = 0) {
   constexpr int WW = W * W;
   constexpr int WB = 2 * W + 1;
   const int nb = npad / W;
+  const long long L = ldr > 0 ? ldr : B;  // row stride of R
   const int steps = nb > 1 ? 32 - __clz(nb - 1) : 0;
 
   // band -> block triples
@@ -138,9 +144,9 @@ __device__ void cr_block_solve(const double* band, double* R, double* Ab,
       double ri[W], rm[W], rp[W];
 #pragma unroll
       for (int r = 0; r < W; ++r) {
-        ri[r] = R[(long long)(i * W + r) * B + b];
-        rm[r] = (i - s >= 0) ? R[(long long)((i - s) * W + r) * B + b] : 0.0;
-        rp[r] = (i + s < nb) ? R[(long long)((i + s) * W + r) * B + b] : 0.0;
+        ri[r] = R[(long long)(i * W + r) * L + b];
+        rm[r] = (i - s >= 0) ? R[(long long)((i - s) * W + r) * L + b] : 0.0;
+        rp[r] = (i + s < nb) ? R[(long long)((i + s) * W + r) * L + b] : 0.0;
       }
 #pragma unroll
       for (int r = 0; r < W; ++r) {
@@ -150,7 +156,7 @@ __device__ void cr_block_solve(const double* band, double* R, double* Ab,
           am += alpha[r][c] * rm[c];
           bp += beta[r][c] * rp[c];
         }
-        R[(long long)(i * W + r) * B + b] = ri[r] + am + bp;
+        R[(long long)(i * W + r) * L + b] = ri[r] + am + bp;
       }
     }
     __syncthreads();
@@ -216,10 +222,10 @@ __device__ void cr_block_solve(const double* band, double* R, double* Ab,
     double B0[W][W], r0[W][1], x0[W][1];
     load_block<W>(Bb, B0);
 #pragma unroll
-    for (int r = 0; r < W; ++r) r0[r][0] = R[(long long)r * B + b];
+    for (int r = 0; r < W; ++r) r0[r][0] = R[(long long)r * L + b];
     cr_small_solve<W, 1, PIVOT>(B0, r0, x0);
 #pragma unroll
-    for (int r = 0; r < W; ++r) R[(long long)r * B + b] = x0[r][0];
+    for (int r = 0; r < W; ++r) R[(long long)r * L + b] = x0[r][0];
   }
   __syncthreads();
 
@@ -236,8 +242,8 @@ __device__ void cr_block_solve(const double* band, double* R, double* Ab,
       load_block<W>(Bb + (long long)i * WW, Bi);
 #pragma unroll
       for (int r = 0; r < W; ++r) {
-        xm[r] = R[(long long)((i - s) * W + r) * B + b];
-        xp[r] = (i + s < nb) ? R[(long long)((i + s) * W + r) * B + b] : 0.0;
+        xm[r] = R[(long long)((i - s) * W + r) * L + b];
+        xp[r] = (i + s < nb) ? R[(long long)((i + s) * W + r) * L + b] : 0.0;
       }
 #pragma unroll
       for (int r = 0; r < W; ++r) {
@@ -247,11 +253,11 @@ __device__ void cr_block_solve(const double* band, double* R, double* Ab,
           am += Ai[r][c] * xm[c];
           cp += Ci[r][c] * xp[c];
         }
-        rk[r][0] = R[(long long)(i * W + r) * B + b] - am - cp;
+        rk[r][0] = R[(long long)(i * W + r) * L + b] - am - cp;
       }
       cr_small_solve<W, 1, PIVOT>(Bi, rk, xi);
 #pragma unroll
-      for (int r = 0; r < W; ++r) R[(long long)(i * W + r) * B + b] = xi[r][0];
+      for (int r = 0; r < W; ++r) R[(long long)(i * W + r) * L + b] = xi[r][0];
     }
     __syncthreads();
   }

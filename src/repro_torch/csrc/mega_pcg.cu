@@ -27,25 +27,24 @@
 // the partials in the same order, so all blocks hold identical scalars and
 // take the same loop exits. The banded solves with half-width w >= 1 run
 // the block cyclic reduction device function (cr.cuh), one block per
-// dimension; w = 0 is a division.
+// dimension; w = 0 is a division. The thread map and the gathered matvec
+// come from sweep.cuh, shared with the relaxation kernels; PIVOT selects the
+// pivoted block solves (SolveConfig.pivot).
 #include <cooperative_groups.h>
 
-#include "common.cuh"
-#include "cr.cuh"
+#include "sweep.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int NT = 256;       // threads per block; also the largest B
+constexpr int NT = repro::SWEEP_NT;  // threads per block; also the largest B
 constexpr int MAX_BLOCKS_PER_SM = 4;
 
-struct Args {
+struct Args : repro::SweepDims {
   const double* a;
   const double* phi;
   const double* saphi;
-  const int* sort;
-  const int* rank;
   const double* sigma2;
   const double* v;
   const double* x0;
@@ -63,48 +62,13 @@ struct Args {
   double* part1;
   int* iters_out;
   long long sstride;  // CR scratch doubles per dimension
-  int D, npad, B, w_a, w_p, w_s, iters, warm;
+  int w_a, w_p, w_s, iters, warm;
   double tol;
 };
 
-// thread -> (column b, first row lane, row stride) for elementwise phases
-struct Map {
-  int b;
-  long long r0, rs;
-  bool on;
-};
-
-__device__ __forceinline__ Map make_map(int B) {
-  const int rp = NT / B;
-  Map m;
-  m.on = threadIdx.x < rp * B;
-  m.b = threadIdx.x % B;
-  m.r0 = (long long)blockIdx.x * rp + threadIdx.x / B;
-  m.rs = (long long)gridDim.x * rp;
-  return m;
-}
-
-// dst[d,i,b] = sum_m band[d,i,w+m] * src[d, sort[d,i+m], b]
-__device__ void gather_mv(const Args& A, const Map& m, double* dst,
-                          const double* src, const double* band, int w) {
-  if (!m.on) return;
-  const long long rows = (long long)A.D * A.npad;
-  const int B = A.B, wb = 2 * w + 1;
-  for (long long row = m.r0; row < rows; row += m.rs) {
-    const int d = (int)(row / A.npad);
-    const int i = (int)(row - (long long)d * A.npad);
-    const double* brow = band + row * wb;
-    const int* sd = A.sort + (long long)d * A.npad;
-    const double* sdim = src + (long long)d * A.npad * B;
-    double acc = 0.0;
-    for (int k = -w; k <= w; ++k) {
-      const int ii = i + k;
-      if (ii < 0 || ii >= A.npad) continue;
-      acc += brow[w + k] * sdim[(long long)sd[ii] * B + m.b];
-    }
-    dst[row * B + m.b] = acc;
-  }
-}
+using repro::gather_mv;
+using repro::make_map;
+using repro::Map;
 
 // tp[i,b] = sum_d u[d,i,b]
 __device__ void sum_dims(const Args& A, const Map& m, const double* u) {
@@ -119,6 +83,7 @@ __device__ void sum_dims(const Args& A, const Map& m, const double* u) {
 }
 
 // t <- band^{-1} t per dimension (band half-width w, symmetric)
+template <bool PIVOT>
 __device__ void solve_phase(const Args& A, const Map& m, double* t,
                             const double* band, int w) {
   const int B = A.B;
@@ -138,9 +103,9 @@ __device__ void solve_phase(const Args& A, const Map& m, double* t,
     double* bb = A.Bb + d * A.sstride;
     double* cb = A.Cb + d * A.sstride;
     switch (w) {
-      case 1: repro::cr_block_solve<1>(bd, td, ab, bb, cb, A.npad, B); break;
-      case 2: repro::cr_block_solve<2>(bd, td, ab, bb, cb, A.npad, B); break;
-      default: repro::cr_block_solve<3>(bd, td, ab, bb, cb, A.npad, B); break;
+      case 1: repro::cr_block_solve<1, PIVOT>(bd, td, ab, bb, cb, A.npad, B); break;
+      case 2: repro::cr_block_solve<2, PIVOT>(bd, td, ab, bb, cb, A.npad, B); break;
+      default: repro::cr_block_solve<3, PIVOT>(bd, td, ab, bb, cb, A.npad, B); break;
     }
   }
 }
@@ -170,6 +135,7 @@ __device__ void grid_total(const Args& A, const double* part, double* out) {
   __syncthreads();
 }
 
+template <bool PIVOT>
 __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh[NT];
@@ -193,7 +159,7 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
   }
   grid.sync();
   if (A.warm) {
-    solve_phase(A, m, A.t1, A.phi, A.w_p);
+    solve_phase<PIVOT>(A, m, A.t1, A.phi, A.w_p);
     grid.sync();
     if (m.on) {
       for (long long row = m.r0; row < rows; row += m.rs) {
@@ -210,7 +176,7 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
   // z = M_pre^{-1} r; p = z; rz = <r, z>
   gather_mv(A, m, A.t1, A.r, A.phi, A.w_p);
   grid.sync();
-  solve_phase(A, m, A.t1, A.saphi, A.w_s);
+  solve_phase<PIVOT>(A, m, A.t1, A.saphi, A.w_s);
   grid.sync();
   {
     double acc = 0.0;
@@ -246,7 +212,7 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
     sum_dims(A, m, A.p);
     gather_mv(A, m, A.t1, A.p, A.a, A.w_a);
     grid.sync();
-    solve_phase(A, m, A.t1, A.phi, A.w_p);
+    solve_phase<PIVOT>(A, m, A.t1, A.phi, A.w_p);
     grid.sync();
     {
       double acc = 0.0;
@@ -284,7 +250,7 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
     // z = M_pre^{-1} r, rz_new = <r, z>
     gather_mv(A, m, A.t1, A.r, A.phi, A.w_p);
     grid.sync();
-    solve_phase(A, m, A.t1, A.saphi, A.w_s);
+    solve_phase<PIVOT>(A, m, A.t1, A.saphi, A.w_s);
     grid.sync();
     {
       double acc = 0.0;
@@ -322,19 +288,11 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
   if (blockIdx.x == 0 && threadIdx.x == 0) *A.iters_out = it;
 }
 
-int grid_blocks(int* out) {
-  int dev = 0, sms = 0, coop = 0, per = 0;
-  REPRO_RETURN_IF_ERR(cudaGetDevice(&dev));
-  REPRO_RETURN_IF_ERR(
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  REPRO_RETURN_IF_ERR(
-      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev));
-  if (!coop) return (int)cudaErrorNotSupported;
-  REPRO_RETURN_IF_ERR(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per, mega_pcg_kernel, NT, 0));
-  if (per < 1) return (int)cudaErrorLaunchOutOfResources;
-  *out = sms * (per < MAX_BLOCKS_PER_SM ? per : MAX_BLOCKS_PER_SM);
-  return 0;
+int grid_blocks(bool pivot, int* out) {
+  return pivot ? repro::cooperative_blocks(mega_pcg_kernel<true>,
+                                           MAX_BLOCKS_PER_SM, out)
+               : repro::cooperative_blocks(mega_pcg_kernel<false>,
+                                           MAX_BLOCKS_PER_SM, out);
 }
 
 long long scratch_stride(int npad, int w_p, int w_s) {
@@ -346,9 +304,9 @@ long long scratch_stride(int npad, int w_p, int w_s) {
 
 // Number of float64 workspace entries the solve needs (negative: -error).
 extern "C" long long repro_mega_pcg_workspace(int D, int npad, int B, int w_p,
-                                              int w_s) {
+                                              int w_s, int pivot) {
   int grid = 0;
-  const int err = grid_blocks(&grid);
+  const int err = grid_blocks(pivot != 0, &grid);
   if (err) return -(long long)err;
   const long long N = (long long)D * npad * B;
   return 4 * N + (long long)npad * B + 3 * D * scratch_stride(npad, w_p, w_s) +
@@ -362,14 +320,14 @@ extern "C" int repro_mega_pcg_f64(const double* a, const double* phi,
                                   double* r, int* iters_out, double* work,
                                   int D, int npad, int B, int w_a, int w_p,
                                   int w_s, int iters, double tol, int warm,
-                                  void* stream) {
+                                  int pivot, void* stream) {
   if (D < 1 || npad < 1 || B < 1 || B > NT || w_a < 0 || w_p < 0 ||
       w_s < 0 || w_a > 3 || w_p > 3 || w_s > 3 || iters < 0)
     return (int)cudaErrorInvalidValue;
   if ((w_p > 0 && npad % w_p) || (w_s > 0 && npad % w_s))
     return (int)cudaErrorInvalidValue;
   int grid = 0;
-  const int err = grid_blocks(&grid);
+  const int err = grid_blocks(pivot != 0, &grid);
   if (err) return err;
   const long long N = (long long)D * npad * B;
   const long long ss = scratch_stride(npad, w_p, w_s);
@@ -391,8 +349,9 @@ extern "C" int repro_mega_pcg_f64(const double* a, const double* phi,
   A.D = D; A.npad = npad; A.B = B; A.w_a = w_a; A.w_p = w_p; A.w_s = w_s;
   A.iters = iters; A.warm = warm; A.tol = tol;
   void* params[] = {&A};
+  const void* fn = pivot ? (const void*)mega_pcg_kernel<true>
+                         : (const void*)mega_pcg_kernel<false>;
   REPRO_RETURN_IF_ERR(cudaLaunchCooperativeKernel(
-      (void*)mega_pcg_kernel, dim3(grid), dim3(NT), params, 0,
-      (cudaStream_t)stream));
+      fn, dim3(grid), dim3(NT), params, 0, (cudaStream_t)stream));
   return (int)cudaGetLastError();
 }

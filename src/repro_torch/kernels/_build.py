@@ -30,13 +30,14 @@ __all__ = ["load_library", "build_library", "check", "expect",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("banded_lu.cu", "band_matmul.cu", "rgf.cu", "mega_pcg.cu",
-           "banded_matvec.cu", "block_cr.cu")
-HEADERS = ("common.cuh", "cr.cuh")
+           "banded_matvec.cu", "block_cr.cu", "jacobi.cu", "gauss_seidel.cu")
+HEADERS = ("common.cuh", "cr.cuh", "sweep.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
-           "banded_matvec", "block_cr")
+           "banded_matvec", "block_cr", "fused_jacobi_iter",
+           "fused_gauss_seidel_iter", "mega_jacobi", "mega_gauss_seidel")
 
 _c_int, _c_ll, _c_dbl, _ptr = (ctypes.c_int, ctypes.c_longlong,
                                 ctypes.c_double, ctypes.c_void_p)
@@ -50,12 +51,17 @@ _SIGNATURES = {
     "repro_rgf_blocks_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                                       _ptr, _ptr, _c_int, _c_int, _c_int,
                                       _ptr]),
-    "repro_mega_pcg_workspace": (_c_ll, [_c_int, _c_int, _c_int, _c_int,
-                                         _c_int]),
+    "repro_mega_pcg_workspace": (_c_ll, [_c_int] * 6),
     "repro_mega_pcg_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                                     _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                                     _c_int, _c_int, _c_int, _c_int, _c_int,
-                                    _c_int, _c_int, _c_dbl, _c_int, _ptr]),
+                                    _c_int, _c_int, _c_dbl, _c_int, _c_int,
+                                    _ptr]),
+    "repro_jacobi_workspace": (_c_ll, [_c_int] * 6),
+    "repro_jacobi_f64": (_c_int, [_ptr] * 11 + [_c_int] * 6
+                         + [_c_dbl, _c_int, _c_int, _ptr]),
+    "repro_gauss_seidel_workspace": (_c_ll, [_c_int] * 5),
+    "repro_gauss_seidel_f64": (_c_int, [_ptr] * 10 + [_c_int] * 7 + [_ptr]),
     "repro_banded_matvec_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int,
                                          _c_int, _c_int, _c_int, _ptr]),
     "repro_block_cr_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _c_int, _c_int,

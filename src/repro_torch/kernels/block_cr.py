@@ -16,7 +16,8 @@ runs the ``w x w`` block solves with partial pivoting inside each block.
 
 On the card the elimination is the device function ``csrc/cr.cuh``: the
 standalone launch is ``csrc/block_cr.cu`` (one thread block per matrix),
-and the whole-solve kernel (``csrc/mega_pcg.cu``) calls the same function.
+and the backfitting kernels (``csrc/mega_pcg.cu``, ``jacobi.cu``,
+``gauss_seidel.cu``, through ``csrc/sweep.cuh``) call the same function.
 The wrappers launch it for CUDA tensors and run :func:`block_cr_plain` for
 CPU tensors.
 """
@@ -30,7 +31,7 @@ from .ops import resolve_backend
 __all__ = ["cr_solve_values", "block_cr", "block_cr_plain", "block_cr_solve",
            "block_cr_logdet", "MAX_W"]
 
-MAX_W = 3  # w <= 3 (csrc/block_cr.cu instantiations)
+MAX_W = 4  # w <= 4 (csrc/block_cr.cu instantiations)
 
 
 def _nbr(x, d):

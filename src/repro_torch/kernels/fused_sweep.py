@@ -1,17 +1,25 @@
-"""The padded operand stack of the whole-solve kernel, and its plain pieces.
+"""One relaxation sweep per launch, and the padded operand stack of the
+backfitting kernels: CUDA kernels and plain versions.
 
-Counterpart of the padding/layout contract of
-``repro.kernels.fused_sweep`` (``_pad_len``, ``FusedSweep``) and of the
-value-level building blocks the reference's fused kernels share (``_mv``,
-``_gather``, ``_solve_sym``, ``_block_solve_dim``). The per-iteration
-kernels themselves are not ported: every pcg solve takes the whole-solve
-kernel (``mega_solve.py``).
+Counterpart of ``repro.kernels.fused_sweep``: the padding/layout contract
+(``_pad_len``, ``FusedSweep``), the value-level building blocks the
+reference's kernels share (``_mv``, ``_gather``, ``_solve_sym``,
+``_block_solve_dim``), and the per-iteration kernels of the relaxation
+solvers, ``fused_jacobi_iter_pallas`` (``csrc/jacobi.cu``) and
+``fused_gauss_seidel_iter_pallas`` (``csrc/gauss_seidel.cu``).
+``fused="on"`` runs a host loop of them. Each per-sweep launch runs the
+whole-solve kernel of ``mega_solve.py`` for one sweep, and each plain
+whole solve is a loop of the plain sweep, so a host loop of sweeps and the
+whole solve agree bit for bit. The per-iteration PCG kernel
+(``fused_pcg_iter_pallas``) is not ported: every pcg solve that fuses
+takes the whole-solve kernel.
 
 Padding: rows are padded to ``npad`` (n rounded up to the lcm of the solved
 half-bandwidths) so every block-CR solve sees whole ``w x w`` blocks. Band
 tails are decoupled identity rows, state tails zero, permutation tails map
 to themselves, so pad rows stay exactly zero through gathers, matvecs and
-solves.
+solves. The cross-dimension total is summed over d = 0..D-1 in order, as
+the kernels sum it.
 """
 from __future__ import annotations
 
@@ -19,10 +27,21 @@ import math
 
 import torch
 
+from . import _build
 from .block_cr import cr_solve_values
+from .ops import resolve_backend
 
 __all__ = ["FusedSweep", "_pad_len", "_mv", "_gather", "_solve_sym",
-           "_block_solve_dim"]
+           "_block_solve_dim", "_khat_inv_dim", "_sum_dims",
+           "fused_jacobi_iter", "fused_jacobi_iter_plain",
+           "fused_gauss_seidel_iter", "fused_gauss_seidel_iter_plain",
+           "sweep_backward_error", "MAX_B", "MAX_WIDTH"]
+
+MAX_B = 256  # RHS columns per launch (csrc/sweep.cuh SWEEP_NT)
+MAX_WIDTH = 3  # w_a, w_p, w_s <= 3 (csrc/sweep.cuh instantiations)
+
+# csrc/jacobi.cu: how the sweep kernel starts k
+K_NONE, K_IN, K_ZERO, K_WARM = 0, 1, 2, 3
 
 
 def _pad_len(n: int, widths) -> int:
@@ -55,40 +74,255 @@ def _gather(x, idx):
     return torch.gather(x, -2, idx.long()[..., :, None].expand(x.shape))
 
 
-def _solve_sym(band, rhs, w):
+def _sum_dims(u):
+    """sum_d u[d] over the leading axis, d = 0..D-1 in order."""
+    acc = u[0]
+    for d in range(1, u.shape[0]):
+        acc = acc + u[d]
+    return acc
+
+
+def _solve_sym(band, rhs, w, pivot: bool = False):
     """Symmetric-bandwidth banded solve over a (G, npad, .) batch: block CR,
     or division when w == 0."""
     if w == 0:
         return rhs / band[..., :, :1]
     nb = band.shape[-2] // w
     x, _ = cr_solve_values(band, rhs, w=w, nb=nb,
-                           steps=max(0, (nb - 1).bit_length()))
+                           steps=max(0, (nb - 1).bit_length()), pivot=pivot)
     return x
 
 
-def _block_solve_dim(saphi, phi, sort_idx, rank_idx, s2, r, *, w_p, w_s):
+def _block_solve_dim(saphi, phi, sort_idx, rank_idx, s2, r, *, w_p, w_s,
+                     pivot: bool = False):
     """(Khat^{-1} + s^{-2} I)^{-1} r = s^2 P^T SAPhi^{-1} Phi P r, for all
     dims at once (leading D axis)."""
     rs = _gather(r, sort_idx)
     y = _mv(phi, rs, w_p)
-    xw = s2 * _solve_sym(saphi, y, w_s)
+    xw = s2 * _solve_sym(saphi, y, w_s, pivot)
     return _gather(xw, rank_idx)
 
 
+def _khat_inv_dim(saphi, phi, sort_idx, rank_idx, s2, u, *, w_p, w_s,
+                  pivot: bool = False):
+    """Khat^{-1} u from the sweep's own factors (no A stack):
+    P^T Phi^{-1} SAPhi P u = s^2 Khat^{-1} u + u."""
+    y = _mv(saphi, _gather(u, sort_idx), w_s)
+    wv = _solve_sym(phi, y, w_p, pivot)
+    return (_gather(wv, rank_idx) - u) / s2
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU tensors; the kernels' arithmetic in the same order)
+# ---------------------------------------------------------------------------
+
+
+def fused_jacobi_iter_plain(phi, saphi, sort_idx, rank_idx, sigma2, v, vt,
+                            k=None, *, w_p: int, w_s: int, alpha: float,
+                            pivot: bool = False, warm: bool = False):
+    """One damped block-Jacobi sweep on padded operands.
+
+    With ``k`` (or ``warm``, which first sets k = Khat^{-1} vt, the whole
+    solve's warm start) the sweep also carries the damped
+    ``Khat_d^{-1} x_d`` stack and returns ``(out, k_out)``.
+    """
+    s2 = sigma2.reshape(())
+    if warm:
+        k = _khat_inv_dim(saphi, phi, sort_idx, rank_idx, s2, vt, w_p=w_p,
+                          w_s=w_s, pivot=pivot)
+    total = _sum_dims(vt)
+    r = v - (total - vt) / s2
+    new = _block_solve_dim(saphi, phi, sort_idx, rank_idx, s2, r, w_p=w_p,
+                           w_s=w_s, pivot=pivot)
+    out = (1.0 - alpha) * vt + alpha * new
+    if k is None:
+        return out
+    return out, (1.0 - alpha) * k + alpha * (r - new / s2)
+
+
+def fused_gauss_seidel_iter_plain(phi, saphi, sort_idx, rank_idx, sigma2, v,
+                                  vt, *, w_p: int, w_s: int,
+                                  pivot: bool = False,
+                                  want_resid: bool = False):
+    """One Gauss-Seidel sweep, dims in sequence, on padded operands; with
+    ``want_resid`` also the per-dim ``k_d = Khat_d^{-1} x_d``: (out, k)."""
+    s2 = sigma2.reshape(())
+    out = vt.clone()
+    k = torch.zeros_like(vt) if want_resid else None
+    total = _sum_dims(vt)
+    for d in range(vt.shape[0]):
+        sl = slice(d, d + 1)
+        cur = out[d]
+        r = v[d] - (total - cur) / s2
+        new = _block_solve_dim(saphi[sl], phi[sl], sort_idx[sl],
+                               rank_idx[sl], s2, r[None], w_p=w_p, w_s=w_s,
+                               pivot=pivot)[0]
+        # the reference's update order: total - old + new
+        total = total - cur + new
+        out[d] = new
+        if want_resid:
+            k[d] = r - new / s2
+    return (out, k) if want_resid else out
+
+
+def sweep_backward_error(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, new,
+                         *, w_p: int, w_s: int, sequential: bool) -> float:
+    """Largest normwise backward error of the SAPhi solves of one undamped
+    sweep that took ``vt`` to ``new`` (Jacobi at alpha = 1, or Gauss-Seidel
+    with ``sequential``), over every (dimension, column):
+    |SAPhi y - Phi P r|_inf / (|SAPhi|_inf |y|_inf + |Phi P r|_inf), with
+    y = P new / s^2 and r rebuilt from v, vt and new in the sweep's order.
+    A stable solve reads a few eps however ill-conditioned SAPhi is, so
+    this tells two solvers' rounding gap (up to cond(SAPhi) eps) from a
+    wrong result."""
+    s2 = sigma2.reshape(())
+    total = _sum_dims(vt)
+    r = torch.empty_like(v)
+    for d in range(v.shape[0]):
+        r[d] = v[d] - (total - vt[d]) / s2
+        if sequential:
+            total = total - vt[d] + new[d]
+    y = _gather(new, sort_idx) / s2
+    rhs = _mv(phi, _gather(r, sort_idx), w_p)
+    res = (_mv(saphi, y, w_s) - rhs).abs().amax(1)
+    norm = saphi.abs().sum(-1).amax(-1)[:, None]
+    return float((res / (norm * y.abs().amax(1)
+                         + rhs.abs().amax(1))).max())
+
+
+# ---------------------------------------------------------------------------
+# launches (shared with the whole-solve wrappers of mega_solve.py)
+# ---------------------------------------------------------------------------
+
+
+def _check_operands(phi, saphi, sort_idx, rank_idx, sigma2, states, w_p,
+                    w_s):
+    D, npad, B = states[0].shape
+    if not 1 <= B <= MAX_B:
+        raise ValueError(f"the sweep kernels take 1 <= B <= {MAX_B} columns")
+    if not (0 <= w_p <= MAX_WIDTH and 1 <= w_s <= MAX_WIDTH):
+        raise ValueError(f"the sweep kernels take w_p <= {MAX_WIDTH} and "
+                         f"1 <= w_s <= {MAX_WIDTH}")
+    for w in (w_p, w_s):
+        if w > 0 and npad % w:
+            raise ValueError(f"npad={npad} is not a multiple of width {w}")
+    dev, f64 = states[0].device, torch.float64
+    _build.expect(phi, "phi", f64, (D, npad, 2 * w_p + 1), dev)
+    _build.expect(saphi, "saphi", f64, (D, npad, 2 * w_s + 1), dev)
+    _build.expect(sort_idx, "sort_idx", torch.int32, (D, npad), dev)
+    _build.expect(rank_idx, "rank_idx", torch.int32, (D, npad), dev)
+    _build.expect(sigma2, "sigma2", f64, (1,), dev)
+    for i, t in enumerate(states):
+        _build.expect(t, f"state {i}", f64, (D, npad, B), dev)
+    return D, npad, B, dev
+
+
+def _launch_jacobi(name, phi, saphi, sort_idx, rank_idx, sigma2, v, x_in,
+                   k_in, *, w_p, w_s, alpha, iters, kmode, pivot):
+    """``csrc/jacobi.cu`` for ``iters`` sweeps; returns (x, k or None)."""
+    states = (v, x_in) if k_in is None else (v, x_in, k_in)
+    D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
+                                      sigma2, states, w_p, w_s)
+    lib = _build.load_library()
+    nwork = lib.repro_jacobi_workspace(D, npad, B, w_p, w_s, int(pivot))
+    if nwork < 0:
+        _build.check(int(-nwork), f"{name} workspace query")
+    work = torch.empty((nwork,), dtype=torch.float64, device=dev)
+    x = torch.empty_like(v)
+    k = None if kmode == K_NONE else torch.empty_like(v)
+    err = lib.repro_jacobi_f64(
+        phi.data_ptr(), saphi.data_ptr(), sort_idx.data_ptr(),
+        rank_idx.data_ptr(), sigma2.data_ptr(), v.data_ptr(),
+        x_in.data_ptr(), None if k_in is None else k_in.data_ptr(),
+        x.data_ptr(), None if k is None else k.data_ptr(), work.data_ptr(),
+        D, npad, B, w_p, w_s, iters, float(alpha), kmode, int(pivot),
+        _build.stream_handle(dev))
+    _build.check(err, name)
+    _build.count_launch(name)
+    return x, k
+
+
+def _launch_gauss_seidel(name, phi, saphi, sort_idx, rank_idx, sigma2, v,
+                         x_in, *, w_p, w_s, iters, want_k, pivot):
+    """``csrc/gauss_seidel.cu`` for ``iters`` sweeps; returns (x, k or
+    None)."""
+    D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
+                                      sigma2, (v, x_in), w_p, w_s)
+    lib = _build.load_library()
+    nwork = lib.repro_gauss_seidel_workspace(D, npad, B, w_s, int(pivot))
+    if nwork < 0:
+        _build.check(int(-nwork), f"{name} workspace query")
+    work = torch.empty((nwork,), dtype=torch.float64, device=dev)
+    x = torch.empty_like(v)
+    k = torch.empty_like(v) if want_k else None
+    err = lib.repro_gauss_seidel_f64(
+        phi.data_ptr(), saphi.data_ptr(), sort_idx.data_ptr(),
+        rank_idx.data_ptr(), sigma2.data_ptr(), v.data_ptr(),
+        x_in.data_ptr(), x.data_ptr(), None if k is None else k.data_ptr(),
+        work.data_ptr(), D, npad, B, w_p, w_s, iters, int(pivot),
+        _build.stream_handle(dev))
+    _build.check(err, name)
+    _build.count_launch(name)
+    return x, k
+
+
+def fused_jacobi_iter(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, k=None,
+                      *, w_p: int, w_s: int, alpha: float,
+                      pivot: bool = False, warm: bool = False,
+                      backend: str | None = None):
+    """One damped block-Jacobi sweep on padded operands: bands
+    (D, npad, 2w+1) float64, permutations (D, npad) int32, ``sigma2`` a
+    1-element float64 tensor, states (D, npad, B) float64. Returns ``out``,
+    or ``(out, k_out)`` when ``k`` is given or ``warm`` (k = Khat^{-1} vt
+    first). CUDA tensors launch ``csrc/jacobi.cu`` for one sweep."""
+    kw = dict(w_p=w_p, w_s=w_s, alpha=alpha, pivot=pivot)
+    if resolve_backend(backend, v.device) == "plain":
+        return fused_jacobi_iter_plain(phi, saphi, sort_idx, rank_idx, sigma2,
+                                       v, vt, k, warm=warm, **kw)
+    kmode = K_WARM if warm else (K_NONE if k is None else K_IN)
+    x, k_out = _launch_jacobi("fused_jacobi_iter", phi, saphi, sort_idx,
+                              rank_idx, sigma2, v, vt,
+                              None if warm else k, iters=1, kmode=kmode, **kw)
+    return x if k_out is None else (x, k_out)
+
+
+def fused_gauss_seidel_iter(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, *,
+                            w_p: int, w_s: int, pivot: bool = False,
+                            want_resid: bool = False,
+                            backend: str | None = None):
+    """One Gauss-Seidel sweep on padded operands (as
+    :func:`fused_jacobi_iter`); with ``want_resid`` returns ``(out, k)``.
+    CUDA tensors launch ``csrc/gauss_seidel.cu`` for one sweep."""
+    if resolve_backend(backend, v.device) == "plain":
+        return fused_gauss_seidel_iter_plain(
+            phi, saphi, sort_idx, rank_idx, sigma2, v, vt, w_p=w_p, w_s=w_s,
+            pivot=pivot, want_resid=want_resid)
+    x, k = _launch_gauss_seidel("fused_gauss_seidel_iter", phi, saphi,
+                                sort_idx, rank_idx, sigma2, v, vt, w_p=w_p,
+                                w_s=w_s, iters=1, want_k=want_resid,
+                                pivot=pivot)
+    return (x, k) if want_resid else x
+
+
 class FusedSweep:
-    """Padded factor stack + static widths for the whole-solve kernel.
+    """Padded factor stack + static widths for the backfitting kernels.
 
     ``phi``/``saphi``/``a`` are (D, n, 2w+1) band stacks with symmetric
-    half-widths ``w_p``/``w_s``/``w_a``; ``sort_idx``/``rank_idx`` (D, n)
-    permutations; ``sigma2`` the noise variance. Bands get identity tails,
-    permutations self-mapping tails (int32, as the kernel reads them).
+    half-widths ``w_p``/``w_s``/``w_a`` (``a`` may be None: the relaxation
+    sweeps never apply Khat^{-1} through A); ``sort_idx``/``rank_idx``
+    (D, n) permutations; ``sigma2`` the noise variance; ``pivot`` selects
+    the pivoted block solves; ``backend`` the kernels' backend. Bands get
+    identity tails, permutations self-mapping tails (int32, as the kernels
+    read them).
     """
 
     def __init__(self, phi, saphi, sort_idx, rank_idx, sigma2, *, w_p: int,
-                 w_s: int, a=None, w_a: int = 0):
+                 w_s: int, a=None, w_a: int = 0, pivot: bool = False,
+                 backend: str | None = None):
         D, n = sort_idx.shape
         self.D, self.n = D, n
         self.w_a, self.w_p, self.w_s = w_a, w_p, w_s
+        self.pivot, self.backend = pivot, backend
         self.npad = _pad_len(n, (w_p, w_s))
         self.dtype = saphi.dtype
         self.device = saphi.device
@@ -121,3 +355,40 @@ class FusedSweep:
 
     def unpad(self, u):
         return u[:, :self.n]
+
+    def _ops(self):
+        return (self.phi, self.saphi, self.sort_idx, self.rank_idx,
+                self.sigma2)
+
+    def by_columns(self, fn, *states, step: int | None = None):
+        """``fn(*states)`` over column chunks of at most ``step`` (default
+        the kernels' limit ``MAX_B``), joined along the columns; a 0-d
+        output (an iteration count) is taken from the first chunk. The
+        columns of a sweep and of a relaxation or fixed-count PCG solve are
+        independent, so the result is that of one call."""
+        B = states[0].shape[-1]
+        step = MAX_B if step is None else step
+        if B <= step:
+            return fn(*states)
+        outs = [fn(*(None if s is None else s[..., c:c + step].contiguous()
+                     for s in states)) for c in range(0, B, step)]
+        if not isinstance(outs[0], tuple):
+            return torch.cat(outs, dim=-1)
+        return tuple(torch.cat(p, dim=-1) if p[0].dim() else p[0]
+                     for p in zip(*outs))
+
+    def jacobi_iter(self, v, vt, alpha: float, k=None, warm: bool = False):
+        """One sweep; pass ``k`` (or ``warm``: k = Khat^{-1} vt first) to
+        also carry the residual stack: ``(out, k)``."""
+        return self.by_columns(
+            lambda v_, vt_, k_: fused_jacobi_iter(
+                *self._ops(), v_, vt_, k_, w_p=self.w_p, w_s=self.w_s,
+                alpha=alpha, pivot=self.pivot, warm=warm,
+                backend=self.backend), v, vt, k)
+
+    def gauss_seidel_iter(self, v, vt, want_resid: bool = False):
+        return self.by_columns(
+            lambda v_, vt_: fused_gauss_seidel_iter(
+                *self._ops(), v_, vt_, w_p=self.w_p, w_s=self.w_s,
+                pivot=self.pivot, want_resid=want_resid,
+                backend=self.backend), v, vt)

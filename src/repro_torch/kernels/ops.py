@@ -13,22 +13,30 @@ environment knobs.
 
 Solve algorithms follow the reference's rule (``resolve_solve_alg``):
 block cyclic reduction ("cr") when ``lo == hi >= 1``, the LU kernel ("lu")
-otherwise. ``pivot=True`` runs the pivoted block-CR mode on the "cr" route;
-on the "lu" route it raises, since the reference's pivoted gbsv scan is not
-ported.
+otherwise. ``pivot=True`` runs the pivoted block-CR mode on the "cr" route
+and is a no-op on a diagonal band (``lo == hi == 0``); on the rest of the
+"lu" route (``lo != hi``, or ``alg="lu"`` with ``w >= 1``) it raises, since
+the reference's pivoted gbsv scan is not ported.
+
+How a backfitting solve fuses (``resolve_fused``) follows the reference's
+rules without its VMEM model: the per-sweep kernels ("on") or the
+whole-solve kernels ("whole") need symmetric bands, block CR and the block
+preconditioner; "off" runs the unfused host loops.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["BACKENDS", "SOLVE_ALGS", "PRECOND_MODES", "KMG_AUTO_MIN_N",
-           "resolve_backend", "resolve_solve_alg", "resolve_precond",
+__all__ = ["BACKENDS", "SOLVE_ALGS", "PRECOND_MODES", "FUSED_MODES",
+           "KMG_AUTO_MIN_N", "resolve_backend", "resolve_solve_alg",
+           "resolve_precond", "resolve_fused",
            "banded_matvec", "banded_solve", "banded_logdet",
            "band_band_matmul"]
 
 BACKENDS = ("auto", "cuda")
 SOLVE_ALGS = ("auto", "lu", "cr")
 PRECOND_MODES = ("auto", "none", "kmg")
+FUSED_MODES = ("auto", "on", "whole", "off")
 
 # the reference's "auto" precond gate: kernel multigrid at q == 0 from this n
 KMG_AUTO_MIN_N = 4096
@@ -78,6 +86,50 @@ def resolve_precond(precond: str | None, *, q: int, n: int) -> str:
     return p
 
 
+def resolve_fused(fused: str | None, *, widths, method: str = "pcg",
+                  cr_ok: bool = True, precond: str = "none") -> str:
+    """How a backfitting solve fuses: "whole" | "on" | "off".
+
+    ``widths``: the (lo, hi) pairs of every band the sweep touches; ``cr_ok``
+    is False when the solve alg forbids block CR (the only solve the fused
+    kernels run). An explicit "on"/"whole" raises ``ValueError`` on
+    asymmetric bands, a CR conflict or ``precond="kmg"``; "on" with
+    ``method="pcg"`` raises ``NotImplementedError`` (the per-iteration PCG
+    kernel, ROADMAP Queue 2, is not ported). "auto" takes "whole" when
+    the bands are symmetric, CR is allowed and the preconditioner is not
+    kmg, and "off" otherwise.
+    """
+    f = "auto" if fused is None else fused
+    if f not in FUSED_MODES:
+        raise ValueError(
+            f"unknown fused mode {f!r}; expected one of {FUSED_MODES}")
+    if f == "off":
+        return "off"
+    symmetric = all(lo == hi for lo, hi in widths)
+    if f in ("on", "whole"):
+        if not symmetric:
+            raise ValueError(
+                f"fused={f!r} requires symmetric bandwidths (lo == hi) on "
+                f"every factor; got {tuple(widths)}")
+        if not cr_ok:
+            raise ValueError(
+                f"fused={f!r} conflicts with solve alg 'lu': the fused "
+                "kernels solve via block cyclic reduction only")
+        if precond == "kmg":
+            raise ValueError(
+                f"fused={f!r} is incompatible with precond='kmg': the fused "
+                "pcg kernels hard-code the block preconditioner")
+        if f == "on" and method == "pcg":
+            raise NotImplementedError(
+                "fused='on' with method='pcg' needs the per-iteration PCG "
+                "kernel (fused_pcg_iter_pallas, ROADMAP Queue 2), which "
+                "is not ported; use fused='whole' or 'off'")
+        return f
+    if not symmetric or not cr_ok or precond == "kmg":
+        return "off"
+    return "whole"
+
+
 def _flatten_batch(arrs, core_dims):
     """Broadcast leading batch dims and flatten them to one G axis."""
     batch = torch.broadcast_shapes(
@@ -87,12 +139,14 @@ def _flatten_batch(arrs, core_dims):
     return batch, flats
 
 
-def _no_lu_pivot(pivot: bool):
-    if pivot:
+def _no_lu_pivot(pivot: bool, lo: int, hi: int):
+    """Pivoting is a no-op on a diagonal band; elsewhere on the LU route it
+    needs the reference's pivoted gbsv scan."""
+    if pivot and (lo, hi) != (0, 0):
         raise NotImplementedError(
-            "pivot=True on a band that is not symmetric (lo != hi) or "
-            "diagonal needs the reference's pivoted gbsv scan, which is not "
-            "ported (ROADMAP Queue 1, pivoted solves)")
+            f"pivot=True on the LU route (band lo={lo}, hi={hi}: lo != hi, "
+            "or solve alg 'lu') needs the reference's pivoted gbsv scan, "
+            "which is not ported (ROADMAP Queue 1, pivoted solves)")
 
 
 def banded_matvec(band, x, lo: int, hi: int, backend: str | None = None):
@@ -116,7 +170,7 @@ def banded_solve(band, rhs, lo: int, hi: int, pivot: bool = False,
 
     use_cr = resolve_solve_alg(alg, lo, hi) == "cr"
     if not use_cr:
-        _no_lu_pivot(pivot)
+        _no_lu_pivot(pivot, lo, hi)
     n = band.shape[-2]
     vec_in = rhs.shape[-1] == n and rhs.ndim == band.ndim - 1
     rb = rhs[..., None] if vec_in else rhs
@@ -137,7 +191,7 @@ def banded_logdet(band, lo: int, hi: int, pivot: bool = False,
 
     use_cr = resolve_solve_alg(alg, lo, hi) == "cr"
     if not use_cr:
-        _no_lu_pivot(pivot)
+        _no_lu_pivot(pivot, lo, hi)
     batch, (bf,) = _flatten_batch((band,), (2,))
     if use_cr:
         ld = block_cr_logdet(bf, lo, pivot=pivot, backend=backend)

@@ -17,7 +17,7 @@ from .ops import resolve_backend
 
 __all__ = ["rgf_blocks", "rgf_blocks_plain", "rgf_inverse_band"]
 
-MAX_BLOCK = 4  # w <= 4 in the kernel (csrc/rgf.cu)
+MAX_BLOCK = 5  # w <= 5 in the kernel (csrc/rgf.cu)
 
 
 def _mm(a, b):

@@ -20,11 +20,21 @@ from repro_torch.kernels.band_matmul import band_matmul, band_matmul_plain
 from repro_torch.kernels.banded_lu import banded_lu, banded_lu_plain
 from repro_torch.kernels.banded_matvec import (banded_matvec,
                                                banded_matvec_plain)
+from repro_torch.core.backfitting import SolveConfig, solve_mhat
 from repro_torch.kernels.block_cr import block_cr, block_cr_plain
-from repro_torch.kernels.mega_solve import (MegaSolve, mega_pcg_plain,
+from repro_torch.kernels.fused_sweep import (fused_gauss_seidel_iter,
+                                             fused_gauss_seidel_iter_plain,
+                                             fused_jacobi_iter,
+                                             fused_jacobi_iter_plain,
+                                             sweep_backward_error)
+from repro_torch.kernels.mega_solve import (MegaSolve, mega_gauss_seidel_plain,
+                                            mega_gauss_seidel_solve,
+                                            mega_jacobi_plain,
+                                            mega_jacobi_solve, mega_pcg_plain,
                                             mega_pcg_solve)
 from repro_torch.kernels.rgf import rgf_blocks, rgf_blocks_plain
-from torch_port_inputs import band, padded_operands, points, solve_operands
+from torch_port_inputs import (band, dim_ops, padded_operands, points,
+                               solve_operands)
 
 pytestmark = pytest.mark.cuda
 
@@ -60,7 +70,7 @@ def test_band_matmul_kernel(dev, widths):
     assert _rel(band_matmul(a, b, *widths), band_matmul_plain(a, b, *widths)) < 1e-14
 
 
-@pytest.mark.parametrize("w", [1, 3])
+@pytest.mark.parametrize("w", [1, 3, 5])
 def test_rgf_kernel(dev, w):
     rng = np.random.default_rng(3)
     data = torch.as_tensor(band(rng, 3, 150, w, w), device=dev)
@@ -128,7 +138,7 @@ def test_banded_matvec_kernel(dev, lo, hi):
     assert _rel(y, banded_matvec_plain(bd, x, lo, hi)[..., 0]) < 1e-13
 
 
-@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("w", [1, 2, 3, 4])
 @pytest.mark.parametrize("n", [8, 301])
 @pytest.mark.parametrize("pivot", [False, True])
 def test_block_cr_kernel(dev, w, n, pivot):
@@ -188,7 +198,9 @@ def test_likelihood_and_gradients_card_match_cpu(dev):
     assert int(vd) == 0 and int(info.verdict) == 0
     assert _rel(ll, llc) < 1e-7
     assert _rel(go, goc) < 1e-7 and _rel(gs, gsc) < 1e-7
-    assert all(v > 0 for v in counts.values()), counts
+    learning = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
+                "banded_matvec", "block_cr")
+    assert all(counts[k] > 0 for k in learning), counts
 
 
 def test_q1_card_matches_cpu(dev):
@@ -204,7 +216,199 @@ def test_q1_card_matches_cpu(dev):
                 log_likelihood(c, torch.Generator().manual_seed(2))) < 1e-7
 
 
-def test_q2_on_card_raises(dev):
+def test_q2_card_matches_cpu(dev):
+    """q = 2 on a jittered grid with omega * spacing = 0.1, where the KP
+    windows are well conditioned (ROADMAP Queue 3)."""
+    rng = np.random.default_rng(11)
+    n, D = 400, 3
+    span = 0.1 * n / 4.0
+    X = points(rng, n, D, span=span)
+    Y = np.sin(X * 6.0 * np.pi / span).sum(1) + 0.1 * rng.standard_normal(n)
+    Xq = rng.uniform(0, span, (40, D))
+    cfg = GPConfig(q=2, solver_iters=60, precond="none")
+    omega = np.full(D, 4.0)
+    _build.reset_launch_counts()
+    g = fit(cfg, X, Y, omega, 0.5)
+    mu, var = posterior_mean(g, Xq), posterior_var(g, Xq)
+    counts = _build.launch_counts()
+    c = fit(cfg, X, Y, omega, 0.5, device="cpu")
+    assert _rel(mu, posterior_mean(c, Xq, device="cpu")) < 1e-7
+    assert _rel(var, posterior_var(c, Xq, device="cpu")) < 1e-7
+    assert counts["rgf_blocks"] > 0 and counts["mega_pcg"] > 0, counts
+    go, gs = mll_gradients(g, torch.Generator().manual_seed(3))
+    goc, gsc = mll_gradients(c, torch.Generator().manual_seed(3))
+    assert _rel(go, goc) < 1e-7 and _rel(gs, gsc) < 1e-7
+
+
+def test_q3_on_card_raises(dev):
     with pytest.raises(NotImplementedError, match="widths"):
-        fit(GPConfig(q=2, precond="none"), points(np.random.default_rng(0), 50, 2),
+        fit(GPConfig(q=3, precond="none"), points(np.random.default_rng(0), 50, 2),
             np.zeros(50), np.ones(2), 1.0)
+
+
+# ---------------------------------------------------------------------------
+# the relaxation solvers: one-sweep and whole-solve kernels
+# ---------------------------------------------------------------------------
+
+
+def _relax_case(dev, q, B, seed=12, n=131):
+    rng = np.random.default_rng(seed)
+    ops_np = solve_operands(rng, n, 3, q)
+    fs, v, x0 = padded_operands(ops_np, dev, B, rng)
+    v_p = fs.pad_state(torch.as_tensor(v))
+    x0_p = fs.pad_state(torch.as_tensor(x0))
+    k_p = fs.pad_state(torch.as_tensor(0.1 * rng.standard_normal(v.shape)))
+    ops = (fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2)
+    return fs, ops, v_p, x0_p, k_p
+
+
+def _tol(q):
+    """Kernel vs plain bar of a relaxation solve: 1e-12 at q <= 1; at q = 2
+    the SAPhi systems of these inputs (w = 3) are ill-conditioned enough
+    that the plain block CR's own pivoted and unpivoted modes differ by more
+    than 1e-12, so the kernel's different rounding (fused multiply-adds) is
+    held to 1e-10 (``test_sweep_backward_error`` is the second witness)."""
+    return 1e-12 if q <= 1 else 1e-10
+
+
+def _close(got, want, tol=1e-12):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert _rel(a, b) < tol
+
+
+@pytest.mark.parametrize("q", [0, 1, 2])
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("pivot", [False, True])
+def test_sweep_kernels(dev, q, B, pivot):
+    """One Jacobi sweep (no k, k carried, warm k) and one Gauss-Seidel
+    sweep (with and without k) against their plain versions."""
+    fs, ops, v, x0, k = _relax_case(dev, q, B)
+    kw = dict(w_p=fs.w_p, w_s=fs.w_s, pivot=pivot)
+    for extra in ({}, {"k": k}, {"warm": True}):
+        _close(fused_jacobi_iter(*ops, v, x0, alpha=0.4, **extra, **kw),
+               fused_jacobi_iter_plain(*ops, v, x0, alpha=0.4, **extra, **kw),
+               _tol(q))
+    for want in (False, True):
+        _close(fused_gauss_seidel_iter(*ops, v, x0, want_resid=want, **kw),
+               fused_gauss_seidel_iter_plain(*ops, v, x0, want_resid=want,
+                                             **kw), _tol(q))
+
+
+@pytest.mark.parametrize("q", [0, 1, 2])
+@pytest.mark.parametrize("pivot", [False, True])
+def test_sweep_backward_error(dev, q, pivot):
+    """A witness to ``_tol`` that does not rest on conditioning: one
+    undamped sweep's SAPhi solves have a backward error within 10x the
+    plain version's."""
+    fs, ops, v, x0, _ = _relax_case(dev, q, 5)
+    kw = dict(w_p=fs.w_p, w_s=fs.w_s)
+    eps = torch.finfo(torch.float64).eps
+    for seq, kern, plain in (
+            (False, lambda: fused_jacobi_iter(*ops, v, x0, alpha=1.0,
+                                              pivot=pivot, **kw),
+             lambda: fused_jacobi_iter_plain(*ops, v, x0, alpha=1.0,
+                                             pivot=pivot, **kw)),
+            (True, lambda: fused_gauss_seidel_iter(*ops, v, x0, pivot=pivot,
+                                                   **kw),
+             lambda: fused_gauss_seidel_iter_plain(*ops, v, x0, pivot=pivot,
+                                                   **kw))):
+        be_k, be_p = (sweep_backward_error(*ops, v, x0, f(), sequential=seq,
+                                           **kw) for f in (kern, plain))
+        assert be_k <= 10 * max(be_p, eps), (be_k, be_p)
+
+
+@pytest.mark.parametrize("q", [0, 1, 2])
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("warm", [False, True])
+def test_whole_relaxation_kernels(dev, q, B, warm):
+    """The whole Jacobi and Gauss-Seidel solves against their
+    plain versions, 12 sweeps."""
+    fs, ops, v, x0, _ = _relax_case(dev, q, B)
+    x0 = x0 if warm else torch.zeros_like(v)
+    kw = dict(w_p=fs.w_p, w_s=fs.w_s, iters=12)
+    _close(mega_jacobi_solve(*ops, v, x0, alpha=1 / 3, warm=warm, **kw),
+           mega_jacobi_plain(*ops, v, x0, alpha=1 / 3, warm=warm, **kw),
+           _tol(q))
+    _close(mega_gauss_seidel_solve(*ops, v, x0, **kw),
+           mega_gauss_seidel_plain(*ops, v, x0, **kw), _tol(q))
+
+
+@pytest.mark.parametrize("method", ["jacobi", "gauss_seidel"])
+@pytest.mark.parametrize("warm", [False, True])
+def test_whole_equals_host_loop_bitwise(dev, method, warm):
+    """fused="whole" (one launch) and fused="on" (one launch per sweep) give
+    the same bits, the exit residual included."""
+    rng = np.random.default_rng(13)
+    dops = dim_ops(solve_operands(rng, 131, 3, 1), dev)
+    v = torch.as_tensor(rng.standard_normal((3, 131, 4)), device=dev)
+    x0 = 0.5 * v if warm else None
+    outs = {}
+    for fused in ("whole", "on"):
+        _build.reset_launch_counts()
+        outs[fused] = solve_mhat(dops, v, SolveConfig(method=method, iters=9,
+                                                      fused=fused),
+                                 x0=x0, return_info=True)
+        counts = _build.launch_counts()
+        name = ("mega_" if fused == "whole" else "fused_") + (
+            "jacobi" if method == "jacobi" else "gauss_seidel")
+        name += "" if fused == "whole" else "_iter"
+        assert counts[name] == (1 if fused == "whole" else 9), counts
+    (xw, iw), (xh, ih) = outs["whole"], outs["on"]
+    assert torch.equal(xw, xh) and torch.equal(iw.resid, ih.resid)
+
+
+@pytest.mark.parametrize("method", ["jacobi", "gauss_seidel"])
+def test_relaxation_column_split(dev, method):
+    """More than MAX_B = 256 columns: the whole solve runs as two launches
+    and matches the plain version taking all columns at once."""
+    fs, ops, _, _, _ = _relax_case(dev, 0, 1)
+    rng = np.random.default_rng(14)
+    v = torch.as_tensor(rng.standard_normal((3, fs.n, 300)), device=dev)
+    _build.reset_launch_counts()
+    if method == "jacobi":
+        x, k = MegaSolve(fs).jacobi(v, None, alpha=1 / 3, iters=10)
+        xr, kr = mega_jacobi_plain(*ops, fs.pad_state(v),
+                                   torch.zeros_like(fs.pad_state(v)),
+                                   w_p=fs.w_p, w_s=fs.w_s, alpha=1 / 3,
+                                   iters=10)
+    else:
+        x, k = MegaSolve(fs).gauss_seidel(v, None, iters=10)
+        xr, kr = mega_gauss_seidel_plain(*ops, fs.pad_state(v),
+                                         torch.zeros_like(fs.pad_state(v)),
+                                         w_p=fs.w_p, w_s=fs.w_s, iters=10)
+    assert sum(_build.launch_counts().values()) == 2
+    assert _rel(x, fs.unpad(xr)) < 1e-12 and _rel(k, fs.unpad(kr)) < 1e-12
+
+
+@pytest.mark.parametrize("solver", ["jacobi", "gauss_seidel"])
+@pytest.mark.parametrize("fused", ["auto", "on", "off"])
+def test_relaxation_gp_card_matches_cpu(dev, solver, fused):
+    rng = np.random.default_rng(15)
+    X, Y, Xq = _gp_data(rng, 500, 3)
+    cfg = GPConfig(q=0, solver=solver, fused=fused, solver_iters=30,
+                   precond="none")
+    omega = np.full(3, 2.0)
+    g = fit(cfg, X, Y, omega, 0.5)
+    c = fit(cfg, X, Y, omega, 0.5, device="cpu")
+    assert g.config.fused == ("whole" if fused == "auto" else fused)
+    assert _rel(posterior_mean(g, Xq), posterior_mean(c, Xq, device="cpu")) < 1e-7
+    assert _rel(posterior_var(g, Xq), posterior_var(c, Xq, device="cpu")) < 1e-7
+    assert int(g.health.verdict) == int(c.health.verdict)
+
+
+def test_mega_pcg_pivot_kernel(dev):
+    """The pivoted whole PCG against its plain version, run to convergence:
+    midway (25 iterations here) CG amplifies rounding so far that the plain
+    version's pivoted and unpivoted modes differ by 2e-8 on the CPU."""
+    rng = np.random.default_rng(16)
+    fs, v, _ = padded_operands(solve_operands(rng, 131, 3, 1), dev, 4, rng)
+    v_p = fs.pad_state(torch.as_tensor(v))
+    args = (fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v_p,
+            torch.zeros_like(v_p))
+    kw = dict(w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s, iters=60, pivot=True)
+    x, _, it = mega_pcg_solve(*args, **kw)
+    xr, _, itr = mega_pcg_plain(*args, **kw)
+    assert _rel(x, xr) < 1e-9 and int(it) == int(itr) == 60

@@ -91,14 +91,17 @@ def test_cuda_backend_on_cpu_tensors_raises():
 
 
 @pytest.mark.parametrize("cfg,n,device", [
-    (GPConfig(solver="jacobi", precond="none"), 20, "cpu"),
-    (GPConfig(solver="gauss_seidel", precond="none"), 20, "cpu"),
-    (GPConfig(fused="on", precond="none"), 20, "cpu"),
-    (GPConfig(fused="off", precond="none"), 20, "cpu"),
-    (GPConfig(pivot=True, precond="none"), 20, "cpu"),
+    # the pivoted LU route (gbsv scan), from each solver
+    (GPConfig(solver="jacobi", pivot=True, solve_alg="lu", q=1,
+              precond="none"), 20, "cpu"),
+    (GPConfig(solver="gauss_seidel", pivot=True, solve_alg="lu", q=1,
+              precond="none"), 20, "cpu"),
+    (GPConfig(fused="on", precond="none"), 20, "cpu"),  # per-iteration pcg
+    (GPConfig(fused="on", q=1, precond="none"), 20, "cpu"),
+    (GPConfig(pivot=True, solve_alg="lu", precond="none"), 20, "cpu"),
     (GPConfig(precond="kmg"), 20, "cpu"),
     (GPConfig(), 4096, "cpu"),  # "auto" resolves to kmg at q = 0, n >= 4096
-    (GPConfig(q=2, precond="none"), 20, "cuda"),  # widths beyond the kernels
+    (GPConfig(q=3, precond="none"), 20, "cuda"),  # widths beyond the kernels
 ])
 def test_unported_paths_raise(cfg, n, device):
     with pytest.raises(NotImplementedError):

@@ -97,14 +97,22 @@ def test_pivoted_block_mode_survives_a_dead_pivot():
 
 
 def test_pivot_on_the_lu_route_raises():
+    """The LU route's pivoted gbsv scan is not ported: an asymmetric band,
+    or alg="lu" on w >= 1, raises; on a diagonal band pivoting is a no-op
+    and the LU kernel runs."""
     rng = np.random.default_rng(98)
     bd = torch.as_tensor(band(rng, 1, 20, 1, 2))
     rhs = torch.as_tensor(rng.standard_normal((1, 20, 2)))
     with pytest.raises(NotImplementedError, match="gbsv"):
         ops.banded_solve(bd, rhs, 1, 2, pivot=True)
     with pytest.raises(NotImplementedError, match="gbsv"):
-        ops.banded_logdet(torch.as_tensor(band(rng, 1, 20, 0, 0)), 0, 0,
-                          pivot=True)
+        ops.banded_logdet(torch.as_tensor(band(rng, 1, 20, 1, 1)), 1, 1,
+                          pivot=True, alg="lu")
+    diag = torch.as_tensor(band(rng, 1, 20, 0, 0))
+    assert torch.equal(ops.banded_logdet(diag, 0, 0, pivot=True),
+                       ops.banded_logdet(diag, 0, 0))
+    assert torch.equal(ops.banded_solve(diag, rhs, 0, 0, pivot=True),
+                       ops.banded_solve(diag, rhs, 0, 0))
 
 
 @pytest.mark.parametrize("warm", [False, True])

@@ -67,4 +67,19 @@ def padded_operands(ops, device, B, rng):
     return fs, v, x0
 
 
-__all__ = ["OMEGA", "band", "points", "solve_operands", "padded_operands"]
+def dim_ops(ops, device):
+    """The port's ``DimOps`` of ``solve_operands`` on ``device``."""
+    from repro_torch.core.backfitting import DimOps
+    from repro_torch.core.banded import Banded
+
+    t = lambda k: torch.as_tensor(ops[k]).to(torch.device(device))
+    return DimOps(A=Banded(t("A"), ops["w_a"], ops["w_a"]),
+                  Phi=Banded(t("Phi"), ops["w_p"], ops["w_p"]),
+                  SAPhi=Banded(t("SAPhi"), ops["w_s"], ops["w_s"]),
+                  sort_idx=t("sort_idx"), rank_idx=t("rank_idx"),
+                  sigma2=torch.tensor(ops["sigma2"], dtype=torch.float64,
+                                      device=torch.device(device)))
+
+
+__all__ = ["OMEGA", "band", "points", "solve_operands", "padded_operands",
+           "dim_ops"]

@@ -51,22 +51,27 @@ def _jax_arrays(gp):
 
 
 def fit_cache():
+    """``get(n, q, ties=False, solver="pcg", jax_backend="pallas")``: the
+    JAX fit (on ``jax_backend``) and the port's CPU fit of one seeded case,
+    cached. The seed depends on (n, q, ties) only, so the solvers of one
+    case see the same data."""
     cache = {}
 
-    def get(n, q, ties=False):
-        key = (n, q, ties)
+    def get(n, q, ties=False, solver="pcg", jax_backend="pallas"):
+        key = (n, q, ties, solver, jax_backend)
         if key not in cache:
             X, Y, Xq = _data(n, 100 + n + q + ties, ties)
             omega = np.full(D, OMEGA)
-            jgp = jax_fit(JaxGPConfig(q=q, solver_iters=ITERS, precond="none",
-                                      backend="pallas"),
+            jgp = jax_fit(JaxGPConfig(q=q, solver=solver, solver_iters=ITERS,
+                                      precond="none", backend=jax_backend),
                           jnp.asarray(X), jnp.asarray(Y), jnp.asarray(omega),
                           SIGMA)
             ref = dict(arrays=_jax_arrays(jgp),
                        verdict=int(jgp.health.verdict),
                        mean=np.asarray(jax_mean(jgp, jnp.asarray(Xq))),
                        var=np.asarray(jax_var(jgp, jnp.asarray(Xq))))
-            cfg = GPConfig(q=q, solver_iters=ITERS, precond="none")
+            cfg = GPConfig(q=q, solver=solver, solver_iters=ITERS,
+                           precond="none")
             gp = fit(cfg, X, Y, omega, SIGMA, device="cpu")
             cache[key] = (cfg, gp, Xq, ref)
         return cache[key]
