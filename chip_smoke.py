@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's serving, hyperparameter-learning and
-relaxation-solver paths on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, hyperparameter-learning, relaxation,
+default-configuration (kernel multigrid) and per-iteration PCG paths on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -10,28 +11,37 @@ one process per source), then:
    shapes (n = 30000, D = 10, q = 0) and at q = 1 and q = 2 widths, held
    against its plain PyTorch version on the same CUDA tensors; errors,
    times, bounds. The relaxation kernels (one sweep, and the whole solve,
-   of Jacobi and Gauss-Seidel) run on the main path's own operands, where
-   the bar follows the systems' conditioning and the sweeps' backward
-   error is held to the plain version's (``relax_kernel_phase``), and a
-   host loop of single sweeps is held to the whole solve bit for bit;
-2. main path: Schwefel data, n = 30000, D = 10 (the paper's Fig. 5 point),
+   of Jacobi and Gauss-Seidel) and the per-iteration PCG kernel (its seed
+   and one carried iteration) run on the main path's own operands, where
+   the bar follows the systems' conditioning (the sweeps' backward error
+   held to the plain version's, ``relax_kernel_phase``), and a host loop of
+   single sweeps is held to the whole solve bit for bit; ``kp_gram`` at
+   q = 0, 1, 2 against its plain version and the fit's Phi band;
+2. paths on Schwefel data, n = 30000, D = 10 (the paper's Fig. 5 point):
    the serving path ``fit`` -> ``posterior_mean`` -> ``posterior_var`` on
    100 queries, then the learning path ``log_likelihood`` ->
    ``mll_gradients`` -> ``fit_hyperparams(steps=3)``, then ``fit`` ->
    ``posterior_mean(100)`` -> ``posterior_var(32)`` with
    ``solver="gauss_seidel"`` and ``"jacobi"``, each with ``fused="auto"``
-   (the whole-solve kernels) and ``"on"`` (one launch per sweep); each run
-   with every kernel's launch count over it;
+   (the whole-solve kernels) and ``"on"`` (one launch per sweep); the
+   kernels layer's ``ops.kp_gram`` over the fit's factors; the reference's
+   default ``GPConfig(q=0)`` (precond "auto" -> kmg, 50 iterations) through
+   ``fit`` -> mean(100) -> var(100) -> ``log_likelihood`` ->
+   ``mll_gradients``; ``benchmarks/multigrid.py``'s problem (n = 4096,
+   16384) against its recorded iteration counts; pcg with ``fused="on"``
+   (``fit``, ``posterior_var(32)``) and "on" == "whole" bit for bit. Each
+   path with every kernel's launch count over it;
 3. consistency at n = 4000, D = 10, the card against ``device="cpu"``
    (plain versions), all within 1e-7: on the quickstart's Schwefel data the
-   q = 0 mean, variance and log-likelihood, and both relaxation solvers in
-   every fused mode; on a jittered grid the q = 0 gradients, a q = 1 and a
-   q = 2 fit, mean, variance and log-likelihood. The same probe blocks are
-   fed to both sides (8 probes for the gradients, one variance chunk of
-   32 queries on the Schwefel data). On the Schwefel data, whose gradient
-   factor B is ill-conditioned, the gradients are compared from the same
-   factors and the block-CR kernel's backward error on that B is held
-   against its plain version's (``schwefel_same_factors``).
+   q = 0 mean, variance and log-likelihood, pcg with ``fused="on"``, kmg,
+   and both relaxation solvers in every fused mode; on a jittered grid the
+   q = 0 gradients, a q = 1 and a q = 2 fit, mean, variance and
+   log-likelihood. The same probe blocks are fed to both sides (8 probes
+   for the gradients, one variance chunk of 32 queries on the Schwefel
+   data, 8 for kmg). On the Schwefel data, whose gradient factor B is
+   ill-conditioned, the gradients are compared from the same factors and
+   the block-CR kernel's backward error on that B is held against its
+   plain version's (``schwefel_same_factors``).
 
 Prints the card's name and power limit, the elapsed time after each
 phase, one ``{"kernels": [...]}`` line, and last
@@ -40,6 +50,7 @@ code is non-zero and no result line is printed. Needs one card.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -89,9 +100,13 @@ def _import_port():
     from repro_torch.kernels.banded_matvec import (banded_matvec,
                                                    banded_matvec_plain)
     from repro_torch.kernels.block_cr import block_cr, block_cr_plain
+    from repro_torch.core.backfitting import SolveConfig, solve_mhat
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels.fused_sweep import (
         FusedSweep, fused_gauss_seidel_iter, fused_gauss_seidel_iter_plain,
-        fused_jacobi_iter, fused_jacobi_iter_plain, sweep_backward_error)
+        fused_jacobi_iter, fused_jacobi_iter_plain, fused_pcg_iter,
+        fused_pcg_iter_plain, pcg_seed, pcg_seed_plain, sweep_backward_error)
+    from repro_torch.kernels.kp_gram import kp_gram, kp_gram_plain
     from repro_torch.kernels.mega_solve import (
         MegaSolve, mega_gauss_seidel_plain, mega_gauss_seidel_solve,
         mega_jacobi_plain, mega_jacobi_solve, mega_pcg_plain, mega_pcg_solve)
@@ -569,6 +584,180 @@ def relax_kernel_phase(P, rng, dev, ops_path, ops_q1, iters):
     return rows
 
 
+def _diag_cond(band):
+    """Largest condition number over the dimensions of a diagonal band
+    stack (D, npad, 1)."""
+    d = band[..., 0].abs()
+    return float((d.amax(1) / d.amin(1)).max())
+
+
+def _flat(ts):
+    return torch.cat([t.flatten() for t in ts])
+
+
+def _pcg_iter_cost(D, npad, B, w_a, w_p, w_s):
+    """(bytes, flops) of one carried PCG iteration: the bands, the
+    permutations, x, r, p read and written, rz read and written; per
+    element the Mhat apply, the preconditioner and the updates, as
+    ``_mega_cost`` counts one iteration."""
+    N = D * npad * B
+    nbytes = 8 * D * npad * (2 * w_a + 2 * w_p + 2 * w_s + 3) \
+        + 4 * 2 * D * npad + 8 * (6 * N + 2 * B + 1)
+    per = (2 * (2 * w_a + 1) + 2 * (2 * w_p + 1) + _solve_ops(w_p, B)
+           + _solve_ops(w_s, B) + 14)
+    return nbytes, N * per
+
+
+def pcg_iter_kernel_phase(P, rng, dev, ops_path, ops_q1):
+    """The per-iteration PCG kernel: the seed launch (cold and warm) and one
+    carried iteration against their plain versions on the same state, at
+    n = 30000, D = 10, B = 32 with q = 0 (the Schwefel operands) and q = 1
+    (a jittered grid). The bar is max(1e-12, kappa eps), kappa the larger
+    condition number of the Phi and SAPhi systems an iteration solves (as
+    in ``relax_kernel_phase``); the updated r cancels (|alpha A p| >> |r|)
+    and is judged at the scale of the residual it updates. Also the launch
+    cost: one iteration per launch against the whole-solve kernel's time
+    per iteration on the same operands."""
+    rows = []
+    eps = float(torch.finfo(torch.float64).eps)
+    for tag, fs in (("path q=0 B=32", ops_path),
+                    (f"q1 n={ops_q1.n} B=32", ops_q1)):
+        kappa = max(_cond_est(P, fs, fs.saphi, fs.w_s),
+                    _cond_est(P, fs, fs.phi, fs.w_p) if fs.w_p
+                    else _diag_cond(fs.phi))
+        tol = max(1e-12, kappa * eps)
+        ops = (fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2)
+        kw = dict(w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s)
+        v = fs.pad_state(torch.as_tensor(
+            rng.standard_normal((fs.D, fs.n, B_PATH)), device=dev))
+        x0 = fs.pad_state(torch.as_tensor(
+            0.1 * rng.standard_normal((fs.D, fs.n, B_PATH)), device=dev))
+        seed_err = 0.0
+        for warm in (False, True):
+            start = x0 if warm else torch.zeros_like(v)
+            got = P["pcg_seed"](*ops, v, start, warm=warm, **kw)
+            want = P["pcg_seed_plain"](*ops, v, start, warm=warm, **kw)
+            seed_err = max(seed_err, _errs(_flat(got), _flat(want))[1])
+        ms, out = _event_ms(lambda: P["fused_pcg_iter"](*ops, *got, **kw),
+                            reps=10)
+        pms, outp = _event_ms(lambda: P["fused_pcg_iter_plain"](*ops, *got,
+                                                                **kw),
+                              reps=1, warmup=0)
+        err, rel = _errs(_flat(out[k] for k in (0, 2, 3)),
+                         _flat(outp[k] for k in (0, 2, 3)))
+        r_err = float((out[1] - outp[1]).abs().max() / got[1].abs().max())
+        whole_ms, _ = _event_ms(lambda: P["mega_pcg_solve"](
+            *ops, v, torch.zeros_like(v), iters=40, **kw), reps=1)
+        b_ms, b_by = _bound(*_pcg_iter_cost(fs.D, fs.npad, B_PATH, fs.w_a,
+                                            fs.w_p, fs.w_s))
+        print(f"kernel fused_pcg_iter {tag}: cond <= {kappa:.3e}, bar "
+              f"{tol:.3e}; seed max_rel_err={seed_err:.3e}, iteration "
+              f"max_abs_err={err:.3e} max_rel_err={rel:.3e} r err (at |r|) "
+              f"{r_err:.3e} kernel_ms={ms:.4f} plain_ms={pms:.4f} bound_ms="
+              f"{b_ms:.4f} ({b_by}) library_ms=none; whole solve "
+              f"{whole_ms / 40:.4f} ms an iteration, so one launch costs "
+              f"{ms - whole_ms / 40:.4f} ms more", flush=True)
+        if not (seed_err <= tol and rel <= tol and r_err <= tol):
+            raise RuntimeError(f"fused_pcg_iter {tag}: errors {seed_err:.3e}"
+                               f", {rel:.3e}, {r_err:.3e} > {tol:.3e}")
+        if tag.startswith("path"):
+            rows.append(dict(name="fused_pcg_iter", route="cuda",
+                             source="src/repro_torch/csrc/mega_pcg.cu",
+                             replaces="src/repro/kernels/fused_sweep.py:363",
+                             max_abs_err=err, max_rel_err=rel, ms=ms,
+                             plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None))
+    return rows
+
+
+def _kp_gram_cost(n, q):
+    """(bytes, operations) of one kp_gram call: x and A read once, Phi
+    written once; per kernel evaluation |x - x'|, omega r, the degree-q
+    polynomial (2 q), its scale and the accumulation (7 + 2 q), an exp
+    counted as one operation."""
+    nbytes = 8 * n * (1 + (2 * q + 3) + (2 * q + 1))
+    return nbytes, n * (2 * q + 1) * (2 * q + 3) * (8 + 2 * q)
+
+
+def kp_gram_phase(P, rng, dev):
+    """kp_gram at n = 30000, q = 0, 1, 2 on a jittered grid: the kernel
+    against its plain version and against the Phi band ``kp_factors``
+    assembles (``gram_band_rows``). Phi = A K cancels by design (|Phi|
+    falls to ~1e-6 of the summed terms at q = 2), so both bars are 1e-12 of
+    the terms' scale, max_i sum_t |A[i, t]| (|k| <= 1)."""
+    rows = []
+    xs = torch.as_tensor(np.sort(_jittered(rng, N_PATH, 1)[0][:, 0]),
+                         device=dev)
+    om = torch.tensor(4.0, dtype=torch.float64, device=dev)
+    for q in (0, 1, 2):
+        A, Phi = P["kp_factors"](q, om, xs)
+        a = A.data.contiguous()
+        ms, got = _event_ms(lambda: P["kp_gram"](q, 4.0, xs, a), reps=20)
+        pms, want = _event_ms(lambda: P["kp_gram_plain"](q, 4.0, xs, a),
+                              reps=1, warmup=0)
+        terms = float(a.abs().sum(-1).max())
+        err = float((got - want).abs().max())
+        fit_err = float((got - Phi.data).abs().max()) / terms
+        b_ms, b_by = _bound(*_kp_gram_cost(N_PATH, q))
+        print(f"kernel kp_gram q={q} n={N_PATH}: max_abs_err={err:.3e} "
+              f"(at the terms' scale {err / terms:.3e}, tol 1e-12), vs "
+              f"kp_factors' Phi {fit_err:.3e} kernel_ms={ms:.4f} plain_ms="
+              f"{pms:.4f} bound_ms={b_ms:.5f} ({b_by}) library_ms=none",
+              flush=True)
+        if not (err / terms <= 1e-12 and fit_err <= 1e-12):
+            raise RuntimeError(f"kp_gram q={q}: {err / terms:.3e}, "
+                               f"{fit_err:.3e} > 1e-12")
+        if q == 0:
+            rows.append(dict(name="kp_gram", route="cuda",
+                             source="src/repro_torch/csrc/kp_gram.cu",
+                             replaces="src/repro/kernels/kp_gram.py:60",
+                             max_abs_err=err, max_rel_err=err / terms,
+                             ms=ms, plain_ms=pms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None))
+    return rows
+
+
+# iteration counts to tol = 1e-8 recorded by benchmarks/multigrid.py
+# (benchmarks/BENCH_multigrid.json; the same on its jax and pallas rows):
+# n -> (plain PCG, kmg)
+MULTIGRID_RECORDED = {4096: (67, 27), 16384: (51, 17)}
+
+
+def kmg_convergence(P, dev):
+    """``benchmarks/multigrid.py``'s problem on the card (D = 4, omega = 2,
+    sigma = 0.1, q = 0, tol = 1e-8, seed n, unfused solves): kmg must take
+    fewer iterations than plain PCG, and each count must be within 2 of the
+    recorded one. The walls are this card's own."""
+    for n, (p_rec, k_rec) in MULTIGRID_RECORDED.items():
+        D = 4
+        rng = np.random.default_rng(n)
+        X = rng.random((n, D))
+        Y = np.sum(np.sin(3 * X), axis=1) + 0.1 * rng.standard_normal(n)
+        gp = P["fit"](P["GPConfig"](q=0, precond="kmg", solver_iters=30), X,
+                      Y, np.full(D, 2.0), 0.1)
+        v = torch.as_tensor(rng.standard_normal((D, n)), device=dev)
+        kmg = P["SolveConfig"](method="pcg", iters=400, tol=1e-8,
+                               precond="kmg", fused="off")
+        got = {}
+        for name, cfg, hier in (("plain", P["SolveConfig"](
+                method="pcg", iters=400, tol=1e-8, fused="off"), None),
+                                ("kmg", kmg, gp.hier)):
+            (_, info), t = _sync_time(lambda: P["solve_mhat"](
+                gp.ops, v, cfg, hier=hier, return_info=True))
+            got[name] = (int(info.iters), float(info.resid) / float(v.norm()),
+                         t)
+        print(f"kmg convergence n={n} D={D}: plain {got['plain'][0]} "
+              f"iterations (recorded {p_rec}; rel resid "
+              f"{got['plain'][1]:.3e}, {got['plain'][2] * 1e3:.1f} ms), kmg "
+              f"{got['kmg'][0]} (recorded {k_rec}; rel resid "
+              f"{got['kmg'][1]:.3e}, {got['kmg'][2] * 1e3:.1f} ms)",
+              flush=True)
+        if not (got["kmg"][0] < got["plain"][0]
+                and abs(got["plain"][0] - p_rec) <= 2
+                and abs(got["kmg"][0] - k_rec) <= 2):
+            raise RuntimeError(f"kmg convergence n={n}: {got}")
+
+
 def _block_diag_csr(band, lo, hi):
     """The (G, n, lo+hi+1) band stack as one block-diagonal CSR matrix (the
     library yardstick of the matvec; built once, outside the timing)."""
@@ -745,7 +934,13 @@ def main():
     _stamp("kernel phase")
     rows += relax_kernel_phase(P, rng, dev, ops_path, ops_q1, iters=40)
     _stamp("relaxation kernel phase")
+    del ops_q1
+    ops_q1 = _operands(P, _jittered(rng, n, D)[0], np.full(D, 4.0), sigma, 1,
+                       dev)
+    rows += pcg_iter_kernel_phase(P, rng, dev, ops_path, ops_q1)
     del ops_path, ops_q1
+    rows += kp_gram_phase(P, rng, dev)
+    _stamp("per-iteration PCG and kp_gram kernel phase")
 
     # --- main path at the paper's Fig. 5 point ----------------------------
     cfg = P["GPConfig"](q=0, solver="pcg", solver_iters=40, precond="none")
@@ -839,10 +1034,124 @@ def main():
             _require_launched(f"relaxation path {solver} {fused}", rc,
                               ("banded_lu", "band_matmul", "rgf_blocks",
                                sweep))
-    for row in rows:
-        row["launches"] = (counts[row["name"]] + counts_l[row["name"]]
-                           + sum(rc[row["name"]] for rc in relax_counts))
     _stamp("relaxation paths")
+
+    # --- Algorithm 2's Gram assembly through the kernels layer's public op
+    # (ops.kp_gram; no core module calls it) on the main path's factors ----
+    _build.reset_launch_counts()
+    for d in range(D):
+        phi_d = P["kops"].kp_gram(0, float(omega[d]), gp.xs[d].contiguous(),
+                                  gp.ops.A.data[d].contiguous())
+        terms = float(gp.ops.A.data[d].abs().sum(-1).max())
+        gap = float((phi_d - gp.ops.Phi.data[d]).abs().max()) / terms
+        if not gap <= 1e-12:
+            raise RuntimeError(f"ops.kp_gram dim {d}: {gap:.3e} of the "
+                               "terms' scale from the fit's Phi")
+    counts_k = _build.launch_counts()
+    print(f"kernels layer: ops.kp_gram over the {D} dimensions of the main "
+          f"path's factors, within 1e-12 of the terms' scale of the fit's "
+          f"Phi; launches {counts_k}", flush=True)
+    _require_launched("kernels layer", counts_k, ("kp_gram",))
+
+    # --- the reference's default configuration at the same point:
+    # GPConfig(q=0), precond "auto" -> kmg, fused -> "off", 50 iterations --
+    dcfg = P["GPConfig"](q=0)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    gen_d = torch.Generator().manual_seed(3)
+    dgp, td_fit = _sync_time(lambda: P["fit"](dcfg, X, Y, omega, sigma))
+    dmu, td_mean = _sync_time(lambda: P["posterior_mean"](dgp, Xq))
+    dvar, td_var = _sync_time(lambda: P["posterior_var"](dgp, Xq))
+    (dll, dll_v), td_ll = _sync_time(
+        lambda: P["log_likelihood"](dgp, gen_d, return_verdict=True))
+    (dg_om, dg_sg, dinfo), td_grad = _sync_time(
+        lambda: P["mll_gradients"](dgp, gen_d, return_info=True))
+    counts_d = _build.launch_counts()
+    peak_d = torch.cuda.max_memory_allocated()
+    dmu_np, dvar_np = dmu.cpu().numpy(), dvar.cpu().numpy()
+    dverdicts = {k: P["verdict_name"](v) for k, v in (
+        ("fit", dgp.health.verdict), ("log_likelihood", dll_v),
+        ("mll_gradients", dinfo.verdict))}
+    print(f"default config GPConfig(q=0) n={n} D={D}: precond "
+          f"{dgp.config.precond}, fused {dgp.config.fused}, iterations "
+          f"{dgp.config.solver_iters} (realized {int(dinfo.iters)}), "
+          f"levels {[lv.stride for lv in dgp.hier]}: fit {td_fit * 1e3:.1f} "
+          f"ms, posterior_mean(100) {td_mean * 1e3:.1f} ms, "
+          f"posterior_var(100) {td_var * 1e3:.1f} ms, log_likelihood "
+          f"{td_ll * 1e3:.1f} ms (value {float(dll):.6f}), mll_gradients "
+          f"{td_grad * 1e3:.1f} ms; RMSE "
+          f"{float(np.sqrt(np.mean((dmu_np - f(Xq)) ** 2))):.4f}; fit solve "
+          f"residual {float(dgp.health.resid / dgp.health.rhs):.3e}; "
+          f"verdicts {dverdicts}; peak memory {peak_d / 2**20:.1f} MiB; "
+          f"launches {counts_d}", flush=True)
+    dvals = torch.cat([dll.reshape(1), dg_om, dg_sg.reshape(1)]).cpu()
+    if not (dgp.config.precond == "kmg" and dgp.config.fused == "off"
+            and np.isfinite(dmu_np).all() and np.isfinite(dvar_np).all()
+            and (dvar_np > 0).all() and bool(torch.isfinite(dvals).all())
+            and all(v in ("OK", "STALLED") for v in dverdicts.values())):
+        raise RuntimeError("default-config path: not kmg/off, not finite, "
+                           "or diverged")
+    _require_launched("default-config path", counts_d,
+                      ("banded_lu", "band_matmul", "rgf_blocks", "block_cr",
+                       "banded_matvec"))
+    if counts_d["mega_pcg"] or counts_d["fused_pcg_iter"]:
+        raise RuntimeError("the kmg path ran a fused PCG kernel")
+    del dgp
+    _stamp("default-config (kmg) path")
+    kmg_convergence(P, dev)
+    _stamp("kmg convergence")
+
+    # --- PCG with one launch per iteration (fused="on"): fit and one
+    # variance chunk; then "on" against "whole" bit for bit on the main
+    # path's own operands, cold, warm and with tol --------------------------
+    ocfg = P["GPConfig"](q=0, solver="pcg", solver_iters=40, precond="none",
+                         fused="on")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    ogp, to_fit = _sync_time(lambda: P["fit"](ocfg, X, Y, omega, sigma))
+    ovar, to_var = _sync_time(lambda: P["posterior_var"](ogp, Xq[:B]))
+    counts_o = _build.launch_counts()
+    peak_o = torch.cuda.max_memory_allocated()
+    ovar_np = ovar.cpu().numpy()
+    print(f"pcg fused=on path n={n} D={D} iters=40: fit {to_fit * 1e3:.1f} "
+          f"ms, posterior_var({B}) {to_var * 1e3:.1f} ms; fit solve verdict "
+          f"{P['verdict_name'](ogp.health.verdict)}; peak memory "
+          f"{peak_o / 2**20:.1f} MiB; launches {counts_o}", flush=True)
+    if not (np.isfinite(ovar_np).all() and (ovar_np > 0).all()
+            and P["verdict_name"](ogp.health.verdict) == "OK"):
+        raise RuntimeError("pcg fused=on path: not finite/positive/OK")
+    _require_launched("pcg fused=on path", counts_o,
+                      ("banded_lu", "band_matmul", "rgf_blocks",
+                       "fused_pcg_iter"))
+    if counts_o["mega_pcg"]:
+        raise RuntimeError("the fused='on' path ran the whole-solve kernel")
+    del ogp
+    vb = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (D, n, B)), device=dev)
+    for warm, tol in ((False, 0.0), (False, 1e-6), (True, 1e-6)):
+        res = {}
+        for fz in ("whole", "on"):
+            _build.reset_launch_counts()
+            res[fz] = _sync_time(lambda: P["solve_mhat"](
+                gp.ops, vb, P["SolveConfig"](iters=40, tol=tol, fused=fz),
+                x0=0.5 * vb if warm else None, return_info=True))
+            res[fz + " launches"] = _build.launch_counts()["fused_pcg_iter"]
+        ((xw, iw), tw), ((xo, io), t_on) = res["whole"], res["on"]
+        same = (torch.equal(xw, xo) and torch.equal(iw.resid, io.resid)
+                and int(iw.iters) == int(io.iters))
+        nl = res["on launches"]
+        print(f"pcg on == whole (n={n} D={D} B={B}, warm={warm}, tol={tol}):"
+              f" bitwise {same}; {int(io.iters)} iterations; whole "
+              f"{tw * 1e3:.1f} ms, on {t_on * 1e3:.1f} ms in {nl} launches: "
+              f"{(t_on - tw) / nl * 1e3:.3f} ms more a launch", flush=True)
+        if not same or nl != int(io.iters) + 1:
+            raise RuntimeError("pcg fused='on' and 'whole' differ")
+    _stamp("pcg fused=on path")
+
+    all_counts = [counts, counts_l, *relax_counts, counts_k, counts_d,
+                  counts_o]
+    for row in rows:
+        row["launches"] = sum(c[row["name"]] for c in all_counts)
 
     # --- consistency: card vs plain CPU at the quickstart's size ----------
     Xc, Yc, _, bc = P["sample_test_function"]("schwefel", N_CHECK, D, seed=0)
@@ -851,10 +1160,28 @@ def main():
     Xqr = Xqc[:B]  # one variance chunk
     g_card = P["fit"](cfg, Xc, Yc, omc, 1.0)
     g_cpu = P["fit"](cfg, Xc, Yc, omc, 1.0, device="cpu")
+    want_c = {name: fn(g_cpu, xq, device="cpu") for name, fn, xq in (
+        ("mean", P["posterior_mean"], Xqc), ("var", P["posterior_var"], Xqr))}
     for name, fn, xq in (("mean", P["posterior_mean"], Xqc),
                          ("var", P["posterior_var"], Xqr)):
-        _check(f"n={N_CHECK} D={D} {name}", fn(g_card, xq),
-               fn(g_cpu, xq, device="cpu"))
+        _check(f"n={N_CHECK} D={D} {name}", fn(g_card, xq), want_c[name])
+    # the per-iteration pcg path on the card against the CPU's whole solve
+    # (the CPU's "on" equals its "whole" bit for bit: the CPU tests)
+    g_on = P["fit"](dataclasses.replace(cfg, fused="on"), Xc, Yc, omc, 1.0)
+    for name, fn, xq in (("mean", P["posterior_mean"], Xqc),
+                         ("var", P["posterior_var"], Xqr)):
+        _check(f"n={N_CHECK} D={D} pcg fused=on {name}", fn(g_on, xq),
+               want_c[name])
+    del g_on
+    # kmg (forced: n < 4096), one variance chunk of 8 queries to bound the
+    # CPU's plain V-cycles
+    kcfg = P["GPConfig"](q=0, precond="kmg")
+    gk = [P["fit"](kcfg, Xc, Yc, omc, 1.0, device=d) for d in (None, "cpu")]
+    for name, fn, xq in (("mean", P["posterior_mean"], Xqc),
+                         ("var", P["posterior_var"], Xqc[:8])):
+        _check(f"n={N_CHECK} D={D} kmg {name}", fn(gk[0], xq),
+               fn(gk[1], xq, device="cpu"))
+    del gk
     # the same probe blocks, drawn once, fed to the card and the CPU
     gen = torch.Generator().manual_seed(1)
     pm_v0 = P["_probe_block"](g_cpu, gen, 4)

@@ -15,7 +15,10 @@ Device rule: ``fit``, ``posterior_mean``, ``posterior_var`` and
 likelihood and its gradients run where the fitted GP lives. On CUDA every
 banded kernel of the path is a hand-written CUDA kernel; on the CPU the
 plain versions run. Paths that are not ported yet raise
-``NotImplementedError`` at ``fit`` (see :class:`GPConfig`).
+``NotImplementedError`` at ``fit`` (see :class:`GPConfig`). With
+``precond="kmg"`` (the "auto" choice at q == 0 and n >= 4096, as in the
+reference) ``fit`` builds the coarse hierarchy (``gp.hier``) and every
+solve of the GP runs the V-cycle preconditioner.
 
 Randomness: where the reference takes a ``jax.random`` key, the port takes
 a ``torch.Generator``; every probe is drawn through
@@ -40,9 +43,10 @@ from .band_inverse import variance_band
 from .banded import Banded, add, logdet, matvec, scale, solve, transpose
 from .kernel_packets import gkp_factors, kp_factors, phi_at
 
-__all__ = ["GPConfig", "AdditiveGP", "fit", "mean_caches", "posterior_caches",
-           "posterior_mean", "posterior_var", "prior_var", "resolve_device",
-           "log_likelihood", "mll_gradients", "fit_hyperparams", "TIE_EPS"]
+__all__ = ["GPConfig", "AdditiveGP", "fit", "build_gp_hier", "mean_caches",
+           "posterior_caches", "posterior_mean", "posterior_var", "prior_var",
+           "resolve_device", "log_likelihood", "mll_gradients",
+           "fit_hyperparams", "TIE_EPS"]
 
 LOGDET_METHODS = ("taylor", "taylor_pc")
 
@@ -60,15 +64,14 @@ class GPConfig:
 
     Every ``solver`` ("pcg", "jacobi", "gauss_seidel") runs, with ``fused``
     "auto" (baked at ``fit`` to "whole" where the bands allow the fused
-    kernels, else "off"), "whole" (one whole-solve launch per solve), "on"
-    (a host loop of one-sweep launches; jacobi and gauss_seidel) or "off"
-    (the unfused host loops). Values whose path is not ported raise
-    ``NotImplementedError`` at ``fit``: ``fused="on"`` with
-    ``solver="pcg"`` (the per-iteration PCG kernel), ``pivot=True`` with
-    ``solve_alg="lu"`` (the pivoted gbsv scan), a ``precond`` that resolves
-    to "kmg" (so ``q == 0, n >= 4096`` with "auto" raises: pass
-    ``precond="none"``), and ``q == 3`` on CUDA. ``backend``: "auto" (by
-    tensor device) | "cuda".
+    kernels and the preconditioner is not kmg, else "off"), "whole" (one
+    whole-solve launch per solve), "on" (a host loop of one-iteration
+    launches) or "off" (the unfused host loops). ``precond`` "auto"
+    resolves at ``fit`` to "kmg" at q == 0 and n >= 4096, else "none".
+    Values whose path is not ported raise ``NotImplementedError`` at
+    ``fit``: ``pivot=True`` with ``solve_alg="lu"`` (the pivoted gbsv scan)
+    and ``q == 3`` on CUDA. ``backend``: "auto" (by tensor device) |
+    "cuda".
     """
 
     q: int = 0
@@ -94,8 +97,8 @@ class GPConfig:
         return SolveConfig(method=self.solver, iters=self.solver_iters,
                            pivot=self.pivot, backend=self.backend,
                            alg=self.solve_alg, fused=self.fused,
-                           precond=self.precond)
-
+                           precond=self.precond,
+                           precond_smooth=self.precond_smooth)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +119,9 @@ class AdditiveGP:
     config: GPConfig
     Hband: Banded | None = None  # (D, n, 4q+3) band of H = A Phi^T
     health: hv.HealthState | None = None
+    # coarse KMG hierarchy (tuple of precond.CoarseLevel) when
+    # config.precond == "kmg"; None otherwise
+    hier: tuple | None = None
 
     @property
     def n(self) -> int:
@@ -192,10 +198,25 @@ def resolve_config(config: GPConfig, n: int, device) -> GPConfig:
     return dataclasses.replace(config, fused=fused)
 
 
-def mean_caches(config: GPConfig, ops: DimOps, Y, return_info: bool = False):
-    """(u_sy, bY) solve-dependent posterior-mean caches (+ SolveInfo)."""
+def build_gp_hier(config: GPConfig, omega, sigma, X, xs, ops: DimOps):
+    """Coarse KMG hierarchy of a fitted system; None unless precond="kmg".
+    O(n) band assembly at the subsampled points, no solves."""
+    if config.precond != "kmg":
+        return None
+    from ..precond.coarse import build_hierarchy
+
+    return build_hierarchy(config.q, omega, sigma ** 2, X, xs, ops,
+                           levels=config.precond_levels,
+                           coarsen=config.precond_coarsen)
+
+
+def mean_caches(config: GPConfig, ops: DimOps, Y, hier=None,
+                return_info: bool = False):
+    """(u_sy, bY) solve-dependent posterior-mean caches (+ SolveInfo);
+    ``hier`` the KMG hierarchy (required when config.precond == "kmg")."""
     SY = Y[None, :].expand(ops.D, ops.n)
-    res = solve_mhat(ops, SY, config.solve_cfg(), return_info=return_info)
+    res = solve_mhat(ops, SY, config.solve_cfg(), hier=hier,
+                     return_info=return_info)
     u_sy, info = res if return_info else (res, None)
     bY = solve(transpose(ops.Phi), ops.to_sorted(u_sy) / ops.sigma2,
                pivot=config.pivot, backend=config.backend,
@@ -208,10 +229,10 @@ def mean_caches(config: GPConfig, ops: DimOps, Y, return_info: bool = False):
     return u_sy, bY, info
 
 
-def posterior_caches(config: GPConfig, ops: DimOps, Y,
+def posterior_caches(config: GPConfig, ops: DimOps, Y, hier=None,
                      return_info: bool = False):
     """(u_sy, bY, Gband, Hband[, info]): mean caches + the RGF variance band."""
-    res = mean_caches(config, ops, Y, return_info=return_info)
+    res = mean_caches(config, ops, Y, hier=hier, return_info=return_info)
     Gband, Hband = variance_band(ops.A, ops.Phi, backend=config.backend,
                                  return_h=True)
     return res[:2] + (Gband, Hband) + res[2:]
@@ -242,16 +263,17 @@ def fit(config: GPConfig, X, Y, omega, sigma, device=None) -> AdditiveGP:
     SAPhi = add(scale(A, sigma ** 2), Phi)
     ops = DimOps(A=A, Phi=Phi, SAPhi=SAPhi, sort_idx=sort_idx,
                  rank_idx=rank_idx, sigma2=sigma ** 2)
+    hier = build_gp_hier(config, omega, sigma, X, xs, ops)
     if config.health == "on":
-        u_sy, bY, Gband, Hband, info = posterior_caches(config, ops, Y,
-                                                        return_info=True)
+        u_sy, bY, Gband, Hband, info = posterior_caches(
+            config, ops, Y, hier=hier, return_info=True)
         health = hv.HealthState.fresh(Y.dtype, device).with_solve(info)
     else:
-        u_sy, bY, Gband, Hband = posterior_caches(config, ops, Y)
+        u_sy, bY, Gband, Hband = posterior_caches(config, ops, Y, hier=hier)
         health = None
     return AdditiveGP(X=X, Y=Y, omega=omega, sigma=sigma, xs=xs, ops=ops,
                       B=Bg, Psi=Psi, bY=bY, u_sy=u_sy, Gband=Gband,
-                      Hband=Hband, config=config, health=health)
+                      Hband=Hband, config=config, health=health, hier=hier)
 
 
 def _query(gp: AdditiveGP, Xq, device):
@@ -314,7 +336,7 @@ def posterior_var(gp: AdditiveGP, Xq, device=None):
         w_sorted = solve(gp.ops.Phi, phi_cols, pivot=gp.config.pivot,
                          backend=gp.config.backend, alg=gp.config.solve_alg)
         w = gp.ops.from_sorted(w_sorted)
-        z = solve_mhat(gp.ops, w, cfg)
+        z = solve_mhat(gp.ops, w, cfg, hier=gp.hier)
         term3.append((w * z).sum(dim=(0, 1)))
     term3 = torch.cat(term3)[:m]
     return prior_var(gp, Xq.dtype) - term2 + term3
@@ -334,7 +356,7 @@ def prior_var(gp: AdditiveGP, dtype=torch.float64):
 def _r_apply(gp: AdditiveGP, v, cfg: SolveConfig):
     """R v = sigma^{-2} v - sigma^{-4} S^T Mhat^{-1} S v, v: (n,) or (n, B)."""
     SV = v[None].expand((gp.D,) + tuple(v.shape))
-    z = solve_mhat(gp.ops, SV, cfg)
+    z = solve_mhat(gp.ops, SV, cfg, hier=gp.hier)
     return v / gp.sigma ** 2 - z.sum(dim=0) / gp.sigma ** 4
 
 
@@ -427,7 +449,7 @@ def _mll_gradients(gp: AdditiveGP, V, return_info: bool = False):
     Wd = _dk_apply(gp, V)  # (D, n, Q)
     first = torch.einsum("nq,dnq->dq", V, Wd) / s2
     rhs = Wd.permute(1, 0, 2).reshape(1, n, D * Q).expand(D, n, D * Q)
-    rz = solve_mhat(gp.ops, rhs, cfg, return_info=return_info)
+    rz = solve_mhat(gp.ops, rhs, cfg, hier=gp.hier, return_info=return_info)
     z, info_z = rz if return_info else (rz, None)
     stz = z.sum(dim=0).reshape(n, D, Q)
     second = torch.einsum("nq,ndq->dq", V, stz) / s4
@@ -435,7 +457,7 @@ def _mll_gradients(gp: AdditiveGP, V, return_info: bool = False):
     grad_omega = 0.5 * (term1 - trace)
 
     # sigma: dMLL/dsigma^2 = 0.5 (||u||^2 - tr R), tr R with the same probes
-    rzs = solve_mhat(gp.ops, V[None].expand(D, n, Q), cfg,
+    rzs = solve_mhat(gp.ops, V[None].expand(D, n, Q), cfg, hier=gp.hier,
                      return_info=return_info)
     zs, info_s = rzs if return_info else (rzs, None)
     quadS = torch.einsum("nq,nq->q", V, zs.sum(dim=0))

@@ -11,12 +11,12 @@ stacks in original point order, by
 ``SolveConfig.fused`` picks how a solve runs (``kernels.ops.resolve_fused``):
 "whole" (the default that "auto" resolves to) is one launch of the
 whole-solve kernel per solve (``kernels.mega_solve``); "on" is a host loop
-of one-sweep kernels (``kernels.fused_sweep``; jacobi and gauss_seidel
-only: the per-iteration PCG kernel is not ported and raises); "off" is the
-unfused host loop over the banded kernels of ``kernels.ops``. On CUDA
-tensors the kernels launch, on CPU tensors their plain versions run. The
-relaxation solves agree bit for bit between "whole" and "on".
-``precond="kmg"`` raises ``NotImplementedError``.
+of one-iteration kernels (``kernels.fused_sweep``); "off" is the unfused
+host loop over the banded kernels of ``kernels.ops``. On CUDA tensors the
+kernels launch, on CPU tensors their plain versions run. Every solver
+agrees bit for bit between "whole" and "on". ``precond="kmg"`` (pcg only)
+preconditions with the kernel-multigrid V-cycle over the coarse hierarchy
+``hier`` (``precond.kmg_preconditioner``) in the unfused host loop.
 
 ``return_info=True`` residuals cost no extra matvec: pcg returns the
 recursively updated ``r``, and the relaxation sweeps carry
@@ -51,7 +51,11 @@ class SolveConfig:
     backend: str = "auto"
     alg: str = "auto"
     fused: str = "auto"  # "auto" | "whole" | "on" | "off"
-    precond: str = "none"  # "none" (block preconditioner)
+    # pcg preconditioner: "none" (per-dim block solve) | "kmg" (the V-cycle
+    # over a coarse hierarchy: solve_mhat needs hier=) | "auto" (resolved at
+    # fit; at a raw solve, kmg only when a hierarchy is passed)
+    precond: str = "none"
+    precond_smooth: int = 1  # deflated block-Jacobi sweeps per coarse solve
 
 
 class SolveInfo(NamedTuple):
@@ -129,25 +133,19 @@ def _det_dot(a, b):
 
 
 def check_solve_config(cfg: SolveConfig) -> None:
-    """Reject unknown values, and raise ``NotImplementedError`` for kmg
-    (``kernels.ops.resolve_fused`` raises it for the per-iteration PCG
-    kernel)."""
+    """Reject unknown values, and kmg with a relaxation method."""
     from ..kernels import ops as _kops
 
     if cfg.method not in METHODS:
         raise ValueError(f"unknown method {cfg.method!r}")
     if cfg.fused not in _kops.FUSED_MODES:
         raise ValueError(f"unknown fused mode {cfg.fused!r}")
-    if cfg.precond not in ("none", "auto", "kmg"):
+    if cfg.precond not in _kops.PRECOND_MODES:
         raise ValueError(f"unknown precond {cfg.precond!r}")
     if cfg.precond == "kmg" and cfg.method != "pcg":
         raise ValueError(
             f"precond='kmg' applies to method='pcg' only (got "
             f"{cfg.method!r}); use precond='none' for relaxation sweeps")
-    if cfg.precond == "kmg":
-        raise NotImplementedError(
-            "precond='kmg' is not ported yet (ROADMAP Queue 1, precond/); "
-            "pass precond='none'")
 
 
 def fused_mode(cfg: SolveConfig, a, phi, saphi) -> str:
@@ -161,8 +159,8 @@ def fused_mode(cfg: SolveConfig, a, phi, saphi) -> str:
                 or _kops.resolve_solve_alg(cfg.alg, lo, hi) == "cr"
                 for lo, hi in (phi, saphi))
     widths = ([a] if cfg.method == "pcg" else []) + [phi, saphi]
-    return _kops.resolve_fused(cfg.fused, widths=widths, method=cfg.method,
-                               cr_ok=cr_ok, precond=cfg.precond)
+    return _kops.resolve_fused(cfg.fused, widths=widths, cr_ok=cr_ok,
+                               precond=cfg.precond)
 
 
 def _maybe_fused(ops: DimOps, v, cfg: SolveConfig):
@@ -314,26 +312,53 @@ def _jacobi(ops: DimOps, v, cfg: SolveConfig, x0=None,
     return vt, _resid_from_k(ops, v, vt, k)
 
 
-def _pcg(ops: DimOps, v, cfg: SolveConfig, x0=None):
-    """Preconditioned CG on Mhat x = v with the block preconditioner;
-    returns ``(x, iters_used, resid)``. With ``cfg.tol > 0`` the loop exits
-    once every column has ``|rz_k| <= tol^2 |rz_0|``."""
+def _pcg(ops: DimOps, v, cfg: SolveConfig, x0=None, hier=None):
+    """Preconditioned CG on Mhat x = v; returns ``(x, iters_used, resid)``.
+
+    The preconditioner is the per-dim block solve (``precond="none"``),
+    run by the whole-solve kernel ("whole"), a host loop of one-iteration
+    kernels ("on") or the unfused host loop ("off"); or the kernel-multigrid
+    V-cycle over ``hier`` (``precond="kmg"``) in the unfused host loop. With
+    ``cfg.tol > 0`` the loop exits once every column has
+    ``|rz_k| <= tol^2 |rz_0|``; the magnitudes matter, since the V-cycle is
+    symmetric but can be indefinite on part of the spectrum, so rz may pass
+    through negative values on the way down.
+    """
+    kw = dict(pivot=cfg.pivot, backend=cfg.backend, alg=cfg.alg)
+    # kmg resolves to "off" (an explicit "on"/"whole" raises there)
     mode, fs = _maybe_fused(ops, v, cfg)
     if mode == "whole":
         from ..kernels.mega_solve import MegaSolve
 
-        x, r_fin, iters_used = MegaSolve(fs).pcg(v, x0, iters=cfg.iters,
-                                                 tol=cfg.tol)
-        resid = torch.sqrt(tree_sum(_det_dot(r_fin, r_fin), axis=0))
-        return x, iters_used, resid
+        x, r, iters_used = MegaSolve(fs).pcg(v, x0, iters=cfg.iters,
+                                             tol=cfg.tol)
+        return x, iters_used, torch.sqrt(tree_sum(_det_dot(r, r), axis=0))
+    if mode == "on":
+        from ..kernels.fused_sweep import pcg_loop
 
-    kw = dict(pivot=cfg.pivot, backend=cfg.backend, alg=cfg.alg)
+        # the columns as the whole solve takes them, so the two agree
+        step = fs.pcg_columns(v.shape[-1], cfg.tol)
+        (x, r, _, _), i = pcg_loop(
+            lambda *st: fs.pcg_iter(*st, step=step),
+            fs.pcg_seed(v, x0, step=step), iters=cfg.iters, tol=cfg.tol)
+        x, r = fs.unpad(x), fs.unpad(r)
+        return (x, torch.tensor(i, dtype=torch.int32, device=v.device),
+                torch.sqrt(tree_sum(_det_dot(r, r), axis=0)))
+    if cfg.precond == "kmg":
+        if hier is None:
+            raise ValueError(
+                "precond='kmg' needs the coarse hierarchy: pass hier= to "
+                "solve_mhat (fitted GPs carry it as gp.hier)")
+        from ..precond.vcycle import kmg_preconditioner
+
+        pre = kmg_preconditioner(ops, hier, damping=cfg.damping,
+                                 smooth=cfg.precond_smooth, **kw)
+    else:
+        def pre(u):
+            return ops.block_solve(u, **kw)
 
     def amv(u):
         return mhat_matvec(ops, u, **kw)
-
-    def pre(u):
-        return ops.block_solve(u, **kw)
 
     x = torch.zeros_like(v) if x0 is None else x0
     # amv(0) == 0 exactly: a cold start skips it
@@ -361,15 +386,23 @@ def _pcg(ops: DimOps, v, cfg: SolveConfig, x0=None):
 
 
 def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
-               return_info: bool = False):
+               return_info: bool = False, hier=None):
     """Apply Mhat^{-1} to v: (D, n) or (D, n, B), original point order.
 
     ``x0`` warm-starts the iteration. ``return_info=True`` also returns a
     :class:`SolveInfo` with the realized iteration count and the verdict.
+    ``hier`` is the coarse hierarchy of ``precond.build_hierarchy`` (fitted
+    GPs carry it as ``gp.hier``): required with ``precond="kmg"``, ignored
+    otherwise. ``precond="auto"`` takes kmg only when ``hier`` is given, by
+    the fit's rule (q == 0 and n >= ``KMG_AUTO_MIN_N``).
     """
     check_solve_config(cfg)
-    if cfg.precond == "auto":  # no hierarchy at a raw solve: block precond
-        cfg = dataclasses.replace(cfg, precond="none")
+    if cfg.precond == "auto":
+        from ..kernels import ops as _kops
+
+        precond = ("none" if hier is None or cfg.method != "pcg" else
+                   _kops.resolve_precond("auto", q=ops.Phi.lo, n=ops.n))
+        cfg = dataclasses.replace(cfg, precond=precond)
     vec_in = v.ndim == 2
     if vec_in:
         v = v[..., None]
@@ -383,7 +416,7 @@ def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
     elif cfg.method == "jacobi":
         out, resid = _jacobi(ops, v, cfg, x0, want_resid=return_info)
     else:
-        out, iters_used, resid = _pcg(ops, v, cfg, x0)
+        out, iters_used, resid = _pcg(ops, v, cfg, x0, hier)
     result = out[..., 0] if vec_in else out
     if not return_info:
         return result

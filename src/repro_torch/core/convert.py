@@ -9,14 +9,16 @@ identical factors. Keys:
   * for each band ``N`` in ``A, Phi, SAPhi, B, Psi, Gband, Hband``: the data
     ``N`` (D, n, lo+hi+1) with its half-widths ``N_lo`` and ``N_hi``.
 
-The GP carries no health state (no solve ran here).
+The GP carries no health state (no solve ran here). When the config
+resolves to ``precond="kmg"`` the coarse hierarchy is rebuilt from the
+carried factors (``build_gp_hier``: band assembly, no solve).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .additive_gp import AdditiveGP, GPConfig, resolve_config
+from .additive_gp import AdditiveGP, GPConfig, build_gp_hier, resolve_config
 from .backfitting import DimOps
 from .banded import Banded
 
@@ -43,7 +45,9 @@ def gp_from_arrays(arrays: dict[str, np.ndarray], config: GPConfig,
     ops = DimOps(A=band("A"), Phi=band("Phi"), SAPhi=band("SAPhi"),
                  sort_idx=t("sort_idx", torch.int64),
                  rank_idx=t("rank_idx", torch.int64), sigma2=sigma ** 2)
-    return AdditiveGP(X=X, Y=t("Y"), omega=t("omega"), sigma=sigma,
-                      xs=t("xs"), ops=ops, B=band("B"), Psi=band("Psi"),
-                      bY=t("bY"), u_sy=t("u_sy"), Gband=band("Gband"),
-                      config=config, Hband=band("Hband"), health=None)
+    omega, xs = t("omega"), t("xs")
+    return AdditiveGP(X=X, Y=t("Y"), omega=omega, sigma=sigma, xs=xs,
+                      ops=ops, B=band("B"), Psi=band("Psi"), bY=t("bY"),
+                      u_sy=t("u_sy"), Gband=band("Gband"), config=config,
+                      Hband=band("Hband"), health=None,
+                      hier=build_gp_hier(config, omega, sigma, X, xs, ops))

@@ -1,9 +1,12 @@
-// The whole preconditioned-CG backfitting solve in one launch, float64.
+// Preconditioned-CG backfitting in one launch: the whole solve, or one
+// iteration on a carried state, float64.
 //
 // Replaces: src/repro/kernels/mega_solve.py, mega_pcg_solve_pallas (kernel
 // body `_pcg_solve_kernel`), which runs every Mhat solve of the serving
 // path: the fit's mean cache (B = 1) and each 32-column chunk of the
-// posterior variance.
+// posterior variance (fused="auto"/"whole"); and
+// src/repro/kernels/fused_sweep.py, fused_pcg_iter_pallas (kernel body
+// `_pcg_kernel`), one iteration per launch (fused="on").
 //
 // Per iteration, for every dimension d (the reference's op order):
 //   Mhat p = gather_rank(Phi^{-1} A gather_sort(p)) + (sum_d p_d) / s^2
@@ -25,11 +28,19 @@
 // contiguous column axis). Inner products reduce per block in a fixed
 // order into per-block partials, and after the grid sync every block sums
 // the partials in the same order, so all blocks hold identical scalars and
-// take the same loop exits. The banded solves with half-width w >= 1 run
-// the block cyclic reduction device function (cr.cuh), one block per
-// dimension; w = 0 is a division. The thread map and the gathered matvec
-// come from sweep.cuh, shared with the relaxation kernels; PIVOT selects the
+// take the same loop exits. The thread map, the gathered matvec, the
+// cross-dimension total and the banded solves come from sweep.cuh; the
+// solves run sweep.cuh's solve_cols with one slot per dimension (block
+// cyclic reduction at w >= 1, a division at w = 0); PIVOT selects the
 // pivoted block solves (SolveConfig.pivot).
+//
+// Modes: a seed launch (cold: r = v; warm: r = v - Mhat x0) forms z, p and
+// rz and then runs up to `iters` iterations with the tol exit; that is the
+// whole solve. A carry launch starts from the (x, r, p, rz) its caller
+// hands back and runs `iters` iterations without a tol check. fused="on"
+// is one seed launch for 0 iterations and then one carry launch per
+// iteration, with the tol exit checked on the host: the same machine code
+// as the whole solve, so the two agree bit for bit.
 #include <cooperative_groups.h>
 
 #include "sweep.cuh"
@@ -41,6 +52,10 @@ namespace {
 constexpr int NT = repro::SWEEP_NT;  // threads per block; also the largest B
 constexpr int MAX_BLOCKS_PER_SM = 4;
 
+// how the launch starts: the seed of a cold or warm solve, or a carried
+// (x, r, p, rz)
+enum Mode { SEED_COLD = 0, SEED_WARM = 1, CARRY = 2 };
+
 struct Args : repro::SweepDims {
   const double* a;
   const double* phi;
@@ -51,18 +66,17 @@ struct Args : repro::SweepDims {
   double* x;
   double* r;
   double* p;
+  double* rz_io;
   double* ap;
   double* z;
   double* t1;
   double* tp;
-  double* Ab;
-  double* Bb;
-  double* Cb;
+  double* scratch;
   double* part0;
   double* part1;
   int* iters_out;
-  long long sstride;  // CR scratch doubles per dimension
-  int w_a, w_p, w_s, iters, warm;
+  long long sstride;  // CR scratch doubles per slot and array
+  int w_a, w_p, w_s, iters, mode, nslots;
   double tol;
 };
 
@@ -70,44 +84,12 @@ using repro::gather_mv;
 using repro::make_map;
 using repro::Map;
 
-// tp[i,b] = sum_d u[d,i,b]
-__device__ void sum_dims(const Args& A, const Map& m, const double* u) {
-  if (!m.on) return;
-  const int B = A.B;
-  for (long long i = m.r0; i < A.npad; i += m.rs) {
-    double acc = 0.0;
-    for (int d = 0; d < A.D; ++d)
-      acc += u[((long long)d * A.npad + i) * B + m.b];
-    A.tp[i * B + m.b] = acc;
-  }
-}
-
-// t <- band^{-1} t per dimension (band half-width w, symmetric)
+// t <- band^{-1} t per dimension, one solve_cols slot per dimension
 template <bool PIVOT>
-__device__ void solve_phase(const Args& A, const Map& m, double* t,
-                            const double* band, int w) {
-  const int B = A.B;
-  if (w == 0) {
-    if (!m.on) return;
-    const long long rows = (long long)A.D * A.npad;
-    for (long long row = m.r0; row < rows; row += m.rs)
-      t[row * B + m.b] /= band[row];
-    return;
-  }
-  const long long per = (long long)A.npad * B;
-  const long long bper = (long long)A.npad * (2 * w + 1);
-  for (int d = blockIdx.x; d < A.D; d += gridDim.x) {
-    const double* bd = band + d * bper;
-    double* td = t + d * per;
-    double* ab = A.Ab + d * A.sstride;
-    double* bb = A.Bb + d * A.sstride;
-    double* cb = A.Cb + d * A.sstride;
-    switch (w) {
-      case 1: repro::cr_block_solve<1, PIVOT>(bd, td, ab, bb, cb, A.npad, B); break;
-      case 2: repro::cr_block_solve<2, PIVOT>(bd, td, ab, bb, cb, A.npad, B); break;
-      default: repro::cr_block_solve<3, PIVOT>(bd, td, ab, bb, cb, A.npad, B); break;
-    }
-  }
+__device__ void solve(const Args& A, const Map& m, double* t,
+                      const double* band, int w) {
+  repro::solve_cols<PIVOT>(A, m, t, band, w, 0, A.D, A.scratch, A.sstride,
+                           A.nslots);
 }
 
 // per-block partial sums of one column-wise inner product (fixed order)
@@ -144,59 +126,70 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
   const int B = A.B;
   const long long rows = (long long)A.D * A.npad;
   const double s2 = *A.sigma2;
+  const bool warm = A.mode == SEED_WARM;
 
-  // x = x0; cold start: r = v (Mhat 0 = 0); warm start: tp, t1 from x0
-  if (m.on) {
-    for (long long row = m.r0; row < rows; row += m.rs) {
-      const long long e = row * B + m.b;
-      A.x[e] = A.x0[e];
-      if (!A.warm) A.r[e] = A.v[e];
+  if (A.mode == CARRY) {
+    if (threadIdx.x < B) {
+      rz[threadIdx.x] = A.rz_io[threadIdx.x];
+      thresh[threadIdx.x] = 0.0;  // carry launches take no tol exit
     }
-  }
-  if (A.warm) {
-    sum_dims(A, m, A.x0);
-    gather_mv(A, m, A.t1, A.x0, A.a, A.w_a);
-  }
-  grid.sync();
-  if (A.warm) {
-    solve_phase<PIVOT>(A, m, A.t1, A.phi, A.w_p);
-    grid.sync();
+    __syncthreads();
+  } else {
+    // x = x0; cold start: r = v (Mhat 0 = 0); warm start: tp, t1 from x0
     if (m.on) {
       for (long long row = m.r0; row < rows; row += m.rs) {
-        const int d = (int)(row / A.npad);
-        const long long i = row - (long long)d * A.npad;
         const long long e = row * B + m.b;
-        const long long src = ((long long)d * A.npad + A.rank[row]) * B + m.b;
-        A.r[e] = A.v[e] - (A.t1[src] + A.tp[i * B + m.b] / s2);
+        A.x[e] = A.x0[e];
+        if (!warm) A.r[e] = A.v[e];
       }
+    }
+    if (warm) {
+      repro::sum_dims(A, m, A.tp, A.x0);
+      gather_mv(A, m, A.t1, A.x0, A.a, A.w_a);
     }
     grid.sync();
-  }
-
-  // z = M_pre^{-1} r; p = z; rz = <r, z>
-  gather_mv(A, m, A.t1, A.r, A.phi, A.w_p);
-  grid.sync();
-  solve_phase<PIVOT>(A, m, A.t1, A.saphi, A.w_s);
-  grid.sync();
-  {
-    double acc = 0.0;
-    if (m.on) {
-      for (long long row = m.r0; row < rows; row += m.rs) {
-        const int d = (int)(row / A.npad);
-        const long long e = row * B + m.b;
-        const double zz =
-            s2 * A.t1[((long long)d * A.npad + A.rank[row]) * B + m.b];
-        A.z[e] = zz;
-        A.p[e] = zz;
-        acc += A.r[e] * zz;
+    if (warm) {
+      solve<PIVOT>(A, m, A.t1, A.phi, A.w_p);
+      grid.sync();
+      if (m.on) {
+        for (long long row = m.r0; row < rows; row += m.rs) {
+          const int d = (int)(row / A.npad);
+          const long long i = row - (long long)d * A.npad;
+          const long long e = row * B + m.b;
+          const long long src =
+              ((long long)d * A.npad + A.rank[row]) * B + m.b;
+          A.r[e] = A.v[e] - (A.t1[src] + A.tp[i * B + m.b] / s2);
+        }
       }
+      grid.sync();
     }
-    block_partial(A, m, acc, A.part0, sh);
+
+    // z = M_pre^{-1} r; p = z; rz = <r, z>
+    gather_mv(A, m, A.t1, A.r, A.phi, A.w_p);
+    grid.sync();
+    solve<PIVOT>(A, m, A.t1, A.saphi, A.w_s);
+    grid.sync();
+    {
+      double acc = 0.0;
+      if (m.on) {
+        for (long long row = m.r0; row < rows; row += m.rs) {
+          const int d = (int)(row / A.npad);
+          const long long e = row * B + m.b;
+          const double zz =
+              s2 * A.t1[((long long)d * A.npad + A.rank[row]) * B + m.b];
+          A.z[e] = zz;
+          A.p[e] = zz;
+          acc += A.r[e] * zz;
+        }
+      }
+      block_partial(A, m, acc, A.part0, sh);
+    }
+    grid.sync();
+    grid_total(A, A.part0, rz);
+    if (threadIdx.x < B)
+      thresh[threadIdx.x] = A.tol * A.tol * fabs(rz[threadIdx.x]);
+    __syncthreads();
   }
-  grid.sync();
-  grid_total(A, A.part0, rz);
-  if (threadIdx.x < B) thresh[threadIdx.x] = A.tol * A.tol * fabs(rz[threadIdx.x]);
-  __syncthreads();
 
   int it = 0;
   while (true) {
@@ -209,10 +202,10 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
     if (!go) break;
 
     // ap = Mhat p
-    sum_dims(A, m, A.p);
+    repro::sum_dims(A, m, A.tp, A.p);
     gather_mv(A, m, A.t1, A.p, A.a, A.w_a);
     grid.sync();
-    solve_phase<PIVOT>(A, m, A.t1, A.phi, A.w_p);
+    solve<PIVOT>(A, m, A.t1, A.phi, A.w_p);
     grid.sync();
     {
       double acc = 0.0;
@@ -250,7 +243,7 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
     // z = M_pre^{-1} r, rz_new = <r, z>
     gather_mv(A, m, A.t1, A.r, A.phi, A.w_p);
     grid.sync();
-    solve_phase<PIVOT>(A, m, A.t1, A.saphi, A.w_s);
+    solve<PIVOT>(A, m, A.t1, A.saphi, A.w_s);
     grid.sync();
     {
       double acc = 0.0;
@@ -285,7 +278,10 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
     ++it;
     grid.sync();
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) *A.iters_out = it;
+  if (blockIdx.x == 0) {
+    if (threadIdx.x < B) A.rz_io[threadIdx.x] = rz[threadIdx.x];
+    if (threadIdx.x == 0) *A.iters_out = it;
+  }
 }
 
 int grid_blocks(bool pivot, int* out) {
@@ -295,6 +291,14 @@ int grid_blocks(bool pivot, int* out) {
                                            MAX_BLOCKS_PER_SM, out);
 }
 
+// grid size and solve slots (one per dimension, at most one per block)
+int layout(int D, int pivot, int* grid, int* nslots) {
+  const int err = grid_blocks(pivot != 0, grid);
+  if (err) return err;
+  *nslots = D < *grid ? D : *grid;
+  return 0;
+}
+
 long long scratch_stride(int npad, int w_p, int w_s) {
   int w = w_p > w_s ? w_p : w_s;
   return (long long)npad * (w > 1 ? w : 1);
@@ -302,52 +306,56 @@ long long scratch_stride(int npad, int w_p, int w_s) {
 
 }  // namespace
 
-// Number of float64 workspace entries the solve needs (negative: -error).
+// Number of float64 workspace entries a launch needs (negative: -error).
 extern "C" long long repro_mega_pcg_workspace(int D, int npad, int B, int w_p,
                                               int w_s, int pivot) {
-  int grid = 0;
-  const int err = grid_blocks(pivot != 0, &grid);
+  int grid = 0, nslots = 0;
+  const int err = layout(D, pivot, &grid, &nslots);
   if (err) return -(long long)err;
   const long long N = (long long)D * npad * B;
-  return 4 * N + (long long)npad * B + 3 * D * scratch_stride(npad, w_p, w_s) +
+  return 3 * N + (long long)npad * B +
+         3LL * nslots * scratch_stride(npad, w_p, w_s) +
          2 * (long long)grid * B;
 }
 
+// Seed modes read v and x0 and write x, r, p and rz (1, B); the carry mode
+// reads and updates x, r, p and rz in place (v and x0 unused, tol must be
+// 0). iters_out receives the iterations run.
 extern "C" int repro_mega_pcg_f64(const double* a, const double* phi,
                                   const double* saphi, const int* sort,
                                   const int* rank, const double* sigma2,
                                   const double* v, const double* x0, double* x,
-                                  double* r, int* iters_out, double* work,
-                                  int D, int npad, int B, int w_a, int w_p,
-                                  int w_s, int iters, double tol, int warm,
-                                  int pivot, void* stream) {
+                                  double* r, double* p, double* rz,
+                                  int* iters_out, double* work, int D,
+                                  int npad, int B, int w_a, int w_p, int w_s,
+                                  int iters, double tol, int mode, int pivot,
+                                  void* stream) {
   if (D < 1 || npad < 1 || B < 1 || B > NT || w_a < 0 || w_p < 0 ||
-      w_s < 0 || w_a > 3 || w_p > 3 || w_s > 3 || iters < 0)
+      w_s < 0 || w_a > 3 || w_p > 3 || w_s > 3 || iters < 0 ||
+      mode < SEED_COLD || mode > CARRY || (mode == CARRY && tol != 0.0))
     return (int)cudaErrorInvalidValue;
   if ((w_p > 0 && npad % w_p) || (w_s > 0 && npad % w_s))
     return (int)cudaErrorInvalidValue;
-  int grid = 0;
-  const int err = grid_blocks(pivot != 0, &grid);
+  int grid = 0, nslots = 0;
+  const int err = layout(D, pivot, &grid, &nslots);
   if (err) return err;
   const long long N = (long long)D * npad * B;
   const long long ss = scratch_stride(npad, w_p, w_s);
   Args A;
   A.a = a; A.phi = phi; A.saphi = saphi; A.sort = sort; A.rank = rank;
-  A.sigma2 = sigma2; A.v = v; A.x0 = x0; A.x = x; A.r = r;
-  A.p = work;
-  A.ap = A.p + N;
+  A.sigma2 = sigma2; A.v = v; A.x0 = x0; A.x = x; A.r = r; A.p = p;
+  A.rz_io = rz;
+  A.ap = work;
   A.z = A.ap + N;
   A.t1 = A.z + N;
   A.tp = A.t1 + N;
-  A.Ab = A.tp + (long long)npad * B;
-  A.Bb = A.Ab + D * ss;
-  A.Cb = A.Bb + D * ss;
-  A.part0 = A.Cb + D * ss;
+  A.scratch = A.tp + (long long)npad * B;
+  A.part0 = A.scratch + 3LL * nslots * ss;
   A.part1 = A.part0 + (long long)grid * B;
   A.iters_out = iters_out;
   A.sstride = ss;
   A.D = D; A.npad = npad; A.B = B; A.w_a = w_a; A.w_p = w_p; A.w_s = w_s;
-  A.iters = iters; A.warm = warm; A.tol = tol;
+  A.iters = iters; A.mode = mode; A.nslots = nslots; A.tol = tol;
   void* params[] = {&A};
   const void* fn = pivot ? (const void*)mega_pcg_kernel<true>
                          : (const void*)mega_pcg_kernel<false>;

@@ -1,9 +1,8 @@
 // Device functions shared by the backfitting solve kernels (mega_pcg.cu,
-// jacobi.cu, gauss_seidel.cu), float64: the thread map and the gathered
-// banded matvec of every elementwise phase, the column-split block-CR solve
-// of the relaxation sweeps, and the cooperative grid size. (mega_pcg.cu
-// keeps its own total, one-block-per-dimension solve and inner products:
-// the sweeps need none of them, and moving them changed its rounding.)
+// jacobi.cu, gauss_seidel.cu), float64: the thread map, the gathered banded
+// matvec and the cross-dimension total of the elementwise phases, the
+// column-split block-CR solve, and the cooperative grid size. (mega_pcg.cu
+// keeps its own inner products: the sweeps need none.)
 //
 // They act on (D, npad, B) state stacks in original point order, with the
 // per-dimension bands (D, npad, 2w+1) and permutations (D, npad) of the
@@ -76,6 +75,20 @@ __device__ __forceinline__ void gather_mv(const SweepDims& S, const Map& m,
                                           double* dst, const double* src,
                                           const double* band, int w) {
   gather_mv(S, m, dst, src, band, w, 0, S.D);
+}
+
+// dst[i,b] = sum_d src[d,i,b], d = 0..D-1 in order (each thread owns
+// (row, column) pairs of the (npad, B) total)
+__device__ __forceinline__ void sum_dims(const SweepDims& S, const Map& m,
+                                         double* dst, const double* src) {
+  if (!m.on) return;
+  const int B = S.B;
+  for (long long i = m.r0; i < S.npad; i += m.rs) {
+    double acc = 0.0;
+    for (int d = 0; d < S.D; ++d)
+      acc += src[((long long)d * S.npad + i) * B + m.b];
+    dst[i * B + m.b] = acc;
+  }
 }
 
 // t <- band^{-1} t for the dimensions [d0, d1), with the columns spread over

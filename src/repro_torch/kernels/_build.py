@@ -30,14 +30,16 @@ __all__ = ["load_library", "build_library", "check", "expect",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("banded_lu.cu", "band_matmul.cu", "rgf.cu", "mega_pcg.cu",
-           "banded_matvec.cu", "block_cr.cu", "jacobi.cu", "gauss_seidel.cu")
+           "banded_matvec.cu", "block_cr.cu", "jacobi.cu", "gauss_seidel.cu",
+           "kp_gram.cu")
 HEADERS = ("common.cuh", "cr.cuh", "sweep.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
            "banded_matvec", "block_cr", "fused_jacobi_iter",
-           "fused_gauss_seidel_iter", "mega_jacobi", "mega_gauss_seidel")
+           "fused_gauss_seidel_iter", "mega_jacobi", "mega_gauss_seidel",
+           "fused_pcg_iter", "kp_gram")
 
 _c_int, _c_ll, _c_dbl, _ptr = (ctypes.c_int, ctypes.c_longlong,
                                 ctypes.c_double, ctypes.c_void_p)
@@ -52,11 +54,8 @@ _SIGNATURES = {
                                       _ptr, _ptr, _c_int, _c_int, _c_int,
                                       _ptr]),
     "repro_mega_pcg_workspace": (_c_ll, [_c_int] * 6),
-    "repro_mega_pcg_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                                    _ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                                    _c_int, _c_int, _c_int, _c_int, _c_int,
-                                    _c_int, _c_int, _c_dbl, _c_int, _c_int,
-                                    _ptr]),
+    "repro_mega_pcg_f64": (_c_int, [_ptr] * 14 + [_c_int] * 7
+                           + [_c_dbl, _c_int, _c_int, _ptr]),
     "repro_jacobi_workspace": (_c_ll, [_c_int] * 6),
     "repro_jacobi_f64": (_c_int, [_ptr] * 11 + [_c_int] * 6
                          + [_c_dbl, _c_int, _c_int, _ptr]),
@@ -66,6 +65,8 @@ _SIGNATURES = {
                                          _c_int, _c_int, _c_int, _ptr]),
     "repro_block_cr_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
                                     _c_int, _c_int, _c_int, _c_int, _ptr]),
+    "repro_kp_gram_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int, _c_dbl,
+                                   _c_dbl, _c_dbl, _c_dbl, _ptr]),
     "repro_error_string": (ctypes.c_char_p, [_c_int]),
 }
 

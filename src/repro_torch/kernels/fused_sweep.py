@@ -1,18 +1,18 @@
-"""One relaxation sweep per launch, and the padded operand stack of the
+"""One backfitting iteration per launch, and the padded operand stack of the
 backfitting kernels: CUDA kernels and plain versions.
 
 Counterpart of ``repro.kernels.fused_sweep``: the padding/layout contract
 (``_pad_len``, ``FusedSweep``), the value-level building blocks the
 reference's kernels share (``_mv``, ``_gather``, ``_solve_sym``,
-``_block_solve_dim``), and the per-iteration kernels of the relaxation
-solvers, ``fused_jacobi_iter_pallas`` (``csrc/jacobi.cu``) and
-``fused_gauss_seidel_iter_pallas`` (``csrc/gauss_seidel.cu``).
-``fused="on"`` runs a host loop of them. Each per-sweep launch runs the
-whole-solve kernel of ``mega_solve.py`` for one sweep, and each plain
-whole solve is a loop of the plain sweep, so a host loop of sweeps and the
-whole solve agree bit for bit. The per-iteration PCG kernel
-(``fused_pcg_iter_pallas``) is not ported: every pcg solve that fuses
-takes the whole-solve kernel.
+``_block_solve_dim``), and the per-iteration kernels
+``fused_jacobi_iter_pallas`` (``csrc/jacobi.cu``),
+``fused_gauss_seidel_iter_pallas`` (``csrc/gauss_seidel.cu``) and
+``fused_pcg_iter_pallas`` (``csrc/mega_pcg.cu``). ``fused="on"`` runs a
+host loop of them. Each per-iteration launch runs the whole-solve kernel
+of ``mega_solve.py`` for one iteration (PCG: after one seed launch that
+forms r, z, p and rz the way the whole solve starts), and each plain whole
+solve is a loop of the plain iteration, so a host loop and the whole solve
+agree bit for bit.
 
 Padding: rows are padded to ``npad`` (n rounded up to the lcm of the solved
 half-bandwidths) so every block-CR solve sees whole ``w x w`` blocks. Band
@@ -35,13 +35,17 @@ __all__ = ["FusedSweep", "_pad_len", "_mv", "_gather", "_solve_sym",
            "_block_solve_dim", "_khat_inv_dim", "_sum_dims",
            "fused_jacobi_iter", "fused_jacobi_iter_plain",
            "fused_gauss_seidel_iter", "fused_gauss_seidel_iter_plain",
-           "sweep_backward_error", "MAX_B", "MAX_WIDTH"]
+           "fused_pcg_iter", "fused_pcg_iter_plain", "pcg_seed",
+           "pcg_seed_plain", "pcg_loop", "sweep_backward_error", "MAX_B",
+           "MAX_WIDTH"]
 
 MAX_B = 256  # RHS columns per launch (csrc/sweep.cuh SWEEP_NT)
 MAX_WIDTH = 3  # w_a, w_p, w_s <= 3 (csrc/sweep.cuh instantiations)
 
 # csrc/jacobi.cu: how the sweep kernel starts k
 K_NONE, K_IN, K_ZERO, K_WARM = 0, 1, 2, 3
+# csrc/mega_pcg.cu: a cold or warm seed, or a carried (x, r, p, rz)
+PCG_COLD, PCG_WARM, PCG_CARRY = 0, 1, 2
 
 
 def _pad_len(n: int, widths) -> int:
@@ -165,6 +169,67 @@ def fused_gauss_seidel_iter_plain(phi, saphi, sort_idx, rank_idx, sigma2, v,
     return (out, k) if want_resid else out
 
 
+def _dot(a, b):
+    """Per-column inner products over the (D, npad) rows."""
+    return (a * b).sum(dim=(0, 1))
+
+
+def _mhat_dim(a, phi, sort_idx, rank_idx, s2, u, *, w_a, w_p,
+              pivot: bool = False):
+    """Mhat u = P^T Phi^{-1} A P u + (sum_d u_d) / s^2, all dims at once."""
+    wv = _solve_sym(phi, _mv(a, _gather(u, sort_idx), w_a), w_p, pivot)
+    return _gather(wv, rank_idx) + u.sum(dim=0) / s2
+
+
+def pcg_seed_plain(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
+                   w_a: int, w_p: int, w_s: int, warm: bool,
+                   pivot: bool = False):
+    """The PCG seed on padded operands: ``(x, r, p, rz)`` with x = x0,
+    r = v - Mhat x0 (v when cold: Mhat 0 = 0), p = z = M_pre^{-1} r and
+    rz = <r, z> of shape (1, B)."""
+    s2 = sigma2.reshape(())
+    r = (v - _mhat_dim(a, phi, sort_idx, rank_idx, s2, x0, w_a=w_a, w_p=w_p,
+                       pivot=pivot) if warm else v.clone())
+    z = _block_solve_dim(saphi, phi, sort_idx, rank_idx, s2, r, w_p=w_p,
+                         w_s=w_s, pivot=pivot)
+    return x0.clone(), r, z, _dot(r, z)[None]
+
+
+def fused_pcg_iter_plain(a, phi, saphi, sort_idx, rank_idx, sigma2, x, r, p,
+                         rz, *, w_a: int, w_p: int, w_s: int,
+                         pivot: bool = False):
+    """One PCG iteration on Mhat with the block preconditioner, on padded
+    operands; ``rz`` (1, B) the carried <r, z>. Returns ``(x, r, p, rz)``."""
+    s2 = sigma2.reshape(())
+    ap = _mhat_dim(a, phi, sort_idx, rank_idx, s2, p, w_a=w_a, w_p=w_p,
+                   pivot=pivot)
+    rz = rz[0]
+    denom = _dot(p, ap)
+    alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
+    x = x + alpha * p
+    r = r - alpha * ap
+    z = _block_solve_dim(saphi, phi, sort_idx, rank_idx, s2, r, w_p=w_p,
+                         w_s=w_s, pivot=pivot)
+    rz_new = _dot(r, z)
+    beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
+    return x, r, z + beta * p, rz_new[None]
+
+
+def pcg_loop(iterate, state, *, iters: int, tol: float):
+    """``state = iterate(*state)`` on the PCG state (x, r, p, rz) while
+    fewer than ``iters`` iterations ran and (``tol == 0`` or some column
+    has |rz| > tol^2 |rz_0|): the whole-solve kernel's exit, checked on the
+    host (one read of rz per iteration when ``tol > 0``). Returns
+    ``(state, iterations run)``."""
+    thresh = tol * tol * torch.abs(state[3])
+    i = 0
+    while i < iters and (tol <= 0
+                         or bool((torch.abs(state[3]) > thresh).any())):
+        state = iterate(*state)
+        i += 1
+    return state, i
+
+
 def sweep_backward_error(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, new,
                          *, w_p: int, w_s: int, sequential: bool) -> float:
     """Largest normwise backward error of the SAPhi solves of one undamped
@@ -264,6 +329,76 @@ def _launch_gauss_seidel(name, phi, saphi, sort_idx, rank_idx, sigma2, v,
     _build.check(err, name)
     _build.count_launch(name)
     return x, k
+
+
+def _launch_pcg(name, a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
+                carry, *, w_a, w_p, w_s, iters, tol, mode, pivot):
+    """``csrc/mega_pcg.cu``: a seed launch from ``(v, x0)`` (mode PCG_COLD
+    or PCG_WARM) or a carry launch from ``carry = (x, r, p, rz)``, for up
+    to ``iters`` iterations; returns ``(x, r, p, rz, iterations run)``."""
+    states = (v, x0) if carry is None else carry[:3]
+    D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
+                                      sigma2, states, w_p, w_s)
+    if not 0 <= w_a <= MAX_WIDTH:
+        raise ValueError(f"the PCG kernel takes w_a <= {MAX_WIDTH}")
+    f64 = torch.float64
+    _build.expect(a, "a", f64, (D, npad, 2 * w_a + 1), dev)
+    if carry is None:
+        x, r, p = (torch.empty_like(v) for _ in range(3))
+        rz = torch.empty((1, B), dtype=f64, device=dev)
+    else:
+        _build.expect(carry[3], "rz", f64, (1, B), dev)
+        x, r, p, rz = (t.clone() for t in carry)
+    lib = _build.load_library()
+    nwork = lib.repro_mega_pcg_workspace(D, npad, B, w_p, w_s, int(pivot))
+    if nwork < 0:
+        _build.check(int(-nwork), f"{name} workspace query")
+    work = torch.empty((nwork,), dtype=f64, device=dev)
+    it = torch.empty((1,), dtype=torch.int32, device=dev)
+    err = lib.repro_mega_pcg_f64(
+        a.data_ptr(), phi.data_ptr(), saphi.data_ptr(), sort_idx.data_ptr(),
+        rank_idx.data_ptr(), sigma2.data_ptr(),
+        None if v is None else v.data_ptr(),
+        None if x0 is None else x0.data_ptr(), x.data_ptr(), r.data_ptr(),
+        p.data_ptr(), rz.data_ptr(), it.data_ptr(), work.data_ptr(), D, npad,
+        B, w_a, w_p, w_s, iters, float(tol), mode, int(pivot),
+        _build.stream_handle(dev))
+    _build.check(err, name)
+    _build.count_launch(name)
+    return x, r, p, rz, it[0]
+
+
+def fused_pcg_iter(a, phi, saphi, sort_idx, rank_idx, sigma2, x, r, p, rz, *,
+                   w_a: int, w_p: int, w_s: int, pivot: bool = False,
+                   backend: str | None = None):
+    """One PCG iteration on padded operands (bands (D, npad, 2w+1) float64,
+    permutations (D, npad) int32, ``sigma2`` a 1-element float64 tensor,
+    states (D, npad, B) float64, ``rz`` (1, B)); returns ``(x, r, p, rz)``.
+    CUDA tensors launch ``csrc/mega_pcg.cu`` on the carried state for one
+    iteration."""
+    kw = dict(w_a=w_a, w_p=w_p, w_s=w_s, pivot=pivot)
+    if resolve_backend(backend, x.device) == "plain":
+        return fused_pcg_iter_plain(a, phi, saphi, sort_idx, rank_idx, sigma2,
+                                    x, r, p, rz, **kw)
+    return _launch_pcg("fused_pcg_iter", a, phi, saphi, sort_idx, rank_idx,
+                       sigma2, None, None, (x, r, p, rz), iters=1, tol=0.0,
+                       mode=PCG_CARRY, **kw)[:4]
+
+
+def pcg_seed(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *, w_a: int,
+             w_p: int, w_s: int, warm: bool, pivot: bool = False,
+             backend: str | None = None):
+    """The first launch of the per-iteration PCG loop: ``(x, r, p, rz)`` as
+    :func:`pcg_seed_plain` forms them. CUDA tensors launch
+    ``csrc/mega_pcg.cu``'s seed for 0 iterations (counted with
+    ``fused_pcg_iter``: the path's launches are its iterations plus one)."""
+    kw = dict(w_a=w_a, w_p=w_p, w_s=w_s, pivot=pivot)
+    if resolve_backend(backend, v.device) == "plain":
+        return pcg_seed_plain(a, phi, saphi, sort_idx, rank_idx, sigma2, v,
+                              x0, warm=warm, **kw)
+    return _launch_pcg("fused_pcg_iter", a, phi, saphi, sort_idx, rank_idx,
+                       sigma2, v, x0, None, iters=0, tol=0.0,
+                       mode=PCG_WARM if warm else PCG_COLD, **kw)[:4]
 
 
 def fused_jacobi_iter(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, k=None,
@@ -392,3 +527,41 @@ class FusedSweep:
                 *self._ops(), v_, vt_, w_p=self.w_p, w_s=self.w_s,
                 pivot=self.pivot, want_resid=want_resid,
                 backend=self.backend), v, vt)
+
+    def _pcg_kw(self):
+        if self.a is None:
+            raise ValueError("PCG needs the A factor stack")
+        return dict(w_a=self.w_a, w_p=self.w_p, w_s=self.w_s,
+                    pivot=self.pivot, backend=self.backend)
+
+    def pcg_columns(self, B: int, tol: float) -> int | None:
+        """Columns per launch of a per-iteration PCG solve of ``B`` columns,
+        as ``MegaSolve.pcg`` takes them: chunks of ``MAX_B`` (None) at
+        ``tol == 0``, where the columns are independent; with ``tol > 0``
+        the plain versions take all ``B`` at once, while CUDA launches take
+        at most ``MAX_B`` under the one host-side exit (the whole solve
+        raises there)."""
+        if tol == 0 or resolve_backend(self.backend, self.device) == "cuda":
+            return None
+        return B
+
+    def pcg_seed(self, v, x0=None, step: int | None = None):
+        """The PCG seed ``(x, r, p, rz)``, padded, from unpadded ``v`` and
+        ``x0`` (None: a cold start), in column chunks of ``step``."""
+        kw = self._pcg_kw()
+
+        def one(v_, x0_):
+            v_p = self.pad_state(v_)
+            x0_p = (torch.zeros_like(v_p) if x0_ is None
+                    else self.pad_state(x0_))
+            return pcg_seed(self.a, *self._ops(), v_p, x0_p,
+                            warm=x0_ is not None, **kw)
+
+        return self.by_columns(one, v, x0, step=step)
+
+    def pcg_iter(self, x, r, p, rz, step: int | None = None):
+        """One PCG iteration on the padded state; ``(x, r, p, rz)``."""
+        kw = self._pcg_kw()
+        return self.by_columns(
+            lambda *st: fused_pcg_iter(self.a, *self._ops(), *st, **kw),
+            x, r, p, rz, step=step)

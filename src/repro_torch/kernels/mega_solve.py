@@ -14,7 +14,10 @@ Counterpart of ``repro.kernels.mega_solve``: the whole solve of
   in the reference's op order, with the two inner products per RHS column
   over all (D, npad) rows. With ``tol > 0`` the loop runs while
   ``i < iters and any_b |rz_b| > tol^2 |rz0_b|``; every column iterates
-  until then. ``tol == 0`` runs exactly ``iters`` iterations.
+  until then. ``tol == 0`` runs exactly ``iters`` iterations. The
+  per-iteration kernel of ``fused_sweep.py`` is this kernel's carry mode
+  run for one iteration, and the plain whole solve loops the plain
+  iteration, so the host loop of ``fused="on"`` agrees bit for bit.
 * Damped Jacobi (``mega_jacobi_solve_pallas``, ``csrc/jacobi.cu``) and
   Gauss-Seidel (``mega_gauss_seidel_solve_pallas``,
   ``csrc/gauss_seidel.cu``): exactly ``iters`` sweeps of the
@@ -29,12 +32,12 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
-from .fused_sweep import (K_WARM, K_ZERO, MAX_B, MAX_WIDTH, FusedSweep,
-                          _block_solve_dim, _gather, _khat_inv_dim,
-                          _launch_gauss_seidel, _launch_jacobi, _mv,
-                          _solve_sym, fused_gauss_seidel_iter_plain,
-                          fused_jacobi_iter_plain)
+from .fused_sweep import (K_WARM, K_ZERO, MAX_B, MAX_WIDTH, PCG_COLD,
+                          PCG_WARM, FusedSweep, _khat_inv_dim,
+                          _launch_gauss_seidel, _launch_jacobi, _launch_pcg,
+                          fused_gauss_seidel_iter_plain,
+                          fused_jacobi_iter_plain, fused_pcg_iter_plain,
+                          pcg_loop, pcg_seed_plain)
 from .ops import resolve_backend
 
 __all__ = ["MegaSolve", "mega_pcg_solve", "mega_pcg_plain",
@@ -46,40 +49,16 @@ __all__ = ["MegaSolve", "mega_pcg_solve", "mega_pcg_plain",
 def mega_pcg_plain(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
                    w_a: int, w_p: int, w_s: int, iters: int, tol: float = 0.0,
                    warm: bool = False, pivot: bool = False):
-    """Plain PyTorch whole PCG solve on padded operands (the kernel's math).
-
-    Returns ``(x, r, iters_used)``; ``iters_used`` is an int32 0-d tensor.
-    """
-    s2 = sigma2.reshape(())
-
-    def apply_mhat(u):
-        tp = u.sum(dim=0)
-        wv = _solve_sym(phi, _mv(a, _gather(u, sort_idx), w_a), w_p, pivot)
-        return _gather(wv, rank_idx) + tp / s2
-
-    def precondition(r):
-        return _block_solve_dim(saphi, phi, sort_idx, rank_idx, s2, r,
-                                w_p=w_p, w_s=w_s, pivot=pivot)
-
-    x = x0.clone()
-    r = v - apply_mhat(x) if warm else v.clone()
-    z = precondition(r)
-    p = z
-    rz = (r * z).sum(dim=(0, 1))
-    thresh = tol ** 2 * torch.abs(rz)
-    i = 0
-    while i < iters and (tol <= 0 or bool((torch.abs(rz) > thresh).any())):
-        ap = apply_mhat(p)
-        denom = (p * ap).sum(dim=(0, 1))
-        alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = precondition(r)
-        rz_new = (r * z).sum(dim=(0, 1))
-        beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
-        p = z + beta * p
-        rz = rz_new
-        i += 1
+    """Plain PyTorch whole PCG solve on padded operands: the plain seed and
+    a loop of the plain iteration (:func:`pcg_loop`), as the kernel runs
+    them. Returns ``(x, r, iters_used)``; ``iters_used`` an int32 0-d
+    tensor."""
+    kw = dict(w_a=w_a, w_p=w_p, w_s=w_s, pivot=pivot)
+    ops = (a, phi, saphi, sort_idx, rank_idx, sigma2)
+    state = pcg_seed_plain(*ops, v, x0, warm=warm, **kw)
+    (x, r, _, _), i = pcg_loop(
+        lambda *st: fused_pcg_iter_plain(*ops, *st, **kw), state,
+        iters=iters, tol=tol)
     return x, r, torch.tensor(i, dtype=torch.int32, device=v.device)
 
 
@@ -93,45 +72,14 @@ def mega_pcg_solve(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
     ``sigma2`` a 1-element float64 tensor, states (D, npad, B) float64.
     CUDA tensors launch ``csrc/mega_pcg.cu`` (one cooperative launch).
     """
+    kw = dict(w_a=w_a, w_p=w_p, w_s=w_s, iters=iters, tol=tol, pivot=pivot)
     if resolve_backend(backend, v.device) == "plain":
         return mega_pcg_plain(a, phi, saphi, sort_idx, rank_idx, sigma2, v,
-                              x0, w_a=w_a, w_p=w_p, w_s=w_s, iters=iters,
-                              tol=tol, warm=warm, pivot=pivot)
-    D, npad, B = v.shape
-    if not 1 <= B <= MAX_B:
-        raise ValueError(f"mega_pcg kernel takes 1 <= B <= {MAX_B} columns")
-    if max(w_a, w_p, w_s) > MAX_WIDTH:
-        raise ValueError(f"mega_pcg kernel takes half-widths <= {MAX_WIDTH}")
-    for w in (w_p, w_s):
-        if w > 0 and npad % w:
-            raise ValueError(f"npad={npad} is not a multiple of width {w}")
-    dev = v.device
-    f64 = torch.float64
-    _build.expect(a, "a", f64, (D, npad, 2 * w_a + 1), dev)
-    _build.expect(phi, "phi", f64, (D, npad, 2 * w_p + 1), dev)
-    _build.expect(saphi, "saphi", f64, (D, npad, 2 * w_s + 1), dev)
-    _build.expect(sort_idx, "sort_idx", torch.int32, (D, npad), dev)
-    _build.expect(rank_idx, "rank_idx", torch.int32, (D, npad), dev)
-    _build.expect(sigma2, "sigma2", f64, (1,), dev)
-    _build.expect(v, "v", f64, (D, npad, B), dev)
-    _build.expect(x0, "x0", f64, (D, npad, B), dev)
-    lib = _build.load_library()
-    nwork = lib.repro_mega_pcg_workspace(D, npad, B, w_p, w_s, int(pivot))
-    if nwork < 0:
-        _build.check(int(-nwork), "mega_pcg workspace query")
-    work = torch.empty((nwork,), dtype=f64, device=dev)
-    x = torch.empty_like(v)
-    r = torch.empty_like(v)
-    it = torch.empty((1,), dtype=torch.int32, device=dev)
-    err = lib.repro_mega_pcg_f64(
-        a.data_ptr(), phi.data_ptr(), saphi.data_ptr(), sort_idx.data_ptr(),
-        rank_idx.data_ptr(), sigma2.data_ptr(), v.data_ptr(), x0.data_ptr(),
-        x.data_ptr(), r.data_ptr(), it.data_ptr(), work.data_ptr(), D, npad,
-        B, w_a, w_p, w_s, iters, float(tol), int(warm), int(pivot),
-        _build.stream_handle(dev))
-    _build.check(err, "mega_pcg")
-    _build.count_launch("mega_pcg")
-    return x, r, it[0]
+                              x0, warm=warm, **kw)
+    x, r, _, _, it = _launch_pcg("mega_pcg", a, phi, saphi, sort_idx,
+                                 rank_idx, sigma2, v, x0, None,
+                                 mode=PCG_WARM if warm else PCG_COLD, **kw)
+    return x, r, it
 
 
 def mega_jacobi_plain(phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,

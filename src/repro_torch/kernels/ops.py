@@ -19,9 +19,10 @@ and is a no-op on a diagonal band (``lo == hi == 0``); on the rest of the
 the reference's pivoted gbsv scan is not ported.
 
 How a backfitting solve fuses (``resolve_fused``) follows the reference's
-rules without its VMEM model: the per-sweep kernels ("on") or the
+rules without its VMEM model: the per-iteration kernels ("on") or the
 whole-solve kernels ("whole") need symmetric bands, block CR and the block
-preconditioner; "off" runs the unfused host loops.
+preconditioner; "off" runs the unfused host loops. ``kp_gram`` assembles
+the Kernel Packet Gram band (Algorithm 2) without forming K.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ __all__ = ["BACKENDS", "SOLVE_ALGS", "PRECOND_MODES", "FUSED_MODES",
            "KMG_AUTO_MIN_N", "resolve_backend", "resolve_solve_alg",
            "resolve_precond", "resolve_fused",
            "banded_matvec", "banded_solve", "banded_logdet",
-           "band_band_matmul"]
+           "band_band_matmul", "kp_gram"]
 
 BACKENDS = ("auto", "cuda")
 SOLVE_ALGS = ("auto", "lu", "cr")
@@ -86,18 +87,16 @@ def resolve_precond(precond: str | None, *, q: int, n: int) -> str:
     return p
 
 
-def resolve_fused(fused: str | None, *, widths, method: str = "pcg",
-                  cr_ok: bool = True, precond: str = "none") -> str:
+def resolve_fused(fused: str | None, *, widths, cr_ok: bool = True,
+                  precond: str = "none") -> str:
     """How a backfitting solve fuses: "whole" | "on" | "off".
 
     ``widths``: the (lo, hi) pairs of every band the sweep touches; ``cr_ok``
     is False when the solve alg forbids block CR (the only solve the fused
     kernels run). An explicit "on"/"whole" raises ``ValueError`` on
-    asymmetric bands, a CR conflict or ``precond="kmg"``; "on" with
-    ``method="pcg"`` raises ``NotImplementedError`` (the per-iteration PCG
-    kernel, ROADMAP Queue 2, is not ported). "auto" takes "whole" when
-    the bands are symmetric, CR is allowed and the preconditioner is not
-    kmg, and "off" otherwise.
+    asymmetric bands, a CR conflict or ``precond="kmg"``. "auto" takes
+    "whole" when the bands are symmetric, CR is allowed and the
+    preconditioner is not kmg, and "off" otherwise.
     """
     f = "auto" if fused is None else fused
     if f not in FUSED_MODES:
@@ -119,11 +118,6 @@ def resolve_fused(fused: str | None, *, widths, method: str = "pcg",
             raise ValueError(
                 f"fused={f!r} is incompatible with precond='kmg': the fused "
                 "pcg kernels hard-code the block preconditioner")
-        if f == "on" and method == "pcg":
-            raise NotImplementedError(
-                "fused='on' with method='pcg' needs the per-iteration PCG "
-                "kernel (fused_pcg_iter_pallas, ROADMAP Queue 2), which "
-                "is not ported; use fused='whole' or 'off'")
         return f
     if not symmetric or not cr_ok or precond == "kmg":
         return "off"
@@ -213,3 +207,15 @@ def band_band_matmul(a_band, b_band, a_lo: int, a_hi: int, b_lo: int,
     out = out.reshape(batch + out.shape[-2:])
     n = a_band.shape[-2]
     return out * _band_mask(n, a_lo + b_lo, a_hi + b_hi, device=out.device)
+
+
+def kp_gram(q: int, omega, xs, a_band, block: int = 512,
+            backend: str | None = None):
+    """Fused Phi = A K band assembly (Algorithm 2): xs (n,) sorted, a_band
+    (n, 2q+3) -> Phi band (n, 2q+1). ``block`` is the reference's TPU row
+    tile; it is accepted for the reference's signature and ignored (the
+    CUDA kernel tiles by its own thread block)."""
+    from .kp_gram import kp_gram as kp_gram_kernel
+
+    del block
+    return kp_gram_kernel(q, omega, xs, a_band, backend=backend)

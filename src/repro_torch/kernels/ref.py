@@ -7,10 +7,11 @@ from __future__ import annotations
 
 import torch
 
+from ..core import matern as mk
 from ..core.banded import Banded, from_dense, to_dense
 
 __all__ = ["banded_matvec_ref", "banded_solve_ref", "banded_logdet_ref",
-           "band_matmul_ref", "rgf_band_inverse_ref"]
+           "band_matmul_ref", "rgf_band_inverse_ref", "kp_gram_ref"]
 
 
 def banded_matvec_ref(band, x, lo: int, hi: int):
@@ -40,3 +41,19 @@ def rgf_band_inverse_ref(band, lo: int, hi: int, hw: int):
     """Band (half-bw ``hw``) of the dense inverse of a banded matrix."""
     G = torch.linalg.inv(to_dense(Banded(band, lo, hi)))
     return from_dense(G, hw, hw).data
+
+
+def kp_gram_ref(q: int, omega, xs, a_band):
+    """Phi band (n, 2q+1) via explicit windowed gathers (the math of
+    ``core.kernel_packets.gram_band_rows``)."""
+    n = xs.shape[0]
+    lo = q + 1
+    i = torch.arange(n, device=xs.device)[:, None]
+    t = torch.arange(-lo, lo + 1, device=xs.device)[None, :]
+    vv = ((i + t) >= 0) & ((i + t) < n)
+    xw = xs[(i + t).clamp(0, n - 1)]
+    m = torch.arange(-q, q + 1, device=xs.device)[None, :]
+    vm = ((i + m) >= 0) & ((i + m) < n)
+    xm = xs[(i + m).clamp(0, n - 1)]
+    kv = mk.matern(q, omega, xm[:, :, None], xw[:, None, :]) * vv[:, None, :]
+    return torch.einsum("nmt,nt->nm", kv, a_band) * vm

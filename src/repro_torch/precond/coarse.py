@@ -1,0 +1,201 @@
+"""Coarse levels of the kernel-multigrid (KMG) preconditioner.
+
+Counterpart of ``repro.precond.coarse`` (Kernel Multigrid, arXiv
+2403.13300), unpadded form only (no capacity padding). Each coarse level is
+a sparse-GP view of the fine additive system: a strided subset of the
+original points is the inducing set, and its prior is the smaller banded KP
+system that ``core.kernel_packets.kp_factors`` builds at the subsampled
+coordinates. A :class:`CoarseLevel` carries
+
+  * the coarse ``DimOps``: KP factors ``(A_c, Phi_c)`` and the smoother
+    band ``SAPhi = sigma_b^2 A_c + Phi_c`` with ``sigma_b^2 = 3 sigma^2 /
+    (2 c)`` (each stride-c point stands in for ~c fine observations);
+  * the prolongation in window form, order-(2q+1) Lagrange interpolation
+    from coarse to fine sorted coordinates: window starts ``j0 (D, n)`` and
+    weights ``W (D, n, npts)``;
+  * the restriction map, the transpose of those windows built once here:
+    for each coarse sorted row its (fine sorted row, weight) pairs in the
+    order the reference's scatter-add visits them (window slot a = 0..npts-1
+    outer, fine rows ascending), padded with zero weights to the largest
+    count, so ``vcycle.restrict`` is a fixed sequence of gathers and adds:
+    no atomics, the same bits on every run;
+  * ``EG``, the SPD-safe inverse Gram of the rank-D per-dimension-constant
+    deflation basis under the mixed coarse operator.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.backfitting import DimOps
+from ..core.banded import add, scale
+from ..core.kernel_packets import kp_factors
+from ..masking import tree_sum
+
+__all__ = ["CoarseLevel", "build_hierarchy", "coarse_capacity",
+           "interp_order"]
+
+# span-relative tie separation of coarse sorted coordinates (the fit's)
+_TIE_EPS = 1e-9
+
+
+def interp_order(q: int) -> int:
+    """Prolongation polynomial order 2q+1 (the Matérn-(q+1/2) smoothness)."""
+    return 2 * q + 1
+
+
+def coarse_capacity(capacity: int, stride: int) -> int:
+    """Coarse size of a strided subset: ceil(capacity / stride)."""
+    return -(-capacity // stride)
+
+
+@dataclasses.dataclass(frozen=True)
+class CoarseLevel:
+    """One level of the KMG hierarchy (see the module docstring).
+
+    ops:    coarse DimOps (KP factors, smoother band, permutations).
+    j0:     (D, n) window starts into coarse sorted order.
+    W:      (D, n, npts) Lagrange prolongation weights.
+    EG:     (D, D) SPD-safe inverse Gram of the deflation basis.
+    r_idx:  (D, nc, K) fine sorted rows of each coarse row's restriction.
+    r_w:    (D, nc, K) their weights (0 in the padding).
+    stride: subsampling stride relative to the fine level.
+    npts:   interpolation window size (interp_order(q) + 1).
+    """
+
+    ops: DimOps
+    j0: torch.Tensor
+    W: torch.Tensor
+    EG: torch.Tensor
+    r_idx: torch.Tensor
+    r_w: torch.Tensor
+    stride: int
+    npts: int
+
+    @property
+    def nc(self) -> int:
+        return self.ops.n
+
+
+def _coarse_sorted(Xc_t):
+    """Per-dim stable sort of the coarse subset's coordinates (D, nc), with
+    the fit's span-relative bump on exact ties."""
+    hi = Xc_t.amax(dim=1, keepdim=True)
+    lo = Xc_t.amin(dim=1, keepdim=True)
+    span = hi - lo + 1.0
+    sort_idx = torch.argsort(Xc_t, dim=1, stable=True)
+    xs_c = torch.gather(Xc_t, 1, sort_idx)
+    rank_idx = torch.argsort(sort_idx, dim=1, stable=True)
+    gaps = torch.diff(xs_c, dim=1)
+    bump = torch.cumsum(torch.where(gaps <= 0, span * _TIE_EPS,
+                                    torch.zeros_like(gaps)), dim=1)
+    xs_c = torch.cat([xs_c[:, :1], xs_c[:, 1:] + bump], dim=1)
+    return xs_c, sort_idx, rank_idx
+
+
+def _interp_maps(xs_f, xs_c, npts: int):
+    """Window starts (D, n) and Lagrange weights (D, n, npts), coarse sorted
+    -> fine sorted; windows clamped inside [0, nc - npts]."""
+    D, n = xs_f.shape
+    nc = xs_c.shape[1]
+    dev = xs_f.device
+    j = torch.searchsorted(xs_c.contiguous(), xs_f.contiguous(),
+                           right=True) - 1
+    j0 = (j - (npts // 2 - 1)).clamp(0, max(nc - npts, 0))
+    win = (j0[:, :, None] + torch.arange(npts, device=dev)).clamp(0, nc - 1)
+    pts = torch.gather(xs_c, 1, win.reshape(D, -1)).reshape(D, n, npts)
+    # W[i, a] = prod_{b != a} (xf_i - p_b) / (p_a - p_b)
+    eye = torch.eye(npts, dtype=torch.bool, device=dev)
+    one = torch.ones((), dtype=xs_f.dtype, device=dev)
+    pd = pts[..., :, None] - pts[..., None, :]
+    denom = torch.where(eye, one, pd).prod(dim=-1)
+    xd = xs_f[..., None] - pts
+    numer = torch.where(eye, one, xd[..., None, :]).prod(dim=-1)
+    return j0, numer / denom
+
+
+def _restrict_map(j0, W, nc: int):
+    """The transposed windows: for each coarse sorted row, its (fine sorted
+    row, weight) pairs in the reference scatter-add's order (slot a outer,
+    fine row i inner), padded with weight 0 to the largest count K."""
+    D, n, npts = W.shape
+    dev = W.device
+    win = (j0[:, :, None] + torch.arange(npts, device=dev)).clamp(0, nc - 1)
+    tgt = win.permute(0, 2, 1).reshape(D, npts * n)  # position a * n + i
+    order = torch.argsort(tgt, dim=1, stable=True)
+    tgt_s = torch.gather(tgt, 1, order)
+    counts = torch.zeros((D, nc), dtype=torch.long, device=dev)
+    counts.scatter_add_(1, tgt, torch.ones_like(tgt))
+    K = int(counts.max())
+    start = torch.cumsum(counts, dim=1) - counts
+    slot = (torch.arange(npts * n, device=dev)[None, :]
+            - torch.gather(start, 1, tgt_s))
+    src_i, src_a = order % n, order // n
+    d_i = torch.arange(D, device=dev)[:, None].expand_as(order)
+    r_idx = torch.zeros((D, nc, K), dtype=torch.long, device=dev)
+    r_w = torch.zeros((D, nc, K), dtype=W.dtype, device=dev)
+    r_idx[d_i, tgt_s, slot] = src_i
+    r_w[d_i, tgt_s, slot] = W[d_i, src_i, src_a]
+    return r_idx, r_w
+
+
+def _deflation_gram(level: CoarseLevel, fine_ops: DimOps):
+    """SPD-safe inverse Gram of the per-dim-constant basis under M_c.
+
+    Column k of ``E`` (D, nc, D) is the indicator of dimension k; its Gram
+    ``E^T M_c E`` is the fixed-association row sum of ``M_c E``,
+    symmetrized and eigenvalue-clamped to a positive floor, so the
+    deflation stays a bounded SPD correction."""
+    from .vcycle import coarse_matvec  # vcycle imports this module
+
+    D, nc = level.ops.D, level.ops.n
+    dt, dev = level.W.dtype, level.W.device
+    E = torch.eye(D, dtype=dt, device=dev)[:, None, :].expand(D, nc, D)
+    EME = tree_sum(coarse_matvec(level, fine_ops, E.contiguous()), axis=1)
+    EME = 0.5 * (EME + EME.T)
+    lam, V = torch.linalg.eigh(EME)
+    floor = torch.clamp(lam[-1], min=1.0) * 1e-8
+    lam = torch.maximum(lam, floor)
+    return (V / lam[None, :]) @ V.T
+
+
+def _build_level(q: int, omega, sigma2, X, xs_f, fine_ops: DimOps,
+                 stride: int) -> CoarseLevel:
+    """One coarse level at ``stride`` (relative to the fine level)."""
+    n, D = X.shape
+    nc = coarse_capacity(n, stride)
+    # the strided original-index subset, shared across dimensions
+    Ic = torch.arange(nc, device=X.device) * stride
+    xs_c, sort_idx, rank_idx = _coarse_sorted(X[Ic].T.contiguous())
+    A, Phi = kp_factors(q, omega, xs_c)
+    sigma2_b = 3.0 * sigma2 / (2.0 * stride)
+    SAPhi = add(scale(A, sigma2_b), Phi)
+    ops_c = DimOps(A=A, Phi=Phi, SAPhi=SAPhi, sort_idx=sort_idx,
+                   rank_idx=rank_idx, sigma2=sigma2_b)
+    npts = interp_order(q) + 1
+    j0, W = _interp_maps(xs_f, xs_c, npts)
+    r_idx, r_w = _restrict_map(j0, W, nc)
+    level = CoarseLevel(ops=ops_c, j0=j0, W=W,
+                        EG=torch.eye(D, dtype=W.dtype, device=W.device),
+                        r_idx=r_idx, r_w=r_w, stride=stride, npts=npts)
+    return dataclasses.replace(level, EG=_deflation_gram(level, fine_ops))
+
+
+def build_hierarchy(q: int, omega, sigma2, X, xs_f, fine_ops: DimOps, *,
+                    levels: int = 2, coarsen: int = 8):
+    """The coarse hierarchy of a fitted fine system: level l subsamples the
+    original points at stride ``coarsen**l`` and maps directly to the fine
+    grid. ``levels`` counts the fine level (2 = one coarse grid); levels
+    smaller than one interpolation window are dropped."""
+    if levels < 2:
+        return ()
+    out = []
+    npts = interp_order(q) + 1
+    for lvl in range(1, levels):
+        stride = coarsen ** lvl
+        if coarse_capacity(X.shape[0], stride) < max(npts, 2 * q + 4):
+            break
+        out.append(_build_level(q, omega, sigma2, X, xs_f, fine_ops,
+                                stride))
+    return tuple(out)

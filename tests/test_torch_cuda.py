@@ -26,7 +26,13 @@ from repro_torch.kernels.fused_sweep import (fused_gauss_seidel_iter,
                                              fused_gauss_seidel_iter_plain,
                                              fused_jacobi_iter,
                                              fused_jacobi_iter_plain,
+                                             fused_pcg_iter,
+                                             fused_pcg_iter_plain, pcg_seed,
+                                             pcg_seed_plain,
                                              sweep_backward_error)
+from repro_torch.core.kernel_packets import kp_factors
+from repro_torch.kernels.kp_gram import kp_gram, kp_gram_plain
+from repro_torch.precond import kmg_preconditioner
 from repro_torch.kernels.mega_solve import (MegaSolve, mega_gauss_seidel_plain,
                                             mega_gauss_seidel_solve,
                                             mega_jacobi_plain,
@@ -412,3 +418,123 @@ def test_mega_pcg_pivot_kernel(dev):
     x, _, it = mega_pcg_solve(*args, **kw)
     xr, _, itr = mega_pcg_plain(*args, **kw)
     assert _rel(x, xr) < 1e-9 and int(it) == int(itr) == 60
+
+
+# the per-iteration PCG kernel, kp_gram, kmg
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("q", [0, 1, 2])
+@pytest.mark.parametrize("B", [1, 5])
+@pytest.mark.parametrize("pivot", [False, True])
+def test_pcg_iter_kernel(dev, q, B, pivot):
+    """The PCG seed (cold and warm) and one carried iteration against their
+    plain versions on the same state; the updated r at the scale of the
+    residual it updates (it cancels: |alpha A p| >> |r|)."""
+    fs, _, v, x0, _ = _relax_case(dev, q, B)
+    ops = (fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2)
+    kw = dict(w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s, pivot=pivot)
+    for warm in (False, True):
+        start = x0 if warm else torch.zeros_like(v)
+        got = pcg_seed(*ops, v, start, warm=warm, **kw)
+        _close(got, pcg_seed_plain(*ops, v, start, warm=warm, **kw), _tol(q))
+    out = fused_pcg_iter(*ops, *got, **kw)
+    want = fused_pcg_iter_plain(*ops, *got, **kw)
+    scale = float(got[1].abs().max())
+    _close((out[0], out[2], out[3]), (want[0], want[2], want[3]), _tol(q))
+    assert float((out[1] - want[1]).abs().max()) / scale < _tol(q)
+
+
+@pytest.mark.parametrize("warm,tol", [(False, 0.0), (False, 1e-9),
+                                      (True, 1e-9)])
+def test_pcg_on_equals_whole_bitwise(dev, warm, tol):
+    """fused="on" (a seed launch, then one launch per iteration with the
+    tol exit on the host) and fused="whole" (one launch) give the same
+    bits: x, the exit residual and the iteration count."""
+    rng = np.random.default_rng(17)
+    dops = dim_ops(solve_operands(rng, 131, 3, 1), dev)
+    v = torch.as_tensor(rng.standard_normal((3, 131, 4)), device=dev)
+    x0 = 0.5 * v if warm else None
+    outs = {}
+    for fused in ("whole", "on"):
+        _build.reset_launch_counts()
+        outs[fused] = solve_mhat(dops, v, SolveConfig(iters=40, tol=tol,
+                                                      fused=fused),
+                                 x0=x0, return_info=True)
+        outs[fused + " counts"] = _build.launch_counts()
+    (xw, iw), (xh, ih) = outs["whole"], outs["on"]
+    assert torch.equal(xw, xh) and torch.equal(iw.resid, ih.resid)
+    assert int(iw.iters) == int(ih.iters) and (tol == 0 or int(iw.iters) < 40)
+    assert outs["whole counts"]["mega_pcg"] == 1
+    assert outs["on counts"]["fused_pcg_iter"] == int(ih.iters) + 1
+    assert outs["on counts"]["mega_pcg"] == 0
+
+
+@pytest.mark.parametrize("q", [0, 1, 2])
+def test_kp_gram_kernel(dev, q):
+    """kp_gram against its plain version and against the fit's Phi band
+    (kp_factors) on a jittered grid, n = 1000 (not a multiple of the
+    256-row block). Phi = A K cancels by design, so the bar is relative to
+    the summed terms' scale, max_i sum_t |A[i, t]| (|k| <= 1): one ulp of
+    exp reads far above 1e-12 of |Phi| at q = 2."""
+    rng = np.random.default_rng(18)
+    xs = torch.as_tensor(np.sort(points(rng, 1000, 1)[:, 0]), device=dev)
+    A, Phi = kp_factors(q, torch.tensor(4.0, dtype=torch.float64,
+                                        device=dev), xs)
+    _build.reset_launch_counts()
+    got = kp_gram(q, 4.0, xs, A.data.contiguous())
+    assert _build.launch_counts()["kp_gram"] == 1
+    terms = float(A.data.abs().sum(-1).max())
+    for want in (kp_gram_plain(q, 4.0, xs, A.data), Phi.data):
+        assert float((got - want).abs().max()) / terms < 1e-12
+
+
+def _kmg_gp(dev, n=900):
+    rng = np.random.default_rng(19)
+    X, Y, Xq = _gp_data(rng, n, 3)
+    cfg = GPConfig(q=0, solver_iters=40, precond="kmg")
+    return cfg, X, Y, Xq
+
+
+def test_kmg_vcycle_deterministic(dev):
+    """The V-cycle on the card: the same bits on a second run (restriction
+    gathers in a fixed order, no atomics), within 1e-10 of the CPU's on the
+    same factors, through the block_cr, banded_lu and banded_matvec
+    kernels."""
+    cfg, X, Y, _ = _kmg_gp(dev)
+    g = fit(cfg, X, Y, np.full(3, 2.0), 0.5)
+    c = fit(cfg, X, Y, np.full(3, 2.0), 0.5, device="cpu")
+    r = torch.as_tensor(np.random.default_rng(20).standard_normal(
+        (3, X.shape[0], 4)))
+    _build.reset_launch_counts()
+    pre = kmg_preconditioner(g.ops, g.hier)
+    z1, z2 = pre(r.to(dev)), pre(r.to(dev))
+    counts = _build.launch_counts()
+    assert torch.equal(z1, z2)
+    assert all(counts[k] > 0 for k in ("block_cr", "banded_lu",
+                                       "banded_matvec")), counts
+    assert _rel(z1, kmg_preconditioner(c.ops, c.hier)(r)) < 1e-10
+
+
+def test_kmg_gp_card_matches_cpu(dev):
+    cfg, X, Y, Xq = _kmg_gp(dev)
+    _build.reset_launch_counts()
+    g = fit(cfg, X, Y, np.full(3, 2.0), 0.5)
+    mu, var = posterior_mean(g, Xq), posterior_var(g, Xq)
+    counts = _build.launch_counts()
+    c = fit(cfg, X, Y, np.full(3, 2.0), 0.5, device="cpu")
+    assert g.config.fused == "off" and g.hier is not None
+    assert _rel(mu, posterior_mean(c, Xq, device="cpu")) < 1e-7
+    assert _rel(var, posterior_var(c, Xq, device="cpu")) < 1e-7
+    assert counts["mega_pcg"] == 0 and counts["block_cr"] > 0, counts
+
+
+def test_pcg_on_gp_card_matches_cpu(dev):
+    rng = np.random.default_rng(21)
+    X, Y, Xq = _gp_data(rng, 500, 3)
+    cfg = GPConfig(q=0, fused="on", solver_iters=30, precond="none")
+    g = fit(cfg, X, Y, np.full(3, 2.0), 0.5)
+    c = fit(cfg, X, Y, np.full(3, 2.0), 0.5, device="cpu")
+    assert g.config.fused == "on"
+    assert _rel(posterior_mean(g, Xq), posterior_mean(c, Xq, device="cpu")) < 1e-7
+    assert _rel(posterior_var(g, Xq), posterior_var(c, Xq, device="cpu")) < 1e-7

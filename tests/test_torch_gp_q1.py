@@ -5,8 +5,9 @@ from __future__ import annotations
 import pytest
 import torch
 
-from torch_port_jax_ref import (check_fit, check_queries,
-                                check_queries_on_jax_factors, fit_cache)
+from torch_port_jax_ref import (check_fit, check_queries,  # noqa: F401
+                                check_queries_on_jax_factors, fit_cache,
+                                fresh_jax_caches)
 
 torch.set_num_threads(2)
 

@@ -5,7 +5,8 @@
   and a scan of their sources finds no such import.
 * Device rule: the entry points run on CUDA unless told ``device="cpu"``,
   and raise without a GPU; ``backend="cuda"`` on CPU tensors raises.
-* Configurations whose path is not ported raise ``NotImplementedError``.
+* Configurations whose path is not ported raise ``NotImplementedError``;
+  those ported since (pcg with ``fused="on"``, kmg) resolve.
 """
 from __future__ import annotations
 
@@ -50,7 +51,10 @@ def test_every_module_imports_without_jax():
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
-    assert len(_modules()) >= 17
+    assert len(_modules()) >= 21
+    assert {"repro_torch.precond", "repro_torch.precond.coarse",
+            "repro_torch.precond.vcycle",
+            "repro_torch.kernels.kp_gram"} <= set(_modules())
 
 
 def test_sources_name_no_jax_or_reference_import():
@@ -90,22 +94,38 @@ def test_cuda_backend_on_cpu_tensors_raises():
             device="cpu")
 
 
-@pytest.mark.parametrize("cfg,n,device", [
+def _case(i, cfg, n, device, resolves_to=None):
+    return pytest.param(cfg, n, device, resolves_to, id=f"cfg{i}-{n}-{device}")
+
+
+@pytest.mark.parametrize("cfg,n,device,resolves_to", [
     # the pivoted LU route (gbsv scan), from each solver
-    (GPConfig(solver="jacobi", pivot=True, solve_alg="lu", q=1,
-              precond="none"), 20, "cpu"),
-    (GPConfig(solver="gauss_seidel", pivot=True, solve_alg="lu", q=1,
-              precond="none"), 20, "cpu"),
-    (GPConfig(fused="on", precond="none"), 20, "cpu"),  # per-iteration pcg
-    (GPConfig(fused="on", q=1, precond="none"), 20, "cpu"),
-    (GPConfig(pivot=True, solve_alg="lu", precond="none"), 20, "cpu"),
-    (GPConfig(precond="kmg"), 20, "cpu"),
-    (GPConfig(), 4096, "cpu"),  # "auto" resolves to kmg at q = 0, n >= 4096
-    (GPConfig(q=3, precond="none"), 20, "cuda"),  # widths beyond the kernels
+    _case(0, GPConfig(solver="jacobi", pivot=True, solve_alg="lu", q=1,
+                      precond="none"), 20, "cpu"),
+    _case(1, GPConfig(solver="gauss_seidel", pivot=True, solve_alg="lu", q=1,
+                      precond="none"), 20, "cpu"),
+    # ported since: the per-iteration pcg kernel, and kmg (unfused)
+    _case(2, GPConfig(fused="on", precond="none"), 20, "cpu",
+          dict(fused="on", precond="none")),
+    _case(3, GPConfig(fused="on", q=1, precond="none"), 20, "cpu",
+          dict(fused="on", precond="none")),
+    _case(4, GPConfig(pivot=True, solve_alg="lu", precond="none"), 20, "cpu"),
+    _case(5, GPConfig(precond="kmg"), 20, "cpu",
+          dict(fused="off", precond="kmg")),
+    # "auto" resolves to kmg at q = 0, n >= 4096
+    _case(6, GPConfig(), 4096, "cpu", dict(fused="off", precond="kmg")),
+    # widths beyond the kernels
+    _case(7, GPConfig(q=3, precond="none"), 20, "cuda"),
 ])
-def test_unported_paths_raise(cfg, n, device):
-    with pytest.raises(NotImplementedError):
-        resolve_config(cfg, n, device)
+def test_unported_paths_raise(cfg, n, device, resolves_to):
+    """The unported paths raise; the cases ported since resolve as the
+    reference resolves them."""
+    if resolves_to is None:
+        with pytest.raises(NotImplementedError):
+            resolve_config(cfg, n, device)
+        return
+    got = resolve_config(cfg, n, device)
+    assert {k: getattr(got, k) for k in resolves_to} == resolves_to
 
 
 def test_plain_path_launches_no_kernel():

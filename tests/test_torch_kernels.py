@@ -19,14 +19,18 @@ from repro.core.banded import _band_mask as jax_band_mask
 from repro.kernels.band_matmul import band_matmul_pallas
 from repro.kernels.banded_lu import banded_lu_pallas
 from repro.kernels.fused_sweep import FusedSweep as JaxFusedSweep
+from repro.kernels.kp_gram import kp_gram_pallas
 from repro.kernels.mega_solve import mega_pcg_solve_pallas
 from repro.kernels.rgf import rgf_inverse_band as jax_rgf_inverse_band
+from repro_torch.core.kernel_packets import kp_factors
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.banded_lu import banded_lu
 from repro_torch.kernels.fused_sweep import _pad_len
 from repro_torch.kernels.mega_solve import mega_pcg_solve
 from repro_torch.kernels.rgf import rgf_inverse_band
-from torch_port_inputs import band, padded_operands, solve_operands
+from torch_port_inputs import (OMEGA, band, padded_operands, points,
+                               solve_operands)
+from torch_port_jax_ref import fresh_jax_caches  # noqa: F401 (autouse)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(2)
@@ -225,3 +229,30 @@ def test_dimops_and_mhat_matvec_match_jax(q):
                 jax_mhat_matvec(j_ops, uj, backend="pallas")) < 1e-10
     assert _rel(t_ops.block_solve(ut),
                 j_ops.block_solve(uj, backend="pallas")) < 1e-10
+
+
+@pytest.mark.parametrize("q", [0, 1, 2])
+def test_kp_gram_plain_matches_pallas(q):
+    """kp_gram's plain version against the Pallas kernel (interpret, block
+    128, n = 300 not a multiple of it), the dense-gather oracle and the fit's
+    own Phi band (``kp_factors``) on a jittered grid: 1e-12 relative.
+
+    Phi = A K cancels by design (A annihilates K's smooth part): at q = 2
+    here |Phi| ~ 1e-6 while the summed terms |A K| reach ~2 (|k| <= 1), so
+    one ulp of difference between XLA's and torch's exp reads ~4e-10 of
+    |Phi|. The Pallas comparison is therefore relative to the terms' scale,
+    max_i sum_t |A[i, t]|; the torch oracles share torch's exp and are held
+    relative to |Phi|."""
+    rng = np.random.default_rng(60 + q)
+    n = 300
+    xs = torch.as_tensor(np.sort(points(rng, n, 1)[:, 0]))
+    A, Phi = kp_factors(q, torch.tensor(OMEGA, dtype=torch.float64), xs)
+    phi = ops.kp_gram(q, OMEGA, xs, A.data, block=128)
+    want = kp_gram_pallas(q, OMEGA, jnp.asarray(xs.numpy()),
+                          jnp.asarray(A.data.numpy()), block=128,
+                          interpret=True)
+    assert phi.shape == (n, 2 * q + 1)
+    terms = float(A.data.abs().sum(-1).max())
+    assert float(np.abs(phi.numpy() - np.asarray(want)).max()) / terms < 1e-12
+    assert _rel(phi, ref.kp_gram_ref(q, OMEGA, xs, A.data)) < 1e-12
+    assert _rel(phi, Phi.data) < 1e-12

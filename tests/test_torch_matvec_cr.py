@@ -24,6 +24,7 @@ from repro_torch.kernels.banded_matvec import banded_matvec
 from repro_torch.kernels.block_cr import block_cr
 from repro_torch.kernels.mega_solve import MegaSolve
 from torch_port_inputs import band, padded_operands, solve_operands
+from torch_port_jax_ref import fresh_jax_caches  # noqa: F401 (autouse)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(2)

@@ -39,6 +39,7 @@ from repro_torch.core.additive_gp import (_log_likelihood, _mll_gradients,
                                           _r_apply, log_likelihood,
                                           mll_gradients)
 from torch_port_inputs import OMEGA, points
+from torch_port_jax_ref import fresh_jax_caches  # noqa: F401 (autouse)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(2)

@@ -49,8 +49,9 @@ from repro_torch.kernels.fused_sweep import (fused_gauss_seidel_iter_plain,
 from repro_torch.kernels.mega_solve import (mega_gauss_seidel_plain,
                                             mega_jacobi_plain)
 from torch_port_inputs import dim_ops, padded_operands, solve_operands
-from torch_port_jax_ref import (check_fit, check_queries,
-                                check_queries_on_jax_factors, fit_cache)
+from torch_port_jax_ref import (check_fit, check_queries,  # noqa: F401
+                                check_queries_on_jax_factors, fit_cache,
+                                fresh_jax_caches)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(2)
@@ -317,9 +318,9 @@ def test_sweep_backward_error(q, method):
 
 
 def test_relaxation_configs_resolve():
-    """The configurations this slice ports resolve at fit time: fused "auto"
-    bakes to "whole", the explicit modes stay; kmg and the per-iteration
-    pcg kernel still raise."""
+    """The relaxation configurations resolve at fit time: fused "auto"
+    bakes to "whole", the explicit modes stay; kmg with a relaxation solver
+    raises, and pcg with fused="on" resolves to the per-iteration kernel."""
     for solver in ("jacobi", "gauss_seidel"):
         for fused, want in (("auto", "whole"), ("whole", "whole"),
                             ("on", "on"), ("off", "off")):
@@ -335,8 +336,8 @@ def test_relaxation_configs_resolve():
                                 precond="none"), 20, "cpu")
     with pytest.raises(ValueError, match="method='pcg' only"):
         resolve_config(GPConfig(solver="jacobi", precond="kmg"), 20, "cpu")
-    with pytest.raises(NotImplementedError, match="per-iteration PCG"):
-        resolve_config(GPConfig(fused="on", precond="none"), 20, "cpu")
+    assert resolve_config(GPConfig(fused="on", precond="none"), 20,
+                          "cpu").fused == "on"
 
 
 def test_unfused_paths_launch_no_kernel_on_cpu():
@@ -385,4 +386,4 @@ def test_config_baking_keeps_reference_fields():
     assert dataclasses.asdict(sc) == dict(
         method="gauss_seidel", iters=cfg.solver_iters, damping=0.0,
         pivot=False, tol=0.0, backend="auto", alg="auto", fused="whole",
-        precond="none")
+        precond="none", precond_smooth=cfg.precond_smooth)

@@ -19,6 +19,7 @@ import torch
 from repro.core import exact as jexact
 from repro.core import stochastic as jst
 from repro_torch.core import exact, stochastic
+from torch_port_jax_ref import fresh_jax_caches  # noqa: F401 (autouse)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(2)

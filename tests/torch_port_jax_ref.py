@@ -9,6 +9,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core import GPConfig as JaxGPConfig
@@ -25,6 +26,21 @@ jax.config.update("jax_enable_x64", True)
 # 80 iterations converge every solve to rounding, so the two frameworks'
 # different summation orders cannot grow through unconverged CG steps
 D, M, SIGMA, ITERS = 3, 40, 0.5, 80
+
+
+@pytest.fixture(scope="module", autouse=True)
+def fresh_jax_caches():
+    """Drop the JAX executables this process holds before a port test module
+    compiles its own, and again after it. Every compiled XLA CPU executable
+    keeps memory mappings, and the jit caches keep executables alive: a test
+    worker that runs the JAX package's Pallas suites and then a port
+    module's interpret-mode references passes the kernel's
+    vm.max_map_count, and the next compile fails in LLVM's memory manager
+    ("releaseMappedMemory failed ... Cannot allocate memory") and crashes
+    the worker. Modules that compile JAX import this fixture."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
 
 
 def _data(n, seed, ties=False):
@@ -51,27 +67,29 @@ def _jax_arrays(gp):
 
 
 def fit_cache():
-    """``get(n, q, ties=False, solver="pcg", jax_backend="pallas")``: the
-    JAX fit (on ``jax_backend``) and the port's CPU fit of one seeded case,
-    cached. The seed depends on (n, q, ties) only, so the solvers of one
-    case see the same data."""
+    """``get(n, q, ties=False, solver="pcg", jax_backend="pallas",
+    precond="none")``: the JAX fit (on ``jax_backend``) and the port's CPU
+    fit of one seeded case, cached; ``ref["gp"]`` is the JAX GP. The seed
+    depends on (n, q, ties) only, so the solvers of one case see the same
+    data."""
     cache = {}
 
-    def get(n, q, ties=False, solver="pcg", jax_backend="pallas"):
-        key = (n, q, ties, solver, jax_backend)
+    def get(n, q, ties=False, solver="pcg", jax_backend="pallas",
+            precond="none"):
+        key = (n, q, ties, solver, jax_backend, precond)
         if key not in cache:
             X, Y, Xq = _data(n, 100 + n + q + ties, ties)
             omega = np.full(D, OMEGA)
             jgp = jax_fit(JaxGPConfig(q=q, solver=solver, solver_iters=ITERS,
-                                      precond="none", backend=jax_backend),
+                                      precond=precond, backend=jax_backend),
                           jnp.asarray(X), jnp.asarray(Y), jnp.asarray(omega),
                           SIGMA)
-            ref = dict(arrays=_jax_arrays(jgp),
+            ref = dict(arrays=_jax_arrays(jgp), gp=jgp,
                        verdict=int(jgp.health.verdict),
                        mean=np.asarray(jax_mean(jgp, jnp.asarray(Xq))),
                        var=np.asarray(jax_var(jgp, jnp.asarray(Xq))))
             cfg = GPConfig(q=q, solver=solver, solver_iters=ITERS,
-                           precond="none")
+                           precond=precond)
             gp = fit(cfg, X, Y, omega, SIGMA, device="cpu")
             cache[key] = (cfg, gp, Xq, ref)
         return cache[key]
