@@ -99,13 +99,16 @@ def _import_port():
     from repro_torch.kernels.banded_lu import banded_lu, banded_lu_plain
     from repro_torch.kernels.banded_matvec import (banded_matvec,
                                                    banded_matvec_plain)
-    from repro_torch.kernels.block_cr import block_cr, block_cr_plain
+    from repro_torch.kernels.block_cr import (block_cr, block_cr_factor,
+                                              block_cr_factor_plain,
+                                              block_cr_plain, cr_factor_size)
     from repro_torch.core.backfitting import SolveConfig, solve_mhat
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.fused_sweep import (
-        FusedSweep, fused_gauss_seidel_iter, fused_gauss_seidel_iter_plain,
-        fused_jacobi_iter, fused_jacobi_iter_plain, fused_pcg_iter,
-        fused_pcg_iter_plain, pcg_seed, pcg_seed_plain, sweep_backward_error)
+        FusedSweep, fused_gauss_seidel_iter,
+        fused_gauss_seidel_iter_plain, fused_jacobi_iter,
+        fused_jacobi_iter_plain, fused_pcg_iter, fused_pcg_iter_plain,
+        pcg_seed, pcg_seed_plain, pcg_solve_cols, sweep_backward_error)
     from repro_torch.kernels.kp_gram import kp_gram, kp_gram_plain
     from repro_torch.kernels.mega_solve import (
         MegaSolve, mega_gauss_seidel_plain, mega_gauss_seidel_solve,
@@ -145,6 +148,37 @@ def _event_ms(fn, reps=3, warmup=1):
     return start.elapsed_time(end) / reps, out
 
 
+def _device_ms(fn, reps=20):
+    """Device ms per call of the kernels ``fn`` launches: the kernels' own
+    time in a torch.profiler trace over ``reps`` calls (the device events,
+    not the host ops that launch them); where the trace shows none, one
+    call between CUDA events after a synchronise."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+                for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and "Activity Buffer" not in ev.key)
+    if total > 0:
+        return total / 1e3 / reps, "profiler"
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), "events, one call"
+
+
 def _band(rng, G, n, lo, hi, dev):
     """Diagonally dominant band (G, n, lo+hi+1), zero out-of-range entries."""
     data = rng.standard_normal((G, n, lo + hi + 1))
@@ -156,7 +190,8 @@ def _band(rng, G, n, lo, hi, dev):
     return torch.as_tensor(data, device=dev)
 
 
-SERVING_KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg")
+SERVING_KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
+                   "cr_factor")
 LEARNING_KERNELS = SERVING_KERNELS + ("banded_matvec", "block_cr")
 
 
@@ -224,17 +259,30 @@ def kernel_phase(P, rng, dev, shapes, ops_path, ops_q1):
                                      ("q1 lo=hi=1 B=32", (D, N_Q1, 1, 1, B))):
         bd = _band(rng, G, nn, lo, hi, dev)
         rhs = torch.as_tensor(rng.standard_normal((G, nn, Bc)), device=dev)
+        # three warm-up calls: the first timed row of the script otherwise
+        # also times the allocator growing its pool for x (two 77 MB
+        # blocks at B = 32 alternate, the last result being held)
         ms, (x, ld) = _event_ms(lambda: P["banded_lu"](bd, rhs, lo, hi),
-                                reps=20)
+                                reps=20, warmup=3)
         pms, (xp, ldp) = _event_ms(
             lambda: P["banded_lu_plain"](bd, rhs, lo, hi), reps=1, warmup=0)
         err, rel = _errs(torch.cat([x.flatten(), ld]),
                          torch.cat([xp.flatten(), ldp]))
-        report("banded_lu", tag, err, rel, 1e-12, ms, pms)
-        if tag.startswith("path lo=hi=0 B=32"):
+        extra = ""
+        if tag.startswith("path"):
+            dev_ms, how = _device_ms(lambda: P["banded_lu"](bd, rhs, lo, hi))
+            lib_dev_ms, _ = _device_ms(lambda: rhs / bd)
             lib_ms, _ = _event_ms(lambda: rhs / bd, reps=20)
+            full_ms, _ = _event_ms(
+                lambda: (rhs / bd, bd.abs().log().sum(1)), reps=20)
             nbytes = 8 * (G * nn + 2 * G * nn * Bc + G)
             b_ms, b_by = _bound(nbytes, G * nn * Bc + 2 * G * nn)
+            extra = (f" device_ms={dev_ms:.4f} ({how}) library_ms(rhs / "
+                     f"band)={lib_ms:.4f} (device {lib_dev_ms:.4f}) "
+                     f"library_ms(solve + log-det)={full_ms:.4f} "
+                     f"bound_ms={b_ms:.4f} ({b_by})")
+        report("banded_lu", tag, err, rel, 1e-12, ms, pms, extra)
+        if tag.startswith("path lo=hi=0 B=32"):
             rows.append(dict(name="banded_lu", route="cuda",
                              source="src/repro_torch/csrc/banded_lu.cu",
                              replaces="src/repro/kernels/banded_lu.py:93",
@@ -296,8 +344,10 @@ def kernel_phase(P, rng, dev, shapes, ops_path, ops_q1):
         args = (fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2,
                 v, x0)
         kw = dict(w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s, iters=40)
-        ms, (x, r, it) = _event_ms(lambda: P["mega_pcg_solve"](*args, **kw),
-                                   reps=1 if Bc > B else 3)
+        fac = fs.cr_factors()
+        ms, (x, r, it) = _event_ms(
+            lambda: P["mega_pcg_solve"](*args, factors=fac, **kw),
+            reps=1 if Bc > B else 3)
         pms, (xp, rp, itp) = _event_ms(
             lambda: P["mega_pcg_plain"](*args, **kw), reps=1, warmup=0)
         err, rel = _errs(x, xp)
@@ -311,13 +361,52 @@ def kernel_phase(P, rng, dev, shapes, ops_path, ops_q1):
         # 40 CG steps amplify the two versions' different summation orders
         # (per-block partial sums vs one reduction) by the system's
         # condition number; 1e-7 is the serving path's own bar
-        report("mega_pcg", tag, err, rel, 1e-7, ms, pms)
+        report("mega_pcg", tag, err, rel, 1e-7, ms, pms,
+               f" (factors made once; solve items of "
+               f"{P['pcg_solve_cols'](fs.D, Bc)} columns)")
         if tag.startswith("path q=0 B=32"):
             nbytes, ops = _mega_cost(fs.D, fs.npad, B, fs.w_a, fs.w_p,
                                      fs.w_s, int(it))
             b_ms, b_by = _bound(nbytes, ops)
             rows.append(dict(name="mega_pcg", route="cuda",
                              source="src/repro_torch/csrc/mega_pcg.cu",
+                             replaces="src/repro/kernels/mega_solve.py:268",
+                             max_abs_err=err, max_rel_err=rel, ms=ms,
+                             plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None))
+
+    # --- cr_factor: the block-CR factors the PCG kernel solves from (the
+    # path's SAPhi at q = 0, pivoted too; SAPhi at q = 1). The factor's
+    # reduced blocks are Schur complements, so the kernel's and the plain
+    # version's rounding (fused multiply-adds against einsum) part by up to
+    # cond(SAPhi) eps there: the bar is max(1e-12, cond eps), as for the
+    # relaxation rows, with cond estimated in the run ---------------------
+    eps = float(torch.finfo(torch.float64).eps)
+    for tag, fs, pivot in (("path SAPhi w=1", ops_path, False),
+                           ("path SAPhi w=1 pivot", ops_path, True),
+                           ("q1 SAPhi w=2", ops_q1, False)):
+        w = fs.w_s
+        kappa = _cond_est(P, fs, fs.saphi, w)
+        tol = max(1e-12, kappa * eps)
+        ms, fac = _event_ms(lambda: P["block_cr_factor"](fs.saphi, w,
+                                                         pivot=pivot),
+                            reps=10)
+        pms, facp = _event_ms(lambda: P["block_cr_factor_plain"](
+            fs.saphi, w, pivot=pivot), reps=1, warmup=0)
+        err, rel = _errs(fac, facp)
+        nb = fs.npad // w
+        nbytes = 8 * fs.D * (fs.npad * (2 * w + 1)
+                             + P["cr_factor_size"](nb, w))
+        # per even row and level: two w x w inversions (cr_coef), the two
+        # coefficient products and four block products of the fold
+        nev = sum(-(-nb // (2 << k)) for k in range((nb - 1).bit_length()))
+        b_ms, b_by = _bound(nbytes, fs.D * nev * 18 * w ** 3)
+        report("cr_factor", tag, err, rel, tol, ms, pms,
+               f" cond <= {kappa:.3e} bound_ms={b_ms:.4f} ({b_by}) "
+               f"library_ms=none")
+        if tag == "path SAPhi w=1":
+            rows.append(dict(name="cr_factor", route="cuda",
+                             source="src/repro_torch/csrc/block_cr.cu",
                              replaces="src/repro/kernels/mega_solve.py:268",
                              max_abs_err=err, max_rel_err=rel, ms=ms,
                              plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
@@ -628,6 +717,9 @@ def pcg_iter_kernel_phase(P, rng, dev, ops_path, ops_q1):
         tol = max(1e-12, kappa * eps)
         ops = (fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2)
         kw = dict(w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s)
+        # the solves' block-CR factors, made once for the operand stack as
+        # the paths make them
+        fkw = dict(kw, factors=fs.cr_factors())
         v = fs.pad_state(torch.as_tensor(
             rng.standard_normal((fs.D, fs.n, B_PATH)), device=dev))
         x0 = fs.pad_state(torch.as_tensor(
@@ -635,10 +727,10 @@ def pcg_iter_kernel_phase(P, rng, dev, ops_path, ops_q1):
         seed_err = 0.0
         for warm in (False, True):
             start = x0 if warm else torch.zeros_like(v)
-            got = P["pcg_seed"](*ops, v, start, warm=warm, **kw)
+            got = P["pcg_seed"](*ops, v, start, warm=warm, **fkw)
             want = P["pcg_seed_plain"](*ops, v, start, warm=warm, **kw)
             seed_err = max(seed_err, _errs(_flat(got), _flat(want))[1])
-        ms, out = _event_ms(lambda: P["fused_pcg_iter"](*ops, *got, **kw),
+        ms, out = _event_ms(lambda: P["fused_pcg_iter"](*ops, *got, **fkw),
                             reps=10)
         pms, outp = _event_ms(lambda: P["fused_pcg_iter_plain"](*ops, *got,
                                                                 **kw),
@@ -647,7 +739,7 @@ def pcg_iter_kernel_phase(P, rng, dev, ops_path, ops_q1):
                          _flat(outp[k] for k in (0, 2, 3)))
         r_err = float((out[1] - outp[1]).abs().max() / got[1].abs().max())
         whole_ms, _ = _event_ms(lambda: P["mega_pcg_solve"](
-            *ops, v, torch.zeros_like(v), iters=40, **kw), reps=1)
+            *ops, v, torch.zeros_like(v), iters=40, **fkw), reps=1)
         b_ms, b_by = _bound(*_pcg_iter_cost(fs.D, fs.npad, B_PATH, fs.w_a,
                                             fs.w_p, fs.w_s))
         print(f"kernel fused_pcg_iter {tag}: cond <= {kappa:.3e}, bar "
@@ -1122,7 +1214,7 @@ def main():
         raise RuntimeError("pcg fused=on path: not finite/positive/OK")
     _require_launched("pcg fused=on path", counts_o,
                       ("banded_lu", "band_matmul", "rgf_blocks",
-                       "fused_pcg_iter"))
+                       "fused_pcg_iter", "cr_factor"))
     if counts_o["mega_pcg"]:
         raise RuntimeError("the fused='on' path ran the whole-solve kernel")
     del ogp

@@ -1,0 +1,273 @@
+"""Time ``banded_lu`` at lo = hi = 0 and the PCG kernels of one checkout on an
+NVIDIA GPU, so two checkouts can be compared in one call.
+
+    python scripts/kernel_ab.py run SRC OUT.json [lu|pcg]
+    python scripts/kernel_ab.py table OUT_A.json OUT_B.json ...
+
+``run`` imports the port from ``SRC`` (the ``src`` directory of the checkout
+to time; its kernels are built under that checkout's ``build/``) and times,
+at the main path's shapes (n = 30000, D = 10, q = 0; the Schwefel operands
+of ``chip_smoke.py``):
+
+1. ``banded_lu`` rows at B = 32, 16, 4, 1, first thing after the build
+   (CUDA events over 20 calls, as ``chip_smoke.py`` times them);
+2. the split of one ``banded_lu`` call: each kernel's device time from
+   ``torch.profiler`` (per call, by kernel name), the wrapper's host time
+   (enqueue, no synchronisation), one call between CUDA events after a
+   synchronise, ``rhs / band`` and the full library equivalent
+   ``rhs / band`` plus ``band.abs().log().sum(1)``, and the bound (bytes);
+3. ``mega_pcg`` (40 iterations, cold) at B = 32, 160, 16 and 1, and one
+   ``fused_pcg_iter`` launch at B = 32; where the checkout has the
+   factored block CR, also the factor launch alone, the solve with the
+   factors made beforehand, and the solve at each chunk width of
+   ``CHUNK_WIDTHS`` (the default width is the kernel's own choice);
+4. the ``banded_lu`` rows of 1. again, after the other work.
+
+To compare a parent with a change, unpack the parent with ``git archive``
+into a git-ignored directory and run parent, change, change, parent in one
+call; ``table`` prints the rows of each file side by side. ``lu`` as a
+last argument times 1, 2 and 4 only; ``pcg`` times 3 without the chunk
+widths.
+"""
+from __future__ import annotations
+
+import inspect
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+D, N, B_PATH = 10, 30000, 32
+LU_B = (32, 16, 4, 1)
+PCG_B = ((32, 3), (160, 1), (16, 3), (1, 3))  # (columns, timed reps)
+CHUNK_WIDTHS = (1, 2, 4, 8, 16)
+MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+
+
+def _events(fn, reps, warmup=1):
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _one_call(fn, tries=5):
+    """Median of single calls, each between events after a synchronise."""
+    out = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return float(np.median(out))
+
+
+def _host_ms(fn, reps=20):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return t
+
+
+def _device_split(fn, reps=20):
+    """Device ms per call by kernel name, from torch.profiler (events with
+    their own device time: the kernels, not the host ops around them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0:
+            out[ev.key[:60]] = t / 1e3 / reps
+    return out
+
+
+def lu_rows(P, rng, dev, tag):
+    rows = {}
+    for B in LU_B:
+        band = torch.as_tensor(rng.uniform(1.0, 2.0, (D, N, 1)), device=dev)
+        rhs = torch.as_tensor(rng.standard_normal((D, N, B)), device=dev)
+        ms = _events(lambda: P["banded_lu"](band, rhs, 0, 0), reps=20)
+        rows[f"B={B}"] = ms
+        print(f"{tag} banded_lu B={B}: {ms:.4f} ms (20-call events)",
+              flush=True)
+    return rows
+
+
+def lu_split(P, rng, dev):
+    rows = {}
+    for B in LU_B:
+        band = torch.as_tensor(rng.uniform(1.0, 2.0, (D, N, 1)), device=dev)
+        rhs = torch.as_tensor(rng.standard_normal((D, N, B)), device=dev)
+        call = lambda: P["banded_lu"](band, rhs, 0, 0)  # noqa: E731
+        r = dict(
+            events20_ms=_events(call, reps=20),
+            one_call_ms=_one_call(call),
+            host_ms=_host_ms(call),
+            device_ms=_device_split(call),
+            library_div_ms=_events(lambda: rhs / band, reps=20),
+            library_div_device_ms=_device_split(lambda: rhs / band),
+            library_full_ms=_events(
+                lambda: (rhs / band, band.abs().log().sum(1)), reps=20),
+            bound_ms=8 * (D * N + 2 * D * N * B + D) / MEM_BYTES_PER_S * 1e3)
+        if P["lu_solve_flag"]:
+            r["solve_only_ms"] = _events(
+                lambda: P["banded_lu"](band, rhs, 0, 0, logdet=False),
+                reps=20)
+            r["logdet_only_ms"] = _events(
+                lambda: P["banded_lu"](band, None, 0, 0, solve=False),
+                reps=20)
+        rows[f"B={B}"] = r
+        print(f"banded_lu split B={B}: {json.dumps(r)}", flush=True)
+    return rows
+
+
+def _operands(P, dev):
+    X, _, _, bounds = P["sample_test_function"]("schwefel", N, D, seed=0)
+    span = bounds[:, 1] - bounds[:, 0]
+    omega, sigma = 8.0 / span, 1.0
+    Xt = torch.as_tensor(X, device=dev)
+    sort_idx = torch.argsort(Xt.T, dim=1, stable=True)
+    xs = torch.gather(Xt.T, 1, sort_idx)
+    A, Phi = P["kp_factors"](0, torch.as_tensor(omega, device=dev), xs)
+    SAPhi = P["add"](P["scale"](A, sigma ** 2), Phi)
+    return P["FusedSweep"](Phi.data, SAPhi.data, sort_idx,
+                           torch.argsort(sort_idx, dim=1), sigma ** 2,
+                           w_p=Phi.lo, w_s=SAPhi.lo, a=A.data, w_a=A.lo)
+
+
+def pcg_rows(P, rng, dev, widths=True):
+    fs = _operands(P, dev)
+    ops = (fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2)
+    kw = dict(w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s)
+    new = P["factored"]
+    rows = {}
+    for B, reps in PCG_B:
+        v = fs.pad_state(torch.as_tensor(rng.standard_normal((D, N, B)),
+                                         device=dev))
+        x0 = torch.zeros_like(v)
+        solve = lambda **extra: P["mega_pcg_solve"](  # noqa: E731
+            *ops, v, x0, iters=40, **kw, **extra)
+        r = {"whole_40_ms": _events(solve, reps=reps)}
+        if new:
+            r["auto_cols"] = P["pcg_solve_cols"](D, B)
+            fac = P["pcg_factors"](fs)
+            r["factor_ms"] = _events(lambda: P["pcg_factors"](fs), reps=3)
+            r["whole_40_prefactored_ms"] = _events(
+                lambda: solve(factors=fac), reps=reps)
+            r["chunk_ms"] = {
+                str(c): _events(lambda: solve(factors=fac, cols=c),
+                                reps=reps)
+                for c in CHUNK_WIDTHS if c <= B and widths}
+        if B == B_PATH:
+            st = P["pcg_seed"](*ops, v, x0, warm=False, **kw)
+            r["fused_pcg_iter_ms"] = _events(
+                lambda: P["fused_pcg_iter"](*ops, *st, **kw), reps=10)
+        rows[f"B={B}"] = r
+        print(f"mega_pcg B={B}: {json.dumps(r)}", flush=True)
+    return rows
+
+
+def run(src, out, parts="all"):
+    sys.path.insert(0, src)
+    from repro_torch.core.banded import add, scale
+    from repro_torch.core.kernel_packets import kp_factors
+    from repro_torch.data import sample_test_function
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_sweep as fsm
+    from repro_torch.kernels.banded_lu import banded_lu
+    from repro_torch.kernels.mega_solve import mega_pcg_solve
+
+    P = dict(add=add, scale=scale, kp_factors=kp_factors,
+             sample_test_function=sample_test_function, banded_lu=banded_lu,
+             FusedSweep=fsm.FusedSweep, mega_pcg_solve=mega_pcg_solve,
+             pcg_seed=fsm.pcg_seed, fused_pcg_iter=fsm.fused_pcg_iter)
+    P["lu_solve_flag"] = "solve" in inspect.signature(banded_lu).parameters
+    P["factored"] = hasattr(fsm, "pcg_factors")
+    if P["factored"]:
+        P["pcg_factors"] = lambda fs: fsm.pcg_factors(
+            fs.phi, fs.saphi, w_p=fs.w_p, w_s=fs.w_s)
+        P["pcg_solve_cols"] = fsm.pcg_solve_cols
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(f"{src}: {smi}", flush=True)
+    t0 = time.perf_counter()
+    _build.load_library()
+    res = dict(src=src, card=smi, build_s=time.perf_counter() - t0)
+    rng = np.random.default_rng(0)
+    if parts != "pcg":
+        res["lu_first"] = lu_rows(P, rng, dev, "first")
+        res["lu_split"] = lu_split(P, rng, dev)
+    if parts != "lu":
+        res["pcg"] = pcg_rows(P, rng, dev, widths=parts != "pcg")
+    if parts != "pcg":
+        res["lu_again"] = lu_rows(P, rng, dev, "again")
+    with open(out, "w") as f:
+        json.dump(res, f, indent=1)
+
+
+def table(*paths):
+    runs = [json.load(open(p)) for p in paths]
+    print("card:", runs[0]["card"])
+    print("columns:", " | ".join(r["src"] for r in runs))
+
+    def line(name, get):
+        vals = []
+        for r in runs:
+            try:
+                vals.append(f"{get(r):.4f}")
+            except (KeyError, TypeError):
+                vals.append("-")
+        print(f"{name:42s} " + " | ".join(vals))
+
+    for B in LU_B:
+        k = f"B={B}"
+        line(f"banded_lu {k} first", lambda r: r["lu_first"][k])
+        line(f"banded_lu {k} again", lambda r: r["lu_again"][k])
+        for f in ("events20_ms", "one_call_ms", "host_ms", "library_div_ms",
+                  "library_full_ms", "solve_only_ms", "logdet_only_ms",
+                  "bound_ms"):
+            line(f"banded_lu {k} {f}", lambda r: r["lu_split"][k][f])
+        for r in runs:
+            if "lu_split" in r:
+                print(f"  device split {k} ({r['src']}): "
+                      f"{r['lu_split'][k]['device_ms']}, rhs / band "
+                      f"{r['lu_split'][k].get('library_div_device_ms')}")
+    for B, _ in PCG_B:
+        k = f"B={B}"
+        for f in ("whole_40_ms", "whole_40_prefactored_ms", "factor_ms",
+                  "fused_pcg_iter_ms", "auto_cols"):
+            line(f"mega_pcg {k} {f}", lambda r: r["pcg"][k][f])
+        for c in CHUNK_WIDTHS:
+            line(f"mega_pcg {k} chunk {c}",
+                 lambda r: r["pcg"][k]["chunk_ms"][str(c)])
+
+
+if __name__ == "__main__":
+    cmd, *args = sys.argv[1:]
+    {"run": run, "table": table}[cmd](*args)

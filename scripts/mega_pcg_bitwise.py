@@ -12,6 +12,14 @@ systems. Then compare the two output files::
 
 ``SRC`` is the ``src`` directory of the checkout to run (its kernels are
 built beside it, under its own ``build/``).
+
+A checkout can only match another where each is consistent with itself.
+``selfcheck`` asks one checkout whether its preconditioner solve gives the
+same bits in the seed and in an iteration: the cold seed solves z = M^{-1} v,
+then one carried iteration from (x, r = v, p = 0) solves the same r again
+(with p = 0 the update leaves r as it is and the new p is that z)::
+
+    python scripts/mega_pcg_bitwise.py selfcheck SRC OPERANDS
 """
 from __future__ import annotations
 
@@ -73,6 +81,27 @@ def run(src, out, opfile):
     torch.save(res, out)
 
 
+def selfcheck(src, opfile):
+    sys.path.insert(0, src)
+    from repro_torch.kernels.fused_sweep import fused_pcg_iter, pcg_seed
+
+    dev = torch.device("cuda")
+    if not os.path.exists(opfile):
+        _operands(opfile, dev)
+    for key, o in torch.load(opfile).items():
+        a, phi, saphi, si, ri, s2, v, _ = (t.to(dev) for t in o["t"])
+        ops = (a, phi, saphi, si, ri, s2)
+        kw = dict(zip(("w_a", "w_p", "w_s"), o["w"]))
+        x, r, z, rz = pcg_seed(*ops, v, torch.zeros_like(v), warm=False,
+                               **kw)
+        _, r1, z1, rz1 = fused_pcg_iter(*ops, x, r, torch.zeros_like(z), rz,
+                                        **kw)
+        print(f"{src} (q, n, B) = {key}: r kept {torch.equal(r1, r)}; "
+              f"z in the seed == z in an iteration: {torch.equal(z1, z)} "
+              f"(max difference {float((z1 - z).abs().max()):.3e}, "
+              f"max |z| {float(z.abs().max()):.3e})")
+
+
 def diff(path_a, path_b):
     a, b = torch.load(path_a), torch.load(path_b)
     same_all = True
@@ -88,4 +117,4 @@ def diff(path_a, path_b):
 
 if __name__ == "__main__":
     cmd, *args = sys.argv[1:]
-    {"run": run, "diff": diff}[cmd](*args)
+    {"run": run, "diff": diff, "selfcheck": selfcheck}[cmd](*args)

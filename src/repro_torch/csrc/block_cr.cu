@@ -22,6 +22,15 @@
 // with identity rows and copies the right-hand sides into the output, which
 // the elimination overwrites with x in place; the block triples live in a
 // workspace the wrapper allocates.
+//
+// Also here: the factor launch of the whole-solve PCG kernel
+// (repro_cr_factor_f64), one block per band running cr.cuh's
+// cr_block_factor, which stores the right-hand-side-independent half of the
+// elimination (coefficients per level, frozen block triples) for
+// mega_pcg.cu to read in every solve. It replaces that half of the same
+// reference body (`cr_solve_values` inside mega_pcg_solve_pallas's
+// `_block_solve_dim`); like the solve, it is a log-depth chain of levels
+// with one barrier each, run once per operand stack.
 #include "common.cuh"
 #include "cr.cuh"
 
@@ -61,6 +70,26 @@ cudaError_t launch(const double* band, double* x, double* ld, double* work,
   return cudaGetLastError();
 }
 
+template <int W, bool PIVOT>
+__global__ void __launch_bounds__(NT)
+    cr_factor_kernel(const double* __restrict__ band, double* fac,
+                     int npad) {
+  const int g = blockIdx.x;
+  repro::cr_block_factor<W, PIVOT>(
+      band + (long long)g * npad * (2 * W + 1),
+      fac + g * repro::cr_factor_size(npad / W, W), npad);
+}
+
+template <int W>
+cudaError_t launch_factor(const double* band, double* fac, int G, int npad,
+                          bool pivot, cudaStream_t st) {
+  if (pivot)
+    cr_factor_kernel<W, true><<<G, NT, 0, st>>>(band, fac, npad);
+  else
+    cr_factor_kernel<W, false><<<G, NT, 0, st>>>(band, fac, npad);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // band (G, npad, 2w+1) identity-padded to npad = nb * w rows; x (G, npad, B)
@@ -77,5 +106,19 @@ extern "C" int repro_block_cr_f64(const double* band, double* x, double* ld,
     case 2: return (int)launch<2>(band, x, ld, work, G, npad, B, pivot, solve, st);
     case 3: return (int)launch<3>(band, x, ld, work, G, npad, B, pivot, solve, st);
     default: return (int)launch<4>(band, x, ld, work, G, npad, B, pivot, solve, st);
+  }
+}
+
+// The block-CR factors of G bands (G, npad, 2w+1), npad = nb * w, 1 <= w
+// <= 3: fac holds G * cr_factor_size(nb, w) doubles (cr.cuh's layout).
+extern "C" int repro_cr_factor_f64(const double* band, double* fac, int G,
+                                   int npad, int w, int pivot, void* stream) {
+  if (G < 1 || npad < 1 || w < 1 || w > 3 || npad % w)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (w) {
+    case 1: return (int)launch_factor<1>(band, fac, G, npad, pivot, st);
+    case 2: return (int)launch_factor<2>(band, fac, G, npad, pivot, st);
+    default: return (int)launch_factor<3>(band, fac, G, npad, pivot, st);
   }
 }

@@ -22,17 +22,28 @@
 // such arrays. The inner products and the tol exit need all rows, and
 // blocks cannot carry sums between them as the sequential TPU grid does.
 //
-// Design: one cooperative launch with the grid sized to co-residency;
+// Design: one cooperative launch, one block per SM (the inner products'
+// per-block partials, and so their rounding, follow the grid size);
 // phases are separated by cooperative_groups grid syncs. Elementwise phases
 // map each thread to one RHS column and a row lane (coalesced over the
 // contiguous column axis). Inner products reduce per block in a fixed
 // order into per-block partials, and after the grid sync every block sums
 // the partials in the same order, so all blocks hold identical scalars and
 // take the same loop exits. The thread map, the gathered matvec, the
-// cross-dimension total and the banded solves come from sweep.cuh; the
-// solves run sweep.cuh's solve_cols with one slot per dimension (block
-// cyclic reduction at w >= 1, a division at w = 0); PIVOT selects the
-// pivoted block solves (SolveConfig.pivot).
+// cross-dimension total and the banded solves come from sweep.cuh. The
+// Phi and SAPhi bands are the same in every iteration, column and launch,
+// so their block-CR elimination (w >= 1) is factored once by the caller
+// (cr_block_factor, block_cr.cu) and every solve here only replays the
+// right-hand-side half of it from the factor (sweep.cuh apply_cols, the
+// same operations in the same order as the per-solve elimination, so the
+// same bits); the (dimension, chunk of `cpc` columns) items spread over the
+// whole grid instead of one block per dimension. At w = 0 a solve is a
+// division. PIVOT selects the pivoted block solves (SolveConfig.pivot).
+// With one block of 256 threads per SM, the elementwise phases of an
+// iteration are bound by memory latency (a gather is two dependent loads),
+// so each thread takes ILP of its rows at a time, all their loads before
+// their stores (sweep.cuh for_rows); each row's arithmetic and the inner
+// products' row order stay those of a plain loop.
 //
 // Modes: a seed launch (cold: r = v; warm: r = v - Mhat x0) forms z, p and
 // rz and then runs up to `iters` iterations with the tol exit; that is the
@@ -50,7 +61,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int NT = repro::SWEEP_NT;  // threads per block; also the largest B
-constexpr int MAX_BLOCKS_PER_SM = 4;
+constexpr int MAX_BLOCKS_PER_SM = 1;
+constexpr int ILP = repro::ROW_ILP;  // rows a thread takes at a time
 
 // how the launch starts: the seed of a cold or warm solve, or a carried
 // (x, r, p, rz)
@@ -60,6 +72,8 @@ struct Args : repro::SweepDims {
   const double* a;
   const double* phi;
   const double* saphi;
+  const double* fac_p;  // block-CR factors of phi (w_p >= 1) and saphi
+  const double* fac_s;
   const double* sigma2;
   const double* v;
   const double* x0;
@@ -71,12 +85,10 @@ struct Args : repro::SweepDims {
   double* z;
   double* t1;
   double* tp;
-  double* scratch;
   double* part0;
   double* part1;
   int* iters_out;
-  long long sstride;  // CR scratch doubles per slot and array
-  int w_a, w_p, w_s, iters, mode, nslots;
+  int w_a, w_p, w_s, iters, mode, cpc;
   double tol;
 };
 
@@ -84,12 +96,11 @@ using repro::gather_mv;
 using repro::make_map;
 using repro::Map;
 
-// t <- band^{-1} t per dimension, one solve_cols slot per dimension
+// t <- band^{-1} t per dimension, from the band's factor
 template <bool PIVOT>
 __device__ void solve(const Args& A, const Map& m, double* t,
-                      const double* band, int w) {
-  repro::solve_cols<PIVOT>(A, m, t, band, w, 0, A.D, A.scratch, A.sstride,
-                           A.nslots);
+                      const double* band, const double* fac, int w) {
+  repro::apply_cols<PIVOT>(A, m, t, band, fac, w, 0, A.D, A.cpc);
 }
 
 // per-block partial sums of one column-wise inner product (fixed order)
@@ -118,7 +129,7 @@ __device__ void grid_total(const Args& A, const double* part, double* out) {
 }
 
 template <bool PIVOT>
-__global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
+__global__ void __launch_bounds__(NT, 1) mega_pcg_kernel(Args A) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh[NT];
   __shared__ double rz[NT], thresh[NT], coef[NT], tot[NT];
@@ -149,7 +160,7 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
     }
     grid.sync();
     if (warm) {
-      solve<PIVOT>(A, m, A.t1, A.phi, A.w_p);
+      solve<PIVOT>(A, m, A.t1, A.phi, A.fac_p, A.w_p);
       grid.sync();
       if (m.on) {
         for (long long row = m.r0; row < rows; row += m.rs) {
@@ -167,7 +178,7 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
     // z = M_pre^{-1} r; p = z; rz = <r, z>
     gather_mv(A, m, A.t1, A.r, A.phi, A.w_p);
     grid.sync();
-    solve<PIVOT>(A, m, A.t1, A.saphi, A.w_s);
+    solve<PIVOT>(A, m, A.t1, A.saphi, A.fac_s, A.w_s);
     grid.sync();
     {
       double acc = 0.0;
@@ -203,23 +214,28 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
 
     // ap = Mhat p
     repro::sum_dims(A, m, A.tp, A.p);
-    gather_mv(A, m, A.t1, A.p, A.a, A.w_a);
+    gather_mv<ILP>(A, m, A.t1, A.p, A.a, A.w_a);
     grid.sync();
-    solve<PIVOT>(A, m, A.t1, A.phi, A.w_p);
+    solve<PIVOT>(A, m, A.t1, A.phi, A.fac_p, A.w_p);
     grid.sync();
     {
       double acc = 0.0;
       if (m.on) {
-        for (long long row = m.r0; row < rows; row += m.rs) {
-          const int d = (int)(row / A.npad);
-          const long long i = row - (long long)d * A.npad;
-          const long long e = row * B + m.b;
-          const double apv =
-              A.t1[((long long)d * A.npad + A.rank[row]) * B + m.b] +
-              A.tp[i * B + m.b] / s2;
-          A.ap[e] = apv;
-          acc += A.p[e] * apv;
-        }
+        double tv[ILP], tpv[ILP], pv[ILP];
+        repro::for_rows<ILP>(
+            m, 0, rows,
+            [&](int u, long long row) {
+              const int d = (int)(row / A.npad);
+              const long long i = row - (long long)d * A.npad;
+              tv[u] = A.t1[((long long)d * A.npad + A.rank[row]) * B + m.b];
+              tpv[u] = A.tp[i * B + m.b];
+              pv[u] = A.p[row * B + m.b];
+            },
+            [&](int u, long long row) {
+              const double apv = tv[u] + tpv[u] / s2;
+              A.ap[row * B + m.b] = apv;
+              acc += pv[u] * apv;
+            });
       }
       block_partial(A, m, acc, A.part1, sh);
     }
@@ -232,30 +248,45 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
     __syncthreads();
     if (m.on) {
       const double al = coef[m.b];
-      for (long long row = m.r0; row < rows; row += m.rs) {
-        const long long e = row * B + m.b;
-        A.x[e] = A.x[e] + al * A.p[e];
-        A.r[e] = A.r[e] - al * A.ap[e];
-      }
+      double xv[ILP], pv[ILP], rv[ILP], apv[ILP];
+      repro::for_rows<ILP>(
+          m, 0, rows,
+          [&](int u, long long row) {
+            const long long e = row * B + m.b;
+            xv[u] = A.x[e];
+            pv[u] = A.p[e];
+            rv[u] = A.r[e];
+            apv[u] = A.ap[e];
+          },
+          [&](int u, long long row) {
+            const long long e = row * B + m.b;
+            A.x[e] = xv[u] + al * pv[u];
+            A.r[e] = rv[u] - al * apv[u];
+          });
     }
     grid.sync();
 
     // z = M_pre^{-1} r, rz_new = <r, z>
-    gather_mv(A, m, A.t1, A.r, A.phi, A.w_p);
+    gather_mv<ILP>(A, m, A.t1, A.r, A.phi, A.w_p);
     grid.sync();
-    solve<PIVOT>(A, m, A.t1, A.saphi, A.w_s);
+    solve<PIVOT>(A, m, A.t1, A.saphi, A.fac_s, A.w_s);
     grid.sync();
     {
       double acc = 0.0;
       if (m.on) {
-        for (long long row = m.r0; row < rows; row += m.rs) {
-          const int d = (int)(row / A.npad);
-          const long long e = row * B + m.b;
-          const double zz =
-              s2 * A.t1[((long long)d * A.npad + A.rank[row]) * B + m.b];
-          A.z[e] = zz;
-          acc += A.r[e] * zz;
-        }
+        double tv[ILP], rv[ILP];
+        repro::for_rows<ILP>(
+            m, 0, rows,
+            [&](int u, long long row) {
+              const int d = (int)(row / A.npad);
+              tv[u] = A.t1[((long long)d * A.npad + A.rank[row]) * B + m.b];
+              rv[u] = A.r[row * B + m.b];
+            },
+            [&](int u, long long row) {
+              const double zz = s2 * tv[u];
+              A.z[row * B + m.b] = zz;
+              acc += rv[u] * zz;
+            });
       }
       block_partial(A, m, acc, A.part0, sh);
     }
@@ -269,10 +300,16 @@ __global__ void __launch_bounds__(NT) mega_pcg_kernel(Args A) {
     if (threadIdx.x < B) rz[threadIdx.x] = tot[threadIdx.x];
     if (m.on) {
       const double be = coef[m.b];
-      for (long long row = m.r0; row < rows; row += m.rs) {
-        const long long e = row * B + m.b;
-        A.p[e] = A.z[e] + be * A.p[e];
-      }
+      double zv[ILP], pv[ILP];
+      repro::for_rows<ILP>(
+          m, 0, rows,
+          [&](int u, long long row) {
+            zv[u] = A.z[row * B + m.b];
+            pv[u] = A.p[row * B + m.b];
+          },
+          [&](int u, long long row) {
+            A.p[row * B + m.b] = zv[u] + be * pv[u];
+          });
     }
     __syncthreads();
     ++it;
@@ -291,71 +328,76 @@ int grid_blocks(bool pivot, int* out) {
                                            MAX_BLOCKS_PER_SM, out);
 }
 
-// grid size and solve slots (one per dimension, at most one per block)
-int layout(int D, int pivot, int* grid, int* nslots) {
-  const int err = grid_blocks(pivot != 0, grid);
-  if (err) return err;
-  *nslots = D < *grid ? D : *grid;
-  return 0;
-}
-
-long long scratch_stride(int npad, int w_p, int w_s) {
-  int w = w_p > w_s ? w_p : w_s;
-  return (long long)npad * (w > 1 ? w : 1);
+// Columns per solve item when the caller leaves it open: the narrowest
+// power of two (at most B) that gives every (dimension, chunk) item a block
+// of its own, so a solve is one round of items. Narrower items cost a
+// second round; wider ones put more columns on fewer blocks.
+int auto_cols(int D, int B, int grid) {
+  int c = 1;
+  while (c < B && (long long)D * ((B + c - 1) / c) > grid) c <<= 1;
+  return c < B ? c : B;
 }
 
 }  // namespace
 
 // Number of float64 workspace entries a launch needs (negative: -error).
-extern "C" long long repro_mega_pcg_workspace(int D, int npad, int B, int w_p,
-                                              int w_s, int pivot) {
-  int grid = 0, nslots = 0;
-  const int err = layout(D, pivot, &grid, &nslots);
+extern "C" long long repro_mega_pcg_workspace(int D, int npad, int B,
+                                              int pivot) {
+  int grid = 0;
+  const int err = grid_blocks(pivot != 0, &grid);
   if (err) return -(long long)err;
   const long long N = (long long)D * npad * B;
-  return 3 * N + (long long)npad * B +
-         3LL * nslots * scratch_stride(npad, w_p, w_s) +
-         2 * (long long)grid * B;
+  return 3 * N + (long long)npad * B + 2 * (long long)grid * B;
+}
+
+// Columns per solve item that a launch with cpc = 0 takes (negative:
+// -error).
+extern "C" int repro_mega_pcg_cols(int D, int B, int pivot) {
+  int grid = 0;
+  const int err = grid_blocks(pivot != 0, &grid);
+  return err ? -err : auto_cols(D, B, grid);
 }
 
 // Seed modes read v and x0 and write x, r, p and rz (1, B); the carry mode
 // reads and updates x, r, p and rz in place (v and x0 unused, tol must be
-// 0). iters_out receives the iterations run.
+// 0). iters_out receives the iterations run. fac_p (w_p >= 1) and fac_s
+// hold D block-CR factors each (block_cr.cu repro_cr_factor_f64 of phi and
+// saphi); cpc is the number of columns each solve item takes (0: chosen
+// by auto_cols).
 extern "C" int repro_mega_pcg_f64(const double* a, const double* phi,
-                                  const double* saphi, const int* sort,
+                                  const double* saphi, const double* fac_p,
+                                  const double* fac_s, const int* sort,
                                   const int* rank, const double* sigma2,
                                   const double* v, const double* x0, double* x,
                                   double* r, double* p, double* rz,
                                   int* iters_out, double* work, int D,
                                   int npad, int B, int w_a, int w_p, int w_s,
-                                  int iters, double tol, int mode, int pivot,
-                                  void* stream) {
+                                  int iters, int cpc, double tol, int mode,
+                                  int pivot, void* stream) {
   if (D < 1 || npad < 1 || B < 1 || B > NT || w_a < 0 || w_p < 0 ||
-      w_s < 0 || w_a > 3 || w_p > 3 || w_s > 3 || iters < 0 ||
+      w_s < 0 || w_a > 3 || w_p > 3 || w_s > 3 || iters < 0 || cpc < 0 ||
       mode < SEED_COLD || mode > CARRY || (mode == CARRY && tol != 0.0))
     return (int)cudaErrorInvalidValue;
-  if ((w_p > 0 && npad % w_p) || (w_s > 0 && npad % w_s))
+  if ((w_p > 0 && (npad % w_p || !fac_p)) || (w_s > 0 && (npad % w_s || !fac_s)))
     return (int)cudaErrorInvalidValue;
-  int grid = 0, nslots = 0;
-  const int err = layout(D, pivot, &grid, &nslots);
+  int grid = 0;
+  const int err = grid_blocks(pivot != 0, &grid);
   if (err) return err;
   const long long N = (long long)D * npad * B;
-  const long long ss = scratch_stride(npad, w_p, w_s);
   Args A;
-  A.a = a; A.phi = phi; A.saphi = saphi; A.sort = sort; A.rank = rank;
-  A.sigma2 = sigma2; A.v = v; A.x0 = x0; A.x = x; A.r = r; A.p = p;
-  A.rz_io = rz;
+  A.a = a; A.phi = phi; A.saphi = saphi; A.fac_p = fac_p; A.fac_s = fac_s;
+  A.sort = sort; A.rank = rank; A.sigma2 = sigma2; A.v = v; A.x0 = x0;
+  A.x = x; A.r = r; A.p = p; A.rz_io = rz;
   A.ap = work;
   A.z = A.ap + N;
   A.t1 = A.z + N;
   A.tp = A.t1 + N;
-  A.scratch = A.tp + (long long)npad * B;
-  A.part0 = A.scratch + 3LL * nslots * ss;
+  A.part0 = A.tp + (long long)npad * B;
   A.part1 = A.part0 + (long long)grid * B;
   A.iters_out = iters_out;
-  A.sstride = ss;
   A.D = D; A.npad = npad; A.B = B; A.w_a = w_a; A.w_p = w_p; A.w_s = w_s;
-  A.iters = iters; A.mode = mode; A.nslots = nslots; A.tol = tol;
+  A.iters = iters; A.mode = mode; A.tol = tol;
+  A.cpc = cpc == 0 ? auto_cols(D, B, grid) : (cpc < B ? cpc : B);
   void* params[] = {&A};
   const void* fn = pivot ? (const void*)mega_pcg_kernel<true>
                          : (const void*)mega_pcg_kernel<false>;

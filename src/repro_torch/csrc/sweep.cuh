@@ -1,8 +1,9 @@
 // Device functions shared by the backfitting solve kernels (mega_pcg.cu,
 // jacobi.cu, gauss_seidel.cu), float64: the thread map, the gathered banded
 // matvec and the cross-dimension total of the elementwise phases, the
-// column-split block-CR solve, and the cooperative grid size. (mega_pcg.cu
-// keeps its own inner products: the sweeps need none.)
+// column-split block-CR solves (solve_cols recomputes the elimination per
+// item; apply_cols reads a stored factor), and the cooperative grid size.
+// (mega_pcg.cu keeps its own inner products: the sweeps need none.)
 //
 // They act on (D, npad, B) state stacks in original point order, with the
 // per-dimension bands (D, npad, 2w+1) and permutations (D, npad) of the
@@ -44,37 +45,65 @@ __device__ __forceinline__ Map make_map(int B) {
   return m;
 }
 
+// rows each thread of the PCG kernel's elementwise phases takes at a time
+// (for_rows)
+constexpr int ROW_ILP = 2;
+
+// The thread's rows of [begin, end) in order, U at a time: load(u, row) for
+// each of the U rows first, then use(u, row) for each in row order. The U
+// rows' loads are in flight together (the compiler may not move one row's
+// loads above the previous row's stores, which it cannot tell apart), while
+// every row's arithmetic, and any sum over the rows, keeps the row order of
+// a plain loop. U = 1 is that plain loop.
+template <int U, typename Load, typename Use>
+__device__ __forceinline__ void for_rows(const Map& m, long long begin,
+                                         long long end, Load&& load,
+                                         Use&& use) {
+  for (long long r0 = begin + m.r0; r0 < end; r0 += U * m.rs) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (r0 + u * m.rs < end) load(u, r0 + u * m.rs);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (r0 + u * m.rs < end) use(u, r0 + u * m.rs);
+  }
+}
+
 // dst[d,i,b] = sum_m band[d,i,w+m] * src[d, sort[d,i+m], b] for d in
 // [d0, d1): the banded matvec of the sort-gathered state, in the
-// reference's shift order m = -w..w
+// reference's shift order m = -w..w; U rows at a time (for_rows)
+template <int U = 1>
 __device__ __forceinline__ void gather_mv(const SweepDims& S, const Map& m,
                                           double* dst, const double* src,
                                           const double* band, int w, int d0,
                                           int d1) {
   if (!m.on) return;
   const int B = S.B, wb = 2 * w + 1;
-  const long long end = (long long)d1 * S.npad;
-  for (long long row = (long long)d0 * S.npad + m.r0; row < end;
-       row += m.rs) {
-    const int d = (int)(row / S.npad);
-    const int i = (int)(row - (long long)d * S.npad);
-    const double* brow = band + row * wb;
-    const int* sd = S.sort + (long long)d * S.npad;
-    const double* sdim = src + (long long)d * S.npad * B;
-    double acc = 0.0;
-    for (int k = -w; k <= w; ++k) {
-      const int ii = i + k;
-      if (ii < 0 || ii >= S.npad) continue;
-      acc += brow[w + k] * sdim[(long long)sd[ii] * B + m.b];
-    }
-    dst[row * B + m.b] = acc;
-  }
+  double acc[U];
+  for_rows<U>(
+      m, (long long)d0 * S.npad, (long long)d1 * S.npad,
+      [&](int u, long long row) {
+        const int d = (int)(row / S.npad);
+        const int i = (int)(row - (long long)d * S.npad);
+        const double* brow = band + row * wb;
+        const int* sd = S.sort + (long long)d * S.npad;
+        const double* sdim = src + (long long)d * S.npad * B;
+        double a = 0.0;
+        for (int k = -w; k <= w; ++k) {
+          const int ii = i + k;
+          if (ii < 0 || ii >= S.npad) continue;
+          a += brow[w + k] * sdim[(long long)sd[ii] * B + m.b];
+        }
+        acc[u] = a;
+      },
+      [&](int u, long long row) { dst[row * B + m.b] = acc[u]; });
 }
 
+template <int U = 1>
 __device__ __forceinline__ void gather_mv(const SweepDims& S, const Map& m,
                                           double* dst, const double* src,
                                           const double* band, int w) {
-  gather_mv(S, m, dst, src, band, w, 0, S.D);
+  gather_mv<U>(S, m, dst, src, band, w, 0, S.D);
 }
 
 // dst[i,b] = sum_d src[d,i,b], d = 0..D-1 in order (each thread owns
@@ -91,6 +120,23 @@ __device__ __forceinline__ void sum_dims(const SweepDims& S, const Map& m,
   }
 }
 
+// t <- t / band over the rows of the dimensions [d0, d1): the solve with a
+// diagonal band (w = 0); U rows at a time (for_rows)
+template <int U = 1>
+__device__ __forceinline__ void div_rows(const SweepDims& S, const Map& m,
+                                         double* t, const double* band,
+                                         int d0, int d1) {
+  if (!m.on) return;
+  double tv[U], bv[U];
+  for_rows<U>(
+      m, (long long)d0 * S.npad, (long long)d1 * S.npad,
+      [&](int u, long long row) {
+        tv[u] = t[row * S.B + m.b];
+        bv[u] = band[row];
+      },
+      [&](int u, long long row) { t[row * S.B + m.b] = tv[u] / bv[u]; });
+}
+
 // t <- band^{-1} t for the dimensions [d0, d1), with the columns spread over
 // blocks: the (dimension, column chunk) items go to the first `nslots`
 // blocks, each with its own 3 * sstride doubles of block scratch. The
@@ -102,11 +148,7 @@ __device__ void solve_cols(const SweepDims& S, const Map& m, double* t,
                            double* scratch, long long sstride, int nslots) {
   const int B = S.B;
   if (w == 0) {
-    if (!m.on) return;
-    const long long end = (long long)d1 * S.npad;
-    for (long long row = (long long)d0 * S.npad + m.r0; row < end;
-         row += m.rs)
-      t[row * B + m.b] /= band[row];
+    div_rows(S, m, t, band, d0, d1);
     return;
   }
   if ((int)blockIdx.x >= nslots) return;
@@ -137,6 +179,40 @@ __device__ void solve_cols(const SweepDims& S, const Map& m, double* t,
         cr_block_solve<3, PIVOT>(bd, td, ab, bb, cb, S.npad, nc, nullptr,
                                  nullptr, B);
         break;
+    }
+  }
+}
+
+// t <- band^{-1} t for the dimensions [d0, d1) from the bands' block-CR
+// factors (`fac`: one cr_block_factor per dimension, cr_factor_size(npad /
+// w, w) doubles each), with the (dimension, chunk of `cpc` columns) items
+// spread over every block of the grid; w = 0 divides by the diagonal. The
+// factor is read only, so the blocks need no scratch, and each item's
+// result is cr_block_solve's bit for bit. The division takes ROW_ILP rows at
+// a time.
+template <bool PIVOT>
+__device__ void apply_cols(const SweepDims& S, const Map& m, double* t,
+                           const double* band, const double* fac, int w,
+                           int d0, int d1, int cpc) {
+  const int B = S.B;
+  if (w == 0) {
+    div_rows<ROW_ILP>(S, m, t, band, d0, d1);
+    return;
+  }
+  const int chunks = (B + cpc - 1) / cpc;
+  const long long per = (long long)S.npad * B;
+  const long long fper = cr_factor_size(S.npad / w, w);
+  for (int item = blockIdx.x; item < (d1 - d0) * chunks;
+       item += gridDim.x) {
+    const int d = d0 + item / chunks;
+    const int c0 = (item % chunks) * cpc;
+    const int nc = B - c0 < cpc ? B - c0 : cpc;
+    const double* fd = fac + d * fper;
+    double* td = t + d * per + c0;
+    switch (w) {
+      case 1: cr_block_apply<1, PIVOT>(fd, td, S.npad, nc, B); break;
+      case 2: cr_block_apply<2, PIVOT>(fd, td, S.npad, nc, B); break;
+      default: cr_block_apply<3, PIVOT>(fd, td, S.npad, nc, B); break;
     }
   }
 }

@@ -39,22 +39,22 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
            "banded_matvec", "block_cr", "fused_jacobi_iter",
            "fused_gauss_seidel_iter", "mega_jacobi", "mega_gauss_seidel",
-           "fused_pcg_iter", "kp_gram")
+           "fused_pcg_iter", "kp_gram", "cr_factor")
 
 _c_int, _c_ll, _c_dbl, _ptr = (ctypes.c_int, ctypes.c_longlong,
                                 ctypes.c_double, ctypes.c_void_p)
 # C entry points: name -> (restype, argtypes); pointers and the stream are
 # c_void_p so ctypes never truncates them to 32 bits
 _SIGNATURES = {
-    "repro_banded_lu_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _ptr, _c_int,
-                                     _c_int, _c_int, _c_int, _c_int, _ptr]),
+    "repro_banded_lu_f64": (_c_int, [_ptr] * 7 + [_c_int] * 5 + [_ptr]),
     "repro_band_matmul_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int,
                                        _c_int, _c_int, _c_int, _c_int, _ptr]),
     "repro_rgf_blocks_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
                                       _ptr, _ptr, _c_int, _c_int, _c_int,
                                       _ptr]),
-    "repro_mega_pcg_workspace": (_c_ll, [_c_int] * 6),
-    "repro_mega_pcg_f64": (_c_int, [_ptr] * 14 + [_c_int] * 7
+    "repro_mega_pcg_workspace": (_c_ll, [_c_int] * 4),
+    "repro_mega_pcg_cols": (_c_int, [_c_int] * 3),
+    "repro_mega_pcg_f64": (_c_int, [_ptr] * 16 + [_c_int] * 8
                            + [_c_dbl, _c_int, _c_int, _ptr]),
     "repro_jacobi_workspace": (_c_ll, [_c_int] * 6),
     "repro_jacobi_f64": (_c_int, [_ptr] * 11 + [_c_int] * 6
@@ -65,6 +65,7 @@ _SIGNATURES = {
                                          _c_int, _c_int, _c_int, _ptr]),
     "repro_block_cr_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
                                     _c_int, _c_int, _c_int, _c_int, _ptr]),
+    "repro_cr_factor_f64": (_c_int, [_ptr, _ptr] + [_c_int] * 4 + [_ptr]),
     "repro_kp_gram_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int, _c_dbl,
                                    _c_dbl, _c_dbl, _c_dbl, _ptr]),
     "repro_error_string": (ctypes.c_char_p, [_c_int]),

@@ -16,10 +16,18 @@ runs the ``w x w`` block solves with partial pivoting inside each block.
 
 On the card the elimination is the device function ``csrc/cr.cuh``: the
 standalone launch is ``csrc/block_cr.cu`` (one thread block per matrix),
-and the backfitting kernels (``csrc/mega_pcg.cu``, ``jacobi.cu``,
-``gauss_seidel.cu``, through ``csrc/sweep.cuh``) call the same function.
-The wrappers launch it for CUDA tensors and run :func:`block_cr_plain` for
-CPU tensors.
+and the relaxation kernels (``csrc/jacobi.cu``, ``gauss_seidel.cu``,
+through ``csrc/sweep.cuh``) call the same function. The wrappers launch it
+for CUDA tensors and run :func:`block_cr_plain` for CPU tensors.
+
+Factor once, apply per right-hand side: everything the elimination does
+that does not read the right-hand side (the coefficients ``alpha``,
+``beta`` of every level's even rows, and the block triples once every level
+has run) is the factor, :func:`block_cr_factor` (``csrc/block_cr.cu``'s
+factor launch) with its plain twin :func:`block_cr_factor_plain`; the
+right-hand-side updates replayed from it are :func:`block_cr_apply_plain`
+on the CPU and ``cr.cuh``'s ``cr_block_apply`` inside the whole-solve PCG
+kernel (``csrc/mega_pcg.cu``). Factor plus apply gives the solve's bits.
 """
 from __future__ import annotations
 
@@ -29,9 +37,12 @@ from . import _build
 from .ops import resolve_backend
 
 __all__ = ["cr_solve_values", "block_cr", "block_cr_plain", "block_cr_solve",
-           "block_cr_logdet", "MAX_W"]
+           "block_cr_logdet", "block_cr_factor", "block_cr_factor_plain",
+           "block_cr_apply_plain", "cr_factor_size", "MAX_W",
+           "MAX_FACTOR_W"]
 
 MAX_W = 4  # w <= 4 (csrc/block_cr.cu instantiations)
+MAX_FACTOR_W = 3  # w <= 3 for the factor (the PCG kernel's widths)
 
 
 def _nbr(x, d):
@@ -214,3 +225,115 @@ def block_cr_logdet(band, w: int, pivot: bool = False,
     _, ld = block_cr(band, dummy, w, pivot=pivot, solve=False,
                      backend=backend)
     return ld
+
+
+# ---------------------------------------------------------------------------
+# factor once, apply per right-hand side
+# ---------------------------------------------------------------------------
+
+
+def _levels(nb: int) -> int:
+    return max(0, (nb - 1).bit_length())
+
+
+def _even_rows(nb: int) -> list[int]:
+    """Even rows (i = 2^{k+1} j < nb) of each level k."""
+    return [-(-nb // (2 << k)) for k in range(_levels(nb))]
+
+
+def cr_factor_size(nb: int, w: int) -> int:
+    """float64 entries of one band's factor: the A, B, C blocks (nb each)
+    and alpha, beta of every level's even rows, each block w x w."""
+    return (3 * nb + 2 * sum(_even_rows(nb))) * w * w
+
+
+def _check_factor_band(band, w):
+    if not 1 <= w <= MAX_FACTOR_W:
+        raise ValueError(f"the block-CR factor takes 1 <= w <= {MAX_FACTOR_W}")
+    if band.shape[1] % w:
+        raise ValueError(f"the block-CR factor takes n a multiple of w: "
+                         f"n={band.shape[1]}, w={w}")
+    return band.shape[0], band.shape[1] // w
+
+
+def block_cr_factor_plain(band, w: int, pivot: bool = False):
+    """The factor of (G, n, 2w+1) bands, n = nb w (identity-padded to whole
+    blocks): (G, cr_factor_size(nb, w)), laid out as ``csrc/cr.cuh``'s
+    ``cr_block_factor`` stores it. The block elimination of
+    :func:`cr_solve_values`, op for op."""
+    G, nb = _check_factor_band(band, w)
+    Ab, Bb, Cb = _band_to_blocks(band, w, nb)
+    idx = torch.arange(nb, device=band.device)
+    eye = torch.eye(w, dtype=band.dtype, device=band.device).expand(
+        G, nb, w, w)
+    als, bes = [], []
+    for k in range(_levels(nb)):
+        s = 1 << k
+        even = ((idx % s) == 0) & (((idx // s) % 2) == 0)
+        Binv, _ = _small_solve(Bb, eye, pivot)
+        alpha = -_bmm(Ab, _nbr(Binv, -s))
+        beta = -_bmm(Cb, _nbr(Binv, s))
+        m = even[None, :, None, None]
+        Bb = torch.where(m, Bb + _bmm(alpha, _nbr(Cb, -s))
+                         + _bmm(beta, _nbr(Ab, s)), Bb)
+        Ab = torch.where(m, _bmm(alpha, _nbr(Ab, -s)), Ab)
+        Cb = torch.where(m, _bmm(beta, _nbr(Cb, s)), Cb)
+        als.append(alpha[:, ::2 * s])
+        bes.append(beta[:, ::2 * s])
+    return torch.cat([t.reshape(G, -1) for t in (Ab, Bb, Cb, *als, *bes)],
+                     dim=1)
+
+
+def block_cr_apply_plain(factor, rhs, w: int, pivot: bool = False):
+    """Solve from a factor (G, cr_factor_size(nb, w)) against rhs
+    (G, nb w, B): the right-hand-side updates of :func:`cr_solve_values`,
+    op for op, with alpha, beta and the final blocks read from the factor
+    (its result is that of :func:`block_cr_plain`, bit for bit)."""
+    G, n, B = rhs.shape
+    nb = n // w
+    ne = _even_rows(nb)
+    sizes = [nb] * 3 + ne + ne
+    parts = torch.split(factor, [c * w * w for c in sizes], dim=1)
+    Ab, Bb, Cb = (t.reshape(G, nb, w, w) for t in parts[:3])
+    als, bes = parts[3:3 + len(ne)], parts[3 + len(ne):]
+    R = rhs.reshape(G, nb, w, B)
+    idx = torch.arange(nb, device=rhs.device)
+    for k in range(len(ne)):
+        s = 1 << k
+        even = ((idx % s) == 0) & (((idx // s) % 2) == 0)
+        alpha, beta = (torch.zeros_like(Ab) for _ in range(2))
+        alpha[:, ::2 * s] = als[k].reshape(G, ne[k], w, w)
+        beta[:, ::2 * s] = bes[k].reshape(G, ne[k], w, w)
+        R = torch.where(even[None, :, None, None],
+                        R + _bmm(alpha, _nbr(R, -s)) + _bmm(beta, _nbr(R, s)),
+                        R)
+    X0, _ = _small_solve(Bb, R, pivot)
+    x = torch.where(idx[None, :, None, None] == 0, X0, torch.zeros_like(X0))
+    for k in range(len(ne) - 1, -1, -1):
+        s = 1 << k
+        odd = ((idx % s) == 0) & (((idx // s) % 2) == 1)
+        rhs_k = R - _bmm(Ab, _nbr(x, -s)) - _bmm(Cb, _nbr(x, s))
+        Xk, _ = _small_solve(Bb, rhs_k, pivot)
+        x = torch.where(odd[None, :, None, None], Xk, x)
+    return x.reshape(G, n, B)
+
+
+def block_cr_factor(band, w: int, pivot: bool = False,
+                    backend: str | None = None):
+    """The block-CR factor of (G, n, 2w+1) bands (lo = hi = w, n a multiple
+    of w), float64: (G, cr_factor_size(n // w, w)). CUDA tensors launch
+    ``csrc/block_cr.cu``'s factor kernel (one block per band)."""
+    if resolve_backend(backend, band.device) == "plain":
+        return block_cr_factor_plain(band, w, pivot=pivot)
+    G, nb = _check_factor_band(band, w)
+    dev = band.device
+    _build.expect(band, "band", torch.float64, (G, nb * w, 2 * w + 1), dev)
+    fac = torch.empty((G, cr_factor_size(nb, w)), dtype=torch.float64,
+                      device=dev)
+    lib = _build.load_library()
+    err = lib.repro_cr_factor_f64(band.data_ptr(), fac.data_ptr(), G,
+                                  nb * w, w, int(pivot),
+                                  _build.stream_handle(dev))
+    _build.check(err, "cr_factor")
+    _build.count_launch("cr_factor")
+    return fac

@@ -28,7 +28,7 @@ import math
 import torch
 
 from . import _build
-from .block_cr import cr_solve_values
+from .block_cr import block_cr_factor, cr_factor_size, cr_solve_values
 from .ops import resolve_backend
 
 __all__ = ["FusedSweep", "_pad_len", "_mv", "_gather", "_solve_sym",
@@ -37,10 +37,11 @@ __all__ = ["FusedSweep", "_pad_len", "_mv", "_gather", "_solve_sym",
            "fused_gauss_seidel_iter", "fused_gauss_seidel_iter_plain",
            "fused_pcg_iter", "fused_pcg_iter_plain", "pcg_seed",
            "pcg_seed_plain", "pcg_loop", "sweep_backward_error", "MAX_B",
-           "MAX_WIDTH"]
+           "MAX_WIDTH", "pcg_factors", "pcg_solve_cols"]
 
 MAX_B = 256  # RHS columns per launch (csrc/sweep.cuh SWEEP_NT)
 MAX_WIDTH = 3  # w_a, w_p, w_s <= 3 (csrc/sweep.cuh instantiations)
+
 
 # csrc/jacobi.cu: how the sweep kernel starts k
 K_NONE, K_IN, K_ZERO, K_WARM = 0, 1, 2, 3
@@ -331,11 +332,33 @@ def _launch_gauss_seidel(name, phi, saphi, sort_idx, rank_idx, sigma2, v,
     return x, k
 
 
+def pcg_solve_cols(D: int, B: int, pivot: bool = False) -> int:
+    """Columns per (dimension, column chunk) item of the PCG kernel's
+    block-CR solves when the launch leaves ``cols`` open: the narrowest
+    power of two that gives every item a block of the cooperative grid
+    (``csrc/mega_pcg.cu`` auto_cols; the chunk widths 1 ... 16 are measured
+    in PERF.md)."""
+    cols = _build.load_library().repro_mega_pcg_cols(D, B, int(pivot))
+    if cols < 0:
+        _build.check(-cols, "mega_pcg column query")
+    return cols
+
+
+def pcg_factors(phi, saphi, *, w_p: int, w_s: int, pivot: bool = False):
+    """The block-CR factors the PCG kernel solves from: ``(Phi's or None
+    at w_p = 0, SAPhi's)``, one ``block_cr_factor`` launch each."""
+    return (block_cr_factor(phi, w_p, pivot=pivot) if w_p else None,
+            block_cr_factor(saphi, w_s, pivot=pivot))
+
+
 def _launch_pcg(name, a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
-                carry, *, w_a, w_p, w_s, iters, tol, mode, pivot):
+                carry, *, w_a, w_p, w_s, iters, tol, mode, pivot,
+                factors=None, cols=None):
     """``csrc/mega_pcg.cu``: a seed launch from ``(v, x0)`` (mode PCG_COLD
     or PCG_WARM) or a carry launch from ``carry = (x, r, p, rz)``, for up
-    to ``iters`` iterations; returns ``(x, r, p, rz, iterations run)``."""
+    to ``iters`` iterations; returns ``(x, r, p, rz, iterations run)``.
+    ``factors`` are :func:`pcg_factors` of the bands (None: made here);
+    ``cols`` the columns per solve item (None: :func:`pcg_solve_cols`)."""
     states = (v, x0) if carry is None else carry[:3]
     D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
                                       sigma2, states, w_p, w_s)
@@ -349,19 +372,29 @@ def _launch_pcg(name, a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
     else:
         _build.expect(carry[3], "rz", f64, (1, B), dev)
         x, r, p, rz = (t.clone() for t in carry)
+    if factors is None:
+        factors = pcg_factors(phi, saphi, w_p=w_p, w_s=w_s, pivot=pivot)
+    fac_p, fac_s = factors
+    for w, fac, nm in ((w_p, fac_p, "Phi"), (w_s, fac_s, "SAPhi")):
+        if w:
+            _build.expect(fac, f"{nm} factor", f64,
+                          (D, cr_factor_size(npad // w, w)), dev)
+    if cols is not None and cols < 1:
+        raise ValueError(f"cols must be >= 1, got {cols}")
     lib = _build.load_library()
-    nwork = lib.repro_mega_pcg_workspace(D, npad, B, w_p, w_s, int(pivot))
+    nwork = lib.repro_mega_pcg_workspace(D, npad, B, int(pivot))
     if nwork < 0:
         _build.check(int(-nwork), f"{name} workspace query")
     work = torch.empty((nwork,), dtype=f64, device=dev)
     it = torch.empty((1,), dtype=torch.int32, device=dev)
     err = lib.repro_mega_pcg_f64(
-        a.data_ptr(), phi.data_ptr(), saphi.data_ptr(), sort_idx.data_ptr(),
-        rank_idx.data_ptr(), sigma2.data_ptr(),
+        a.data_ptr(), phi.data_ptr(), saphi.data_ptr(),
+        None if fac_p is None else fac_p.data_ptr(), fac_s.data_ptr(),
+        sort_idx.data_ptr(), rank_idx.data_ptr(), sigma2.data_ptr(),
         None if v is None else v.data_ptr(),
         None if x0 is None else x0.data_ptr(), x.data_ptr(), r.data_ptr(),
         p.data_ptr(), rz.data_ptr(), it.data_ptr(), work.data_ptr(), D, npad,
-        B, w_a, w_p, w_s, iters, float(tol), mode, int(pivot),
+        B, w_a, w_p, w_s, iters, cols or 0, float(tol), mode, int(pivot),
         _build.stream_handle(dev))
     _build.check(err, name)
     _build.count_launch(name)
@@ -370,24 +403,25 @@ def _launch_pcg(name, a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
 
 def fused_pcg_iter(a, phi, saphi, sort_idx, rank_idx, sigma2, x, r, p, rz, *,
                    w_a: int, w_p: int, w_s: int, pivot: bool = False,
-                   backend: str | None = None):
+                   backend: str | None = None, factors=None):
     """One PCG iteration on padded operands (bands (D, npad, 2w+1) float64,
     permutations (D, npad) int32, ``sigma2`` a 1-element float64 tensor,
     states (D, npad, B) float64, ``rz`` (1, B)); returns ``(x, r, p, rz)``.
     CUDA tensors launch ``csrc/mega_pcg.cu`` on the carried state for one
-    iteration."""
+    iteration, solving from ``factors`` (:func:`pcg_factors`; None: made
+    for this call)."""
     kw = dict(w_a=w_a, w_p=w_p, w_s=w_s, pivot=pivot)
     if resolve_backend(backend, x.device) == "plain":
         return fused_pcg_iter_plain(a, phi, saphi, sort_idx, rank_idx, sigma2,
                                     x, r, p, rz, **kw)
     return _launch_pcg("fused_pcg_iter", a, phi, saphi, sort_idx, rank_idx,
                        sigma2, None, None, (x, r, p, rz), iters=1, tol=0.0,
-                       mode=PCG_CARRY, **kw)[:4]
+                       mode=PCG_CARRY, factors=factors, **kw)[:4]
 
 
 def pcg_seed(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *, w_a: int,
              w_p: int, w_s: int, warm: bool, pivot: bool = False,
-             backend: str | None = None):
+             backend: str | None = None, factors=None):
     """The first launch of the per-iteration PCG loop: ``(x, r, p, rz)`` as
     :func:`pcg_seed_plain` forms them. CUDA tensors launch
     ``csrc/mega_pcg.cu``'s seed for 0 iterations (counted with
@@ -398,7 +432,8 @@ def pcg_seed(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *, w_a: int,
                               x0, warm=warm, **kw)
     return _launch_pcg("fused_pcg_iter", a, phi, saphi, sort_idx, rank_idx,
                        sigma2, v, x0, None, iters=0, tol=0.0,
-                       mode=PCG_WARM if warm else PCG_COLD, **kw)[:4]
+                       mode=PCG_WARM if warm else PCG_COLD, factors=factors,
+                       **kw)[:4]
 
 
 def fused_jacobi_iter(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, k=None,
@@ -448,7 +483,8 @@ class FusedSweep:
     (D, n) permutations; ``sigma2`` the noise variance; ``pivot`` selects
     the pivoted block solves; ``backend`` the kernels' backend. Bands get
     identity tails, permutations self-mapping tails (int32, as the kernels
-    read them).
+    read them). The PCG kernel's block-CR factors of Phi and SAPhi are made
+    at the first CUDA PCG launch and kept (:meth:`cr_factors`).
     """
 
     def __init__(self, phi, saphi, sort_idx, rank_idx, sigma2, *, w_p: int,
@@ -468,6 +504,7 @@ class FusedSweep:
         self.rank_idx = self._pad_idx(rank_idx)
         self.sigma2 = torch.as_tensor(sigma2, dtype=self.dtype,
                                       device=self.device).reshape(1)
+        self._factors = None
 
     def _pad_band(self, data, w):
         out = torch.zeros((self.D, self.npad, 2 * w + 1), dtype=self.dtype,
@@ -528,11 +565,25 @@ class FusedSweep:
                 pivot=self.pivot, want_resid=want_resid,
                 backend=self.backend), v, vt)
 
+    def cr_factors(self):
+        """The block-CR factors the PCG kernel solves from, ``(Phi's or
+        None, SAPhi's)`` (:func:`pcg_factors`), made at the first call and
+        kept: (3 nb + 2 sum_k ceil(nb / 2^{k+1})) w^2, about 5 npad w,
+        doubles per dimension and band (12 MB at npad = 30000, D = 10,
+        q = 0). None on the plain backend, which solves from the bands."""
+        if resolve_backend(self.backend, self.device) == "plain":
+            return None
+        if self._factors is None:
+            self._factors = pcg_factors(self.phi, self.saphi, w_p=self.w_p,
+                                        w_s=self.w_s, pivot=self.pivot)
+        return self._factors
+
     def _pcg_kw(self):
         if self.a is None:
             raise ValueError("PCG needs the A factor stack")
         return dict(w_a=self.w_a, w_p=self.w_p, w_s=self.w_s,
-                    pivot=self.pivot, backend=self.backend)
+                    pivot=self.pivot, backend=self.backend,
+                    factors=self.cr_factors())
 
     def pcg_columns(self, B: int, tol: float) -> int | None:
         """Columns per launch of a per-iteration PCG solve of ``B`` columns,

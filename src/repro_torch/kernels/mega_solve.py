@@ -65,12 +65,16 @@ def mega_pcg_plain(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
 def mega_pcg_solve(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
                    w_a: int, w_p: int, w_s: int, iters: int, tol: float = 0.0,
                    warm: bool = False, pivot: bool = False,
-                   backend: str | None = None):
+                   backend: str | None = None, factors=None,
+                   cols: int | None = None):
     """Whole PCG solve on padded operands; returns ``(x, r, iters_used)``.
 
     Bands (D, npad, 2w+1) float64, permutations (D, npad) int32,
     ``sigma2`` a 1-element float64 tensor, states (D, npad, B) float64.
-    CUDA tensors launch ``csrc/mega_pcg.cu`` (one cooperative launch).
+    CUDA tensors launch ``csrc/mega_pcg.cu`` (one cooperative launch),
+    solving from ``factors`` (``fused_sweep.pcg_factors`` of the bands;
+    None: made for this call) in items of ``cols`` columns (None:
+    ``fused_sweep.pcg_solve_cols``).
     """
     kw = dict(w_a=w_a, w_p=w_p, w_s=w_s, iters=iters, tol=tol, pivot=pivot)
     if resolve_backend(backend, v.device) == "plain":
@@ -78,7 +82,8 @@ def mega_pcg_solve(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
                               x0, warm=warm, **kw)
     x, r, _, _, it = _launch_pcg("mega_pcg", a, phi, saphi, sort_idx,
                                  rank_idx, sigma2, v, x0, None,
-                                 mode=PCG_WARM if warm else PCG_COLD, **kw)
+                                 mode=PCG_WARM if warm else PCG_COLD,
+                                 factors=factors, cols=cols, **kw)
     return x, r, it
 
 
@@ -185,7 +190,8 @@ class MegaSolve:
         return self._solve(lambda v_p, x0_p: mega_pcg_solve(
             fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v_p,
             x0_p, w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s, iters=iters, tol=tol,
-            warm=x0 is not None, pivot=fs.pivot, backend=fs.backend),
+            warm=x0 is not None, pivot=fs.pivot, backend=fs.backend,
+            factors=fs.cr_factors()),
             v, x0, MAX_B if tol == 0 else B)
 
     def jacobi(self, v, x0, *, alpha: float, iters: int):

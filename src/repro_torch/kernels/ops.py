@@ -172,7 +172,7 @@ def banded_solve(band, rhs, lo: int, hi: int, pivot: bool = False,
     if use_cr:
         x = block_cr_solve(bf, rf, lo, pivot=pivot, backend=backend)
     else:
-        x, _ = banded_lu(bf, rf, lo, hi, backend=backend)
+        x, _ = banded_lu(bf, rf, lo, hi, backend=backend, logdet=False)
     out = x.reshape(batch + x.shape[-2:])
     return out[..., 0] if vec_in else out
 
@@ -190,8 +190,7 @@ def banded_logdet(band, lo: int, hi: int, pivot: bool = False,
     if use_cr:
         ld = block_cr_logdet(bf, lo, pivot=pivot, backend=backend)
     else:
-        dummy = bf.new_zeros(bf.shape[:2] + (1,))
-        _, ld = banded_lu(bf, dummy, lo, hi, backend=backend)
+        _, ld = banded_lu(bf, None, lo, hi, backend=backend, solve=False)
     return ld.reshape(batch)
 
 

@@ -21,7 +21,9 @@ from repro_torch.kernels.banded_lu import banded_lu, banded_lu_plain
 from repro_torch.kernels.banded_matvec import (banded_matvec,
                                                banded_matvec_plain)
 from repro_torch.core.backfitting import SolveConfig, solve_mhat
-from repro_torch.kernels.block_cr import block_cr, block_cr_plain
+from repro_torch.kernels.block_cr import (block_cr, block_cr_factor,
+                                          block_cr_factor_plain,
+                                          block_cr_plain)
 from repro_torch.kernels.fused_sweep import (fused_gauss_seidel_iter,
                                              fused_gauss_seidel_iter_plain,
                                              fused_jacobi_iter,
@@ -418,6 +420,73 @@ def test_mega_pcg_pivot_kernel(dev):
     x, _, it = mega_pcg_solve(*args, **kw)
     xr, _, itr = mega_pcg_plain(*args, **kw)
     assert _rel(x, xr) < 1e-9 and int(it) == int(itr) == 60
+
+
+# banded_lu at lo = hi = 0 (one launch) and the factored block CR of the
+# whole-solve PCG kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B", [1, 3, 4, 16, 32, 160])
+@pytest.mark.parametrize("n", [37, 30000])
+@pytest.mark.parametrize("G", [1, 10])
+def test_banded_lu_diag_kernel(dev, B, n, G):
+    """One launch a call; x within 1e-14 of the plain rhs / d (one IEEE
+    division each, so in practice the same bits), the log-determinant
+    within 1e-12 and with the same bits in a second call (fixed-order
+    partial sums, no float atomics); the solve-only and log-det-only calls
+    give the same halves. n = 37 leaves a ragged last tile; odd B takes the
+    single-double path, even B the double2 path."""
+    rng = np.random.default_rng(30 + B + G)
+    bd = torch.as_tensor(band(rng, G, n, 0, 0), device=dev)
+    rhs = torch.as_tensor(rng.standard_normal((G, n, B)), device=dev)
+    _build.reset_launch_counts()
+    x, ld = banded_lu(bd, rhs, 0, 0)
+    assert _build.launch_counts()["banded_lu"] == 1
+    xr, ldr = banded_lu_plain(bd, rhs, 0, 0)
+    assert _rel(x, xr) < 1e-14 and _rel(ld, ldr) < 1e-12
+    x2, ld2 = banded_lu(bd, rhs, 0, 0)
+    assert torch.equal(x, x2) and torch.equal(ld, ld2)
+    xs, none = banded_lu(bd, rhs, 0, 0, logdet=False)
+    none2, ldo = banded_lu(bd, None, 0, 0, solve=False)
+    assert none is None and none2 is None and torch.equal(xs, x)
+    assert _rel(ldo, ldr) < 1e-12
+    assert torch.equal(ldo, banded_lu(bd, None, 0, 0, solve=False)[1])
+
+
+@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("nb", [1, 8, 37])
+@pytest.mark.parametrize("pivot", [False, True])
+def test_cr_factor_kernel(dev, w, nb, pivot):
+    """The block-CR factor kernel against its plain twin (the coefficients
+    and final blocks of the elimination), one launch for the G bands."""
+    rng = np.random.default_rng(40 + 5 * w + nb)
+    bd = torch.as_tensor(band(rng, 3, nb * w, w, w), device=dev)
+    _build.reset_launch_counts()
+    fac = block_cr_factor(bd, w, pivot=pivot)
+    assert _build.launch_counts()["cr_factor"] == 1
+    want = block_cr_factor_plain(bd, w, pivot=pivot)
+    assert fac.shape == want.shape and _rel(fac, want) < 1e-12
+
+
+@pytest.mark.parametrize("q", [0, 1])
+def test_mega_pcg_same_bits(dev, q):
+    """Two launches give the same bits, and so does every chunk width of
+    the factored solves (the columns are independent) and a factor made
+    once and passed in; one factor launch per band when it is made in the
+    call."""
+    rng = np.random.default_rng(18 + q)
+    fs, v, _ = padded_operands(solve_operands(rng, 131, 3, q), dev, 5, rng)
+    v_p = fs.pad_state(torch.as_tensor(v))
+    args = (fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v_p,
+            torch.zeros_like(v_p))
+    kw = dict(w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s, iters=25, tol=1e-10)
+    _build.reset_launch_counts()
+    first = mega_pcg_solve(*args, **kw)
+    assert _build.launch_counts()["cr_factor"] == (2 if fs.w_p else 1)
+    for cols in (None, 1, 2, 4, 8):
+        out = mega_pcg_solve(*args, factors=fs.cr_factors(), cols=cols, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(first, out)), cols
 
 
 # the per-iteration PCG kernel, kp_gram, kmg
