@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, hyperparameter-learning, relaxation,
-default-configuration (kernel multigrid) and per-iteration PCG paths on one
-NVIDIA GPU and check them.
+default-configuration (kernel multigrid), per-iteration PCG and q = 3 paths
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -8,15 +8,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a,
 one process per source), then:
 
 1. kernel phase: each kernel on seeded float64 inputs at the main path's
-   shapes (n = 30000, D = 10, q = 0) and at q = 1 and q = 2 widths, held
+   shapes (n = 30000, D = 10, q = 0) and at q = 1, 2 and 3 widths, held
    against its plain PyTorch version on the same CUDA tensors; errors,
-   times, bounds. The relaxation kernels (one sweep, and the whole solve,
-   of Jacobi and Gauss-Seidel) and the per-iteration PCG kernel (its seed
-   and one carried iteration) run on the main path's own operands, where
-   the bar follows the systems' conditioning (the sweeps' backward error
-   held to the plain version's, ``relax_kernel_phase``), and a host loop of
-   single sweeps is held to the whole solve bit for bit; ``kp_gram`` at
-   q = 0, 1, 2 against its plain version and the fit's Phi band;
+   times, bounds. The block CR runs as its two launches: the factor (with
+   the log-determinant) and the apply from a held factor, the apply timed
+   at each column-chunk width and required to give the same bits at every
+   width and in the whole call. The relaxation kernels (one sweep, and the
+   whole solve, of Jacobi and Gauss-Seidel) and the per-iteration PCG
+   kernel (its seed and one carried iteration) run on the main path's own
+   operands, where the bar follows the systems' conditioning (the sweeps'
+   backward error held to the plain version's, ``relax_kernel_phase``),
+   and a host loop of single sweeps is held to the whole solve bit for
+   bit; ``kp_gram`` at q = 0 ... 3 against its plain version and the fit's
+   Phi band;
 2. paths on Schwefel data, n = 30000, D = 10 (the paper's Fig. 5 point):
    the serving path ``fit`` -> ``posterior_mean`` -> ``posterior_var`` on
    100 queries, then the learning path ``log_likelihood`` ->
@@ -27,21 +31,29 @@ one process per source), then:
    kernels layer's ``ops.kp_gram`` over the fit's factors; the reference's
    default ``GPConfig(q=0)`` (precond "auto" -> kmg, 50 iterations) through
    ``fit`` -> mean(100) -> var(100) -> ``log_likelihood`` ->
-   ``mll_gradients``; ``benchmarks/multigrid.py``'s problem (n = 4096,
-   16384) against its recorded iteration counts; pcg with ``fused="on"``
-   (``fit``, ``posterior_var(32)``) and "on" == "whole" bit for bit. Each
-   path with every kernel's launch count over it;
+   ``mll_gradients``, then a ``torch.profiler`` trace of one variance
+   chunk and the gradients (device time by kernel group, idle share);
+   ``benchmarks/multigrid.py``'s problem (n = 4096, 16384) against its
+   recorded iteration counts; pcg with ``fused="on"`` (``fit``,
+   ``posterior_var(32)``) and "on" == "whole" bit for bit; a tol-exit PCG
+   over 300 columns (column chunks in lockstep under one exit) against the
+   plain PCG over all of them; q = 3 (fused "auto" -> "off") through
+   ``fit`` -> mean(100) -> var(32) -> ``log_likelihood``. Each path with
+   every kernel's launch count over it;
 3. consistency at n = 4000, D = 10, the card against ``device="cpu"``
    (plain versions), all within 1e-7: on the quickstart's Schwefel data the
    q = 0 mean, variance and log-likelihood, pcg with ``fused="on"``, kmg,
    and both relaxation solvers in every fused mode; on a jittered grid the
-   q = 0 gradients, a q = 1 and a q = 2 fit, mean, variance and
-   log-likelihood. The same probe blocks are fed to both sides (8 probes
+   q = 0 gradients, a q = 1, a q = 2 and a q = 3 fit, mean, variance and
+   log-likelihood (at q = 3 the card's fit is redone from the CPU fit's
+   KP factors: the two LAPACK builds' q = 3 null vectors differ). The
+   same probe blocks are fed to both sides (8 probes
    for the gradients, one variance chunk of 32 queries on the Schwefel
    data, 8 for kmg). On the Schwefel data, whose gradient factor B is
    ill-conditioned, the gradients are compared from the same factors and
-   the block-CR kernel's backward error on that B is held against its
-   plain version's (``schwefel_same_factors``).
+   the block-CR kernels' backward error on that B is held against the
+   plain version's (``schwefel_same_factors``); the q = 3 gradients are
+   gated the same way.
 
 Prints the card's name and power limit, the elapsed time after each
 phase, one ``{"kernels": [...]}`` line, and last
@@ -99,10 +111,11 @@ def _import_port():
     from repro_torch.kernels.banded_lu import banded_lu, banded_lu_plain
     from repro_torch.kernels.banded_matvec import (banded_matvec,
                                                    banded_matvec_plain)
-    from repro_torch.kernels.block_cr import (block_cr, block_cr_factor,
-                                              block_cr_factor_plain,
-                                              block_cr_plain, cr_factor_size)
-    from repro_torch.core.backfitting import SolveConfig, solve_mhat
+    from repro_torch.kernels.block_cr import (
+        block_cr, block_cr_apply, block_cr_apply_cols, block_cr_apply_plain,
+        block_cr_factor, block_cr_factor_plain, block_cr_plain,
+        cr_factor_size, pad_band)
+    from repro_torch.core.backfitting import DimOps, SolveConfig, solve_mhat
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels.fused_sweep import (
         FusedSweep, fused_gauss_seidel_iter,
@@ -114,6 +127,8 @@ def _import_port():
         MegaSolve, mega_gauss_seidel_plain, mega_gauss_seidel_solve,
         mega_jacobi_plain, mega_jacobi_solve, mega_pcg_plain, mega_pcg_solve)
     from repro_torch.kernels.rgf import rgf_blocks, rgf_blocks_plain
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    from path_trace import trace_call
     return dict(locals())
 
 
@@ -192,7 +207,7 @@ def _band(rng, G, n, lo, hi, dev):
 
 SERVING_KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
                    "cr_factor")
-LEARNING_KERNELS = SERVING_KERNELS + ("banded_matvec", "block_cr")
+LEARNING_KERNELS = SERVING_KERNELS + ("banded_matvec", "cr_apply")
 
 
 def _require_launched(path, counts, names):
@@ -437,31 +452,71 @@ def kernel_phase(P, rng, dev, shapes, ops_path, ops_q1):
                              plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=lib_ms))
 
-    # --- block_cr: SAPhi / A / A + Phi/s^2 (w = 1) and B (w = 2) ----------
-    for tag, (nn, w, Bc, pivot, solve) in (
-            ("path solve w=1 B=16", (n, 1, Q, False, True)),
-            ("path solve w=2 B=16", (n, 2, Q, False, True)),
-            ("path logdet w=1", (n, 1, 1, False, False)),
-            ("pivot solve w=1 B=16", (n, 1, Q, True, True)),
-            ("q1 solve w=3 B=16", (N_Q1, 3, Q, False, True)),
-            ("q2 solve w=4 B=16", (N_Q1, 4, Q, False, True))):
-        bd = _band(rng, D, nn, w, w, dev)
-        rhs = torch.as_tensor(rng.standard_normal((D, nn, Bc)), device=dev)
-        kw = dict(pivot=pivot, solve=solve)
-        ms, (x, ld) = _event_ms(lambda: P["block_cr"](bd, rhs, w, **kw),
-                                reps=10)
-        pms, (xp, ldp) = _event_ms(
-            lambda: P["block_cr_plain"](bd, rhs, w, **kw), reps=1, warmup=0)
-        got, want = (torch.cat([x.flatten(), ld]) if solve else ld,
-                     torch.cat([xp.flatten(), ldp]) if solve else ldp)
-        err, rel = _errs(got, want)
-        rhs_io = 2 * D * nn * Bc if solve else 0
-        ops = D * nn * Bc * _solve_ops(w, Bc) if solve else 12 * D * nn * w ** 3
-        b_ms, b_by = _bound(8 * (D * nn * (2 * w + 1) + rhs_io + D), ops)
-        report("block_cr", tag, err, rel, 1e-12, ms, pms,
-               f" bound_ms={b_ms:.4f} ({b_by}) library_ms=none")
-        if tag.startswith("path solve w=1"):
-            rows.append(dict(name="block_cr", route="cuda",
+    # --- block_cr as factor (with the log-determinant) + apply: SAPhi / A /
+    # A + Phi/s^2 (w = 1) and B (w = 2) at the path's shapes, the q = 1, 2, 3
+    # widths (w = 3, 4, 5). The apply from a held factor against its plain
+    # twin on the same factor; the whole call (factor + apply) against
+    # block_cr_plain; the apply at each chunk width, bit for bit the same --
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    print(f"cr_apply chunk rule: the narrowest power of two c (at most B) "
+          f"with G * ceil(B / c) <= {sms} SMs", flush=True)
+    for tag, (nn, w, Bc, pivot) in (
+            ("path w=1 B=16", (n, 1, Q, False)),
+            ("path w=1 B=1", (n, 1, 1, False)),
+            ("path w=1 B=32", (n, 1, B, False)),
+            ("path w=1 B=160", (n, 1, D * Q, False)),
+            ("path w=2 B=16", (n, 2, Q, False)),
+            ("pivot w=1 B=16", (n, 1, Q, True)),
+            ("q1 w=3 B=16", (N_Q1, 3, Q, False)),
+            ("q2 w=4 B=16", (N_Q1, 4, Q, False)),
+            ("q3 w=5 B=16", (N_Q1, 5, Q, False))):
+        bd = P["pad_band"](_band(rng, D, nn, w, w, dev), w)
+        npad = bd.shape[1]
+        rhs = torch.as_tensor(rng.standard_normal((D, npad, Bc)), device=dev)
+        kw = dict(pivot=pivot)
+        fms, (fac, ld) = _event_ms(
+            lambda: P["block_cr_factor"](bd, w, logdet=True, **kw), reps=10)
+        ms, x = _event_ms(lambda: P["block_cr_apply"](fac, rhs, w, **kw),
+                          reps=20)
+        whole_ms, (xw, ldw) = _event_ms(
+            lambda: P["block_cr"](bd, rhs, w, **kw), reps=10)
+        pms, xp = _event_ms(
+            lambda: P["block_cr_apply_plain"](fac, rhs, w, **kw), reps=1,
+            warmup=0)
+        xr, ldr = P["block_cr_plain"](bd, rhs, w, **kw)
+        err, rel = _errs(x, xp)
+        werr, wrel = _errs(torch.cat([xw.flatten(), ldw]),
+                           torch.cat([xr.flatten(), ldr]))
+        same = bool(torch.equal(x, xw))
+        cols = P["block_cr_apply_cols"](D, Bc)
+        widths = {c: _event_ms(lambda: P["block_cr_apply"](
+            fac, rhs, w, cols=c, **kw), reps=20) for c in (1, 2, 4, 8, 16)
+            if c <= Bc and tag.startswith("path w=1")}
+        same &= all(torch.equal(out, x) for _, out in widths.values())
+        fsize = P["cr_factor_size"](npad // w, w)
+        b_ms, b_by = _bound(8 * D * (fsize + 2 * npad * Bc),
+                            D * npad * Bc * 8.0 * w * w)
+        wb_ms, wb_by = _bound(8 * (D * npad * (2 * w + 1) + 2 * D * npad * Bc
+                                   + D),
+                              D * npad * Bc * _solve_ops(w, Bc))
+        dev_ms = ""
+        if tag == "path w=1 B=16":
+            d_ms, how = _device_ms(
+                lambda: P["block_cr_apply"](fac, rhs, w, **kw))
+            dev_ms = f" device_ms={d_ms:.4f} ({how})"
+        report("cr_apply", tag, err, rel, 1e-12, ms, pms,
+               f"{dev_ms} cols={cols} bound_ms={b_ms:.4f} ({b_by}) "
+               f"library_ms=none; factor+logdet_ms={fms:.4f}; whole call "
+               f"(factor + apply) ms={whole_ms:.4f} vs block_cr_plain "
+               f"max_rel_err={wrel:.3e} bound_ms={wb_ms:.4f} ({wb_by}); "
+               "widths " + " ".join(f"{c}:{t:.4f}" for c, (t, _) in
+                                    widths.items())
+               + f"; apply == whole call, every width, bitwise {same}")
+        if not (wrel <= 1e-12 and same):
+            raise RuntimeError(f"block_cr {tag}: whole call {wrel:.3e} or "
+                               "the widths' bits differ")
+        if tag == "path w=1 B=16":
+            rows.append(dict(name="cr_apply", route="cuda",
                              source="src/repro_torch/csrc/block_cr.cu",
                              replaces="src/repro/kernels/block_cr.py:188",
                              max_abs_err=err, max_rel_err=rel, ms=ms,
@@ -477,6 +532,17 @@ def kernel_phase(P, rng, dev, shapes, ops_path, ops_q1):
                           warmup=0)
     err, rel = _errs(torch.stack(out), torch.stack(outp))
     report("rgf_blocks", "q2 w=5", err, rel, 1e-10, ms, pms)
+    # ... and at q = 3 (w = 7: the running blocks spill to local memory)
+    h = _band(rng, D, N_Q1, 7, 7, dev)
+    blocks = [t.contiguous() for t in P["_to_blocks"](h, 7, 7, 7)]
+    ms, out = _event_ms(lambda: P["rgf_blocks"](*blocks), reps=3)
+    pms, outp = _event_ms(lambda: P["rgf_blocks_plain"](*blocks), reps=1,
+                          warmup=0)
+    err, rel = _errs(torch.stack(out), torch.stack(outp))
+    T = blocks[0].shape[1]
+    b_ms, b_by = _bound(8 * 6 * D * T * 49, D * T * (23 * 343 + 2 * 49))
+    report("rgf_blocks", "q3 w=7", err, rel, 1e-10, ms, pms,
+           f" bound_ms={b_ms:.4f} ({b_by})")
     return rows
 
 
@@ -772,7 +838,7 @@ def _kp_gram_cost(n, q):
 
 
 def kp_gram_phase(P, rng, dev):
-    """kp_gram at n = 30000, q = 0, 1, 2 on a jittered grid: the kernel
+    """kp_gram at n = 30000, q = 0, 1, 2, 3 on a jittered grid: the kernel
     against its plain version and against the Phi band ``kp_factors``
     assembles (``gram_band_rows``). Phi = A K cancels by design (|Phi|
     falls to ~1e-6 of the summed terms at q = 2), so both bars are 1e-12 of
@@ -781,7 +847,7 @@ def kp_gram_phase(P, rng, dev):
     xs = torch.as_tensor(np.sort(_jittered(rng, N_PATH, 1)[0][:, 0]),
                          device=dev)
     om = torch.tensor(4.0, dtype=torch.float64, device=dev)
-    for q in (0, 1, 2):
+    for q in (0, 1, 2, 3):
         A, Phi = P["kp_factors"](q, om, xs)
         a = A.data.contiguous()
         ms, got = _event_ms(lambda: P["kp_gram"](q, 4.0, xs, a), reps=20)
@@ -882,6 +948,28 @@ def _gp_on(P, gp, dev):
     return P["gp_from_arrays"](arrays, gp.config, dev)
 
 
+def _refit_on(P, gp, dev):
+    """``gp``'s fit redone on ``dev`` from its own KP factors: the DimOps
+    (block-CR factors), the mean solve and the variance band on ``dev``;
+    only the factor assembly's SVDs are left out (at q = 3 two LAPACK
+    builds' null vectors differ, ROADMAP Queue 3)."""
+    def band(b):
+        return P["Banded"](b.data.to(dev), b.lo, b.hi)
+
+    o = gp.ops
+    ops = P["DimOps"](band(o.A), band(o.Phi), band(o.SAPhi),
+                      o.sort_idx.to(dev), o.rank_idx.to(dev),
+                      o.sigma2.to(dev), pivot=gp.config.pivot,
+                      alg=gp.config.solve_alg)
+    u_sy, bY, Gband, Hband = P["agp"].posterior_caches(gp.config, ops,
+                                                       gp.Y.to(dev))
+    return dataclasses.replace(
+        gp, X=gp.X.to(dev), Y=gp.Y.to(dev), omega=gp.omega.to(dev),
+        sigma=gp.sigma.to(dev), xs=gp.xs.to(dev), ops=ops, B=band(gp.B),
+        Psi=band(gp.Psi), bY=bY, u_sy=u_sy, Gband=Gband, Hband=Hband,
+        health=None)
+
+
 def _backward_err(P, band, x, rhs, w):
     """Normwise backward error |B x - r| / (|B| |x| + |r|), max norms."""
     res = P["banded_matvec_plain"](band, x, w, w) - rhs
@@ -963,12 +1051,15 @@ def schwefel_same_factors(P, g_cpu, V, dev):
         raise RuntimeError("Schwefel gradients are not finite")
 
 
-def _jittered(rng, n, D):
+def _jittered(rng, n, D, spacing=0.1):
     """(n, D) points, each column a shuffled jittered grid whose spacing is
-    0.1 / omega at omega = 4, and the grid's span. At q >= 1 the KP systems
-    of clustered points are ill-conditioned enough that PCG amplifies
-    rounding chaotically (ROADMAP Queue 3); these stay well conditioned."""
-    span = 0.1 * n / 4.0
+    ``spacing`` / omega at omega = 4, and the grid's span. At q >= 1 the KP
+    systems of clustered points are ill-conditioned enough that PCG
+    amplifies rounding chaotically (ROADMAP Queue 3); these stay well
+    conditioned (at q = 3 from spacing 0.2: at 0.1 cond(H = A Phi^T)
+    reaches ~3e10, and two exact float64 algorithms, RGF and a dense
+    inverse, give variances 2e-6 apart)."""
+    span = spacing * n / 4.0
     cols = [rng.permutation((np.arange(n) + 0.5 + 0.3 * rng.uniform(-1, 1, n))
                             * span / n) for _ in range(D)]
     return np.stack(cols, axis=1), span
@@ -1184,12 +1275,29 @@ def main():
         raise RuntimeError("default-config path: not kmg/off, not finite, "
                            "or diverged")
     _require_launched("default-config path", counts_d,
-                      ("banded_lu", "band_matmul", "rgf_blocks", "block_cr",
-                       "banded_matvec"))
+                      ("banded_lu", "band_matmul", "rgf_blocks", "cr_factor",
+                       "cr_apply", "banded_matvec"))
     if counts_d["mega_pcg"] or counts_d["fused_pcg_iter"]:
         raise RuntimeError("the kmg path ran a fused PCG kernel")
+    # where its time goes: a torch.profiler trace of one variance chunk and
+    # the gradients (scripts/path_trace.py's trace_call; device ms by kernel
+    # group, idle share = 1 - device / wall on the one stream; the script
+    # also splits fit)
+    for name, fn in ((f"posterior_var({B})",
+                      lambda: P["posterior_var"](dgp, Xq[:B])),
+                     ("mll_gradients",
+                      lambda: P["mll_gradients"](dgp, gen_d))):
+        t = P["trace_call"](fn)
+        print(f"default-path trace {name}: wall {t['wall_ms']:.1f} ms "
+              f"(traced {t['traced_wall_ms']:.1f}), device "
+              f"{t['device_ms']:.1f} ms, idle {t['idle_share']:.3f}; "
+              + ", ".join(f"{k} {v:.1f} ms/{t['launches'][k]}" for k, v in
+                          sorted(t["groups"].items(), key=lambda kv: -kv[1])),
+              flush=True)
+        if not t["device_ms"] > 0:
+            raise RuntimeError(f"the trace of {name} shows no device time")
     del dgp
-    _stamp("default-config (kmg) path")
+    _stamp("default-config (kmg) path and its trace")
     kmg_convergence(P, dev)
     _stamp("kmg convergence")
 
@@ -1238,10 +1346,76 @@ def main():
               f"{(t_on - tw) / nl * 1e3:.3f} ms more a launch", flush=True)
         if not same or nl != int(io.iters) + 1:
             raise RuntimeError("pcg fused='on' and 'whole' differ")
-    _stamp("pcg fused=on path")
+    # a tol-exit solve of 300 > MAX_B columns: its two column chunks run in
+    # lockstep under the one exit (a seed and one per-iteration launch per
+    # chunk and iteration), against the plain PCG over all 300 columns on
+    # the same CUDA tensors: the same iterations, x within mega_pcg's bar
+    fs = P["FusedSweep"](gp.ops.Phi.data, gp.ops.SAPhi.data, gp.ops.sort_idx,
+                         gp.ops.rank_idx, gp.ops.sigma2, w_p=gp.ops.Phi.lo,
+                         w_s=gp.ops.SAPhi.lo, a=gp.ops.A.data,
+                         w_a=gp.ops.A.lo)
+    v300 = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (D, n, 300)), device=dev)
+    _build.reset_launch_counts()
+    (x3, _, it3), t3 = _sync_time(lambda: P["MegaSolve"](fs).pcg(
+        v300, None, iters=40, tol=1e-6))
+    counts_t = _build.launch_counts()
+    v3p = fs.pad_state(v300)
+    xp3, _, itp3 = P["mega_pcg_plain"](
+        fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v3p,
+        torch.zeros_like(v3p), w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s, iters=40,
+        tol=1e-6)
+    _, rel3 = _errs(x3, fs.unpad(xp3))
+    print(f"tol-exit pcg B=300 (n={n} D={D}, tol 1e-6): {int(it3)} "
+          f"iterations (plain {int(itp3)}), x max rel vs plain {rel3:.3e} "
+          f"(tol 1e-7), {t3 * 1e3:.1f} ms; launches {counts_t}", flush=True)
+    if not (int(it3) == int(itp3) < 40 and rel3 < 1e-7
+            and counts_t["fused_pcg_iter"] == 2 * (int(it3) + 1)
+            and counts_t["mega_pcg"] == 0):
+        raise RuntimeError("tol-exit pcg over 300 columns differs from the "
+                           "plain version")
+    del fs, v300, v3p, xp3, x3
+    _stamp("pcg fused=on path and tol-exit over 300 columns")
+
+    # --- q = 3 (Matern-7/2) at the main size on a jittered grid (omega = 4:
+    # on the Schwefel points the q = 3 KP windows are ill-conditioned,
+    # ROADMAP Queue 3): fused "auto" -> "off", block CR at w = 3, 4, 5
+    # (factors held by the GP), rgf at w = 7 -------------------------------
+    r3 = np.random.default_rng(7)
+    X3, span3 = _jittered(r3, n, D)
+    Y3 = np.sin(X3 * 6.0 * np.pi / span3).sum(1) + 0.1 * r3.standard_normal(n)
+    Xq3 = r3.uniform(0.0, span3, (100, D))
+    q3cfg = P["GPConfig"](q=3, solver_iters=40, precond="none")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    g3, t3f = _sync_time(lambda: P["fit"](q3cfg, X3, Y3, np.full(D, 4.0),
+                                          sigma))
+    mu3, t3m = _sync_time(lambda: P["posterior_mean"](g3, Xq3))
+    var3, t3v = _sync_time(lambda: P["posterior_var"](g3, Xq3[:B]))
+    ll3, t3l = _sync_time(lambda: P["log_likelihood"](
+        g3, torch.Generator().manual_seed(4)))
+    counts_3 = _build.launch_counts()
+    peak_3 = torch.cuda.max_memory_allocated()
+    vals3 = torch.cat([mu3, var3, ll3.reshape(1)]).cpu()
+    print(f"q=3 path (jittered grid) n={n} D={D} iters=40: fused "
+          f"{g3.config.fused}, fit "
+          f"{t3f * 1e3:.1f} ms, posterior_mean(100) {t3m * 1e3:.1f} ms, "
+          f"posterior_var({B}) {t3v * 1e3:.1f} ms, log_likelihood "
+          f"{t3l * 1e3:.1f} ms; fit solve verdict "
+          f"{P['verdict_name'](g3.health.verdict)}; peak memory "
+          f"{peak_3 / 2**20:.1f} MiB; launches {counts_3}", flush=True)
+    if not (g3.config.fused == "off" and bool(torch.isfinite(vals3).all())
+            and bool((var3 > 0).all())
+            and P["verdict_name"](g3.health.verdict) in ("OK", "STALLED")):
+        raise RuntimeError("q = 3 path: not finite/positive, or diverged")
+    _require_launched("q = 3 path", counts_3,
+                      ("band_matmul", "rgf_blocks", "cr_factor", "cr_apply",
+                       "banded_matvec"))
+    del g3
+    _stamp("q = 3 path")
 
     all_counts = [counts, counts_l, *relax_counts, counts_k, counts_d,
-                  counts_o]
+                  counts_o, counts_t, counts_3]
     for row in rows:
         row["launches"] = sum(c[row["name"]] for c in all_counts)
 
@@ -1356,7 +1530,58 @@ def main():
     _check(f"n={N_Q1} D={D} q=2 log_likelihood",
            P["_log_likelihood"](q2[0], pm2.to(dev), pv2.to(dev)),
            P["_log_likelihood"](q2[1], pm2, pv2))
+    del q2
     _stamp("consistency: q = 2")
+    # q = 3 on a jittered grid of spacing 0.2 / omega (cond(H) ~1e8, as
+    # the q = 2 grid's), 80 iterations (at 40 the solve stops at a relative
+    # residual of 6e-6 there, and a 1e-15 change of Y moves the CPU's own
+    # mean by 1e-7; at 80, 4e-11 and 5e-11). The card's fit is redone from
+    # the CPU fit's KP factors (they come from batched SVDs whose q = 3
+    # null vectors differ between the card's and the CPU's LAPACK, ROADMAP
+    # Queue 3; the card's own fit's gap is printed, not gated); the
+    # gradients, through the generalized-KP B (w = 5), are gated by the
+    # block-CR kernels' backward error on that B against the plain
+    # version's, from the same factors
+    cfg3 = P["GPConfig"](q=3, solver="pcg", solver_iters=80, precond="none")
+    Xj3, span3 = _jittered(rq, N_Q1, D, spacing=0.2)
+    Yj3 = np.sin(Xj3 * 6.0 * np.pi / span3).sum(1) \
+        + 0.1 * rq.standard_normal(N_Q1)
+    Xqj = rq.uniform(0.0, span3, (40, D))
+    q3 = [P["fit"](cfg3, Xj3, Yj3, np.full(D, 4.0), 1.0, device=d)
+          for d in (None, "cpu")]
+    own = P["posterior_mean"](q3[0], Xqj[:B]).cpu()
+    want3 = P["posterior_mean"](q3[1], Xqj[:B], device="cpu")
+    gap = float((own - want3).abs().max() / want3.abs().max())
+    print(f"n={N_Q1} D={D} q=3 mean, the card's own fit (its own SVDs) vs "
+          f"cpu max rel {gap:.3e} (not a gate)", flush=True)
+    q3[0] = _refit_on(P, q3[1], dev)
+    pm3, pv3 = (P["_probe_block"](q3[1], gen, k) for k in (4, Q_PATH))
+    for name, fn in (("mean", P["posterior_mean"]),
+                     ("var", P["posterior_var"])):
+        _check(f"n={N_Q1} D={D} q=3 (same factors) {name}",
+               fn(q3[0], Xqj[:B]), fn(q3[1], Xqj[:B], device="cpu"))
+    _check(f"n={N_Q1} D={D} q=3 (same factors) log_likelihood",
+           P["_log_likelihood"](q3[0], pm3.to(dev), pv3.to(dev)),
+           P["_log_likelihood"](q3[1], pm3, pv3))
+    Bq3 = q3[1].B
+    vs3 = q3[1].ops.to_sorted(V[None].expand((D,) + tuple(V.shape)))
+    rhs3 = P["banded_matvec_plain"](q3[1].Psi.data, vs3.contiguous(),
+                                    q3[1].Psi.lo, q3[1].Psi.hi)
+    xk3, _ = P["block_cr"](Bq3.data.to(dev), rhs3.to(dev), Bq3.lo)
+    xp3, _ = P["block_cr_plain"](Bq3.data, rhs3, Bq3.lo)
+    be3 = [_backward_err(P, Bq3.data, x, rhs3, Bq3.lo)
+           for x in (xk3.cpu(), xp3)]
+    g3k = P["_mll_gradients"](q3[0], V.to(dev))
+    print(f"n={N_Q1} D={D} q=3 gradients on the card from the CPU fit's "
+          f"factors: finite {bool(torch.isfinite(g3k[0]).all())}; block-CR "
+          f"backward error on B (w = {Bq3.lo}): kernel {be3[0]:.3e}, plain "
+          f"{be3[1]:.3e}", flush=True)
+    eps = float(torch.finfo(torch.float64).eps)
+    if not (be3[0] <= 10 * max(be3[1], eps)
+            and bool(torch.isfinite(g3k[0]).all())):
+        raise RuntimeError(f"q = 3 gradients: backward error {be3}")
+    del q3
+    _stamp("consistency: q = 3")
 
     if sorted(r["name"] for r in rows) != sorted(_build.KERNELS):
         raise RuntimeError("the kernels line must list each kernel once")

@@ -21,13 +21,19 @@ of ``chip_smoke.py``):
    factored block CR, also the factor launch alone, the solve with the
    factors made beforehand, and the solve at each chunk width of
    ``CHUNK_WIDTHS`` (the default width is the kernel's own choice);
-4. the ``banded_lu`` rows of 1. again, after the other work.
+4. the ``banded_lu`` rows of 1. again, after the other work;
+5. ``block_cr`` on the path's SAPhi (w = 1) at B = 1, 16, 32 and 160: the
+   whole call (``block_cr``, uncached), and where the checkout has the
+   factored standalone launches also the factor alone (with the
+   log-determinant), the apply from a factor made beforehand at the
+   kernel's own chunk width (``auto_cols``) and at each width of
+   ``CHUNK_WIDTHS``, and the apply's device time from ``torch.profiler``.
 
 To compare a parent with a change, unpack the parent with ``git archive``
 into a git-ignored directory and run parent, change, change, parent in one
 call; ``table`` prints the rows of each file side by side. ``lu`` as a
 last argument times 1, 2 and 4 only; ``pcg`` times 3 without the chunk
-widths.
+widths; ``cr`` times 5 only.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ import torch
 D, N, B_PATH = 10, 30000, 32
 LU_B = (32, 16, 4, 1)
 PCG_B = ((32, 3), (160, 1), (16, 3), (1, 3))  # (columns, timed reps)
+CR_B = (1, 16, 32, 160)
 CHUNK_WIDTHS = (1, 2, 4, 8, 16)
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 
@@ -191,12 +198,38 @@ def pcg_rows(P, rng, dev, widths=True):
     return rows
 
 
+def cr_rows(P, rng, dev):
+    fs = _operands(P, dev)
+    band = fs.saphi
+    rows = {}
+    for B in CR_B:
+        rhs = torch.as_tensor(rng.standard_normal((D, fs.npad, B)),
+                              device=dev)
+        r = {"block_cr_ms": _events(lambda: P["block_cr"](band, rhs, 1),
+                                    reps=10)}
+        if P["cr_apply"]:
+            fac = P["block_cr_factor"](band, 1)
+            r["factor_logdet_ms"] = _events(
+                lambda: P["block_cr_factor"](band, 1, logdet=True), reps=10)
+            r["auto_cols"] = P["block_cr_apply_cols"](D, B)
+            apply = lambda **k: P["block_cr_apply"](  # noqa: E731
+                fac, rhs, 1, **k)
+            r["apply_ms"] = _events(apply, reps=20)
+            r["apply_device_ms"] = _device_split(apply)
+            r["chunk_ms"] = {str(c): _events(lambda: apply(cols=c), reps=20)
+                             for c in CHUNK_WIDTHS if c <= B}
+        rows[f"B={B}"] = r
+        print(f"block_cr B={B}: {json.dumps(r)}", flush=True)
+    return rows
+
+
 def run(src, out, parts="all"):
     sys.path.insert(0, src)
     from repro_torch.core.banded import add, scale
     from repro_torch.core.kernel_packets import kp_factors
     from repro_torch.data import sample_test_function
     from repro_torch.kernels import _build
+    from repro_torch.kernels import block_cr as bcr
     from repro_torch.kernels import fused_sweep as fsm
     from repro_torch.kernels.banded_lu import banded_lu
     from repro_torch.kernels.mega_solve import mega_pcg_solve
@@ -207,6 +240,12 @@ def run(src, out, parts="all"):
              pcg_seed=fsm.pcg_seed, fused_pcg_iter=fsm.fused_pcg_iter)
     P["lu_solve_flag"] = "solve" in inspect.signature(banded_lu).parameters
     P["factored"] = hasattr(fsm, "pcg_factors")
+    P["block_cr"] = bcr.block_cr
+    P["cr_apply"] = hasattr(bcr, "block_cr_apply")
+    if P["cr_apply"]:
+        for k in ("block_cr_factor", "block_cr_apply",
+                  "block_cr_apply_cols"):
+            P[k] = getattr(bcr, k)
     if P["factored"]:
         P["pcg_factors"] = lambda fs: fsm.pcg_factors(
             fs.phi, fs.saphi, w_p=fs.w_p, w_s=fs.w_s)
@@ -220,13 +259,18 @@ def run(src, out, parts="all"):
     _build.load_library()
     res = dict(src=src, card=smi, build_s=time.perf_counter() - t0)
     rng = np.random.default_rng(0)
-    if parts != "pcg":
-        res["lu_first"] = lu_rows(P, rng, dev, "first")
-        res["lu_split"] = lu_split(P, rng, dev)
-    if parts != "lu":
-        res["pcg"] = pcg_rows(P, rng, dev, widths=parts != "pcg")
-    if parts != "pcg":
-        res["lu_again"] = lu_rows(P, rng, dev, "again")
+    if parts == "cr":
+        res["cr"] = cr_rows(P, rng, dev)
+    else:
+        if parts != "pcg":
+            res["lu_first"] = lu_rows(P, rng, dev, "first")
+            res["lu_split"] = lu_split(P, rng, dev)
+        if parts != "lu":
+            res["pcg"] = pcg_rows(P, rng, dev, widths=parts != "pcg")
+        if parts != "pcg":
+            res["lu_again"] = lu_rows(P, rng, dev, "again")
+        if parts == "all":
+            res["cr"] = cr_rows(P, rng, dev)
     with open(out, "w") as f:
         json.dump(res, f, indent=1)
 
@@ -245,6 +289,17 @@ def table(*paths):
                 vals.append("-")
         print(f"{name:42s} " + " | ".join(vals))
 
+    for B in CR_B:
+        k = f"B={B}"
+        for f in ("block_cr_ms", "factor_logdet_ms", "apply_ms", "auto_cols"):
+            line(f"block_cr {k} {f}", lambda r: r["cr"][k][f])
+        for c in CHUNK_WIDTHS:
+            line(f"block_cr {k} apply chunk {c}",
+                 lambda r: r["cr"][k]["chunk_ms"][str(c)])
+        for r in runs:
+            if "cr" in r and "apply_device_ms" in r["cr"][k]:
+                print(f"  apply device {k} ({r['src']}): "
+                      f"{r['cr'][k]['apply_device_ms']}")
     for B in LU_B:
         k = f"B={B}"
         line(f"banded_lu {k} first", lambda r: r["lu_first"][k])

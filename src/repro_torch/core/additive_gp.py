@@ -64,14 +64,14 @@ class GPConfig:
 
     Every ``solver`` ("pcg", "jacobi", "gauss_seidel") runs, with ``fused``
     "auto" (baked at ``fit`` to "whole" where the bands allow the fused
-    kernels and the preconditioner is not kmg, else "off"), "whole" (one
+    kernels and the preconditioner is not kmg, else "off"; at q = 3 the
+    bands are wider than the fused kernels take, so "off"), "whole" (one
     whole-solve launch per solve), "on" (a host loop of one-iteration
     launches) or "off" (the unfused host loops). ``precond`` "auto"
     resolves at ``fit`` to "kmg" at q == 0 and n >= 4096, else "none".
     Values whose path is not ported raise ``NotImplementedError`` at
-    ``fit``: ``pivot=True`` with ``solve_alg="lu"`` (the pivoted gbsv scan)
-    and ``q == 3`` on CUDA. ``backend``: "auto" (by tensor device) |
-    "cuda".
+    ``fit``: ``pivot=True`` with ``solve_alg="lu"`` (the pivoted gbsv
+    scan). ``backend``: "auto" (by tensor device) | "cuda".
     """
 
     q: int = 0
@@ -163,14 +163,6 @@ def resolve_config(config: GPConfig, n: int, device) -> GPConfig:
     _kops.resolve_backend(config.backend, device)
     if config.q not in mk.SUPPORTED_Q:
         raise ValueError(f"q={config.q} not in {mk.SUPPORTED_Q}")
-    if config.q >= 3 and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            "q = 3 on CUDA exceeds the kernels' widths: the solve kernels "
-            "take half-widths <= 3 (q = 3 needs 4), block_cr W <= 4 (B needs "
-            "5) and rgf_blocks w <= 5 (H = A Phi^T needs 7: 7 x 7 block "
-            "algebra per thread); and the reference's own KP null vectors at "
-            "q = 3 differ between jaxlib's and torch's LAPACK, so no parity "
-            "test can hold it (ROADMAP Queue 3); run q = 3 on the CPU")
     if config.pivot and config.solve_alg == "lu":
         raise NotImplementedError(
             "pivot=True with solve_alg='lu' needs the reference's pivoted "
@@ -262,7 +254,8 @@ def fit(config: GPConfig, X, Y, omega, sigma, device=None) -> AdditiveGP:
     Bg, Psi = gkp_factors(q, omega, xs)
     SAPhi = add(scale(A, sigma ** 2), Phi)
     ops = DimOps(A=A, Phi=Phi, SAPhi=SAPhi, sort_idx=sort_idx,
-                 rank_idx=rank_idx, sigma2=sigma ** 2)
+                 rank_idx=rank_idx, sigma2=sigma ** 2, pivot=config.pivot,
+                 alg=config.solve_alg)
     hier = build_gp_hier(config, omega, sigma, X, xs, ops)
     if config.health == "on":
         u_sy, bY, Gband, Hband, info = posterior_caches(
@@ -333,8 +326,9 @@ def posterior_var(gp: AdditiveGP, Xq, device=None):
         vc = vals_p[:, c * mc:(c + 1) * mc]
         phi_cols = torch.zeros((D, n, mc), dtype=Xq.dtype, device=dev)
         phi_cols.index_put_((d_idx, rc, m_idx), vc, accumulate=True)
-        w_sorted = solve(gp.ops.Phi, phi_cols, pivot=gp.config.pivot,
-                         backend=gp.config.backend, alg=gp.config.solve_alg)
+        w_sorted = gp.ops.phi_solve(phi_cols, pivot=gp.config.pivot,
+                                    backend=gp.config.backend,
+                                    alg=gp.config.solve_alg)
         w = gp.ops.from_sorted(w_sorted)
         z = solve_mhat(gp.ops, w, cfg, hier=gp.hier)
         term3.append((w * z).sum(dim=(0, 1)))

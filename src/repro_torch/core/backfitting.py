@@ -74,7 +74,13 @@ class DimOps:
 
     A, Phi: Banded with data (D, n, w); SAPhi = sigma^2 A + Phi;
     sort_idx (D, n): xs[d] = X[sort_idx[d], d]; rank_idx its inverse;
-    sigma2 the noise variance (0-d tensor).
+    sigma2 the noise variance (0-d tensor). ``pivot`` and ``alg`` are the
+    pivot mode and solve alg of the GP's solves: where they route a band
+    to block CR (SAPhi always, Phi at w >= 1), its block-CR factor is made
+    once here (``kernels.ops.banded_factor``; one factor launch per band on
+    CUDA tensors), and every solve with that band in the same mode applies
+    it (``kernels.ops.factor_solve``), with the bits of a solve from the
+    band. A solve in another mode solves from the band.
     """
 
     A: Banded
@@ -83,6 +89,20 @@ class DimOps:
     sort_idx: torch.Tensor
     rank_idx: torch.Tensor
     sigma2: torch.Tensor
+    pivot: bool = False
+    alg: str | None = None
+    phi_factor: object = dataclasses.field(default=None, init=False,
+                                           repr=False, compare=False)
+    saphi_factor: object = dataclasses.field(default=None, init=False,
+                                             repr=False, compare=False)
+
+    def __post_init__(self):
+        from ..kernels import ops as _kops
+
+        for name, b in (("phi_factor", self.Phi),
+                        ("saphi_factor", self.SAPhi)):
+            object.__setattr__(self, name, _kops.banded_factor(
+                b.data, b.lo, b.hi, pivot=self.pivot, alg=self.alg))
 
     @property
     def D(self) -> int:
@@ -103,19 +123,36 @@ class DimOps:
     def from_sorted(self, u):
         return self._permute(u, self.rank_idx)
 
+    def _solve(self, band: Banded, factor, rhs, pivot: bool, backend,
+               alg):
+        """band^{-1} rhs, from the held factor when it was made for this
+        pivot mode and ``alg`` routes the band to block CR."""
+        from ..kernels import ops as _kops
+
+        if (factor is not None and factor.pivot == pivot
+                and _kops.resolve_solve_alg(alg, band.lo, band.hi) == "cr"):
+            return _kops.factor_solve(factor, rhs, backend=backend)
+        return solve(band, rhs, pivot=pivot, backend=backend, alg=alg)
+
+    def phi_solve(self, rhs, pivot: bool = False,
+                  backend: str | None = None, alg: str | None = None):
+        """Phi^{-1} rhs per dim (sorted order), rhs (D, n[, B])."""
+        return self._solve(self.Phi, self.phi_factor, rhs, pivot, backend,
+                           alg)
+
     def khat_inv_mv(self, u, pivot: bool = False, backend: str | None = None,
                     alg: str | None = None):
         """Khat^{-1} u = P^T Phi^{-1} A P u (per dim), u: (D, n, B)."""
-        w = solve(self.Phi, matvec(self.A, self.to_sorted(u), backend=backend),
-                  pivot=pivot, backend=backend, alg=alg)
+        w = self.phi_solve(matvec(self.A, self.to_sorted(u), backend=backend),
+                           pivot=pivot, backend=backend, alg=alg)
         return self.from_sorted(w)
 
     def block_solve(self, r, pivot: bool = False, backend: str | None = None,
                     alg: str | None = None):
         """(Khat^{-1} + sigma^{-2} I)^{-1} r = sigma^2 P^T SAPhi^{-1} Phi P r."""
         y = matvec(self.Phi, self.to_sorted(r), backend=backend)
-        w = self.sigma2 * solve(self.SAPhi, y, pivot=pivot, backend=backend,
-                                alg=alg)
+        w = self.sigma2 * self._solve(self.SAPhi, self.saphi_factor, y,
+                                      pivot, backend, alg)
         return self.from_sorted(w)
 
 
@@ -184,8 +221,8 @@ def _kinv0(ops: DimOps, x0, cfg: SolveConfig):
     """Khat^{-1} x0 from the factors in hand (the warm unfused jacobi carry):
     P^T Phi^{-1} SAPhi P x0 = sigma^2 Khat^{-1} x0 + x0."""
     x0s = ops.to_sorted(x0)
-    w = solve(ops.Phi, matvec(ops.SAPhi, x0s, backend=cfg.backend),
-              pivot=cfg.pivot, backend=cfg.backend, alg=cfg.alg)
+    w = ops.phi_solve(matvec(ops.SAPhi, x0s, backend=cfg.backend),
+                      pivot=cfg.pivot, backend=cfg.backend, alg=cfg.alg)
     return (ops.from_sorted(w) - x0) / ops.sigma2
 
 
@@ -336,11 +373,8 @@ def _pcg(ops: DimOps, v, cfg: SolveConfig, x0=None, hier=None):
     if mode == "on":
         from ..kernels.fused_sweep import pcg_loop
 
-        # the columns as the whole solve takes them, so the two agree
-        step = fs.pcg_columns(v.shape[-1], cfg.tol)
-        (x, r, _, _), i = pcg_loop(
-            lambda *st: fs.pcg_iter(*st, step=step),
-            fs.pcg_seed(v, x0, step=step), iters=cfg.iters, tol=cfg.tol)
+        (x, r, _, _), i = pcg_loop(fs.pcg_iter, fs.pcg_seed(v, x0),
+                                   iters=cfg.iters, tol=cfg.tol)
         x, r = fs.unpad(x), fs.unpad(r)
         return (x, torch.tensor(i, dtype=torch.int32, device=v.device),
                 torch.sqrt(tree_sum(_det_dot(r, r), axis=0)))

@@ -44,7 +44,8 @@ def gp_from_arrays(arrays: dict[str, np.ndarray], config: GPConfig,
     sigma = t("sigma").reshape(())
     ops = DimOps(A=band("A"), Phi=band("Phi"), SAPhi=band("SAPhi"),
                  sort_idx=t("sort_idx", torch.int64),
-                 rank_idx=t("rank_idx", torch.int64), sigma2=sigma ** 2)
+                 rank_idx=t("rank_idx", torch.int64), sigma2=sigma ** 2,
+                 pivot=config.pivot, alg=config.solve_alg)
     omega, xs = t("omega"), t("xs")
     return AdditiveGP(X=X, Y=t("Y"), omega=omega, sigma=sigma, xs=xs,
                       ops=ops, B=band("B"), Psi=band("Psi"), bY=t("bY"),

@@ -1,124 +1,175 @@
-// Standalone block cyclic-reduction solve + exact log-determinant, float64.
+// Standalone block cyclic-reduction solve + exact log-determinant, float64,
+// as two launches: factor once, then apply per right-hand side.
 //
 // Replaces: src/repro/kernels/block_cr.py, block_cr_pallas (kernel body
 // `_kernel` around `cr_solve_values`), with its wrappers
 // block_cr_solve_pallas and block_cr_logdet_pallas. The likelihood path
 // reaches it for log|A| and log|A + Phi/s^2| (w = 1 at q = 0), for every
-// SAPhi solve of the preconditioned Taylor log-determinant (w = 1) and for
-// the generalized-KP B solves of the gradients (w = 2); at q = 1 it also
-// carries every Phi solve (w = 1).
+// SAPhi solve of the preconditioned Taylor log-determinant and of the kmg
+// V-cycle (w = 1), and for the generalized-KP B solves of the gradients
+// (w = 2); at q = 1 it also carries every Phi solve (w = 1). Widths
+// 1 <= w <= 5 (w = 5: the generalized-KP B at q = 3).
 //
 // What bounds it on the H100: not bytes (one pass over a band and its
 // right-hand sides is ~0.03 ms at the path's shapes) but the log-depth
 // chain of ceil(log2 nb) levels each way, one barrier per level, with the
 // block algebra's latency inside each level. The reference runs one grid
-// step per matrix on one TPU core; here one thread block per matrix g runs
-// the elimination of cr.cuh, so G = 10 matrices occupy 10 of the 132 SMs.
+// step per matrix on one TPU core.
 //
-// Design: the elimination is the device function shared with the
-// whole-solve kernels (cr.cuh), instantiated for W in {1, 2, 3, 4} (W = 4:
-// the generalized-KP B at q = 2), pivoted or not, solving or
-// log-determinant only. The wrapper pads n to whole blocks
-// with identity rows and copies the right-hand sides into the output, which
-// the elimination overwrites with x in place; the block triples live in a
-// workspace the wrapper allocates.
-//
-// Also here: the factor launch of the whole-solve PCG kernel
-// (repro_cr_factor_f64), one block per band running cr.cuh's
-// cr_block_factor, which stores the right-hand-side-independent half of the
-// elimination (coefficients per level, frozen block triples) for
-// mega_pcg.cu to read in every solve. It replaces that half of the same
-// reference body (`cr_solve_values` inside mega_pcg_solve_pallas's
-// `_block_solve_dim`); like the solve, it is a log-depth chain of levels
-// with one barrier each, run once per operand stack.
+// Design. Of the elimination, only the right-hand-side updates read the
+// right-hand side, and a fitted GP solves the same bands many times (every
+// V-cycle solves its SAPhi bands twice). So:
+//   * the factor launch (repro_cr_factor_f64), one block per band, runs
+//     cr.cuh's cr_block_factor: each level's coefficients alpha, beta and
+//     the frozen block triples, stored (cr.cuh's layout). When asked it also
+//     reduces log|det| over the frozen blocks with cr_logdet_blocks at
+//     NT = 256 threads, the reduction the one-block solve used, so the
+//     log-determinant keeps its bits. The whole-solve PCG kernel
+//     (mega_pcg.cu) solves from the same factors;
+//   * the apply launch (repro_cr_apply_f64) spreads (band, chunk of cpc
+//     columns) items over the whole grid, one thread block each (not
+//     cooperative: the items are independent). Each runs cr_block_apply on
+//     its columns from the read-only factor, in place on x, with no
+//     scratch. cr_block_apply replays cr_block_solve's right-hand-side
+//     expressions (cr_fold_rhs, cr_back_row), and a column's arithmetic does
+//     not depend on its chunk, so factor plus apply gives the one-block
+//     solve's bits at every chunk width.
+// The chunk width (cpc = 0: apply_cols) is the narrowest power of two that
+// gives every item an SM of its own, mega_pcg.cu's rule: at G = 10 bands
+// and B = 16 columns, two columns an item (80 items on 132 SMs). Wider
+// items read more of each 32-byte sector of a row (B doubles a row), and
+// with more items than SMs the ones that share an SM run behind each
+// other; both cost more than the SMs left idle (widths 1-16 measured in
+// PERF.md).
+#include <climits>
+
 #include "common.cuh"
 #include "cr.cuh"
 
 namespace {
 
 constexpr int NT = 256;  // threads per block (a power of two: logdet tree)
+constexpr int MAX_W = 5;
 
-template <int W, bool PIVOT, bool SOLVE>
+template <int W, bool PIVOT>
 __global__ void __launch_bounds__(NT)
-    block_cr_kernel(const double* __restrict__ band, double* x, double* ld,
-                    double* work, int npad, int B) {
+    cr_factor_kernel(const double* __restrict__ band, double* fac, double* ld,
+                     int npad) {
   __shared__ double red[NT];
   const int g = blockIdx.x;
-  const long long nbw = (long long)npad * W;  // (nb, W, W) doubles
-  const long long G = gridDim.x;
-  double* ab = work + (long long)g * nbw;
-  double* bb = work + (G + g) * nbw;
-  double* cb = work + (2 * G + g) * nbw;
-  double* xg = SOLVE ? x + (long long)g * npad * B : nullptr;
-  repro::cr_block_solve<W, PIVOT, SOLVE, true>(
-      band + (long long)g * npad * (2 * W + 1), xg, ab, bb, cb, npad, B,
-      ld + g, red);
-}
-
-template <int W>
-cudaError_t launch(const double* band, double* x, double* ld, double* work,
-                   int G, int npad, int B, bool pivot, bool solve,
-                   cudaStream_t st) {
-  if (pivot && solve)
-    block_cr_kernel<W, true, true><<<G, NT, 0, st>>>(band, x, ld, work, npad, B);
-  else if (pivot)
-    block_cr_kernel<W, true, false><<<G, NT, 0, st>>>(band, x, ld, work, npad, B);
-  else if (solve)
-    block_cr_kernel<W, false, true><<<G, NT, 0, st>>>(band, x, ld, work, npad, B);
-  else
-    block_cr_kernel<W, false, false><<<G, NT, 0, st>>>(band, x, ld, work, npad, B);
-  return cudaGetLastError();
+  const int nb = npad / W;
+  double* F = fac + g * repro::cr_factor_size(nb, W);
+  repro::cr_block_factor<W, PIVOT>(band + (long long)g * npad * (2 * W + 1),
+                                   F, npad);
+  // cr_block_factor ends on a barrier: every frozen block is written
+  if (ld) repro::cr_logdet_blocks<W, PIVOT>(F + (long long)nb * W * W, nb,
+                                            ld + g, red);
 }
 
 template <int W, bool PIVOT>
 __global__ void __launch_bounds__(NT)
-    cr_factor_kernel(const double* __restrict__ band, double* fac,
-                     int npad) {
-  const int g = blockIdx.x;
-  repro::cr_block_factor<W, PIVOT>(
-      band + (long long)g * npad * (2 * W + 1),
-      fac + g * repro::cr_factor_size(npad / W, W), npad);
+    cr_apply_kernel(const double* __restrict__ fac, double* x, int npad,
+                    int B, int cpc, int chunks) {
+  const int g = blockIdx.x / chunks;
+  const int c0 = (blockIdx.x - g * chunks) * cpc;
+  const int nc = B - c0 < cpc ? B - c0 : cpc;
+  repro::cr_block_apply<W, PIVOT>(
+      fac + g * repro::cr_factor_size(npad / W, W),
+      x + (long long)g * npad * B + c0, npad, nc, B);
 }
 
 template <int W>
-cudaError_t launch_factor(const double* band, double* fac, int G, int npad,
-                          bool pivot, cudaStream_t st) {
+cudaError_t launch_factor(const double* band, double* fac, double* ld, int G,
+                          int npad, bool pivot, cudaStream_t st) {
   if (pivot)
-    cr_factor_kernel<W, true><<<G, NT, 0, st>>>(band, fac, npad);
+    cr_factor_kernel<W, true><<<G, NT, 0, st>>>(band, fac, ld, npad);
   else
-    cr_factor_kernel<W, false><<<G, NT, 0, st>>>(band, fac, npad);
+    cr_factor_kernel<W, false><<<G, NT, 0, st>>>(band, fac, ld, npad);
   return cudaGetLastError();
+}
+
+template <int W>
+cudaError_t launch_apply(const double* fac, double* x, int items, int npad,
+                         int B, int cpc, int chunks, bool pivot,
+                         cudaStream_t st) {
+  if (pivot)
+    cr_apply_kernel<W, true><<<items, NT, 0, st>>>(fac, x, npad, B, cpc,
+                                                   chunks);
+  else
+    cr_apply_kernel<W, false><<<items, NT, 0, st>>>(fac, x, npad, B, cpc,
+                                                    chunks);
+  return cudaGetLastError();
+}
+
+// The narrowest power of two c whose G * ceil(B / c) items fit on the SMs,
+// one each (at most B).
+int apply_cols(int G, int B, int sms) {
+  int c = 1;
+  while (c < B && (long long)G * ((B + c - 1) / c) > sms) c <<= 1;
+  return c < B ? c : B;
+}
+
+int sm_count(int* sms) {
+  int dev = 0;
+  REPRO_RETURN_IF_ERR(cudaGetDevice(&dev));
+  REPRO_RETURN_IF_ERR(
+      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev));
+  return 0;
 }
 
 }  // namespace
 
-// band (G, npad, 2w+1) identity-padded to npad = nb * w rows; x (G, npad, B)
-// holds the right-hand sides on entry and the solution on return (unused
-// when solve == 0); ld (G,); work 3 * G * npad * w doubles.
-extern "C" int repro_block_cr_f64(const double* band, double* x, double* ld,
-                                  double* work, int G, int npad, int w, int B,
-                                  int pivot, int solve, void* stream) {
-  if (G < 1 || npad < 1 || w < 1 || w > 4 || npad % w || B < 1)
+// The block-CR factors of G bands (G, npad, 2w+1), identity-padded to
+// npad = nb * w rows, 1 <= w <= 5: fac holds G * cr_factor_size(nb, w)
+// doubles (cr.cuh's layout); ld (G,) receives log|det| unless it is null.
+extern "C" int repro_cr_factor_f64(const double* band, double* fac,
+                                   double* ld, int G, int npad, int w,
+                                   int pivot, void* stream) {
+  if (G < 1 || npad < 1 || w < 1 || w > MAX_W || npad % w)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (w) {
-    case 1: return (int)launch<1>(band, x, ld, work, G, npad, B, pivot, solve, st);
-    case 2: return (int)launch<2>(band, x, ld, work, G, npad, B, pivot, solve, st);
-    case 3: return (int)launch<3>(band, x, ld, work, G, npad, B, pivot, solve, st);
-    default: return (int)launch<4>(band, x, ld, work, G, npad, B, pivot, solve, st);
+    case 1: return (int)launch_factor<1>(band, fac, ld, G, npad, pivot, st);
+    case 2: return (int)launch_factor<2>(band, fac, ld, G, npad, pivot, st);
+    case 3: return (int)launch_factor<3>(band, fac, ld, G, npad, pivot, st);
+    case 4: return (int)launch_factor<4>(band, fac, ld, G, npad, pivot, st);
+    default: return (int)launch_factor<5>(band, fac, ld, G, npad, pivot, st);
   }
 }
 
-// The block-CR factors of G bands (G, npad, 2w+1), npad = nb * w, 1 <= w
-// <= 3: fac holds G * cr_factor_size(nb, w) doubles (cr.cuh's layout).
-extern "C" int repro_cr_factor_f64(const double* band, double* fac, int G,
-                                   int npad, int w, int pivot, void* stream) {
-  if (G < 1 || npad < 1 || w < 1 || w > 3 || npad % w)
+// Columns per item that an apply launch with cpc = 0 takes (negative:
+// -error).
+extern "C" int repro_cr_apply_cols(int G, int B) {
+  int sms = 0;
+  const int err = sm_count(&sms);
+  return err ? -err : apply_cols(G, B, sms);
+}
+
+// x (G, npad, B) holds the right-hand sides on entry and the solution on
+// return: the solve with the factors fac of repro_cr_factor_f64 (the same
+// G, npad, w and pivot), in items of cpc columns (0: apply_cols).
+extern "C" int repro_cr_apply_f64(const double* fac, double* x, int G,
+                                  int npad, int w, int B, int cpc, int pivot,
+                                  void* stream) {
+  if (G < 1 || npad < 1 || w < 1 || w > MAX_W || npad % w || B < 1 ||
+      cpc < 0)
     return (int)cudaErrorInvalidValue;
+  if (cpc == 0) {
+    int sms = 0;
+    const int err = sm_count(&sms);
+    if (err) return err;
+    cpc = apply_cols(G, B, sms);
+  }
+  if (cpc > B) cpc = B;
+  const int chunks = (B + cpc - 1) / cpc;
+  if ((long long)G * chunks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int items = G * chunks;
   cudaStream_t st = (cudaStream_t)stream;
   switch (w) {
-    case 1: return (int)launch_factor<1>(band, fac, G, npad, pivot, st);
-    case 2: return (int)launch_factor<2>(band, fac, G, npad, pivot, st);
-    default: return (int)launch_factor<3>(band, fac, G, npad, pivot, st);
+    case 1: return (int)launch_apply<1>(fac, x, items, npad, B, cpc, chunks, pivot, st);
+    case 2: return (int)launch_apply<2>(fac, x, items, npad, B, cpc, chunks, pivot, st);
+    case 3: return (int)launch_apply<3>(fac, x, items, npad, B, cpc, chunks, pivot, st);
+    case 4: return (int)launch_apply<4>(fac, x, items, npad, B, cpc, chunks, pivot, st);
+    default: return (int)launch_apply<5>(fac, x, items, npad, B, cpc, chunks, pivot, st);
   }
 }

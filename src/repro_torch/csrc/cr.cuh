@@ -1,12 +1,12 @@
-// Block cyclic-reduction solve and log-determinant as a device function for
+// Block cyclic-reduction solve and log-determinant as device functions for
 // one thread block.
 //
 // Replaces: src/repro/kernels/block_cr.py, cr_solve_values, the body that
-// the standalone launch (block_cr.cu) and the backfitting kernels
-// (jacobi.cu, gauss_seidel.cu through sweep.cuh, and mega_pcg.cu in the
-// factored form at the end of this file) call. The
-// band (lo = hi = W) is
-// viewed as block-tridiagonal with W x W blocks
+// the standalone launches (block_cr.cu: factor, then apply) and the
+// backfitting kernels (jacobi.cu, gauss_seidel.cu through sweep.cuh's
+// cr_block_solve, and mega_pcg.cu in the factored form at the end of this
+// file) call. The band (lo = hi = W) is viewed as block-tridiagonal with
+// W x W blocks
 //     A_i x_{i-1} + B_i x_i + C_i x_{i+1} = r_i,   i = 0..nb-1,
 // and eliminated in ceil(log2 nb) levels: at stride s = 2^k every even row
 // (i % 2s == 0) folds its odd neighbours i +- s into itself; back
@@ -21,16 +21,14 @@
 // (after a barrier) the blocks themselves, so no thread reads a block that
 // another thread of the same level rewrites.
 //
-// Template flags: PIVOT swaps the unpivoted W x W block solves for the
+// Template flag PIVOT swaps the unpivoted W x W block solves for the
 // reference's partial-pivot block mode (in the coefficients, the reduced row
-// 0 and the back substitution); SOLVE = false skips every right-hand-side
-// update (log-determinant only); LOGDET reduces log|det| = sum_i log|det B_i|
-// over the frozen blocks, per thread and then in a fixed tree order across
-// the block, so the value does not depend on scheduling. The relaxation
-// kernels use <W, PIVOT, true, false>. The pieces that every form shares
-// (blocks from the band, one right-hand-side fold, one block fold, one back
-// substitution row) are the functions below, so the forms compute the same
-// expressions.
+// 0 and the back substitution). log|det| = sum_i log|det B_i| over the
+// frozen blocks is cr_logdet_blocks: per-thread partials, then a fixed tree
+// order across the block, so the value does not depend on scheduling. The
+// pieces that every form shares (blocks from the band, one right-hand-side
+// fold, one block fold, one back substitution row) are the functions below,
+// so the forms compute the same expressions.
 #pragma once
 
 #include "common.cuh"
@@ -221,18 +219,40 @@ __device__ __forceinline__ void cr_back_row(const double (&Ai)[W][W],
   cr_small_solve<W, 1, PIVOT>(Bi, rk, xi);
 }
 
+// log|det| of the eliminated band from its frozen blocks Bb (nb, W, W):
+// per-thread partial sums over the block rows, then a fixed-order tree
+// across the block, so the value does not depend on scheduling. `red` is
+// shared scratch of blockDim.x doubles (a power of two); thread 0 writes
+// *ld. Every thread of the block must call this.
+template <int W, bool PIVOT>
+__device__ void cr_logdet_blocks(const double* Bb, int nb, double* ld,
+                                 double* red) {
+  constexpr int WW = W * W;
+  double acc = 0.0;
+  for (int I = threadIdx.x; I < nb; I += blockDim.x) {
+    double Bi[W][W];
+    load_block<W>(Bb + (long long)I * WW, Bi);
+    acc += cr_block_logdet<W, PIVOT>(Bi);
+  }
+  red[threadIdx.x] = acc;
+  __syncthreads();
+  for (int h = blockDim.x / 2; h > 0; h >>= 1) {
+    if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *ld = red[0];
+}
+
 // Solve with the band (npad, 2W+1) (row-aligned, identity-padded to whole
 // blocks) against the B columns of R (npad rows, row stride ldr; ldr = 0
-// means B), in place: R holds x on return (SOLVE only). The columns are
-// independent, so a caller may hand disjoint column ranges of one system to
-// different blocks, each with its own scratch: every block recomputes the
-// same block values. Ab/Bb/Cb are (npad / W, W, W) scratch. With LOGDET,
-// *ld receives log|det| and `red` is shared scratch of blockDim.x doubles (a
-// power of two). Every thread of the block must call this.
-template <int W, bool PIVOT = false, bool SOLVE = true, bool LOGDET = false>
+// means B), in place: R holds x on return. The columns are independent, so
+// a caller may hand disjoint column ranges of one system to different
+// blocks, each with its own scratch: every block recomputes the same block
+// values. Ab/Bb/Cb are (npad / W, W, W) scratch. Every thread of the block
+// must call this.
+template <int W, bool PIVOT = false>
 __device__ void cr_block_solve(const double* band, double* R, double* Ab,
                                double* Bb, double* Cb, int npad, int B,
-                               double* ld = nullptr, double* red = nullptr,
                                int ldr = 0) {
   constexpr int WW = W * W;
   const int nb = npad / W;
@@ -246,8 +266,7 @@ __device__ void cr_block_solve(const double* band, double* R, double* Ab,
     const int s = 1 << k;
     const int ne = (nb + 2 * s - 1) / (2 * s);  // even rows i = 2 s j < nb
     // right-hand sides: R_i += alpha R_{i-s} + beta R_{i+s}
-    for (long long e = threadIdx.x; SOLVE && e < (long long)ne * B;
-         e += blockDim.x) {
+    for (long long e = threadIdx.x; e < (long long)ne * B; e += blockDim.x) {
       const int j = (int)(e / B), b = (int)(e - (long long)j * B);
       const int i = 2 * s * j;
       double alpha[W][W], beta[W][W];
@@ -269,25 +288,6 @@ __device__ void cr_block_solve(const double* band, double* R, double* Ab,
     }
     __syncthreads();
   }
-
-  // log|det| telescopes over the frozen blocks: per-thread partial sums,
-  // then a fixed-order tree across the block
-  if constexpr (LOGDET) {
-    double acc = 0.0;
-    for (int I = threadIdx.x; I < nb; I += blockDim.x) {
-      double Bi[W][W];
-      load_block<W>(Bb + (long long)I * WW, Bi);
-      acc += cr_block_logdet<W, PIVOT>(Bi);
-    }
-    red[threadIdx.x] = acc;
-    __syncthreads();
-    for (int h = blockDim.x / 2; h > 0; h >>= 1) {
-      if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) *ld = red[0];
-  }
-  if constexpr (!SOLVE) return;
 
   // the fully reduced row 0
   for (int b = threadIdx.x; b < B; b += blockDim.x) {

@@ -12,8 +12,8 @@
 // Matern coefficients handed in by the caller (core/matern.py).
 //
 // What bounds it on the H100: bytes, counting an exp as one operation. Per
-// row it reads x and 2q+3 coefficients and writes 2q+1 outputs (at most
-// 104 bytes at q = 2) and evaluates (2q+1)(2q+3) kernels, each an exp and
+// row it reads x and 2q+3 coefficients and writes 2q+1 outputs (104 bytes
+// at q = 2, 136 at q = 3) and evaluates (2q+1)(2q+3) kernels, each an exp and
 // a degree-q polynomial: ~4 operations a byte at q = 2, under the card's
 // ~10 (FP64 rate over memory rate); an exp's real cost (a few dozen FP64
 // instructions) would put q = 2 on the operations side. At the path's n
@@ -28,7 +28,7 @@
 namespace {
 
 constexpr int NT = 256;
-constexpr int MAXQ = 2;
+constexpr int MAXQ = 3;
 constexpr int HALO = MAXQ + 1;
 
 struct Coeffs {
@@ -77,14 +77,14 @@ __global__ void __launch_bounds__(NT)
 
 }  // namespace
 
-// xs (n,) sorted, a (n, 2q+3) -> phi (n, 2q+1); c0..c2 the Matern
-// polynomial's coefficients (those above q unused). q in {0, 1, 2}.
+// xs (n,) sorted, a (n, 2q+3) -> phi (n, 2q+1); c0..c3 the Matern
+// polynomial's coefficients (those above q unused). q in {0, 1, 2, 3}.
 extern "C" int repro_kp_gram_f64(const double* xs, const double* a,
                                  double* phi, int n, int q, double omega,
-                                 double c0, double c1, double c2,
+                                 double c0, double c1, double c2, double c3,
                                  void* stream) {
   if (n < 1 || q < 0 || q > MAXQ) return (int)cudaErrorInvalidValue;
-  const Coeffs cf{{c0, c1, c2}};
+  const Coeffs cf{{c0, c1, c2, c3}};
   const int grid = (n + NT - 1) / NT;
   cudaStream_t s = (cudaStream_t)stream;
   switch (q) {
@@ -94,8 +94,11 @@ extern "C" int repro_kp_gram_f64(const double* xs, const double* a,
     case 1:
       kp_gram_kernel<1><<<grid, NT, 0, s>>>(xs, a, phi, n, omega, cf);
       break;
-    default:
+    case 2:
       kp_gram_kernel<2><<<grid, NT, 0, s>>>(xs, a, phi, n, omega, cf);
+      break;
+    default:
+      kp_gram_kernel<3><<<grid, NT, 0, s>>>(xs, a, phi, n, omega, cf);
       break;
   }
   return (int)cudaGetLastError();

@@ -14,8 +14,9 @@
 //
 // Design: one block per batch item. The forward and backward recurrences
 // run at once on two threads in different warps, with the running block in
-// registers (w x w with w <= 5, unrolled by template; w = 5 is H = A Phi^T
-// at q = 2) and the Schur
+// registers (w x w with w <= 5 or w = 7, unrolled by template; w = 2q + 1
+// is H = A Phi^T at q; at w = 7 the running blocks no longer fit the
+// registers and spill to local memory) and the Schur
 // complements written to global scratch; the loads of D/U/L do not depend
 // on the chain, so they issue ahead of it. After one __syncthreads every
 // thread of the block combines independent j in parallel: G_jj first, then
@@ -147,6 +148,7 @@ extern "C" int repro_rgf_blocks_f64(const double* Dg, const double* U,
     case 3: rgf_kernel<3><<<G, 256, 0, st>>>(Dg, U, L, Gd, Gu, Gl, F, W, T); break;
     case 4: rgf_kernel<4><<<G, 256, 0, st>>>(Dg, U, L, Gd, Gu, Gl, F, W, T); break;
     case 5: rgf_kernel<5><<<G, 256, 0, st>>>(Dg, U, L, Gd, Gu, Gl, F, W, T); break;
+    case 7: rgf_kernel<7><<<G, 256, 0, st>>>(Dg, U, L, Gd, Gu, Gl, F, W, T); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

@@ -168,16 +168,13 @@ __device__ void solve_cols(const SweepDims& S, const Map& m, double* t,
     double* td = t + d * per + c0;
     switch (w) {
       case 1:
-        cr_block_solve<1, PIVOT>(bd, td, ab, bb, cb, S.npad, nc, nullptr,
-                                 nullptr, B);
+        cr_block_solve<1, PIVOT>(bd, td, ab, bb, cb, S.npad, nc, B);
         break;
       case 2:
-        cr_block_solve<2, PIVOT>(bd, td, ab, bb, cb, S.npad, nc, nullptr,
-                                 nullptr, B);
+        cr_block_solve<2, PIVOT>(bd, td, ab, bb, cb, S.npad, nc, B);
         break;
       default:
-        cr_block_solve<3, PIVOT>(bd, td, ab, bb, cb, S.npad, nc, nullptr,
-                                 nullptr, B);
+        cr_block_solve<3, PIVOT>(bd, td, ab, bb, cb, S.npad, nc, B);
         break;
     }
   }

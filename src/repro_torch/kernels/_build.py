@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
-           "banded_matvec", "block_cr", "fused_jacobi_iter",
+           "banded_matvec", "cr_apply", "fused_jacobi_iter",
            "fused_gauss_seidel_iter", "mega_jacobi", "mega_gauss_seidel",
            "fused_pcg_iter", "kp_gram", "cr_factor")
 
@@ -63,11 +63,11 @@ _SIGNATURES = {
     "repro_gauss_seidel_f64": (_c_int, [_ptr] * 10 + [_c_int] * 7 + [_ptr]),
     "repro_banded_matvec_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int,
                                          _c_int, _c_int, _c_int, _ptr]),
-    "repro_block_cr_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _c_int, _c_int,
-                                    _c_int, _c_int, _c_int, _c_int, _ptr]),
-    "repro_cr_factor_f64": (_c_int, [_ptr, _ptr] + [_c_int] * 4 + [_ptr]),
-    "repro_kp_gram_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int, _c_dbl,
-                                   _c_dbl, _c_dbl, _c_dbl, _ptr]),
+    "repro_cr_factor_f64": (_c_int, [_ptr] * 3 + [_c_int] * 4 + [_ptr]),
+    "repro_cr_apply_cols": (_c_int, [_c_int] * 2),
+    "repro_cr_apply_f64": (_c_int, [_ptr] * 2 + [_c_int] * 6 + [_ptr]),
+    "repro_kp_gram_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int]
+                          + [_c_dbl] * 5 + [_ptr]),
     "repro_error_string": (ctypes.c_char_p, [_c_int]),
 }
 

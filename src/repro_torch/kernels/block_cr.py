@@ -1,5 +1,5 @@
-"""Block cyclic-reduction banded solve + exact log-determinant: CUDA kernel
-and plain version.
+"""Block cyclic-reduction banded solve + exact log-determinant: CUDA kernels
+(factor, apply) and plain versions.
 
 Counterpart of ``repro.kernels.block_cr`` (``cr_solve_values``,
 ``block_cr_pallas``, ``block_cr_solve_pallas``, ``block_cr_logdet_pallas``).
@@ -14,20 +14,22 @@ itself; back substitution replays the levels in reverse. Eliminated rows
 are frozen in place, so ``log|det| = sum_i log|det B_i|``. ``pivot=True``
 runs the ``w x w`` block solves with partial pivoting inside each block.
 
-On the card the elimination is the device function ``csrc/cr.cuh``: the
-standalone launch is ``csrc/block_cr.cu`` (one thread block per matrix),
-and the relaxation kernels (``csrc/jacobi.cu``, ``gauss_seidel.cu``,
-through ``csrc/sweep.cuh``) call the same function. The wrappers launch it
-for CUDA tensors and run :func:`block_cr_plain` for CPU tensors.
-
 Factor once, apply per right-hand side: everything the elimination does
 that does not read the right-hand side (the coefficients ``alpha``,
 ``beta`` of every level's even rows, and the block triples once every level
 has run) is the factor, :func:`block_cr_factor` (``csrc/block_cr.cu``'s
-factor launch) with its plain twin :func:`block_cr_factor_plain`; the
-right-hand-side updates replayed from it are :func:`block_cr_apply_plain`
-on the CPU and ``cr.cuh``'s ``cr_block_apply`` inside the whole-solve PCG
-kernel (``csrc/mega_pcg.cu``). Factor plus apply gives the solve's bits.
+factor launch, one thread block per band; it also gives log|det|) with its
+plain twin :func:`block_cr_factor_plain`; the right-hand-side updates
+replayed from it are :func:`block_cr_apply` (``csrc/block_cr.cu``'s apply
+launch, (band, column chunk) items over the whole grid) with its plain twin
+:func:`block_cr_apply_plain`. Factor plus apply gives :func:`block_cr_plain`'s
+bits. On CUDA tensors :func:`block_cr` is one factor and one apply launch,
+and :func:`block_cr_logdet` one factor launch; a caller that solves one band
+many times keeps the factor (``kernels.ops.banded_factor``). The device
+functions are ``csrc/cr.cuh``'s: the whole-solve PCG kernel
+(``csrc/mega_pcg.cu``) applies the same factors, and the relaxation kernels
+(``csrc/jacobi.cu``, ``gauss_seidel.cu``, through ``csrc/sweep.cuh``) run
+the unfactored elimination ``cr_block_solve``.
 """
 from __future__ import annotations
 
@@ -38,11 +40,10 @@ from .ops import resolve_backend
 
 __all__ = ["cr_solve_values", "block_cr", "block_cr_plain", "block_cr_solve",
            "block_cr_logdet", "block_cr_factor", "block_cr_factor_plain",
-           "block_cr_apply_plain", "cr_factor_size", "MAX_W",
-           "MAX_FACTOR_W"]
+           "block_cr_apply", "block_cr_apply_plain", "block_cr_apply_cols",
+           "cr_factor_size", "pad_band", "MAX_W"]
 
-MAX_W = 4  # w <= 4 (csrc/block_cr.cu instantiations)
-MAX_FACTOR_W = 3  # w <= 3 for the factor (the PCG kernel's widths)
+MAX_W = 5  # 1 <= w <= 5 (csrc/block_cr.cu's factor and apply instances)
 
 
 def _nbr(x, d):
@@ -158,16 +159,33 @@ def cr_solve_values(data, rhs, *, w: int, nb: int, steps: int,
     return x.reshape(G, nb * w, B), ld
 
 
-def _padded(band, rhs, w):
+def pad_band(band, w):
+    """(G, n, 2w+1) -> (G, nb w, 2w+1), nb = ceil(n / w): identity rows past
+    n, so the band tiles into whole w x w blocks."""
     G, n, width = band.shape
-    nb = max(1, -(-n // w))
-    npad = nb * w
+    npad = max(1, -(-n // w)) * w
+    if npad == n:
+        return band
     band_p = band.new_zeros((G, npad, width))
     band_p[:, :, w] = 1.0
     band_p[:, :n] = band
-    rhs_p = rhs.new_zeros((G, npad, rhs.shape[-1]))
-    rhs_p[:, :n] = rhs
-    return band_p, rhs_p, nb, max(0, (nb - 1).bit_length())
+    return band_p
+
+
+def pad_rows(x, npad):
+    """(G, n, B) -> (G, npad, B) with zero rows past n."""
+    if x.shape[1] == npad:
+        return x
+    out = x.new_zeros((x.shape[0], npad, x.shape[2]))
+    out[:, :x.shape[1]] = x
+    return out
+
+
+def _padded(band, rhs, w):
+    band_p = pad_band(band, w)
+    nb = band_p.shape[1] // w
+    return (band_p, pad_rows(rhs, nb * w), nb,
+            max(0, (nb - 1).bit_length()))
 
 
 def block_cr_plain(band, rhs, w: int, pivot: bool = False,
@@ -185,29 +203,18 @@ def block_cr(band, rhs, w: int, pivot: bool = False, solve: bool = True,
              backend: str | None = None):
     """Block cyclic reduction of a (G, n, 2w+1) band (lo = hi = w) against
     rhs (G, n, B), float64; returns ``(x, logdet)``. CUDA tensors launch
-    ``csrc/block_cr.cu``; with ``solve=False`` only the log-determinant is
-    computed and x is None."""
+    ``csrc/block_cr.cu``'s factor (with the log-determinant) and, when
+    ``solve``, its apply; with ``solve=False`` x is None."""
     if resolve_backend(backend, band.device) == "plain":
         x, ld = block_cr_plain(band, rhs, w, pivot=pivot, solve=solve)
         return (x if solve else None), ld
-    if not 1 <= w <= MAX_W:
-        raise ValueError(f"block_cr kernel takes 1 <= w <= {MAX_W}")
-    G, n, _ = band.shape
-    B = rhs.shape[-1]
-    dev = band.device
-    _build.expect(band, "band", torch.float64, (G, n, 2 * w + 1), dev)
-    _build.expect(rhs, "rhs", torch.float64, (G, n, B), dev)
-    band_p, x_p, nb, _ = _padded(band, rhs, w)
-    npad = nb * w
-    work = torch.empty((3, G, nb, w, w), dtype=torch.float64, device=dev)
-    ld = torch.empty((G,), dtype=torch.float64, device=dev)
-    lib = _build.load_library()
-    err = lib.repro_block_cr_f64(
-        band_p.data_ptr(), x_p.data_ptr(), ld.data_ptr(), work.data_ptr(), G,
-        npad, w, B, int(pivot), int(solve), _build.stream_handle(dev))
-    _build.check(err, "block_cr")
-    _build.count_launch("block_cr")
-    return (x_p[:, :n] if solve else None), ld
+    n = band.shape[1]
+    band_p = pad_band(band, w)
+    fac, ld = block_cr_factor(band_p, w, pivot=pivot, logdet=True)
+    if not solve:
+        return None, ld
+    x = block_cr_apply(fac, pad_rows(rhs, band_p.shape[1]), w, pivot=pivot)
+    return x[:, :n], ld
 
 
 def block_cr_solve(band, rhs, w: int, pivot: bool = False,
@@ -219,11 +226,10 @@ def block_cr_solve(band, rhs, w: int, pivot: bool = False,
 
 def block_cr_logdet(band, w: int, pivot: bool = False,
                     backend: str | None = None):
-    """log|det| of a (G, n, 2w+1) band (a width-1 dummy right-hand side, no
-    back substitution)."""
-    dummy = band.new_zeros(band.shape[:2] + (1,))
-    _, ld = block_cr(band, dummy, w, pivot=pivot, solve=False,
-                     backend=backend)
+    """log|det| of a (G, n, 2w+1) band: the factor's (one factor launch on
+    CUDA tensors, no right-hand side)."""
+    _, ld = block_cr_factor(pad_band(band, w), w, pivot=pivot, logdet=True,
+                            backend=backend)
     return ld
 
 
@@ -248,19 +254,22 @@ def cr_factor_size(nb: int, w: int) -> int:
 
 
 def _check_factor_band(band, w):
-    if not 1 <= w <= MAX_FACTOR_W:
-        raise ValueError(f"the block-CR factor takes 1 <= w <= {MAX_FACTOR_W}")
+    if not 1 <= w <= MAX_W:
+        raise ValueError(f"the block-CR factor takes 1 <= w <= {MAX_W}")
     if band.shape[1] % w:
         raise ValueError(f"the block-CR factor takes n a multiple of w: "
                          f"n={band.shape[1]}, w={w}")
     return band.shape[0], band.shape[1] // w
 
 
-def block_cr_factor_plain(band, w: int, pivot: bool = False):
+def block_cr_factor_plain(band, w: int, pivot: bool = False,
+                          logdet: bool = False):
     """The factor of (G, n, 2w+1) bands, n = nb w (identity-padded to whole
     blocks): (G, cr_factor_size(nb, w)), laid out as ``csrc/cr.cuh``'s
     ``cr_block_factor`` stores it. The block elimination of
-    :func:`cr_solve_values`, op for op."""
+    :func:`cr_solve_values`, op for op; with ``logdet`` also log|det| (G,)
+    as :func:`cr_solve_values` reduces it, returned as ``(factor,
+    logdet)``."""
     G, nb = _check_factor_band(band, w)
     Ab, Bb, Cb = _band_to_blocks(band, w, nb)
     idx = torch.arange(nb, device=band.device)
@@ -280,8 +289,12 @@ def block_cr_factor_plain(band, w: int, pivot: bool = False):
         Cb = torch.where(m, _bmm(beta, _nbr(Cb, s)), Cb)
         als.append(alpha[:, ::2 * s])
         bes.append(beta[:, ::2 * s])
-    return torch.cat([t.reshape(G, -1) for t in (Ab, Bb, Cb, *als, *bes)],
-                     dim=1)
+    fac = torch.cat([t.reshape(G, -1) for t in (Ab, Bb, Cb, *als, *bes)],
+                    dim=1)
+    if not logdet:
+        return fac
+    _, ld = _small_solve(Bb, Bb.new_zeros(Bb.shape[:-1] + (1,)), pivot)
+    return fac, ld.sum(dim=1)
 
 
 def block_cr_apply_plain(factor, rhs, w: int, pivot: bool = False):
@@ -318,22 +331,66 @@ def block_cr_apply_plain(factor, rhs, w: int, pivot: bool = False):
     return x.reshape(G, n, B)
 
 
-def block_cr_factor(band, w: int, pivot: bool = False,
+def block_cr_factor(band, w: int, pivot: bool = False, logdet: bool = False,
                     backend: str | None = None):
     """The block-CR factor of (G, n, 2w+1) bands (lo = hi = w, n a multiple
-    of w), float64: (G, cr_factor_size(n // w, w)). CUDA tensors launch
-    ``csrc/block_cr.cu``'s factor kernel (one block per band)."""
+    of w), float64: (G, cr_factor_size(n // w, w)); with ``logdet``,
+    ``(factor, log|det| (G,))``. CUDA tensors launch ``csrc/block_cr.cu``'s
+    factor kernel (one block per band)."""
     if resolve_backend(backend, band.device) == "plain":
-        return block_cr_factor_plain(band, w, pivot=pivot)
+        return block_cr_factor_plain(band, w, pivot=pivot, logdet=logdet)
     G, nb = _check_factor_band(band, w)
     dev = band.device
     _build.expect(band, "band", torch.float64, (G, nb * w, 2 * w + 1), dev)
     fac = torch.empty((G, cr_factor_size(nb, w)), dtype=torch.float64,
                       device=dev)
+    ld = torch.empty((G,), dtype=torch.float64, device=dev) if logdet else None
     lib = _build.load_library()
-    err = lib.repro_cr_factor_f64(band.data_ptr(), fac.data_ptr(), G,
+    err = lib.repro_cr_factor_f64(band.data_ptr(), fac.data_ptr(),
+                                  None if ld is None else ld.data_ptr(), G,
                                   nb * w, w, int(pivot),
                                   _build.stream_handle(dev))
     _build.check(err, "cr_factor")
     _build.count_launch("cr_factor")
-    return fac
+    return (fac, ld) if logdet else fac
+
+
+def block_cr_apply_cols(G: int, B: int) -> int:
+    """Columns per (band, column chunk) item of an apply launch that leaves
+    ``cols`` open: the narrowest power of two whose items fit on the card's
+    SMs, one each (``csrc/block_cr.cu`` apply_cols)."""
+    cols = _build.load_library().repro_cr_apply_cols(G, B)
+    if cols < 0:
+        _build.check(-cols, "cr_apply column query")
+    return cols
+
+
+def block_cr_apply(factor, rhs, w: int, pivot: bool = False,
+                   backend: str | None = None, cols: int | None = None):
+    """Solve from a factor (G, cr_factor_size(nb, w)) of
+    :func:`block_cr_factor` against rhs (G, nb w, B), float64; returns x.
+    CUDA tensors launch ``csrc/block_cr.cu``'s apply kernel on a copy of
+    rhs, in items of ``cols`` columns (None: :func:`block_cr_apply_cols`);
+    the result does not depend on ``cols``."""
+    if resolve_backend(backend, rhs.device) == "plain":
+        return block_cr_apply_plain(factor, rhs, w, pivot=pivot)
+    if not 1 <= w <= MAX_W:
+        raise ValueError(f"the block-CR apply takes 1 <= w <= {MAX_W}")
+    G, npad, B = rhs.shape
+    if npad % w:
+        raise ValueError(f"the block-CR apply takes n a multiple of w: "
+                         f"n={npad}, w={w}")
+    if cols is not None and cols < 1:
+        raise ValueError(f"cols must be >= 1, got {cols}")
+    dev = rhs.device
+    _build.expect(factor, "factor", torch.float64,
+                  (G, cr_factor_size(npad // w, w)), dev)
+    _build.expect(rhs, "rhs", torch.float64, (G, npad, B), dev)
+    x = rhs.clone()
+    lib = _build.load_library()
+    err = lib.repro_cr_apply_f64(factor.data_ptr(), x.data_ptr(), G, npad, w,
+                                 B, cols or 0, int(pivot),
+                                 _build.stream_handle(dev))
+    _build.check(err, "cr_apply")
+    _build.count_launch("cr_apply")
+    return x

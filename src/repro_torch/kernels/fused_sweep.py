@@ -585,20 +585,9 @@ class FusedSweep:
                     pivot=self.pivot, backend=self.backend,
                     factors=self.cr_factors())
 
-    def pcg_columns(self, B: int, tol: float) -> int | None:
-        """Columns per launch of a per-iteration PCG solve of ``B`` columns,
-        as ``MegaSolve.pcg`` takes them: chunks of ``MAX_B`` (None) at
-        ``tol == 0``, where the columns are independent; with ``tol > 0``
-        the plain versions take all ``B`` at once, while CUDA launches take
-        at most ``MAX_B`` under the one host-side exit (the whole solve
-        raises there)."""
-        if tol == 0 or resolve_backend(self.backend, self.device) == "cuda":
-            return None
-        return B
-
-    def pcg_seed(self, v, x0=None, step: int | None = None):
+    def pcg_seed(self, v, x0=None):
         """The PCG seed ``(x, r, p, rz)``, padded, from unpadded ``v`` and
-        ``x0`` (None: a cold start), in column chunks of ``step``."""
+        ``x0`` (None: a cold start), in column chunks of ``MAX_B``."""
         kw = self._pcg_kw()
 
         def one(v_, x0_):
@@ -608,11 +597,12 @@ class FusedSweep:
             return pcg_seed(self.a, *self._ops(), v_p, x0_p,
                             warm=x0_ is not None, **kw)
 
-        return self.by_columns(one, v, x0, step=step)
+        return self.by_columns(one, v, x0)
 
-    def pcg_iter(self, x, r, p, rz, step: int | None = None):
-        """One PCG iteration on the padded state; ``(x, r, p, rz)``."""
+    def pcg_iter(self, x, r, p, rz):
+        """One PCG iteration on the padded state, in column chunks of
+        ``MAX_B``; ``(x, r, p, rz)``."""
         kw = self._pcg_kw()
         return self.by_columns(
             lambda *st: fused_pcg_iter(self.a, *self._ops(), *st, **kw),
-            x, r, p, rz, step=step)
+            x, r, p, rz)

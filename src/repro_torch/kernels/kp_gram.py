@@ -7,7 +7,7 @@ the step "Phi = A K"):
 
 for m in [-q, q]. Terms with ``i+t`` outside ``[0, n)`` are dropped and
 outputs with ``i+m`` outside it are zero. The CUDA kernel is
-``csrc/kp_gram.cu`` (one thread per row; q in {0, 1, 2}); the wrapper
+``csrc/kp_gram.cu`` (one thread per row; q in {0, 1, 2, 3}); the wrapper
 launches it for CUDA tensors and runs :func:`kp_gram_plain` for CPU
 tensors.
 """
@@ -21,7 +21,7 @@ from .ops import resolve_backend
 
 __all__ = ["kp_gram", "kp_gram_plain", "MAX_Q"]
 
-MAX_Q = 2  # csrc/kp_gram.cu MAXQ
+MAX_Q = 3  # csrc/kp_gram.cu MAXQ
 
 
 def _shift(x, k):
@@ -60,7 +60,7 @@ def kp_gram_plain(q: int, omega, xs, a_band):
 def kp_gram(q: int, omega, xs, a_band, backend: str | None = None):
     """Phi band (n, 2q+1) of ``A K`` for sorted ``xs`` (n,) and the KP
     coefficients ``a_band`` (n, 2q+3), float64; ``omega`` a float. CUDA
-    tensors launch ``csrc/kp_gram.cu`` (q <= 2)."""
+    tensors launch ``csrc/kp_gram.cu`` (q <= 3)."""
     if resolve_backend(backend, xs.device) == "plain":
         return kp_gram_plain(q, omega, xs, a_band)
     if not 0 <= q <= MAX_Q:

@@ -14,7 +14,9 @@ Counterpart of ``repro.kernels.mega_solve``: the whole solve of
   in the reference's op order, with the two inner products per RHS column
   over all (D, npad) rows. With ``tol > 0`` the loop runs while
   ``i < iters and any_b |rz_b| > tol^2 |rz0_b|``; every column iterates
-  until then. ``tol == 0`` runs exactly ``iters`` iterations. The
+  until then. ``tol == 0`` runs exactly ``iters`` iterations. A tol-exit
+  solve of more than ``MAX_B`` columns runs its column chunks in lockstep
+  under that one exit (:meth:`MegaSolve.pcg`). The
   per-iteration kernel of ``fused_sweep.py`` is this kernel's carry mode
   run for one iteration, and the plain whole solve loops the plain
   iteration, so the host loop of ``fused="on"`` agrees bit for bit.
@@ -154,8 +156,10 @@ class MegaSolve:
     column chunks of at most ``MAX_B``: the columns of a relaxation solve
     and of a fixed-count PCG (``tol == 0``) are independent, so the result
     is the same. With ``tol > 0`` the reference's PCG exit waits for every
-    column, so on CUDA a wider PCG solve raises instead of changing when the
-    chunks stop (the plain version takes it whole).
+    column, so a wider PCG solve runs its chunks in lockstep: one
+    per-iteration launch per chunk and iteration (``fused="on"``'s loop),
+    the exit tested on the host over all columns; every column iterates
+    until the exit, as in one whole solve.
     """
 
     def __init__(self, fs: FusedSweep):
@@ -180,19 +184,17 @@ class MegaSolve:
         fs = self.fs
         if fs.a is None:
             raise ValueError("PCG needs the A factor stack")
-        B = v.shape[-1]
-        if (B > MAX_B and tol > 0
-                and resolve_backend(fs.backend, v.device) == "cuda"):
-            raise ValueError(
-                f"a tol-exit solve of {B} > {MAX_B} columns cannot be split "
-                "(the exit waits for every column); pass tol=0 or fewer "
-                "columns")
+        if tol > 0 and v.shape[-1] > MAX_B:
+            (x, r, _, _), i = pcg_loop(fs.pcg_iter, fs.pcg_seed(v, x0),
+                                       iters=iters, tol=tol)
+            return (fs.unpad(x), fs.unpad(r),
+                    torch.tensor(i, dtype=torch.int32, device=v.device))
         return self._solve(lambda v_p, x0_p: mega_pcg_solve(
             fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v_p,
             x0_p, w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s, iters=iters, tol=tol,
             warm=x0 is not None, pivot=fs.pivot, backend=fs.backend,
             factors=fs.cr_factors()),
-            v, x0, MAX_B if tol == 0 else B)
+            v, x0, MAX_B)
 
     def jacobi(self, v, x0, *, alpha: float, iters: int):
         """Whole damped-Jacobi solve; returns ``(x, k)`` unpadded."""

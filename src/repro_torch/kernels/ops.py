@@ -18,13 +18,21 @@ and is a no-op on a diagonal band (``lo == hi == 0``); on the rest of the
 "lu" route (``lo != hi``, or ``alg="lu"`` with ``w >= 1``) it raises, since
 the reference's pivoted gbsv scan is not ported.
 
+A band solved many times keeps its block-CR factor: ``banded_factor``
+makes it once (one factor launch on CUDA tensors) where the route is "cr",
+and ``factor_solve`` solves from it (one apply launch), with the bits of
+``banded_solve``.
+
 How a backfitting solve fuses (``resolve_fused``) follows the reference's
 rules without its VMEM model: the per-iteration kernels ("on") or the
-whole-solve kernels ("whole") need symmetric bands, block CR and the block
-preconditioner; "off" runs the unfused host loops. ``kp_gram`` assembles
-the Kernel Packet Gram band (Algorithm 2) without forming K.
+whole-solve kernels ("whole") need symmetric bands of half-width at most
+the kernels' ``MAX_WIDTH`` (3), block CR and the block preconditioner;
+"off" runs the unfused host loops. ``kp_gram`` assembles the Kernel Packet
+Gram band (Algorithm 2) without forming K.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -32,6 +40,7 @@ __all__ = ["BACKENDS", "SOLVE_ALGS", "PRECOND_MODES", "FUSED_MODES",
            "KMG_AUTO_MIN_N", "resolve_backend", "resolve_solve_alg",
            "resolve_precond", "resolve_fused",
            "banded_matvec", "banded_solve", "banded_logdet",
+           "BandFactor", "banded_factor", "factor_solve",
            "band_band_matmul", "kp_gram"]
 
 BACKENDS = ("auto", "cuda")
@@ -94,10 +103,14 @@ def resolve_fused(fused: str | None, *, widths, cr_ok: bool = True,
     ``widths``: the (lo, hi) pairs of every band the sweep touches; ``cr_ok``
     is False when the solve alg forbids block CR (the only solve the fused
     kernels run). An explicit "on"/"whole" raises ``ValueError`` on
-    asymmetric bands, a CR conflict or ``precond="kmg"``. "auto" takes
-    "whole" when the bands are symmetric, CR is allowed and the
-    preconditioner is not kmg, and "off" otherwise.
+    asymmetric bands, a half-width above the fused kernels' ``MAX_WIDTH``,
+    a CR conflict or ``precond="kmg"``. "auto" takes "whole" when the bands
+    are symmetric and narrow enough, CR is allowed and the preconditioner
+    is not kmg, and "off" otherwise (as the reference's "auto" runs
+    unfused where its fused kernels cannot take the shape).
     """
+    from .fused_sweep import MAX_WIDTH
+
     f = "auto" if fused is None else fused
     if f not in FUSED_MODES:
         raise ValueError(
@@ -105,11 +118,17 @@ def resolve_fused(fused: str | None, *, widths, cr_ok: bool = True,
     if f == "off":
         return "off"
     symmetric = all(lo == hi for lo, hi in widths)
+    narrow = all(max(lo, hi) <= MAX_WIDTH for lo, hi in widths)
     if f in ("on", "whole"):
         if not symmetric:
             raise ValueError(
                 f"fused={f!r} requires symmetric bandwidths (lo == hi) on "
                 f"every factor; got {tuple(widths)}")
+        if not narrow:
+            raise ValueError(
+                f"fused={f!r} takes half-widths <= {MAX_WIDTH} (the fused "
+                f"kernels' widths); got {tuple(widths)}: use fused='off' "
+                "or 'auto'")
         if not cr_ok:
             raise ValueError(
                 f"fused={f!r} conflicts with solve alg 'lu': the fused "
@@ -119,7 +138,7 @@ def resolve_fused(fused: str | None, *, widths, cr_ok: bool = True,
                 f"fused={f!r} is incompatible with precond='kmg': the fused "
                 "pcg kernels hard-code the block preconditioner")
         return f
-    if not symmetric or not cr_ok or precond == "kmg":
+    if not symmetric or not narrow or not cr_ok or precond == "kmg":
         return "off"
     return "whole"
 
@@ -192,6 +211,53 @@ def banded_logdet(band, lo: int, hi: int, pivot: bool = False,
     else:
         _, ld = banded_lu(bf, None, lo, hi, backend=backend, solve=False)
     return ld.reshape(batch)
+
+
+@dataclasses.dataclass(frozen=True)
+class BandFactor:
+    """The block-CR factor of a stack of symmetric bands (``kernels.block_cr``
+    layout, of the bands identity-padded to whole w x w blocks): ``data``
+    (G, cr_factor_size(nb, w)) over the flattened ``batch``, the bands' n,
+    half-width w and the pivot mode it was made for."""
+
+    data: torch.Tensor
+    batch: tuple
+    n: int
+    w: int
+    pivot: bool
+
+
+def banded_factor(band, lo: int, hi: int, pivot: bool = False,
+                  backend: str | None = None, alg: str | None = None):
+    """The block-CR factor of band (..., n, lo+hi+1) where the solve route
+    is "cr" (lo == hi >= 1, ``alg`` permitting), else None: a diagonal band
+    divides and the LU route keeps no factor."""
+    from .block_cr import block_cr_factor, pad_band
+
+    if resolve_solve_alg(alg, lo, hi) != "cr":
+        return None
+    batch, (bf,) = _flatten_batch((band,), (2,))
+    data = block_cr_factor(pad_band(bf, lo), lo, pivot=pivot,
+                           backend=backend)
+    return BandFactor(data, tuple(batch), band.shape[-2], lo, pivot)
+
+
+def factor_solve(factor: BandFactor, rhs, backend: str | None = None):
+    """Solve with the bands of a :class:`BandFactor`; rhs (..., n) or
+    (..., n, k) over the factor's batch, as :func:`banded_solve` takes it,
+    with its bits."""
+    from .block_cr import block_cr_apply, pad_rows
+
+    n = factor.n
+    vec_in = rhs.ndim == len(factor.batch) + 1 and rhs.shape[-1] == n
+    rb = rhs[..., None] if vec_in else rhs
+    rf = rb.expand(factor.batch + rb.shape[-2:]).reshape(
+        (-1,) + rb.shape[-2:]).contiguous()
+    npad = -(-n // factor.w) * factor.w
+    x = block_cr_apply(factor.data, pad_rows(rf, npad), factor.w,
+                       pivot=factor.pivot, backend=backend)[:, :n]
+    out = x.reshape(factor.batch + x.shape[-2:])
+    return out[..., 0] if vec_in else out
 
 
 def band_band_matmul(a_band, b_band, a_lo: int, a_hi: int, b_lo: int,

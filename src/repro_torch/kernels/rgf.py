@@ -17,7 +17,7 @@ from .ops import resolve_backend
 
 __all__ = ["rgf_blocks", "rgf_blocks_plain", "rgf_inverse_band"]
 
-MAX_BLOCK = 5  # w <= 5 in the kernel (csrc/rgf.cu)
+BLOCKS = (1, 2, 3, 4, 5, 7)  # the kernel's block sizes (csrc/rgf.cu)
 
 
 def _mm(a, b):
@@ -58,8 +58,8 @@ def rgf_blocks(Dg, U, L, backend: str | None = None):
     if resolve_backend(backend, Dg.device) == "plain":
         return rgf_blocks_plain(Dg, U, L)
     G, T, w, _ = Dg.shape
-    if w > MAX_BLOCK:
-        raise ValueError(f"rgf kernel takes block size w <= {MAX_BLOCK}")
+    if w not in BLOCKS:
+        raise ValueError(f"rgf kernel takes block sizes {BLOCKS}, got {w}")
     dev = Dg.device
     for t, name in ((Dg, "Dg"), (U, "U"), (L, "L")):
         _build.expect(t, name, torch.float64, (G, T, w, w), dev)

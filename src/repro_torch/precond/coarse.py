@@ -172,7 +172,8 @@ def _build_level(q: int, omega, sigma2, X, xs_f, fine_ops: DimOps,
     sigma2_b = 3.0 * sigma2 / (2.0 * stride)
     SAPhi = add(scale(A, sigma2_b), Phi)
     ops_c = DimOps(A=A, Phi=Phi, SAPhi=SAPhi, sort_idx=sort_idx,
-                   rank_idx=rank_idx, sigma2=sigma2_b)
+                   rank_idx=rank_idx, sigma2=sigma2_b, pivot=fine_ops.pivot,
+                   alg=fine_ops.alg)
     npts = interp_order(q) + 1
     j0, W = _interp_maps(xs_f, xs_c, npts)
     r_idx, r_w = _restrict_map(j0, W, nc)

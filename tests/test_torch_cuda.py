@@ -21,9 +21,12 @@ from repro_torch.kernels.banded_lu import banded_lu, banded_lu_plain
 from repro_torch.kernels.banded_matvec import (banded_matvec,
                                                banded_matvec_plain)
 from repro_torch.core.backfitting import SolveConfig, solve_mhat
-from repro_torch.kernels.block_cr import (block_cr, block_cr_factor,
+from repro_torch.kernels.block_cr import (block_cr, block_cr_apply,
+                                          block_cr_apply_cols,
+                                          block_cr_apply_plain,
+                                          block_cr_factor,
                                           block_cr_factor_plain,
-                                          block_cr_plain)
+                                          block_cr_plain, pad_band)
 from repro_torch.kernels.fused_sweep import (fused_gauss_seidel_iter,
                                              fused_gauss_seidel_iter_plain,
                                              fused_jacobi_iter,
@@ -78,7 +81,7 @@ def test_band_matmul_kernel(dev, widths):
     assert _rel(band_matmul(a, b, *widths), band_matmul_plain(a, b, *widths)) < 1e-14
 
 
-@pytest.mark.parametrize("w", [1, 3, 5])
+@pytest.mark.parametrize("w", [1, 3, 5, 7])
 def test_rgf_kernel(dev, w):
     rng = np.random.default_rng(3)
     data = torch.as_tensor(band(rng, 3, 150, w, w), device=dev)
@@ -146,7 +149,7 @@ def test_banded_matvec_kernel(dev, lo, hi):
     assert _rel(y, banded_matvec_plain(bd, x, lo, hi)[..., 0]) < 1e-13
 
 
-@pytest.mark.parametrize("w", [1, 2, 3, 4])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("n", [8, 301])
 @pytest.mark.parametrize("pivot", [False, True])
 def test_block_cr_kernel(dev, w, n, pivot):
@@ -162,7 +165,10 @@ def test_block_cr_kernel(dev, w, n, pivot):
 
 @pytest.mark.parametrize("B", [160, 300])
 def test_mega_pcg_column_chunks(dev, B):
-    """More than MAX_B = 256 columns: fixed-count solves run in chunks."""
+    """More than MAX_B = 256 columns: fixed-count solves run in chunks; a
+    tol-exit solve runs its chunks in lockstep under one exit (a seed and
+    one per-iteration launch per chunk and iteration) and takes the plain
+    version's iterations."""
     rng = np.random.default_rng(8)
     ops_np = solve_operands(rng, 131, 3, 0)
     fs, v, _ = padded_operands(ops_np, dev, B, rng)
@@ -172,13 +178,24 @@ def test_mega_pcg_column_chunks(dev, B):
     assert _build.launch_counts()["mega_pcg"] == -(-B // 256)
     args = (fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2,
             fs.pad_state(v_t), torch.zeros_like(fs.pad_state(v_t)))
-    xr, rr, itr = mega_pcg_plain(*args, w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s,
-                                 iters=25)
+    kw = dict(w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s)
+    xr, rr, itr = mega_pcg_plain(*args, iters=25, **kw)
     assert x.shape == v_t.shape and int(it) == int(itr) == 25
     assert _rel(x, fs.unpad(xr)) < 1e-9
+    _build.reset_launch_counts()
+    # tol 1e-4 exits after ~24 iterations; from ~30 on, this small system
+    # amplifies any rounding difference (a 1e-15 change of v moves x by
+    # 1e-7 at tol 1e-6, plain against plain)
+    x, r, it = MegaSolve(fs).pcg(v_t, None, iters=100, tol=1e-4)
+    counts = _build.launch_counts()
+    xr, rr, itr = mega_pcg_plain(*args, iters=100, tol=1e-4, **kw)
+    assert int(it) == int(itr) < 100 and _rel(x, fs.unpad(xr)) < 1e-9
+    chunks = -(-B // 256)
     if B > 256:
-        with pytest.raises(ValueError, match="cannot be split"):
-            MegaSolve(fs).pcg(v_t, None, iters=25, tol=1e-8)
+        assert counts["mega_pcg"] == 0
+        assert counts["fused_pcg_iter"] == chunks * (int(it) + 1), counts
+    else:
+        assert counts["mega_pcg"] == 1
 
 
 def _gp_data(rng, n, D):
@@ -207,7 +224,7 @@ def test_likelihood_and_gradients_card_match_cpu(dev):
     assert _rel(ll, llc) < 1e-7
     assert _rel(go, goc) < 1e-7 and _rel(gs, gsc) < 1e-7
     learning = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
-                "banded_matvec", "block_cr")
+                "banded_matvec", "cr_factor", "cr_apply")
     assert all(counts[k] > 0 for k in learning), counts
 
 
@@ -248,10 +265,84 @@ def test_q2_card_matches_cpu(dev):
     assert _rel(go, goc) < 1e-7 and _rel(gs, gsc) < 1e-7
 
 
-def test_q3_on_card_raises(dev):
-    with pytest.raises(NotImplementedError, match="widths"):
-        fit(GPConfig(q=3, precond="none"), points(np.random.default_rng(0), 50, 2),
-            np.zeros(50), np.ones(2), 1.0)
+def _backward_err(band, x, rhs, w):
+    """Normwise backward error |M x - r| / (|M| |x| + |r|), max norms."""
+    res = banded_matvec_plain(band, x, w, w) - rhs
+    return float(res.abs().max() / (band.abs().sum(-1).max() * x.abs().max()
+                                    + rhs.abs().max()))
+
+
+def _refit_on(gp, dev):
+    """``gp``'s fit redone on ``dev`` from its own KP factors: the DimOps
+    (block-CR factors), the mean solve and the variance band on ``dev``;
+    only the factor assembly's SVDs are left out (two LAPACK builds' q = 3
+    null vectors differ, ROADMAP Queue 3)."""
+    import dataclasses
+
+    from repro_torch.core.additive_gp import posterior_caches
+    from repro_torch.core.backfitting import DimOps
+    from repro_torch.core.banded import Banded
+
+    def band(b):
+        return Banded(b.data.to(dev), b.lo, b.hi)
+
+    o = gp.ops
+    ops = DimOps(band(o.A), band(o.Phi), band(o.SAPhi), o.sort_idx.to(dev),
+                 o.rank_idx.to(dev), o.sigma2.to(dev),
+                 pivot=gp.config.pivot, alg=gp.config.solve_alg)
+    u_sy, bY, Gband, Hband = posterior_caches(gp.config, ops, gp.Y.to(dev))
+    return dataclasses.replace(
+        gp, X=gp.X.to(dev), Y=gp.Y.to(dev), omega=gp.omega.to(dev),
+        sigma=gp.sigma.to(dev), xs=gp.xs.to(dev), ops=ops, B=band(gp.B),
+        Psi=band(gp.Psi), bY=bY, u_sy=u_sy, Gband=Gband, Hband=Hband,
+        health=None)
+
+
+def test_q3_on_card_runs(dev):
+    """q = 3 (Matern-7/2) on the card: "auto" runs unfused (its bands are
+    wider than the fused kernels take), block CR at w = 3, 4 and 5, rgf at
+    w = 7. On a jittered grid with omega * spacing = 0.2, the card's fit
+    redone from the CPU fit's KP factors gives mean, variance and
+    log-likelihood within 1e-7 of the CPU's (the factors themselves come
+    from batched SVDs whose q = 3 null vectors differ between the card's
+    and the CPU's LAPACK, ROADMAP Queue 3); the gradients, through the
+    generalized-KP B (w = 5), are gated by the block-CR kernels' backward
+    error on that B against the plain version's. The spacing is twice the
+    q = 2 test's: at 0.1, cond(H = A Phi^T) reaches ~3e10 at q = 3, and
+    two exact float64 algorithms (RGF and a dense inverse, both on the CPU)
+    give variances 2e-6 apart; at 0.2 cond(H) is ~1e8, as at q = 2."""
+    rng = np.random.default_rng(12)
+    n, D = 400, 3
+    span = 0.2 * n / 4.0
+    X = points(rng, n, D, span=span)
+    Y = np.sin(X * 6.0 * np.pi / span).sum(1) + 0.1 * rng.standard_normal(n)
+    Xq = rng.uniform(0, span, (40, D))
+    cfg = GPConfig(q=3, solver_iters=60, precond="none")
+    omega = np.full(D, 4.0)
+    _build.reset_launch_counts()
+    g = fit(cfg, X, Y, omega, 0.5)
+    mu, var = posterior_mean(g, Xq), posterior_var(g, Xq)
+    counts = _build.launch_counts()
+    assert g.config.fused == "off" and g.B.lo == 5 and g.Hband.lo == 7
+    assert bool(torch.isfinite(torch.cat([mu, var])).all())
+    assert all(counts[k] > 0 for k in ("rgf_blocks", "cr_factor", "cr_apply",
+                                       "banded_matvec", "band_matmul"))
+    assert counts["mega_pcg"] == 0, counts
+    c = fit(cfg, X, Y, omega, 0.5, device="cpu")
+    s = _refit_on(c, dev)
+    assert _rel(posterior_mean(s, Xq), posterior_mean(c, Xq, device="cpu")) < 1e-7
+    assert _rel(posterior_var(s, Xq), posterior_var(c, Xq, device="cpu")) < 1e-7
+    assert _rel(log_likelihood(s, torch.Generator().manual_seed(2)),
+                log_likelihood(c, torch.Generator().manual_seed(2))) < 1e-7
+    vs = torch.as_tensor(rng.standard_normal((D, n, 4)))
+    rhs = banded_matvec_plain(c.Psi.data, vs, c.Psi.lo, c.Psi.hi)
+    xk, _ = block_cr(c.B.data.to(dev), rhs.to(dev), 5)
+    xp, _ = block_cr_plain(c.B.data, rhs, 5)
+    eps = float(torch.finfo(torch.float64).eps)
+    assert _backward_err(c.B.data, xk.cpu(), rhs, 5) <= 10 * max(
+        _backward_err(c.B.data, xp, rhs, 5), eps)
+    go, gs = mll_gradients(s, torch.Generator().manual_seed(3))
+    assert bool(torch.isfinite(go).all()) and bool(torch.isfinite(gs))
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +545,7 @@ def test_banded_lu_diag_kernel(dev, B, n, G):
     assert torch.equal(ldo, banded_lu(bd, None, 0, 0, solve=False)[1])
 
 
-@pytest.mark.parametrize("w", [1, 2, 3])
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5])
 @pytest.mark.parametrize("nb", [1, 8, 37])
 @pytest.mark.parametrize("pivot", [False, True])
 def test_cr_factor_kernel(dev, w, nb, pivot):
@@ -467,6 +558,33 @@ def test_cr_factor_kernel(dev, w, nb, pivot):
     assert _build.launch_counts()["cr_factor"] == 1
     want = block_cr_factor_plain(bd, w, pivot=pivot)
     assert fac.shape == want.shape and _rel(fac, want) < 1e-12
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("pivot", [False, True])
+def test_cr_apply_kernel(dev, w, pivot):
+    """The apply kernel against its plain twin on the same factor (G = 3,
+    n = 301 padded to whole blocks, B = 5); the factor's log-determinant
+    against the plain version's; every chunk width gives the same bits
+    (each column's arithmetic does not depend on its item); a factor plus
+    apply is one launch each."""
+    rng = np.random.default_rng(60 + 3 * w + pivot)
+    bd = pad_band(torch.as_tensor(band(rng, 3, 301, w, w), device=dev), w)
+    rhs = torch.as_tensor(rng.standard_normal((3, bd.shape[1], 5)),
+                          device=dev)
+    _build.reset_launch_counts()
+    fac, ld = block_cr_factor(bd, w, pivot=pivot, logdet=True)
+    x = block_cr_apply(fac, rhs, w, pivot=pivot)
+    counts = _build.launch_counts()
+    assert counts["cr_factor"] == 1 and counts["cr_apply"] == 1, counts
+    facp, ldp = block_cr_factor_plain(bd, w, pivot=pivot, logdet=True)
+    assert _rel(block_cr_apply_plain(fac, rhs, w, pivot=pivot), x) < 1e-12
+    assert _rel(x, block_cr_plain(bd, rhs, w, pivot=pivot)[0]) < 1e-12
+    assert _rel(ld, ldp) < 1e-12
+    assert 1 <= block_cr_apply_cols(3, 5) <= 5
+    for cols in (1, 2, 4, 5):
+        assert torch.equal(block_cr_apply(fac, rhs, w, pivot=pivot,
+                                          cols=cols), x), cols
 
 
 @pytest.mark.parametrize("q", [0, 1])
@@ -539,7 +657,7 @@ def test_pcg_on_equals_whole_bitwise(dev, warm, tol):
     assert outs["on counts"]["mega_pcg"] == 0
 
 
-@pytest.mark.parametrize("q", [0, 1, 2])
+@pytest.mark.parametrize("q", [0, 1, 2, 3])
 def test_kp_gram_kernel(dev, q):
     """kp_gram against its plain version and against the fit's Phi band
     (kp_factors) on a jittered grid, n = 1000 (not a multiple of the
@@ -580,7 +698,7 @@ def test_kmg_vcycle_deterministic(dev):
     z1, z2 = pre(r.to(dev)), pre(r.to(dev))
     counts = _build.launch_counts()
     assert torch.equal(z1, z2)
-    assert all(counts[k] > 0 for k in ("block_cr", "banded_lu",
+    assert all(counts[k] > 0 for k in ("cr_apply", "banded_lu",
                                        "banded_matvec")), counts
     assert _rel(z1, kmg_preconditioner(c.ops, c.hier)(r)) < 1e-10
 
@@ -595,7 +713,7 @@ def test_kmg_gp_card_matches_cpu(dev):
     assert g.config.fused == "off" and g.hier is not None
     assert _rel(mu, posterior_mean(c, Xq, device="cpu")) < 1e-7
     assert _rel(var, posterior_var(c, Xq, device="cpu")) < 1e-7
-    assert counts["mega_pcg"] == 0 and counts["block_cr"] > 0, counts
+    assert counts["mega_pcg"] == 0 and counts["cr_apply"] > 0, counts
 
 
 def test_pcg_on_gp_card_matches_cpu(dev):

@@ -6,7 +6,8 @@
 * Device rule: the entry points run on CUDA unless told ``device="cpu"``,
   and raise without a GPU; ``backend="cuda"`` on CPU tensors raises.
 * Configurations whose path is not ported raise ``NotImplementedError``;
-  those ported since (pcg with ``fused="on"``, kmg) resolve.
+  those ported since (pcg with ``fused="on"``, kmg, q = 3 on CUDA)
+  resolve.
 """
 from __future__ import annotations
 
@@ -114,8 +115,10 @@ def _case(i, cfg, n, device, resolves_to=None):
           dict(fused="off", precond="kmg")),
     # "auto" resolves to kmg at q = 0, n >= 4096
     _case(6, GPConfig(), 4096, "cpu", dict(fused="off", precond="kmg")),
-    # widths beyond the kernels
-    _case(7, GPConfig(q=3, precond="none"), 20, "cuda"),
+    # q = 3: its bands are wider than the fused kernels take, so "auto"
+    # runs unfused (the reference's "auto" also falls back to unfused)
+    _case(7, GPConfig(q=3, precond="none"), 20, "cuda",
+          dict(fused="off", precond="none")),
 ])
 def test_unported_paths_raise(cfg, n, device, resolves_to):
     """The unported paths raise; the cases ported since resolve as the

@@ -19,10 +19,10 @@ import torch
 
 from repro.kernels.banded_matvec import banded_matvec_pallas
 from repro.kernels.block_cr import block_cr_pallas
-from repro_torch.kernels import mega_solve, ops, ref
+from repro_torch.kernels import fused_sweep, mega_solve, ops, ref
 from repro_torch.kernels.banded_matvec import banded_matvec
 from repro_torch.kernels.block_cr import block_cr
-from repro_torch.kernels.mega_solve import MegaSolve
+from repro_torch.kernels.mega_solve import MegaSolve, mega_pcg_plain
 from torch_port_inputs import band, padded_operands, solve_operands
 from torch_port_jax_ref import fresh_jax_caches  # noqa: F401 (autouse)
 
@@ -119,7 +119,8 @@ def test_pivot_on_the_lu_route_raises():
 @pytest.mark.parametrize("warm", [False, True])
 def test_mega_pcg_column_chunks_match_one_solve(monkeypatch, warm):
     """Fixed-count solves wider than MAX_B run as column chunks with the
-    same result; a tol-exit solve is never split."""
+    same result; a wider tol-exit solve runs its chunks in lockstep, never
+    through independent whole-solve calls."""
     rng = np.random.default_rng(99)
     fs, v, x0 = padded_operands(solve_operands(rng, 37, 2, 0), "cpu", 7, rng)
     v_t, x0_t = torch.as_tensor(v), torch.as_tensor(x0) if warm else None
@@ -136,4 +137,34 @@ def test_mega_pcg_column_chunks_match_one_solve(monkeypatch, warm):
     assert np.max(np.abs((r - whole[1]).numpy())) / np.max(np.abs(v)) < 1e-12
     calls.clear()
     MegaSolve(fs).pcg(v_t, x0_t, iters=15, tol=1e-8)
-    assert calls == [7]
+    assert calls == []
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_mega_pcg_tol_exit_lockstep_matches_one_solve(monkeypatch, warm):
+    """A tol-exit solve of 300 > MAX_B columns runs its two column chunks
+    (256 and 44) in lockstep, one per-iteration step each per iteration,
+    under the reference's one exit over every column: through the plain
+    twins it takes the iterations of one plain PCG over all the columns,
+    and the same x to 1e-12."""
+    rng = np.random.default_rng(98)
+    fs, v, x0 = padded_operands(solve_operands(rng, 37, 2, 0), "cpu", 300,
+                                rng)
+    v_t, x0_t = torch.as_tensor(v), torch.as_tensor(x0) if warm else None
+    widths = []
+    step = fused_sweep.fused_pcg_iter
+    monkeypatch.setattr(fused_sweep, "fused_pcg_iter",
+                        lambda *a, **k: widths.append(a[6].shape[-1])
+                        or step(*a, **k))
+    x, r, it = MegaSolve(fs).pcg(v_t, x0_t, iters=40, tol=1e-6)
+    v_p = fs.pad_state(v_t)
+    start = fs.pad_state(x0_t) if warm else torch.zeros_like(v_p)
+    xr, rr, itr = mega_pcg_plain(
+        fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v_p,
+        start, w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s, iters=40, tol=1e-6,
+        warm=warm)
+    assert int(it) == int(itr) < 40
+    assert widths == [256, 44] * int(it)
+    assert _rel(x, fs.unpad(xr)) < 1e-12
+    assert (np.max(np.abs((r - fs.unpad(rr)).numpy())) / np.max(np.abs(v))
+            < 1e-12)

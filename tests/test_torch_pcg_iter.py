@@ -130,8 +130,8 @@ def test_on_solve_matches_jax(jax_on, warm, tol):
 @pytest.mark.parametrize("B_", [2, 5])
 def test_on_equals_whole_bitwise(monkeypatch, warm, tol, B_):
     """fused="on" and fused="whole" give the same bits; B_ = 5 with the
-    kernels' column limit set to 2 runs both as column chunks at tol = 0
-    (with tol > 0 both take every column at once on the CPU)."""
+    kernels' column limit set to 2 runs both as column chunks (with
+    tol > 0, in lockstep under one exit)."""
     from repro_torch.kernels import fused_sweep, mega_solve
 
     if B_ == 5:
