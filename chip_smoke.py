@@ -82,6 +82,7 @@ D_PATH, N_PATH, B_PATH, N_Q1, N_CHECK = 10, 30000, 32, 4000, 4000
 Q_PATH, Q_CHECK = 16, 8
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP64_FLOPS = 34e12  # H100 SXM FP64 outside the tensor cores (data sheet)
+L2_BYTES = 50e6  # H100 SXM L2 cache (NVIDIA data sheet)
 
 
 def _require_gpu():
@@ -121,7 +122,8 @@ def _import_port():
         FusedSweep, fused_gauss_seidel_iter,
         fused_gauss_seidel_iter_plain, fused_jacobi_iter,
         fused_jacobi_iter_plain, fused_pcg_iter, fused_pcg_iter_plain,
-        pcg_seed, pcg_seed_plain, pcg_solve_cols, sweep_backward_error)
+        gauss_seidel_cols, gauss_seidel_grid, pcg_seed, pcg_seed_plain,
+        pcg_solve_cols, sweep_backward_error)
     from repro_torch.kernels.kp_gram import kp_gram, kp_gram_plain
     from repro_torch.kernels.mega_solve import (
         MegaSolve, mega_gauss_seidel_plain, mega_gauss_seidel_solve,
@@ -244,10 +246,30 @@ def _solve_ops(w, B):
     return 1.0 if w == 0 else 8.0 * w * w + 12.0 * w ** 3 / B
 
 
+def _state_passes(N, iters, once, per_iter):
+    """Passes over (D, npad, B) state arrays of N doubles that a whole solve
+    of ``iters`` iterations must make. Where one such array fits the L2, the
+    iterations can keep the state on chip (as the TPU kernel keeps it in
+    VMEM), and only the solve's inputs and outputs count, each read or
+    written once: ``once``. Where it does not (77 MB at n = 30000, D = 10,
+    B = 32), every iteration streams what the one before wrote: ``once``
+    for the first iteration (whose reads and writes are the solve's inputs
+    and outputs), then ``per_iter`` for each later one."""
+    if iters <= 1 or 8 * N <= L2_BYTES:
+        return once
+    return once + (iters - 1) * per_iter
+
+
+# the whole PCG solve's state passes: once v and x0 read, x and r written;
+# per iteration x, r and p (the carried state) each read and written
+PCG_STATES, PCG_SWEPT = 4, 6
+
+
 def _mega_cost(D, npad, B, w_a, w_p, w_s, iters):
     N = D * npad * B
     nbytes = 8 * D * npad * (2 * w_a + 2 * w_p + 2 * w_s + 3) \
-        + 4 * 2 * D * npad + 8 * (4 * N + 1)
+        + 4 * 2 * D * npad \
+        + 8 * (N * _state_passes(N, iters, PCG_STATES, PCG_SWEPT) + 1)
     per_iter = (2 * (2 * w_a + 1) + 2 * (2 * w_p + 1) + _solve_ops(w_p, B)
                 + _solve_ops(w_s, B) + 14)
     return nbytes, iters * N * per_iter
@@ -546,17 +568,19 @@ def kernel_phase(P, rng, dev, shapes, ops_path, ops_q1):
     return rows
 
 
-def _sweep_cost(D, npad, B, w_p, w_s, iters, states, elem, final=0,
+def _sweep_cost(D, npad, B, w_p, w_s, iters, states, swept, elem, final=0,
                 warm=False):
     """(bytes, flops) of ``iters`` relaxation sweeps: the bands, the
-    permutations and ``states`` (D, npad, B) arrays (each input read once,
-    each output written once); per sweep and element the gathered Phi
-    matvec (4 w_p + 1), the SAPhi solve and ``elem`` elementwise flops, plus
-    ``final`` once (Gauss-Seidel's k, from the last sweep). A warm start
-    adds one SAPhi matvec, one Phi solve and 2 flops."""
+    permutations and the state passes of ``_state_passes`` (``states``
+    (D, npad, B) arrays, each input read once and each output written once;
+    ``swept`` passes a later sweep makes where the state exceeds the L2);
+    per sweep and element the gathered Phi matvec (4 w_p + 1), the SAPhi
+    solve and ``elem`` elementwise flops, plus ``final`` once (Gauss-Seidel's
+    k, from the last sweep). A warm start adds one SAPhi matvec, one Phi
+    solve and 2 flops."""
     N = D * npad * B
     nbytes = 8 * D * npad * (2 * w_p + 2 * w_s + 2) + 4 * 2 * D * npad \
-        + 8 * N * states + 8
+        + 8 * N * _state_passes(N, iters, states, swept) + 8
     ops = iters * N * (4 * w_p + 1 + _solve_ops(w_s, B) + elem) + N * final
     if warm:
         ops += N * (4 * w_s + 1 + _solve_ops(w_p, B) + 2)
@@ -569,6 +593,13 @@ def _sweep_cost(D, npad, B, w_p, w_s, iters, states, elem, final=0,
 # sweep only, its k (2)
 JACOBI_ELEM, JACOBI_K_ELEM = 8, 5
 GS_ELEM, GS_K_FINAL = 7, 2
+# state passes (``_sweep_cost``): a Jacobi sweep carrying k reads v, x and
+# k and writes x and k (5), and so does every later sweep of the whole
+# solve, whose inputs and outputs are v and x0 read, x and k written (4);
+# a Gauss-Seidel sweep reads v and x and writes x (3; the r and t1 of one
+# dimension, 7.7 MB at the main shape, stay in the L2), its inputs and
+# outputs, one sweep or the whole solve, v and x0 read, x and k written (4)
+JACOBI_SWEPT, GS_STATES, GS_SWEPT = 5, 4, 3
 
 
 RELAX_KERNELS = {
@@ -662,45 +693,57 @@ def relax_kernel_phase(P, rng, dev, ops_path, ops_q1, iters):
         al = 1.0 / fs.D
         shape = (fs.D, fs.npad, Bc, fs.w_p, fs.w_s)
         main = tag == "path q=0 B=32"
+        # the Gauss-Seidel kernel solves from SAPhi's factor, made once for
+        # the operand stack as the paths make it
+        gkw = dict(kw, factors=fs.saphi_factor())
+        print(f"gauss_seidel rows {tag}: from the held SAPhi factor, solve "
+              f"items of {P['gauss_seidel_cols'](Bc)} columns (cooperative "
+              f"grid {P['gauss_seidel_grid']()} blocks)", flush=True)
         got = [
             # reads v, x0, k; writes x, k
             run("fused_jacobi_iter", tag + " k",
                 lambda: P["fused_jacobi_iter"](*ops, v, x0, k, alpha=al, **kw),
                 lambda: P["fused_jacobi_iter_plain"](*ops, v, x0, k, alpha=al,
                                                      **kw),
-                *_sweep_cost(*shape, 1, 5, JACOBI_ELEM + JACOBI_K_ELEM),
+                *_sweep_cost(*shape, 1, 5, JACOBI_SWEPT,
+                             JACOBI_ELEM + JACOBI_K_ELEM),
                 reps=10),
             # reads v, x0; writes x, k
             run("fused_gauss_seidel_iter", tag + " k",
                 lambda: P["fused_gauss_seidel_iter"](*ops, v, x0,
-                                                     want_resid=True, **kw),
+                                                     want_resid=True, **gkw),
                 lambda: P["fused_gauss_seidel_iter_plain"](
                     *ops, v, x0, want_resid=True, **kw),
-                *_sweep_cost(*shape, 1, 4, GS_ELEM, GS_K_FINAL), reps=3),
+                *_sweep_cost(*shape, 1, GS_STATES, GS_SWEPT, GS_ELEM,
+                             GS_K_FINAL), reps=3),
             run("mega_jacobi", tag + f" warm {its} it",
                 lambda: P["mega_jacobi_solve"](*ops, v, x0, alpha=al,
                                                iters=its, warm=True, **kw),
                 lambda: P["mega_jacobi_plain"](*ops, v, x0, alpha=al,
                                                iters=its, warm=True, **kw),
-                *_sweep_cost(*shape, its, 4, JACOBI_ELEM + JACOBI_K_ELEM,
-                             warm=True), reps=3),
+                *_sweep_cost(*shape, its, 4, JACOBI_SWEPT,
+                             JACOBI_ELEM + JACOBI_K_ELEM, warm=True), reps=3),
             run("mega_gauss_seidel", tag + f" {its} it",
                 lambda: P["mega_gauss_seidel_solve"](*ops, v, x0,
-                                                     iters=its, **kw),
+                                                     iters=its, **gkw),
                 lambda: P["mega_gauss_seidel_plain"](*ops, v, x0,
                                                      iters=its, **kw),
-                *_sweep_cost(*shape, its, 4, GS_ELEM, GS_K_FINAL), reps=1),
+                *_sweep_cost(*shape, its, GS_STATES, GS_SWEPT, GS_ELEM,
+                             GS_K_FINAL), reps=1),
         ]
         # second witness to the bar: the SAPhi solves' backward error in one
         # undamped sweep, the kernel's within 10x the plain version's (a
         # stable solve reads a few eps at any conditioning; a wrong one not)
-        for name, seq, fn in (
-                ("jacobi", False, lambda f: f(*ops, v, x0, alpha=1.0, **kw)),
-                ("gauss_seidel", True, lambda f: f(*ops, v, x0, **kw))):
+        for name, seq, fn, fkw in (
+                ("jacobi", False, lambda f, a: f(*ops, v, x0, alpha=1.0, **a),
+                 kw),
+                ("gauss_seidel", True, lambda f, a: f(*ops, v, x0, **a),
+                 gkw)):
             kern, plain = (P[f"fused_{name}_iter{sfx}"]
                            for sfx in ("", "_plain"))
-            be = [P["sweep_backward_error"](*ops, v, x0, fn(f), sequential=seq,
-                                            **kw) for f in (kern, plain)]
+            be = [P["sweep_backward_error"](*ops, v, x0, fn(f, a),
+                                            sequential=seq, **kw)
+                  for f, a in ((kern, fkw), (plain, kw))]
             print(f"backward error {name} sweep {tag}: kernel {be[0]:.3e} "
                   f"plain {be[1]:.3e}", flush=True)
             if not be[0] <= 10 * max(be[1], eps):
@@ -1214,9 +1257,15 @@ def main():
                                    "finite, or diverged")
             sweep = ("mega_" if fused == "auto" else "fused_") + solver + (
                 "" if fused == "auto" else "_iter")
-            _require_launched(f"relaxation path {solver} {fused}", rc,
-                              ("banded_lu", "band_matmul", "rgf_blocks",
-                               sweep))
+            # Gauss-Seidel solves from SAPhi's factor: one cr_factor launch
+            # per FusedSweep (a solve), whatever its sweep count
+            need = ("banded_lu", "band_matmul", "rgf_blocks", sweep) + (
+                ("cr_factor",) if solver == "gauss_seidel" else ())
+            if solver == "gauss_seidel":
+                print(f"relaxation path {solver} fused={fused}: "
+                      f"{rc['cr_factor']} cr_factor launches for "
+                      f"{rc[sweep]} {sweep} launches", flush=True)
+            _require_launched(f"relaxation path {solver} {fused}", rc, need)
     _stamp("relaxation paths")
 
     # --- Algorithm 2's Gram assembly through the kernels layer's public op

@@ -1,7 +1,8 @@
-"""Time ``banded_lu`` at lo = hi = 0 and the PCG kernels of one checkout on an
-NVIDIA GPU, so two checkouts can be compared in one call.
+"""Time ``banded_lu`` at lo = hi = 0, the PCG kernels, ``block_cr`` and the
+Gauss-Seidel kernel of one checkout on an NVIDIA GPU, so two checkouts can
+be compared in one call.
 
-    python scripts/kernel_ab.py run SRC OUT.json [lu|pcg]
+    python scripts/kernel_ab.py run SRC OUT.json [lu|pcg|cr|gs]
     python scripts/kernel_ab.py table OUT_A.json OUT_B.json ...
 
 ``run`` imports the port from ``SRC`` (the ``src`` directory of the checkout
@@ -27,13 +28,21 @@ of ``chip_smoke.py``):
    factored standalone launches also the factor alone (with the
    log-determinant), the apply from a factor made beforehand at the
    kernel's own chunk width (``auto_cols``) and at each width of
-   ``CHUNK_WIDTHS``, and the apply's device time from ``torch.profiler``.
+   ``CHUNK_WIDTHS``, and the apply's device time from ``torch.profiler``;
+6. the Gauss-Seidel kernel on the path's operands at B = 1, 16, 32 and
+   160: one sweep with k (``fused_gauss_seidel_iter``, fused="on") and the
+   40-sweep whole solve (``mega_gauss_seidel_solve``, fused="whole"), as a
+   caller without a factor runs them; where the checkout solves from a held
+   SAPhi factor, also both from a factor made beforehand, the kernel's own
+   chunk width and grid, and the whole solve at each width of
+   ``GS_WIDTHS``; each sweep's device time by kernel from
+   ``torch.profiler``.
 
 To compare a parent with a change, unpack the parent with ``git archive``
 into a git-ignored directory and run parent, change, change, parent in one
 call; ``table`` prints the rows of each file side by side. ``lu`` as a
 last argument times 1, 2 and 4 only; ``pcg`` times 3 without the chunk
-widths; ``cr`` times 5 only.
+widths; ``cr`` times 5 only; ``gs`` times 6 only.
 """
 from __future__ import annotations
 
@@ -51,6 +60,8 @@ LU_B = (32, 16, 4, 1)
 PCG_B = ((32, 3), (160, 1), (16, 3), (1, 3))  # (columns, timed reps)
 CR_B = (1, 16, 32, 160)
 CHUNK_WIDTHS = (1, 2, 4, 8, 16)
+GS_B = ((1, 3), (16, 3), (32, 3), (160, 1))  # (columns, timed reps)
+GS_WIDTHS = (1, 2, 4, 8)
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 
 
@@ -223,6 +234,41 @@ def cr_rows(P, rng, dev):
     return rows
 
 
+def gs_rows(P, rng, dev):
+    fs = _operands(P, dev)
+    ops = (fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2)
+    kw = dict(w_p=fs.w_p, w_s=fs.w_s)
+    rows = {}
+    for B, reps in GS_B:
+        v = fs.pad_state(torch.as_tensor(rng.standard_normal((D, N, B)),
+                                         device=dev))
+        x0 = fs.pad_state(torch.as_tensor(
+            0.1 * rng.standard_normal((D, N, B)), device=dev))
+        sweep = lambda **extra: P["fused_gauss_seidel_iter"](  # noqa: E731
+            *ops, v, x0, want_resid=True, **kw, **extra)
+        whole = lambda **extra: P["mega_gauss_seidel_solve"](  # noqa: E731
+            *ops, v, x0, iters=40, **kw, **extra)
+        r = {"sweep_ms": _events(sweep, reps=10),
+             "whole_40_ms": _events(whole, reps=reps)}
+        if P["gs_factored"]:
+            fac = fs.saphi_factor()
+            r["auto_cols"] = P["gauss_seidel_cols"](B)
+            r["grid"] = P["gauss_seidel_grid"]()
+            r["sweep_prefactored_ms"] = _events(
+                lambda: sweep(factors=fac), reps=10)
+            r["whole_40_prefactored_ms"] = _events(
+                lambda: whole(factors=fac), reps=reps)
+            r["chunk_ms"] = {str(c): _events(
+                lambda: whole(factors=fac, cols=c), reps=reps)
+                for c in GS_WIDTHS if c <= B}
+            r["sweep_device_ms"] = _device_split(lambda: sweep(factors=fac))
+        else:
+            r["sweep_device_ms"] = _device_split(sweep)
+        rows[f"B={B}"] = r
+        print(f"gauss_seidel B={B}: {json.dumps(r)}", flush=True)
+    return rows
+
+
 def run(src, out, parts="all"):
     sys.path.insert(0, src)
     from repro_torch.core.banded import add, scale
@@ -232,12 +278,19 @@ def run(src, out, parts="all"):
     from repro_torch.kernels import block_cr as bcr
     from repro_torch.kernels import fused_sweep as fsm
     from repro_torch.kernels.banded_lu import banded_lu
-    from repro_torch.kernels.mega_solve import mega_pcg_solve
+    from repro_torch.kernels.mega_solve import (mega_gauss_seidel_solve,
+                                                mega_pcg_solve)
 
     P = dict(add=add, scale=scale, kp_factors=kp_factors,
              sample_test_function=sample_test_function, banded_lu=banded_lu,
              FusedSweep=fsm.FusedSweep, mega_pcg_solve=mega_pcg_solve,
-             pcg_seed=fsm.pcg_seed, fused_pcg_iter=fsm.fused_pcg_iter)
+             pcg_seed=fsm.pcg_seed, fused_pcg_iter=fsm.fused_pcg_iter,
+             fused_gauss_seidel_iter=fsm.fused_gauss_seidel_iter,
+             mega_gauss_seidel_solve=mega_gauss_seidel_solve)
+    P["gs_factored"] = hasattr(fsm, "gauss_seidel_cols")
+    if P["gs_factored"]:
+        P["gauss_seidel_cols"] = fsm.gauss_seidel_cols
+        P["gauss_seidel_grid"] = fsm.gauss_seidel_grid
     P["lu_solve_flag"] = "solve" in inspect.signature(banded_lu).parameters
     P["factored"] = hasattr(fsm, "pcg_factors")
     P["block_cr"] = bcr.block_cr
@@ -261,6 +314,8 @@ def run(src, out, parts="all"):
     rng = np.random.default_rng(0)
     if parts == "cr":
         res["cr"] = cr_rows(P, rng, dev)
+    elif parts == "gs":
+        res["gs"] = gs_rows(P, rng, dev)
     else:
         if parts != "pcg":
             res["lu_first"] = lu_rows(P, rng, dev, "first")
@@ -271,6 +326,7 @@ def run(src, out, parts="all"):
             res["lu_again"] = lu_rows(P, rng, dev, "again")
         if parts == "all":
             res["cr"] = cr_rows(P, rng, dev)
+            res["gs"] = gs_rows(P, rng, dev)
     with open(out, "w") as f:
         json.dump(res, f, indent=1)
 
@@ -289,6 +345,18 @@ def table(*paths):
                 vals.append("-")
         print(f"{name:42s} " + " | ".join(vals))
 
+    for B, _ in GS_B:
+        k = f"B={B}"
+        for f in ("sweep_ms", "sweep_prefactored_ms", "whole_40_ms",
+                  "whole_40_prefactored_ms", "auto_cols", "grid"):
+            line(f"gauss_seidel {k} {f}", lambda r: r["gs"][k][f])
+        for c in GS_WIDTHS:
+            line(f"gauss_seidel {k} whole_40 chunk {c}",
+                 lambda r: r["gs"][k]["chunk_ms"][str(c)])
+        for r in runs:
+            if "gs" in r:
+                print(f"  sweep device {k} ({r['src']}): "
+                      f"{r['gs'][k]['sweep_device_ms']}")
     for B in CR_B:
         k = f"B={B}"
         for f in ("block_cr_ms", "factor_logdet_ms", "apply_ms", "auto_cols"):

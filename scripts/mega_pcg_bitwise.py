@@ -1,14 +1,21 @@
-"""Hold the whole-PCG kernel of one checkout against another's, bit for bit.
+"""Hold the whole-PCG or Gauss-Seidel kernel of one checkout against
+another's, bit for bit.
 
-A refactor of code that ``csrc/mega_pcg.cu`` compiles (``sweep.cuh``,
-``cr.cuh``, ``common.cuh``) should leave its numbers unchanged. Run this
-once per checkout on an NVIDIA GPU, with the same operands file; the first
-run writes the operands (q = 0 at n = 30000 and q = 1 at n = 4000, D = 10,
-on a jittered grid), later runs load them, so both sides solve identical
-systems. Then compare the two output files::
+A refactor of code that ``csrc/mega_pcg.cu`` or ``csrc/gauss_seidel.cu``
+compiles (``sweep.cuh``, ``cr.cuh``, ``common.cuh``) should leave its
+numbers unchanged. Run this once per checkout on an NVIDIA GPU, with the
+same operands file; the first run writes the operands (q = 0 at n = 30000
+and q = 1 at n = 4000, D = 10, on a jittered grid), later runs load them,
+so both sides solve identical systems. Then compare the two output files::
 
-    python scripts/mega_pcg_bitwise.py run  SRC OUT OPERANDS
+    python scripts/mega_pcg_bitwise.py run  SRC OUT OPERANDS [pcg|gs]
     python scripts/mega_pcg_bitwise.py diff OUT_A OUT_B
+
+``pcg`` (the default) runs the whole PCG solve, cold and warm, with and
+without the tol exit. ``gs`` runs Gauss-Seidel in both pivot modes: the
+whole solve (40 sweeps from x0; fused="whole") and one sweep with k
+(fused="on"), each (x, k); where the checkout takes ``cols``, it also
+reports whether every chunk width 1, 2, 4, 8 gives the default's bits.
 
 ``SRC`` is the ``src`` directory of the checkout to run (its kernels are
 built beside it, under its own ``build/``).
@@ -60,13 +67,50 @@ def _operands(path, dev):
     torch.save(ops, path)
 
 
-def run(src, out, opfile):
+def _run_gs(opfile, dev):
+    """Gauss-Seidel (x, k, 0) per (q, n, B, pivot, mode); the chunk widths'
+    agreement is printed."""
+    import inspect
+
+    from repro_torch.kernels.fused_sweep import fused_gauss_seidel_iter
+    from repro_torch.kernels.mega_solve import mega_gauss_seidel_solve
+
+    widths = "cols" in inspect.signature(mega_gauss_seidel_solve).parameters
+    res = {}
+    for key, o in torch.load(opfile).items():
+        _, phi, saphi, si, ri, s2, v, x0 = (t.to(dev) for t in o["t"])
+        ops = (phi, saphi, si, ri, s2, v, x0)
+        _, w_p, w_s = o["w"]
+        for pivot in (False, True):
+            kw = dict(w_p=w_p, w_s=w_s, pivot=pivot)
+            calls = {
+                "whole": lambda **c: mega_gauss_seidel_solve(
+                    *ops, iters=40, **kw, **c),
+                "on": lambda **c: fused_gauss_seidel_iter(
+                    *ops, want_resid=True, **kw, **c)}
+            for mode, call in calls.items():
+                x, k = call()
+                res[key + (pivot, mode)] = (x.cpu(), k.cpu(), 0)
+                if widths:
+                    same = all(
+                        all(torch.equal(a, b) for a, b in
+                            zip(call(cols=c), (x, k))) for c in (1, 2, 4, 8))
+                    print(f"gs (q, n, B) = {key} pivot={pivot} {mode}: "
+                          f"chunk widths 1, 2, 4, 8 bitwise {same}",
+                          flush=True)
+    return res
+
+
+def run(src, out, opfile, solver="pcg"):
     sys.path.insert(0, src)
     from repro_torch.kernels.mega_solve import mega_pcg_solve
 
     dev = torch.device("cuda")
     if not os.path.exists(opfile):
         _operands(opfile, dev)
+    if solver == "gs":
+        torch.save(_run_gs(opfile, dev), out)
+        return
     res = {}
     for key, o in torch.load(opfile).items():
         a, phi, saphi, si, ri, s2, v, x0 = (t.to(dev) for t in o["t"])
@@ -108,10 +152,12 @@ def diff(path_a, path_b):
     for k in a:
         same = (torch.equal(a[k][0], b[k][0]) and torch.equal(a[k][1], b[k][1])
                 and a[k][2] == b[k][2])
-        rel = float((a[k][0] - b[k][0]).abs().max() / a[k][0].abs().max())
+        rel = [float((a[k][i] - b[k][i]).abs().max() / a[k][i].abs().max())
+               for i in (0, 1)]
         same_all &= same
-        print(f"(q, n, B, warm, tol) = {k}: bitwise {same}, x max rel "
-              f"{rel:.3e}, iterations {a[k][2]} / {b[k][2]}")
+        print(f"(q, n, B, ...) = {k}: bitwise {same}, x max rel "
+              f"{rel[0]:.3e}, r (pcg) or k (gs) max rel {rel[1]:.3e}, "
+              f"iterations {a[k][2]} / {b[k][2]}")
     print(f"all bitwise: {same_all}")
 
 

@@ -17,20 +17,41 @@
 // caller forms the exit residual with no extra matvec.
 //
 // What bounds it on the H100: the dimensions run in sequence, each a
-// gathered matvec, a block-CR solve of one system and an update, with grid
-// barriers between them (three per dimension); one system's solve is a
-// latency chain of ceil(log2 nb) levels each way. The bytes per sweep are a
-// few passes over (D, npad, B) states.
+// block-CR solve of one system between elementwise phases, with grid
+// barriers between them; one system's solve is a latency chain of
+// ceil(log2 nb) levels each way, a block barrier per level, which one
+// block per column chunk walks. A sweep also streams a few passes over
+// (D, npad, B) states: 77 MB each at the serving path's 10 x 30000 x 32,
+// more than the 50 MB L2, so at least x read and written and v read from
+// device memory every sweep.
 //
 // Design: one cooperative kernel for both entry points; the per-sweep
 // launch (fused="on") is the whole-solve kernel run for one sweep, so
 // a host loop of sweeps and the whole solve execute the same machine code
-// and agree bit for bit. The active dimension's solve spreads its columns
-// over the blocks (sweep.cuh solve_cols): every block recomputes the same
-// block elimination on its own scratch and solves its columns, so one
-// system occupies up to min(B, grid) SMs instead of one. The update of
-// dimension d and the residual of dimension d + 1 are one phase: each thread
-// owns a (row, column) pair of the running total.
+// and agree bit for bit.
+//   * SAPhi does not change during a solve (nor between the launches of one
+//     FusedSweep), so its block-CR elimination is factored once by the
+//     caller (cr_block_factor, block_cr.cu's factor launch) and each
+//     dimension step only replays the right-hand-side half of it from the
+//     factor (sweep.cuh apply_cols: cr_block_solve's own expressions in its
+//     order, so the same bits), reading the factor with no scratch.
+//     Gauss-Seidel multiplies by Phi and never solves with it, so SAPhi's
+//     factor is the only one.
+//   * Only one dimension is active per step, so the solve's items are
+//     chunks of `cpc` of the B columns (sweep.cuh auto_cols with D = 1:
+//     one column an item while B fits the grid), each on a block of its
+//     own. The solve's operand t1 holds each dimension in column chunks
+//     (sweep.cuh chunk_col), so an item's rows are contiguous: at one
+//     column an item, its column is, where a row-major (npad, B) block
+//     would give it 8 bytes of every 32-byte sector it reads.
+//   * The update of dimension d and the residual of dimension d + 1 are
+//     one phase: each thread owns a (row, column) pair of the running
+//     total, ROW_ILP rows at a time. At w_p = 0 (Phi diagonal, q = 0) the
+//     sorted row i of t1_{d+1} needs r_{d+1} at the one row sort[i], so
+//     that phase also forms t1_{d+1}, its thread taking state row
+//     sort[i] for sorted row i (the sweep's first phase does so for
+//     t1_0): two grid barriers a dimension instead of three, and r is
+//     stored only where the final sweep's k reads it.
 #include <cooperative_groups.h>
 
 #include "sweep.cuh"
@@ -45,6 +66,7 @@ using repro::Map;
 
 constexpr int NT = repro::SWEEP_NT;
 constexpr int MAX_BLOCKS_PER_SM = 2;
+constexpr int ILP = repro::ROW_ILP;  // rows a thread takes at a time
 
 struct Args : repro::SweepDims {
   const double* phi;
@@ -57,9 +79,8 @@ struct Args : repro::SweepDims {
   double* r;
   double* t1;
   double* tp;
-  double* scratch;
-  long long sstride;  // CR scratch doubles per slot and array
-  int w_p, w_s, iters, nslots;
+  const double* fac_s;  // SAPhi's block-CR factor per dimension
+  int w_p, w_s, iters, cpc;
 };
 
 template <bool PIVOT>
@@ -67,11 +88,20 @@ __global__ void __launch_bounds__(NT) gs_kernel(Args A) {
   cg::grid_group grid = cg::this_grid();
   const Map m = make_map(A.B);
   const int B = A.B, D = A.D;
+  const long long npad = A.npad, per = npad * B;
   const double s2 = *A.sigma2;
+  // this thread's column of t1, which holds each dimension in column
+  // chunks of cpc (sweep.cuh chunk_col): (d, i, m.b) at d per + tc + i tn
+  int tn = 1;
+  const long long tc = repro::chunk_col(m.b, A.npad, B, A.cpc, &tn);
+  // w_p = 0: Phi is diagonal, so t1_d's sorted row i reads r_d at the one
+  // row j = sort_d[i] alone, and the phase that forms r_d can form t1_d:
+  // its thread takes row j of the state for sorted row i (each j once)
+  const bool fuse = A.w_p == 0;
 
   if (A.iters == 0) {
     if (m.on) {
-      const long long rows = (long long)D * A.npad;
+      const long long rows = (long long)D * npad;
       for (long long row = m.r0; row < rows; row += m.rs) {
         const long long e = row * B + m.b;
         A.x[e] = A.x_in[e];
@@ -82,44 +112,89 @@ __global__ void __launch_bounds__(NT) gs_kernel(Args A) {
   }
   for (int it = 0; it < A.iters; ++it) {
     const bool last = it == A.iters - 1;
+    // r is read again only by the next gather (w_p >= 1) or, in the
+    // final sweep, for k
+    const bool keep_r = !fuse || (A.k && last);
     const double* u = it == 0 ? A.x_in : A.x;
     if (it > 0) grid.sync();
-    // total over the dimensions and r_0 (the first sweep also copies x_in)
+    // total over the dimensions and r_0 (the first sweep also copies x_in);
+    // fused, also t1_0
     if (m.on) {
-      for (long long i = m.r0; i < A.npad; i += m.rs) {
+      for (long long i = m.r0; i < npad; i += m.rs) {
+        const long long j = fuse ? A.sort[i] : i;
         double tot = 0.0;
         for (int d = 0; d < D; ++d) {
-          const long long e = ((long long)d * A.npad + i) * B + m.b;
+          const long long e = ((long long)d * npad + j) * B + m.b;
           tot += u[e];
           if (it == 0) A.x[e] = u[e];
         }
-        const long long e0 = i * B + m.b;
+        const long long e0 = j * B + m.b;
         A.tp[e0] = tot;
-        A.r[e0] = A.v[e0] - (tot - u[e0]) / s2;
+        const double r0 = A.v[e0] - (tot - u[e0]) / s2;
+        if (keep_r) A.r[e0] = r0;
+        if (fuse) {
+          double a = 0.0;
+          a += A.phi[i] * r0;
+          A.t1[tc + i * tn] = a;
+        }
       }
     }
     for (int d = 0; d < D; ++d) {
+      const long long base = (long long)d * npad;
+      if (!fuse) {
+        grid.sync();
+        repro::gather_mv_to<ILP>(A, m, A.r, A.phi, A.w_p, d, d + 1,
+                                 [&](long long row, double a) {
+                                   A.t1[d * per + tc + (row - base) * tn] = a;
+                                 });
+      }
       grid.sync();
-      gather_mv(A, m, A.t1, A.r, A.phi, A.w_p, d, d + 1);
+      repro::apply_cols<PIVOT, true>(A, m, A.t1, A.saphi, A.fac_s, A.w_s, d,
+                                     d + 1, A.cpc);
       grid.sync();
-      repro::solve_cols<PIVOT>(A, m, A.t1, A.saphi, A.w_s, d, d + 1,
-                               A.scratch, A.sstride, A.nslots);
-      grid.sync();
+      // the update of dimension d and r of dimension d + 1 (fused, also
+      // t1_{d+1}), ILP rows at a time (sweep.cuh for_rows: the loads, then
+      // each row's arithmetic as a plain loop has it); a row's stores touch
+      // no row another row loads
       if (m.on) {
-        const long long base = (long long)d * A.npad;
-        for (long long i = m.r0; i < A.npad; i += m.rs) {
-          const long long e = (base + i) * B + m.b;
-          const long long t = i * B + m.b;
-          const double nw = s2 * A.t1[(base + A.rank[base + i]) * B + m.b];
-          const double tot = A.tp[t] - A.x[e] + nw;
-          A.tp[t] = tot;
-          if (A.k && last) A.k[e] = A.r[e] - nw / s2;
-          A.x[e] = nw;
-          if (d + 1 < D) {
-            const long long e1 = e + (long long)A.npad * B;
-            A.r[e1] = A.v[e1] - (tot - A.x[e1]) / s2;
-          }
-        }
+        const bool more = d + 1 < D, keep_k = A.k && last;
+        const bool gather = fuse && more;
+        const long long next = base + npad;
+        double tv[ILP], tp[ILP], xd[ILP], rd[ILP], v1[ILP], x1[ILP], ph[ILP];
+        long long jj[ILP];
+        repro::for_rows<ILP>(
+            m, 0, npad,
+            [&](int u, long long i) {
+              const long long j = gather ? A.sort[next + i] : i;
+              const long long e = (base + j) * B + m.b;
+              jj[u] = j;
+              tv[u] = A.t1[d * per + tc + A.rank[base + j] * tn];
+              tp[u] = A.tp[j * B + m.b];
+              xd[u] = A.x[e];
+              if (keep_k) rd[u] = A.r[e];
+              if (more) {
+                v1[u] = A.v[e + per];
+                x1[u] = A.x[e + per];
+              }
+              if (gather) ph[u] = A.phi[next + i];
+            },
+            [&](int u, long long i) {
+              const long long e = (base + jj[u]) * B + m.b;
+              const double nw = s2 * tv[u];
+              const double tot = tp[u] - xd[u] + nw;
+              A.tp[jj[u] * B + m.b] = tot;
+              if (keep_k) A.k[e] = rd[u] - nw / s2;
+              A.x[e] = nw;
+              if (more) {
+                const double r1 = v1[u] - (tot - x1[u]) / s2;
+                if (keep_r) A.r[e + per] = r1;
+                if (gather) {
+                  double a = 0.0;
+                  a += ph[u] * r1;
+                  A.t1[(d + 1) * per + tc + i * tn] = a;
+                }
+              }
+            });
       }
     }
   }
@@ -130,53 +205,62 @@ int grid_blocks(int* out) {
   return repro::cooperative_blocks(gs_kernel<PIVOT>, MAX_BLOCKS_PER_SM, out);
 }
 
-int slots(int B, int pivot, int* grid, int* nslots) {
-  const int err = pivot ? grid_blocks<true>(grid) : grid_blocks<false>(grid);
-  if (err) return err;
-  *nslots = B < *grid ? B : *grid;
-  return 0;
+int grid_size(int pivot, int* grid) {
+  return pivot ? grid_blocks<true>(grid) : grid_blocks<false>(grid);
 }
 
 }  // namespace
 
-// float64 workspace entries of one launch: r, t1, the total and the CR
-// scratch (negative: -error)
-extern "C" long long repro_gauss_seidel_workspace(int D, int npad, int B,
-                                                  int w_s, int pivot) {
-  int grid = 0, nslots = 0;
-  const int err = slots(B, pivot, &grid, &nslots);
-  if (err) return -(long long)err;
-  return 2LL * D * npad * B + (long long)npad * B +
-         3LL * nslots * npad * w_s;
+// float64 workspace entries of one launch: r, t1 and the total
+extern "C" long long repro_gauss_seidel_workspace(int D, int npad, int B) {
+  return 2LL * D * npad * B + (long long)npad * B;
+}
+
+// Blocks of the cooperative grid (negative: -error).
+extern "C" int repro_gauss_seidel_grid(int pivot) {
+  int grid = 0;
+  const int err = grid_size(pivot, &grid);
+  return err ? -err : grid;
+}
+
+// Columns per solve item that a launch with cpc = 0 takes (negative:
+// -error): sweep.cuh auto_cols for the one active dimension.
+extern "C" int repro_gauss_seidel_cols(int B, int pivot) {
+  int grid = 0;
+  const int err = grid_size(pivot, &grid);
+  return err ? -err : repro::auto_cols(1, B, grid);
 }
 
 // x_in (D, npad, B) the start; x the output; k (nullable) receives the
-// final sweep's Khat^{-1} x (zeros when iters == 0); `iters` sweeps.
+// final sweep's Khat^{-1} x (zeros when iters == 0); `iters` sweeps. fac_s
+// holds SAPhi's D block-CR factors (block_cr.cu repro_cr_factor_f64 of
+// saphi, in the launch's pivot mode); cpc is the number of columns each
+// solve item takes (0: chosen by auto_cols).
 extern "C" int repro_gauss_seidel_f64(const double* phi, const double* saphi,
-                                      const int* sort, const int* rank,
-                                      const double* sigma2, const double* v,
-                                      const double* x_in, double* x,
-                                      double* k, double* work, int D,
-                                      int npad, int B, int w_p, int w_s,
-                                      int iters, int pivot, void* stream) {
+                                      const double* fac_s, const int* sort,
+                                      const int* rank, const double* sigma2,
+                                      const double* v, const double* x_in,
+                                      double* x, double* k, double* work,
+                                      int D, int npad, int B, int w_p,
+                                      int w_s, int iters, int cpc, int pivot,
+                                      void* stream) {
   if (D < 1 || npad < 1 || B < 1 || B > NT || w_p < 0 || w_s < 1 ||
-      w_p > 3 || w_s > 3 || iters < 0)
+      w_p > 3 || w_s > 3 || iters < 0 || cpc < 0 || !fac_s)
     return (int)cudaErrorInvalidValue;
   if ((w_p > 0 && npad % w_p) || npad % w_s) return (int)cudaErrorInvalidValue;
-  int grid = 0, nslots = 0;
-  const int err = slots(B, pivot, &grid, &nslots);
+  int grid = 0;
+  const int err = grid_size(pivot, &grid);
   if (err) return err;
   const long long N = (long long)D * npad * B;
   Args A;
   A.sort = sort; A.rank = rank; A.D = D; A.npad = npad; A.B = B;
-  A.phi = phi; A.saphi = saphi; A.sigma2 = sigma2; A.v = v; A.x_in = x_in;
-  A.x = x; A.k = k;
+  A.phi = phi; A.saphi = saphi; A.fac_s = fac_s; A.sigma2 = sigma2;
+  A.v = v; A.x_in = x_in; A.x = x; A.k = k;
   A.r = work;
   A.t1 = A.r + N;
   A.tp = A.t1 + N;
-  A.scratch = A.tp + (long long)npad * B;
-  A.sstride = (long long)npad * w_s;
-  A.w_p = w_p; A.w_s = w_s; A.iters = iters; A.nslots = nslots;
+  A.w_p = w_p; A.w_s = w_s; A.iters = iters;
+  A.cpc = cpc == 0 ? repro::auto_cols(1, B, grid) : (cpc < B ? cpc : B);
   void* params[] = {&A};
   const void* fn = pivot ? (const void*)gs_kernel<true>
                          : (const void*)gs_kernel<false>;

@@ -328,16 +328,6 @@ int grid_blocks(bool pivot, int* out) {
                                            MAX_BLOCKS_PER_SM, out);
 }
 
-// Columns per solve item when the caller leaves it open: the narrowest
-// power of two (at most B) that gives every (dimension, chunk) item a block
-// of its own, so a solve is one round of items. Narrower items cost a
-// second round; wider ones put more columns on fewer blocks.
-int auto_cols(int D, int B, int grid) {
-  int c = 1;
-  while (c < B && (long long)D * ((B + c - 1) / c) > grid) c <<= 1;
-  return c < B ? c : B;
-}
-
 }  // namespace
 
 // Number of float64 workspace entries a launch needs (negative: -error).
@@ -355,7 +345,7 @@ extern "C" long long repro_mega_pcg_workspace(int D, int npad, int B,
 extern "C" int repro_mega_pcg_cols(int D, int B, int pivot) {
   int grid = 0;
   const int err = grid_blocks(pivot != 0, &grid);
-  return err ? -err : auto_cols(D, B, grid);
+  return err ? -err : repro::auto_cols(D, B, grid);
 }
 
 // Seed modes read v and x0 and write x, r, p and rz (1, B); the carry mode
@@ -363,7 +353,7 @@ extern "C" int repro_mega_pcg_cols(int D, int B, int pivot) {
 // 0). iters_out receives the iterations run. fac_p (w_p >= 1) and fac_s
 // hold D block-CR factors each (block_cr.cu repro_cr_factor_f64 of phi and
 // saphi); cpc is the number of columns each solve item takes (0: chosen
-// by auto_cols).
+// by sweep.cuh auto_cols).
 extern "C" int repro_mega_pcg_f64(const double* a, const double* phi,
                                   const double* saphi, const double* fac_p,
                                   const double* fac_s, const int* sort,
@@ -397,7 +387,7 @@ extern "C" int repro_mega_pcg_f64(const double* a, const double* phi,
   A.iters_out = iters_out;
   A.D = D; A.npad = npad; A.B = B; A.w_a = w_a; A.w_p = w_p; A.w_s = w_s;
   A.iters = iters; A.mode = mode; A.tol = tol;
-  A.cpc = cpc == 0 ? auto_cols(D, B, grid) : (cpc < B ? cpc : B);
+  A.cpc = cpc == 0 ? repro::auto_cols(D, B, grid) : (cpc < B ? cpc : B);
   void* params[] = {&A};
   const void* fn = pivot ? (const void*)mega_pcg_kernel<true>
                          : (const void*)mega_pcg_kernel<false>;

@@ -2,7 +2,8 @@
 // jacobi.cu, gauss_seidel.cu), float64: the thread map, the gathered banded
 // matvec and the cross-dimension total of the elementwise phases, the
 // column-split block-CR solves (solve_cols recomputes the elimination per
-// item; apply_cols reads a stored factor), and the cooperative grid size.
+// item; apply_cols reads a stored factor), the chunk width of apply_cols
+// (auto_cols) and the cooperative grid size.
 // (mega_pcg.cu keeps its own inner products: the sweeps need none.)
 //
 // They act on (D, npad, B) state stacks in original point order, with the
@@ -69,14 +70,15 @@ __device__ __forceinline__ void for_rows(const Map& m, long long begin,
   }
 }
 
-// dst[d,i,b] = sum_m band[d,i,w+m] * src[d, sort[d,i+m], b] for d in
-// [d0, d1): the banded matvec of the sort-gathered state, in the
-// reference's shift order m = -w..w; U rows at a time (for_rows)
-template <int U = 1>
-__device__ __forceinline__ void gather_mv(const SweepDims& S, const Map& m,
-                                          double* dst, const double* src,
-                                          const double* band, int w, int d0,
-                                          int d1) {
+// store(row, sum_m band[d,i,w+m] * src[d, sort[d,i+m], b]) for the rows
+// d * npad + i of the dimensions [d0, d1), column b = m.b: the banded
+// matvec of the sort-gathered state, in the reference's shift order
+// m = -w..w; U rows at a time (for_rows)
+template <int U = 1, typename Store>
+__device__ __forceinline__ void gather_mv_to(const SweepDims& S,
+                                             const Map& m, const double* src,
+                                             const double* band, int w,
+                                             int d0, int d1, Store&& store) {
   if (!m.on) return;
   const int B = S.B, wb = 2 * w + 1;
   double acc[U];
@@ -96,7 +98,18 @@ __device__ __forceinline__ void gather_mv(const SweepDims& S, const Map& m,
         }
         acc[u] = a;
       },
-      [&](int u, long long row) { dst[row * B + m.b] = acc[u]; });
+      [&](int u, long long row) { store(row, acc[u]); });
+}
+
+// dst[d,i,b] = the gathered matvec of gather_mv_to, dst (D, npad, B)
+template <int U = 1>
+__device__ __forceinline__ void gather_mv(const SweepDims& S, const Map& m,
+                                          double* dst, const double* src,
+                                          const double* band, int w, int d0,
+                                          int d1) {
+  gather_mv_to<U>(S, m, src, band, w, d0, d1, [&](long long row, double a) {
+    dst[row * S.B + m.b] = a;
+  });
 }
 
 template <int U = 1>
@@ -180,14 +193,29 @@ __device__ void solve_cols(const SweepDims& S, const Map& m, double* t,
   }
 }
 
+// Where element (i, b) of one dimension's (npad, B) block lies when the
+// block is stored in column chunks of cpc (CHUNKED below): chunk c holds the
+// columns c0 = c cpc ... c0 + nc - 1, nc = min(cpc, B - c0), as an (npad,
+// nc) row-major block at offset c0 npad, so a chunk's rows are nc
+// contiguous doubles (one at cpc = 1, where the block is column-major).
+// Returns the column's offset; the element is at offset + i * *nc.
+__device__ __forceinline__ long long chunk_col(int b, int npad, int B,
+                                               int cpc, int* nc) {
+  const int c0 = b - b % cpc;
+  *nc = B - c0 < cpc ? B - c0 : cpc;
+  return (long long)c0 * npad + (b - c0);
+}
+
 // t <- band^{-1} t for the dimensions [d0, d1) from the bands' block-CR
 // factors (`fac`: one cr_block_factor per dimension, cr_factor_size(npad /
 // w, w) doubles each), with the (dimension, chunk of `cpc` columns) items
 // spread over every block of the grid; w = 0 divides by the diagonal. The
 // factor is read only, so the blocks need no scratch, and each item's
 // result is cr_block_solve's bit for bit. The division takes ROW_ILP rows at
-// a time.
-template <bool PIVOT>
+// a time. CHUNKED: each dimension of t is stored in column chunks of cpc
+// (chunk_col), so an item reads and writes whole rows of its own chunk
+// rather than cpc of every row's B doubles (w >= 1).
+template <bool PIVOT, bool CHUNKED = false>
 __device__ void apply_cols(const SweepDims& S, const Map& m, double* t,
                            const double* band, const double* fac, int w,
                            int d0, int d1, int cpc) {
@@ -205,13 +233,26 @@ __device__ void apply_cols(const SweepDims& S, const Map& m, double* t,
     const int c0 = (item % chunks) * cpc;
     const int nc = B - c0 < cpc ? B - c0 : cpc;
     const double* fd = fac + d * fper;
-    double* td = t + d * per + c0;
+    double* td = t + d * per + (CHUNKED ? (long long)c0 * S.npad : c0);
+    const long long L = CHUNKED ? nc : B;
     switch (w) {
-      case 1: cr_block_apply<1, PIVOT>(fd, td, S.npad, nc, B); break;
-      case 2: cr_block_apply<2, PIVOT>(fd, td, S.npad, nc, B); break;
-      default: cr_block_apply<3, PIVOT>(fd, td, S.npad, nc, B); break;
+      case 1: cr_block_apply<1, PIVOT>(fd, td, S.npad, nc, L); break;
+      case 2: cr_block_apply<2, PIVOT>(fd, td, S.npad, nc, L); break;
+      default: cr_block_apply<3, PIVOT>(fd, td, S.npad, nc, L); break;
     }
   }
+}
+
+// Columns per apply_cols item when the caller leaves it open: the narrowest
+// power of two (at most B) that gives every one of the D * ceil(B / c)
+// (dimension, chunk) items a block of its own, so a solve is one round of
+// items. Narrower items cost a second round; wider ones put more columns on
+// fewer blocks (widths measured in PERF.md). A column's arithmetic does not
+// depend on its item, so the width does not change the bits.
+inline int auto_cols(int D, int B, int grid) {
+  int c = 1;
+  while (c < B && (long long)D * ((B + c - 1) / c) > grid) c <<= 1;
+  return c < B ? c : B;
 }
 
 // Cooperative grid size for `kernel`: every SM's co-resident blocks, at

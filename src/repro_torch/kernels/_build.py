@@ -59,8 +59,10 @@ _SIGNATURES = {
     "repro_jacobi_workspace": (_c_ll, [_c_int] * 6),
     "repro_jacobi_f64": (_c_int, [_ptr] * 11 + [_c_int] * 6
                          + [_c_dbl, _c_int, _c_int, _ptr]),
-    "repro_gauss_seidel_workspace": (_c_ll, [_c_int] * 5),
-    "repro_gauss_seidel_f64": (_c_int, [_ptr] * 10 + [_c_int] * 7 + [_ptr]),
+    "repro_gauss_seidel_workspace": (_c_ll, [_c_int] * 3),
+    "repro_gauss_seidel_grid": (_c_int, [_c_int]),
+    "repro_gauss_seidel_cols": (_c_int, [_c_int] * 2),
+    "repro_gauss_seidel_f64": (_c_int, [_ptr] * 11 + [_c_int] * 8 + [_ptr]),
     "repro_banded_matvec_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int,
                                          _c_int, _c_int, _c_int, _ptr]),
     "repro_cr_factor_f64": (_c_int, [_ptr] * 3 + [_c_int] * 4 + [_ptr]),

@@ -29,7 +29,7 @@ import torch
 
 from . import _build
 from .block_cr import block_cr_factor, cr_factor_size, cr_solve_values
-from .ops import resolve_backend
+from .ops import BandFactor, resolve_backend
 
 __all__ = ["FusedSweep", "_pad_len", "_mv", "_gather", "_solve_sym",
            "_block_solve_dim", "_khat_inv_dim", "_sum_dims",
@@ -37,7 +37,8 @@ __all__ = ["FusedSweep", "_pad_len", "_mv", "_gather", "_solve_sym",
            "fused_gauss_seidel_iter", "fused_gauss_seidel_iter_plain",
            "fused_pcg_iter", "fused_pcg_iter_plain", "pcg_seed",
            "pcg_seed_plain", "pcg_loop", "sweep_backward_error", "MAX_B",
-           "MAX_WIDTH", "pcg_factors", "pcg_solve_cols"]
+           "MAX_WIDTH", "sweep_factor", "pcg_factors", "pcg_solve_cols",
+           "gauss_seidel_cols", "gauss_seidel_grid"]
 
 MAX_B = 256  # RHS columns per launch (csrc/sweep.cuh SWEEP_NT)
 MAX_WIDTH = 3  # w_a, w_p, w_s <= 3 (csrc/sweep.cuh instantiations)
@@ -308,47 +309,112 @@ def _launch_jacobi(name, phi, saphi, sort_idx, rank_idx, sigma2, v, x_in,
     return x, k
 
 
+def _check_cols(cols):
+    if cols is not None and cols < 1:
+        raise ValueError(f"cols must be >= 1, got {cols}")
+
+
+def sweep_factor(band, w: int, pivot: bool = False) -> BandFactor:
+    """The block-CR factor of a padded band stack (D, npad, 2w+1) as the
+    sweep kernels take it (``factors=``): one ``block_cr_factor`` launch,
+    with the pivot mode it was made in."""
+    D, npad, _ = band.shape
+    return BandFactor(block_cr_factor(band, w, pivot=pivot), (D,), npad, w,
+                      pivot)
+
+
+def _check_factors(factors, pivot: bool):
+    """Reject, on either device, a ``factors=`` argument that is not
+    :func:`sweep_factor`'s (or None) or was made in another pivot mode: its
+    data has the same shape, and a kernel would solve wrongly from it."""
+    for f in factors if isinstance(factors, tuple) else (factors,):
+        if f is None:
+            continue
+        if not isinstance(f, BandFactor):
+            raise TypeError("factors must come from sweep_factor (or "
+                            f"FusedSweep), not {type(f).__name__}")
+        if f.pivot != pivot:
+            raise ValueError(f"a factor made with pivot={f.pivot} passed "
+                             f"to a solve with pivot={pivot}")
+
+
+def _factor_data(fac, name, w, D, npad, dev):
+    """The data of a :func:`sweep_factor` of a (D, npad) band of
+    half-width ``w``, checked for a launch."""
+    if (fac.w, fac.n) != (w, npad):
+        raise ValueError(f"{name} factor is of w = {fac.w}, n = {fac.n}; "
+                         f"the operands have w = {w}, npad = {npad}")
+    _build.expect(fac.data, f"{name} factor", torch.float64,
+                  (D, cr_factor_size(npad // w, w)), dev)
+    return fac.data
+
+
 def _launch_gauss_seidel(name, phi, saphi, sort_idx, rank_idx, sigma2, v,
-                         x_in, *, w_p, w_s, iters, want_k, pivot):
+                         x_in, *, w_p, w_s, iters, want_k, pivot,
+                         factors=None, cols=None):
     """``csrc/gauss_seidel.cu`` for ``iters`` sweeps; returns (x, k or
-    None)."""
+    None). ``factors`` is SAPhi's :func:`sweep_factor` in this pivot mode
+    (None: made here, one ``cr_factor`` launch); ``cols`` the columns per
+    solve item (None: :func:`gauss_seidel_cols`)."""
     D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
                                       sigma2, (v, x_in), w_p, w_s)
+    if factors is None:
+        factors = sweep_factor(saphi, w_s, pivot=pivot)
+    fac = _factor_data(factors, "SAPhi", w_s, D, npad, dev)
+    _check_cols(cols)
     lib = _build.load_library()
-    nwork = lib.repro_gauss_seidel_workspace(D, npad, B, w_s, int(pivot))
-    if nwork < 0:
-        _build.check(int(-nwork), f"{name} workspace query")
-    work = torch.empty((nwork,), dtype=torch.float64, device=dev)
+    work = torch.empty((lib.repro_gauss_seidel_workspace(D, npad, B),),
+                       dtype=torch.float64, device=dev)
     x = torch.empty_like(v)
     k = torch.empty_like(v) if want_k else None
     err = lib.repro_gauss_seidel_f64(
-        phi.data_ptr(), saphi.data_ptr(), sort_idx.data_ptr(),
-        rank_idx.data_ptr(), sigma2.data_ptr(), v.data_ptr(),
-        x_in.data_ptr(), x.data_ptr(), None if k is None else k.data_ptr(),
-        work.data_ptr(), D, npad, B, w_p, w_s, iters, int(pivot),
-        _build.stream_handle(dev))
+        phi.data_ptr(), saphi.data_ptr(), fac.data_ptr(),
+        sort_idx.data_ptr(), rank_idx.data_ptr(), sigma2.data_ptr(),
+        v.data_ptr(), x_in.data_ptr(), x.data_ptr(),
+        None if k is None else k.data_ptr(), work.data_ptr(), D, npad, B,
+        w_p, w_s, iters, cols or 0, int(pivot), _build.stream_handle(dev))
     _build.check(err, name)
     _build.count_launch(name)
     return x, k
 
 
+def _query(fn, what, *args):
+    out = fn(*args)
+    if out < 0:
+        _build.check(-out, what)
+    return out
+
+
 def pcg_solve_cols(D: int, B: int, pivot: bool = False) -> int:
     """Columns per (dimension, column chunk) item of the PCG kernel's
-    block-CR solves when the launch leaves ``cols`` open: the narrowest
-    power of two that gives every item a block of the cooperative grid
-    (``csrc/mega_pcg.cu`` auto_cols; the chunk widths 1 ... 16 are measured
-    in PERF.md)."""
-    cols = _build.load_library().repro_mega_pcg_cols(D, B, int(pivot))
-    if cols < 0:
-        _build.check(-cols, "mega_pcg column query")
-    return cols
+    block-CR solves when the launch leaves ``cols`` open: ``csrc/sweep.cuh``
+    auto_cols, the narrowest power of two (at most B) that gives every one
+    of the D ceil(B / c) items a block of the kernel's cooperative grid
+    (``csrc/mega_pcg.cu``; the widths are measured in PERF.md)."""
+    return _query(_build.load_library().repro_mega_pcg_cols,
+                  "mega_pcg column query", D, B, int(pivot))
+
+
+def gauss_seidel_grid(pivot: bool = False) -> int:
+    """Blocks of the Gauss-Seidel kernel's cooperative grid (at most two a
+    SM, as its occupancy allows)."""
+    return _query(_build.load_library().repro_gauss_seidel_grid,
+                  "gauss_seidel grid query", int(pivot))
+
+
+def gauss_seidel_cols(B: int, pivot: bool = False) -> int:
+    """The Gauss-Seidel kernel's items' columns when the launch leaves
+    ``cols`` open: auto_cols (as :func:`pcg_solve_cols`) with D = 1, one
+    dimension a step, over its grid (``csrc/gauss_seidel.cu``)."""
+    return _query(_build.load_library().repro_gauss_seidel_cols,
+                  "gauss_seidel column query", B, int(pivot))
 
 
 def pcg_factors(phi, saphi, *, w_p: int, w_s: int, pivot: bool = False):
     """The block-CR factors the PCG kernel solves from: ``(Phi's or None
-    at w_p = 0, SAPhi's)``, one ``block_cr_factor`` launch each."""
-    return (block_cr_factor(phi, w_p, pivot=pivot) if w_p else None,
-            block_cr_factor(saphi, w_s, pivot=pivot))
+    at w_p = 0, SAPhi's)``, one :func:`sweep_factor` launch each."""
+    return (sweep_factor(phi, w_p, pivot=pivot) if w_p else None,
+            sweep_factor(saphi, w_s, pivot=pivot))
 
 
 def _launch_pcg(name, a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
@@ -374,13 +440,10 @@ def _launch_pcg(name, a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
         x, r, p, rz = (t.clone() for t in carry)
     if factors is None:
         factors = pcg_factors(phi, saphi, w_p=w_p, w_s=w_s, pivot=pivot)
-    fac_p, fac_s = factors
-    for w, fac, nm in ((w_p, fac_p, "Phi"), (w_s, fac_s, "SAPhi")):
-        if w:
-            _build.expect(fac, f"{nm} factor", f64,
-                          (D, cr_factor_size(npad // w, w)), dev)
-    if cols is not None and cols < 1:
-        raise ValueError(f"cols must be >= 1, got {cols}")
+    fac_p, fac_s = (_factor_data(fac, nm, w, D, npad, dev) if w else None
+                    for w, fac, nm in ((w_p, factors[0], "Phi"),
+                                       (w_s, factors[1], "SAPhi")))
+    _check_cols(cols)
     lib = _build.load_library()
     nwork = lib.repro_mega_pcg_workspace(D, npad, B, int(pivot))
     if nwork < 0:
@@ -409,8 +472,9 @@ def fused_pcg_iter(a, phi, saphi, sort_idx, rank_idx, sigma2, x, r, p, rz, *,
     states (D, npad, B) float64, ``rz`` (1, B)); returns ``(x, r, p, rz)``.
     CUDA tensors launch ``csrc/mega_pcg.cu`` on the carried state for one
     iteration, solving from ``factors`` (:func:`pcg_factors`; None: made
-    for this call)."""
+    for this call; a factor of the other pivot mode raises)."""
     kw = dict(w_a=w_a, w_p=w_p, w_s=w_s, pivot=pivot)
+    _check_factors(factors, pivot)
     if resolve_backend(backend, x.device) == "plain":
         return fused_pcg_iter_plain(a, phi, saphi, sort_idx, rank_idx, sigma2,
                                     x, r, p, rz, **kw)
@@ -427,6 +491,7 @@ def pcg_seed(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *, w_a: int,
     ``csrc/mega_pcg.cu``'s seed for 0 iterations (counted with
     ``fused_pcg_iter``: the path's launches are its iterations plus one)."""
     kw = dict(w_a=w_a, w_p=w_p, w_s=w_s, pivot=pivot)
+    _check_factors(factors, pivot)
     if resolve_backend(backend, v.device) == "plain":
         return pcg_seed_plain(a, phi, saphi, sort_idx, rank_idx, sigma2, v,
                               x0, warm=warm, **kw)
@@ -459,10 +524,16 @@ def fused_jacobi_iter(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, k=None,
 def fused_gauss_seidel_iter(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, *,
                             w_p: int, w_s: int, pivot: bool = False,
                             want_resid: bool = False,
-                            backend: str | None = None):
+                            backend: str | None = None, factors=None,
+                            cols: int | None = None):
     """One Gauss-Seidel sweep on padded operands (as
     :func:`fused_jacobi_iter`); with ``want_resid`` returns ``(out, k)``.
-    CUDA tensors launch ``csrc/gauss_seidel.cu`` for one sweep."""
+    CUDA tensors launch ``csrc/gauss_seidel.cu`` for one sweep, solving
+    from ``factors``, SAPhi's :func:`sweep_factor` in this pivot mode
+    (None: made for this call; another pivot mode raises on either device),
+    in items of ``cols`` columns (None: :func:`gauss_seidel_cols`); the
+    plain version solves from the band."""
+    _check_factors(factors, pivot)
     if resolve_backend(backend, v.device) == "plain":
         return fused_gauss_seidel_iter_plain(
             phi, saphi, sort_idx, rank_idx, sigma2, v, vt, w_p=w_p, w_s=w_s,
@@ -470,7 +541,7 @@ def fused_gauss_seidel_iter(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, *,
     x, k = _launch_gauss_seidel("fused_gauss_seidel_iter", phi, saphi,
                                 sort_idx, rank_idx, sigma2, v, vt, w_p=w_p,
                                 w_s=w_s, iters=1, want_k=want_resid,
-                                pivot=pivot)
+                                pivot=pivot, factors=factors, cols=cols)
     return (x, k) if want_resid else x
 
 
@@ -483,8 +554,10 @@ class FusedSweep:
     (D, n) permutations; ``sigma2`` the noise variance; ``pivot`` selects
     the pivoted block solves; ``backend`` the kernels' backend. Bands get
     identity tails, permutations self-mapping tails (int32, as the kernels
-    read them). The PCG kernel's block-CR factors of Phi and SAPhi are made
-    at the first CUDA PCG launch and kept (:meth:`cr_factors`).
+    read them). The block-CR factors the CUDA kernels solve from are made
+    at the first launch that needs them and kept: Phi's and SAPhi's for
+    PCG (:meth:`cr_factors`), SAPhi's alone for Gauss-Seidel
+    (:meth:`saphi_factor`).
     """
 
     def __init__(self, phi, saphi, sort_idx, rank_idx, sigma2, *, w_p: int,
@@ -504,7 +577,7 @@ class FusedSweep:
         self.rank_idx = self._pad_idx(rank_idx)
         self.sigma2 = torch.as_tensor(sigma2, dtype=self.dtype,
                                       device=self.device).reshape(1)
-        self._factors = None
+        self._factors = {}
 
     def _pad_band(self, data, w):
         out = torch.zeros((self.D, self.npad, 2 * w + 1), dtype=self.dtype,
@@ -559,24 +632,41 @@ class FusedSweep:
                 backend=self.backend), v, vt, k)
 
     def gauss_seidel_iter(self, v, vt, want_resid: bool = False):
+        """One sweep from :meth:`saphi_factor`; column chunks share it."""
+        fac = self.saphi_factor()
         return self.by_columns(
             lambda v_, vt_: fused_gauss_seidel_iter(
                 *self._ops(), v_, vt_, w_p=self.w_p, w_s=self.w_s,
                 pivot=self.pivot, want_resid=want_resid,
-                backend=self.backend), v, vt)
+                backend=self.backend, factors=fac), v, vt)
+
+    def _factor(self, name):
+        if name not in self._factors:
+            band, w = ((self.phi, self.w_p) if name == "phi"
+                       else (self.saphi, self.w_s))
+            self._factors[name] = sweep_factor(band, w, pivot=self.pivot)
+        return self._factors[name]
+
+    def saphi_factor(self):
+        """SAPhi's block-CR factor (:func:`sweep_factor`), the one the
+        Gauss-Seidel kernel solves from, made at the first call (one
+        ``cr_factor`` launch) and kept: (3 nb + 2 sum_k ceil(nb / 2^{k+1}))
+        w^2, about 5 npad w, doubles per dimension (12 MB at npad = 30000,
+        D = 10, q = 0). None on the plain backend, which solves from the
+        band."""
+        if resolve_backend(self.backend, self.device) == "plain":
+            return None
+        return self._factor("saphi")
 
     def cr_factors(self):
         """The block-CR factors the PCG kernel solves from, ``(Phi's or
-        None, SAPhi's)`` (:func:`pcg_factors`), made at the first call and
-        kept: (3 nb + 2 sum_k ceil(nb / 2^{k+1})) w^2, about 5 npad w,
-        doubles per dimension and band (12 MB at npad = 30000, D = 10,
-        q = 0). None on the plain backend, which solves from the bands."""
+        None at w_p = 0, SAPhi's)`` (as :func:`pcg_factors`), each made at
+        its first use and kept (SAPhi's is :meth:`saphi_factor`'s). None on
+        the plain backend."""
         if resolve_backend(self.backend, self.device) == "plain":
             return None
-        if self._factors is None:
-            self._factors = pcg_factors(self.phi, self.saphi, w_p=self.w_p,
-                                        w_s=self.w_s, pivot=self.pivot)
-        return self._factors
+        return (self._factor("phi") if self.w_p else None,
+                self._factor("saphi"))
 
     def _pcg_kw(self):
         if self.a is None:

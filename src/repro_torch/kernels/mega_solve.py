@@ -35,8 +35,8 @@ from __future__ import annotations
 import torch
 
 from .fused_sweep import (K_WARM, K_ZERO, MAX_B, MAX_WIDTH, PCG_COLD,
-                          PCG_WARM, FusedSweep, _khat_inv_dim,
-                          _launch_gauss_seidel, _launch_jacobi, _launch_pcg,
+                          PCG_WARM, FusedSweep, _check_factors,
+                          _khat_inv_dim, _launch_gauss_seidel, _launch_jacobi, _launch_pcg,
                           fused_gauss_seidel_iter_plain,
                           fused_jacobi_iter_plain, fused_pcg_iter_plain,
                           pcg_loop, pcg_seed_plain)
@@ -75,10 +75,11 @@ def mega_pcg_solve(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
     ``sigma2`` a 1-element float64 tensor, states (D, npad, B) float64.
     CUDA tensors launch ``csrc/mega_pcg.cu`` (one cooperative launch),
     solving from ``factors`` (``fused_sweep.pcg_factors`` of the bands;
-    None: made for this call) in items of ``cols`` columns (None:
-    ``fused_sweep.pcg_solve_cols``).
+    None: made for this call; another pivot mode raises) in items of
+    ``cols`` columns (None: ``fused_sweep.pcg_solve_cols``).
     """
     kw = dict(w_a=w_a, w_p=w_p, w_s=w_s, iters=iters, tol=tol, pivot=pivot)
+    _check_factors(factors, pivot)
     if resolve_backend(backend, v.device) == "plain":
         return mega_pcg_plain(a, phi, saphi, sort_idx, rank_idx, sigma2, v,
                               x0, warm=warm, **kw)
@@ -135,17 +136,23 @@ def mega_gauss_seidel_plain(phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
 
 def mega_gauss_seidel_solve(phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
                             *, w_p: int, w_s: int, iters: int,
-                            pivot: bool = False, backend: str | None = None):
+                            pivot: bool = False, backend: str | None = None,
+                            factors=None, cols: int | None = None):
     """Whole Gauss-Seidel solve on padded operands; returns
     ``(x, k)``. CUDA tensors launch ``csrc/gauss_seidel.cu`` once for all
-    ``iters`` sweeps."""
+    ``iters`` sweeps, solving from ``factors`` (SAPhi's
+    ``fused_sweep.sweep_factor``; None: made for this call; another pivot
+    mode raises) in items of ``cols`` columns (None:
+    ``fused_sweep.gauss_seidel_cols``)."""
+    _check_factors(factors, pivot)
     if resolve_backend(backend, v.device) == "plain":
         return mega_gauss_seidel_plain(phi, saphi, sort_idx, rank_idx, sigma2,
                                        v, x0, w_p=w_p, w_s=w_s, iters=iters,
                                        pivot=pivot)
     return _launch_gauss_seidel("mega_gauss_seidel", phi, saphi, sort_idx,
                                 rank_idx, sigma2, v, x0, w_p=w_p, w_s=w_s,
-                                iters=iters, want_k=True, pivot=pivot)
+                                iters=iters, want_k=True, pivot=pivot,
+                                factors=factors, cols=cols)
 
 
 class MegaSolve:
@@ -205,9 +212,11 @@ class MegaSolve:
             warm=x0 is not None, backend=fs.backend), v, x0, MAX_B)
 
     def gauss_seidel(self, v, x0, *, iters: int):
-        """Whole Gauss-Seidel solve; returns ``(x, k)`` unpadded."""
+        """Whole Gauss-Seidel solve from ``FusedSweep.saphi_factor`` (one
+        factor for every column chunk); returns ``(x, k)`` unpadded."""
         fs = self.fs
+        fac = fs.saphi_factor()
         return self._solve(lambda v_p, x0_p: mega_gauss_seidel_solve(
             fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v_p, x0_p,
             w_p=fs.w_p, w_s=fs.w_s, iters=iters, pivot=fs.pivot,
-            backend=fs.backend), v, x0, MAX_B)
+            backend=fs.backend, factors=fac), v, x0, MAX_B)

@@ -32,9 +32,12 @@ from repro_torch.kernels.fused_sweep import (fused_gauss_seidel_iter,
                                              fused_jacobi_iter,
                                              fused_jacobi_iter_plain,
                                              fused_pcg_iter,
-                                             fused_pcg_iter_plain, pcg_seed,
-                                             pcg_seed_plain,
-                                             sweep_backward_error)
+                                             fused_pcg_iter_plain,
+                                             gauss_seidel_cols,
+                                             gauss_seidel_grid, pcg_seed,
+                                             pcg_seed_plain, pcg_solve_cols,
+                                             sweep_backward_error,
+                                             sweep_factor)
 from repro_torch.core.kernel_packets import kp_factors
 from repro_torch.kernels.kp_gram import kp_gram, kp_gram_plain
 from repro_torch.precond import kmg_preconditioner
@@ -435,11 +438,96 @@ def test_whole_relaxation_kernels(dev, q, B, warm):
            mega_gauss_seidel_plain(*ops, v, x0, **kw), _tol(q))
 
 
+@pytest.mark.parametrize("q", [0, 1, 2])
+@pytest.mark.parametrize("pivot", [False, True])
+def test_gauss_seidel_from_held_factor(dev, q, pivot):
+    """The Gauss-Seidel sweep (with and without k) and whole solve given
+    SAPhi's factor, at every chunk width, equal the calls that make the
+    factor themselves, bit for bit (the apply replays the elimination's
+    right-hand-side expressions; a column's arithmetic does not depend on
+    its item); one factor launch per call without ``factors``, none with."""
+    fs, ops, v, x0, _ = _relax_case(dev, q, 16)
+    kw = dict(w_p=fs.w_p, w_s=fs.w_s, pivot=pivot)
+    fac = sweep_factor(fs.saphi, fs.w_s, pivot=pivot)
+    _build.reset_launch_counts()
+    ref_sweep = {want: fused_gauss_seidel_iter(*ops, v, x0, want_resid=want,
+                                               **kw)
+                 for want in (False, True)}
+    ref_whole = mega_gauss_seidel_solve(*ops, v, x0, iters=6, **kw)
+    assert _build.launch_counts()["cr_factor"] == 3
+    _build.reset_launch_counts()
+    for cols in (None, 1, 2, 4, 8):
+        for want in (False, True):
+            got = fused_gauss_seidel_iter(*ops, v, x0, want_resid=want,
+                                          factors=fac, cols=cols, **kw)
+            got = got if want else (got,)
+            ref = ref_sweep[want] if want else (ref_sweep[want],)
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)), cols
+        got = mega_gauss_seidel_solve(*ops, v, x0, iters=6, factors=fac,
+                                      cols=cols, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref_whole)), cols
+    assert _build.launch_counts()["cr_factor"] == 0
+
+
+@pytest.mark.parametrize("q", [0, 1])
+@pytest.mark.parametrize("B,cols", [(5, 2), (5, 4), (7, 3), (7, 4)])
+@pytest.mark.parametrize("pivot", [False, True])
+def test_gauss_seidel_short_last_chunk(dev, q, B, cols, pivot):
+    """Chunk widths that do not divide B, so the last chunk of t1's
+    column-chunked layout is narrower (sweep.cuh chunk_col, apply_cols'
+    nc < cpc branch): the sweep (with and without k) and the whole solve
+    against their plain versions, and bit for bit the one-column items'
+    results. q = 0 runs the fused w_p = 0 phase, q = 1 the gathered one."""
+    fs, ops, v, x0, _ = _relax_case(dev, q, B)
+    kw = dict(w_p=fs.w_p, w_s=fs.w_s, pivot=pivot)
+    fac = sweep_factor(fs.saphi, fs.w_s, pivot=pivot)
+    for want in (False, True):
+        got = fused_gauss_seidel_iter(*ops, v, x0, want_resid=want,
+                                      factors=fac, cols=cols, **kw)
+        _close(got, fused_gauss_seidel_iter_plain(*ops, v, x0,
+                                                  want_resid=want, **kw),
+               _tol(q))
+        one = fused_gauss_seidel_iter(*ops, v, x0, want_resid=want,
+                                      factors=fac, cols=1, **kw)
+        got, one = ((got, one) if want else ((got,), (one,)))
+        assert all(torch.equal(a, b) for a, b in zip(got, one))
+    got = mega_gauss_seidel_solve(*ops, v, x0, iters=12, factors=fac,
+                                  cols=cols, **kw)
+    _close(got, mega_gauss_seidel_plain(*ops, v, x0, iters=12, **kw),
+           _tol(q))
+    one = mega_gauss_seidel_solve(*ops, v, x0, iters=12, factors=fac, cols=1,
+                                  **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, one))
+
+
+# (B, Gauss-Seidel's columns an item, PCG's at D = 10) on a cooperative grid
+# of one block a SM, 132 on the H100 SXM (PERF.md: the widths measured)
+_H100_WIDTHS = [(1, 1, 1), (16, 1, 2), (32, 1, 4), (160, 2, 16),
+                (256, 2, 32)]
+
+
+def test_solve_chunk_widths(dev):
+    """The sweep kernels' own chunk rule (sweep.cuh auto_cols: the narrowest
+    power of two giving every (dimension, chunk) item a block) as their
+    queries report it on the H100: both kernels' grids are one block a SM
+    (gs_kernel's 255 registers, mega_pcg's pinned grid)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if sms != 132:
+        pytest.skip(f"the widths are those of a 132-SM grid, not {sms}")
+    for pivot in (False, True):
+        assert gauss_seidel_grid(pivot) == sms
+        for B, gs, pcg in _H100_WIDTHS:
+            assert gauss_seidel_cols(B, pivot) == gs, B
+            assert pcg_solve_cols(10, B, pivot) == pcg, B
+
+
 @pytest.mark.parametrize("method", ["jacobi", "gauss_seidel"])
 @pytest.mark.parametrize("warm", [False, True])
 def test_whole_equals_host_loop_bitwise(dev, method, warm):
     """fused="whole" (one launch) and fused="on" (one launch per sweep) give
-    the same bits, the exit residual included."""
+    the same bits, the exit residual included. Gauss-Seidel factors SAPhi
+    once per solve in either mode (one cr_factor launch, not one a sweep);
+    Jacobi makes no factor."""
     rng = np.random.default_rng(13)
     dops = dim_ops(solve_operands(rng, 131, 3, 1), dev)
     v = torch.as_tensor(rng.standard_normal((3, 131, 4)), device=dev)
@@ -455,6 +543,7 @@ def test_whole_equals_host_loop_bitwise(dev, method, warm):
             "jacobi" if method == "jacobi" else "gauss_seidel")
         name += "" if fused == "whole" else "_iter"
         assert counts[name] == (1 if fused == "whole" else 9), counts
+        assert counts["cr_factor"] == (method == "gauss_seidel"), counts
     (xw, iw), (xh, ih) = outs["whole"], outs["on"]
     assert torch.equal(xw, xh) and torch.equal(iw.resid, ih.resid)
 
@@ -462,7 +551,8 @@ def test_whole_equals_host_loop_bitwise(dev, method, warm):
 @pytest.mark.parametrize("method", ["jacobi", "gauss_seidel"])
 def test_relaxation_column_split(dev, method):
     """More than MAX_B = 256 columns: the whole solve runs as two launches
-    and matches the plain version taking all columns at once."""
+    (Gauss-Seidel's two share one SAPhi factor launch) and matches the
+    plain version taking all columns at once."""
     fs, ops, _, _, _ = _relax_case(dev, 0, 1)
     rng = np.random.default_rng(14)
     v = torch.as_tensor(rng.standard_normal((3, fs.n, 300)), device=dev)
@@ -478,7 +568,9 @@ def test_relaxation_column_split(dev, method):
         xr, kr = mega_gauss_seidel_plain(*ops, fs.pad_state(v),
                                          torch.zeros_like(fs.pad_state(v)),
                                          w_p=fs.w_p, w_s=fs.w_s, iters=10)
-    assert sum(_build.launch_counts().values()) == 2
+    counts = _build.launch_counts()
+    assert counts[f"mega_{method}"] == 2, counts
+    assert sum(counts.values()) == (2 if method == "jacobi" else 3), counts
     assert _rel(x, fs.unpad(xr)) < 1e-12 and _rel(k, fs.unpad(kr)) < 1e-12
 
 
