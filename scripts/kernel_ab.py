@@ -1,8 +1,8 @@
 """Time ``banded_lu`` at lo = hi = 0, the PCG kernels, ``block_cr`` and the
-Gauss-Seidel kernel of one checkout on an NVIDIA GPU, so two checkouts can
-be compared in one call.
+Gauss-Seidel and Jacobi kernels of one checkout on an NVIDIA GPU, so two
+checkouts can be compared in one call.
 
-    python scripts/kernel_ab.py run SRC OUT.json [lu|pcg|cr|gs]
+    python scripts/kernel_ab.py run SRC OUT.json [lu|pcg|cr|gs|jacobi]
     python scripts/kernel_ab.py table OUT_A.json OUT_B.json ...
 
 ``run`` imports the port from ``SRC`` (the ``src`` directory of the checkout
@@ -36,13 +36,20 @@ of ``chip_smoke.py``):
    SAPhi factor, also both from a factor made beforehand, the kernel's own
    chunk width and grid, and the whole solve at each width of
    ``GS_WIDTHS``; each sweep's device time by kernel from
-   ``torch.profiler``.
+   ``torch.profiler``;
+7. the Jacobi kernel the same way (alpha = 1/D): one sweep with k carried
+   (``fused_jacobi_iter``) and the 40-sweep warm whole solve
+   (``mega_jacobi_solve``), as a caller without factors runs them; where
+   the checkout solves from held factors, also both from
+   ``FusedSweep.cr_factors``, the kernel's own chunk width and grid, and
+   the whole solve at each width of ``JACOBI_WIDTHS``; the sweep's device
+   time by kernel.
 
 To compare a parent with a change, unpack the parent with ``git archive``
 into a git-ignored directory and run parent, change, change, parent in one
 call; ``table`` prints the rows of each file side by side. ``lu`` as a
 last argument times 1, 2 and 4 only; ``pcg`` times 3 without the chunk
-widths; ``cr`` times 5 only; ``gs`` times 6 only.
+widths; ``cr`` times 5 only; ``gs`` times 6 only; ``jacobi`` 7 only.
 """
 from __future__ import annotations
 
@@ -62,6 +69,7 @@ CR_B = (1, 16, 32, 160)
 CHUNK_WIDTHS = (1, 2, 4, 8, 16)
 GS_B = ((1, 3), (16, 3), (32, 3), (160, 1))  # (columns, timed reps)
 GS_WIDTHS = (1, 2, 4, 8)
+JACOBI_WIDTHS = (1, 2, 4, 8, 16)
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 
 
@@ -269,6 +277,40 @@ def gs_rows(P, rng, dev):
     return rows
 
 
+def jacobi_rows(P, rng, dev):
+    fs = _operands(P, dev)
+    ops = (fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2)
+    kw = dict(w_p=fs.w_p, w_s=fs.w_s, alpha=1.0 / D)
+    rows = {}
+    for B, reps in GS_B:
+        v, x0, k = (fs.pad_state(torch.as_tensor(
+            sc * rng.standard_normal((D, N, B)), device=dev))
+            for sc in (1.0, 0.1, 0.1))
+        sweep = lambda **extra: P["fused_jacobi_iter"](  # noqa: E731
+            *ops, v, x0, k, **kw, **extra)
+        whole = lambda **extra: P["mega_jacobi_solve"](  # noqa: E731
+            *ops, v, x0, iters=40, warm=True, **kw, **extra)
+        r = {"sweep_ms": _events(sweep, reps=10),
+             "whole_40_ms": _events(whole, reps=reps)}
+        if P["jacobi_factored"]:
+            fac = fs.cr_factors()
+            r["auto_cols"] = P["jacobi_cols"](D, B)
+            r["grid"] = P["jacobi_grid"]()
+            r["sweep_prefactored_ms"] = _events(
+                lambda: sweep(factors=fac), reps=10)
+            r["whole_40_prefactored_ms"] = _events(
+                lambda: whole(factors=fac), reps=reps)
+            r["chunk_ms"] = {str(c): _events(
+                lambda: whole(factors=fac, cols=c), reps=reps)
+                for c in JACOBI_WIDTHS if c <= B}
+            r["sweep_device_ms"] = _device_split(lambda: sweep(factors=fac))
+        else:
+            r["sweep_device_ms"] = _device_split(sweep)
+        rows[f"B={B}"] = r
+        print(f"jacobi B={B}: {json.dumps(r)}", flush=True)
+    return rows
+
+
 def run(src, out, parts="all"):
     sys.path.insert(0, src)
     from repro_torch.core.banded import add, scale
@@ -279,6 +321,7 @@ def run(src, out, parts="all"):
     from repro_torch.kernels import fused_sweep as fsm
     from repro_torch.kernels.banded_lu import banded_lu
     from repro_torch.kernels.mega_solve import (mega_gauss_seidel_solve,
+                                                mega_jacobi_solve,
                                                 mega_pcg_solve)
 
     P = dict(add=add, scale=scale, kp_factors=kp_factors,
@@ -286,11 +329,17 @@ def run(src, out, parts="all"):
              FusedSweep=fsm.FusedSweep, mega_pcg_solve=mega_pcg_solve,
              pcg_seed=fsm.pcg_seed, fused_pcg_iter=fsm.fused_pcg_iter,
              fused_gauss_seidel_iter=fsm.fused_gauss_seidel_iter,
-             mega_gauss_seidel_solve=mega_gauss_seidel_solve)
+             mega_gauss_seidel_solve=mega_gauss_seidel_solve,
+             fused_jacobi_iter=fsm.fused_jacobi_iter,
+             mega_jacobi_solve=mega_jacobi_solve)
     P["gs_factored"] = hasattr(fsm, "gauss_seidel_cols")
     if P["gs_factored"]:
         P["gauss_seidel_cols"] = fsm.gauss_seidel_cols
         P["gauss_seidel_grid"] = fsm.gauss_seidel_grid
+    P["jacobi_factored"] = hasattr(fsm, "jacobi_cols")
+    if P["jacobi_factored"]:
+        P["jacobi_cols"] = fsm.jacobi_cols
+        P["jacobi_grid"] = fsm.jacobi_grid
     P["lu_solve_flag"] = "solve" in inspect.signature(banded_lu).parameters
     P["factored"] = hasattr(fsm, "pcg_factors")
     P["block_cr"] = bcr.block_cr
@@ -316,6 +365,8 @@ def run(src, out, parts="all"):
         res["cr"] = cr_rows(P, rng, dev)
     elif parts == "gs":
         res["gs"] = gs_rows(P, rng, dev)
+    elif parts == "jacobi":
+        res["jacobi"] = jacobi_rows(P, rng, dev)
     else:
         if parts != "pcg":
             res["lu_first"] = lu_rows(P, rng, dev, "first")
@@ -327,6 +378,7 @@ def run(src, out, parts="all"):
         if parts == "all":
             res["cr"] = cr_rows(P, rng, dev)
             res["gs"] = gs_rows(P, rng, dev)
+            res["jacobi"] = jacobi_rows(P, rng, dev)
     with open(out, "w") as f:
         json.dump(res, f, indent=1)
 
@@ -345,19 +397,24 @@ def table(*paths):
                 vals.append("-")
         print(f"{name:42s} " + " | ".join(vals))
 
-    for B, _ in GS_B:
-        k = f"B={B}"
-        for f in ("sweep_ms", "sweep_prefactored_ms", "whole_40_ms",
-                  "whole_40_prefactored_ms", "auto_cols", "grid"):
-            line(f"gauss_seidel {k} {f}", lambda r: r["gs"][k][f])
-        for c in GS_WIDTHS:
-            line(f"gauss_seidel {k} whole_40 chunk {c}",
-                 lambda r: r["gs"][k]["chunk_ms"][str(c)])
-        for r in runs:
-            if "gs" in r:
-                print(f"  sweep device {k} ({r['src']}): "
-                      f"{r['gs'][k]['sweep_device_ms']}")
-    for B in CR_B:
+    def has(part):
+        return any(part in r for r in runs)
+
+    for part, name, widths in (("jacobi", "jacobi", JACOBI_WIDTHS),
+                               ("gs", "gauss_seidel", GS_WIDTHS)):
+        for B, _ in GS_B if has(part) else ():
+            k = f"B={B}"
+            for f in ("sweep_ms", "sweep_prefactored_ms", "whole_40_ms",
+                      "whole_40_prefactored_ms", "auto_cols", "grid"):
+                line(f"{name} {k} {f}", lambda r: r[part][k][f])
+            for c in widths:
+                line(f"{name} {k} whole_40 chunk {c}",
+                     lambda r: r[part][k]["chunk_ms"][str(c)])
+            for r in runs:
+                if part in r:
+                    print(f"  sweep device {k} ({r['src']}): "
+                          f"{r[part][k]['sweep_device_ms']}")
+    for B in CR_B if has("cr") else ():
         k = f"B={B}"
         for f in ("block_cr_ms", "factor_logdet_ms", "apply_ms", "auto_cols"):
             line(f"block_cr {k} {f}", lambda r: r["cr"][k][f])
@@ -368,7 +425,7 @@ def table(*paths):
             if "cr" in r and "apply_device_ms" in r["cr"][k]:
                 print(f"  apply device {k} ({r['src']}): "
                       f"{r['cr'][k]['apply_device_ms']}")
-    for B in LU_B:
+    for B in LU_B if has("lu_first") else ():
         k = f"B={B}"
         line(f"banded_lu {k} first", lambda r: r["lu_first"][k])
         line(f"banded_lu {k} again", lambda r: r["lu_again"][k])
@@ -381,7 +438,7 @@ def table(*paths):
                 print(f"  device split {k} ({r['src']}): "
                       f"{r['lu_split'][k]['device_ms']}, rhs / band "
                       f"{r['lu_split'][k].get('library_div_device_ms')}")
-    for B, _ in PCG_B:
+    for B, _ in PCG_B if has("pcg") else ():
         k = f"B={B}"
         for f in ("whole_40_ms", "whole_40_prefactored_ms", "factor_ms",
                   "fused_pcg_iter_ms", "auto_cols"):

@@ -1,14 +1,14 @@
-"""Hold the whole-PCG or Gauss-Seidel kernel of one checkout against
-another's, bit for bit.
+"""Hold the whole-PCG, Gauss-Seidel or Jacobi kernel of one checkout
+against another's, bit for bit.
 
-A refactor of code that ``csrc/mega_pcg.cu`` or ``csrc/gauss_seidel.cu``
-compiles (``sweep.cuh``, ``cr.cuh``, ``common.cuh``) should leave its
-numbers unchanged. Run this once per checkout on an NVIDIA GPU, with the
+A refactor of code that ``csrc/mega_pcg.cu``, ``csrc/gauss_seidel.cu`` or
+``csrc/jacobi.cu`` compiles (``sweep.cuh``, ``cr.cuh``, ``common.cuh``)
+should leave its numbers unchanged. Run this once per checkout on an NVIDIA GPU, with the
 same operands file; the first run writes the operands (q = 0 at n = 30000
 and q = 1 at n = 4000, D = 10, on a jittered grid), later runs load them,
 so both sides solve identical systems. Then compare the two output files::
 
-    python scripts/mega_pcg_bitwise.py run  SRC OUT OPERANDS [pcg|gs]
+    python scripts/mega_pcg_bitwise.py run  SRC OUT OPERANDS [pcg|gs|jacobi]
     python scripts/mega_pcg_bitwise.py diff OUT_A OUT_B
 
 ``pcg`` (the default) runs the whole PCG solve, cold and warm, with and
@@ -16,6 +16,9 @@ without the tol exit. ``gs`` runs Gauss-Seidel in both pivot modes: the
 whole solve (40 sweeps from x0; fused="whole") and one sweep with k
 (fused="on"), each (x, k); where the checkout takes ``cols``, it also
 reports whether every chunk width 1, 2, 4, 8 gives the default's bits.
+``jacobi`` runs damped Jacobi (alpha = 1/D) the same way: the whole solve
+(40 sweeps) from x0 warm and from zero, and one sweep with k carried and
+from a warm start, each (x, k), in both pivot modes and at every width.
 
 ``SRC`` is the ``src`` directory of the checkout to run (its kernels are
 built beside it, under its own ``build/``).
@@ -101,6 +104,43 @@ def _run_gs(opfile, dev):
     return res
 
 
+def _run_jacobi(opfile, dev):
+    """Jacobi (x, k, 0) per (q, n, B, pivot, mode); the chunk widths'
+    agreement is printed."""
+    import inspect
+
+    from repro_torch.kernels.fused_sweep import fused_jacobi_iter
+    from repro_torch.kernels.mega_solve import mega_jacobi_solve
+
+    widths = "cols" in inspect.signature(mega_jacobi_solve).parameters
+    res = {}
+    for key, o in torch.load(opfile).items():
+        _, phi, saphi, si, ri, s2, v, x0 = (t.to(dev) for t in o["t"])
+        ops = (phi, saphi, si, ri, s2, v)
+        _, w_p, w_s = o["w"]
+        for pivot in (False, True):
+            kw = dict(w_p=w_p, w_s=w_s, pivot=pivot, alpha=1.0 / v.shape[0])
+            calls = {
+                "whole": lambda **c: mega_jacobi_solve(
+                    *ops, x0, iters=40, warm=True, **kw, **c),
+                "whole cold": lambda **c: mega_jacobi_solve(
+                    *ops, torch.zeros_like(v), iters=40, **kw, **c),
+                "on": lambda **c: fused_jacobi_iter(*ops, x0, v, **kw, **c),
+                "on warm": lambda **c: fused_jacobi_iter(
+                    *ops, x0, warm=True, **kw, **c)}
+            for mode, call in calls.items():
+                x, k = call()
+                res[key + (pivot, mode)] = (x.cpu(), k.cpu(), 0)
+                if widths:
+                    same = all(
+                        all(torch.equal(a, b) for a, b in
+                            zip(call(cols=c), (x, k))) for c in (1, 2, 4, 8))
+                    print(f"jacobi (q, n, B) = {key} pivot={pivot} {mode}: "
+                          f"chunk widths 1, 2, 4, 8 bitwise {same}",
+                          flush=True)
+    return res
+
+
 def run(src, out, opfile, solver="pcg"):
     sys.path.insert(0, src)
     from repro_torch.kernels.mega_solve import mega_pcg_solve
@@ -108,8 +148,9 @@ def run(src, out, opfile, solver="pcg"):
     dev = torch.device("cuda")
     if not os.path.exists(opfile):
         _operands(opfile, dev)
-    if solver == "gs":
-        torch.save(_run_gs(opfile, dev), out)
+    if solver in ("gs", "jacobi"):
+        torch.save((_run_gs if solver == "gs" else _run_jacobi)(opfile, dev),
+                   out)
         return
     res = {}
     for key, o in torch.load(opfile).items():
@@ -156,7 +197,7 @@ def diff(path_a, path_b):
                for i in (0, 1)]
         same_all &= same
         print(f"(q, n, B, ...) = {k}: bitwise {same}, x max rel "
-              f"{rel[0]:.3e}, r (pcg) or k (gs) max rel {rel[1]:.3e}, "
+              f"{rel[0]:.3e}, r (pcg) or k max rel {rel[1]:.3e}, "
               f"iterations {a[k][2]} / {b[k][2]}")
     print(f"all bitwise: {same_all}")
 

@@ -202,7 +202,10 @@ def fused_mode(cfg: SolveConfig, a, phi, saphi) -> str:
 
 def _maybe_fused(ops: DimOps, v, cfg: SolveConfig):
     """Resolve ``cfg.fused`` for this solve: ``(mode, FusedSweep|None)``,
-    mode "whole" | "on" | "off" (the FusedSweep is None when off)."""
+    mode "whole" | "on" | "off" (the FusedSweep is None when off). The
+    FusedSweep takes the block-CR factors ``ops`` holds where they fit its
+    padded stack (``FusedSweep``'s ``factors``), so a solve makes no factor
+    of its own there."""
     from ..kernels.fused_sweep import FusedSweep
 
     need_a = cfg.method == "pcg"
@@ -214,7 +217,7 @@ def _maybe_fused(ops: DimOps, v, cfg: SolveConfig):
         ops.Phi.data, ops.SAPhi.data, ops.sort_idx, ops.rank_idx, ops.sigma2,
         w_p=ops.Phi.lo, w_s=ops.SAPhi.lo,
         a=ops.A.data if need_a else None, w_a=ops.A.lo, pivot=cfg.pivot,
-        backend=cfg.backend)
+        backend=cfg.backend, factors=(ops.phi_factor, ops.saphi_factor))
 
 
 def _kinv0(ops: DimOps, x0, cfg: SolveConfig):

@@ -30,10 +30,11 @@
 //     columns) items over the whole grid, one thread block each (not
 //     cooperative: the items are independent). Each runs cr_block_apply on
 //     its columns from the read-only factor, in place on x, with no
-//     scratch. cr_block_apply replays cr_block_solve's right-hand-side
+//     scratch. cr_block_apply replays the elimination's right-hand-side
 //     expressions (cr_fold_rhs, cr_back_row), and a column's arithmetic does
-//     not depend on its chunk, so factor plus apply gives the one-block
-//     solve's bits at every chunk width.
+//     not depend on its chunk, so factor plus apply gives the bits of one
+//     block eliminating band and right-hand side together, at every chunk
+//     width.
 // The chunk width (cpc = 0: apply_cols) is the narrowest power of two that
 // gives every item an SM of its own, mega_pcg.cu's rule: at G = 10 bands
 // and B = 16 columns, two columns an item (80 items on 132 SMs). Wider

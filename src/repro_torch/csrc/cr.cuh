@@ -1,12 +1,12 @@
 // Block cyclic-reduction solve and log-determinant as device functions for
-// one thread block.
+// one thread block, in factored form: a factor made once per band, then
+// applied to each right-hand side.
 //
 // Replaces: src/repro/kernels/block_cr.py, cr_solve_values, the body that
 // the standalone launches (block_cr.cu: factor, then apply) and the
-// backfitting kernels (jacobi.cu, gauss_seidel.cu through sweep.cuh's
-// cr_block_solve, and mega_pcg.cu in the factored form at the end of this
-// file) call. The band (lo = hi = W) is viewed as block-tridiagonal with
-// W x W blocks
+// backfitting kernels (mega_pcg.cu, jacobi.cu and gauss_seidel.cu, through
+// sweep.cuh's apply_cols) call. The band (lo = hi = W) is viewed as
+// block-tridiagonal with W x W blocks
 //     A_i x_{i-1} + B_i x_i + C_i x_{i+1} = r_i,   i = 0..nb-1,
 // and eliminated in ceil(log2 nb) levels: at stride s = 2^k every even row
 // (i % 2s == 0) folds its odd neighbours i +- s into itself; back
@@ -15,20 +15,21 @@
 // updates in place; a __syncthreads separates the levels.
 //
 // What bounds it: the log-depth chain of levels (one barrier each) and, per
-// level, bytes of the working blocks and right-hand sides, which stay in
-// L2 for the sizes the serving path uses. Each level first updates the
-// right-hand sides of all (row, column) pairs from the old blocks, then
-// (after a barrier) the blocks themselves, so no thread reads a block that
-// another thread of the same level rewrites.
+// level, bytes of the factor's blocks and of the right-hand sides, which
+// stay in L2 for the sizes the serving path uses. The factor folds each
+// level's blocks, the apply each level's right-hand sides with the stored
+// coefficients.
 //
 // Template flag PIVOT swaps the unpivoted W x W block solves for the
 // reference's partial-pivot block mode (in the coefficients, the reduced row
 // 0 and the back substitution). log|det| = sum_i log|det B_i| over the
 // frozen blocks is cr_logdet_blocks: per-thread partials, then a fixed tree
 // order across the block, so the value does not depend on scheduling. The
-// pieces that every form shares (blocks from the band, one right-hand-side
-// fold, one block fold, one back substitution row) are the functions below,
-// so the forms compute the same expressions.
+// pieces of the elimination (blocks from the band, one level's
+// coefficients, one right-hand-side fold, one block fold, one back
+// substitution row) are the functions below, so the factor and the apply
+// together compute the expressions of the elimination of band and
+// right-hand side in one pass, in its order.
 #pragma once
 
 #include "common.cuh"
@@ -243,100 +244,17 @@ __device__ void cr_logdet_blocks(const double* Bb, int nb, double* ld,
   if (threadIdx.x == 0) *ld = red[0];
 }
 
-// Solve with the band (npad, 2W+1) (row-aligned, identity-padded to whole
-// blocks) against the B columns of R (npad rows, row stride ldr; ldr = 0
-// means B), in place: R holds x on return. The columns are independent, so
-// a caller may hand disjoint column ranges of one system to different
-// blocks, each with its own scratch: every block recomputes the same block
-// values. Ab/Bb/Cb are (npad / W, W, W) scratch. Every thread of the block
-// must call this.
-template <int W, bool PIVOT = false>
-__device__ void cr_block_solve(const double* band, double* R, double* Ab,
-                               double* Bb, double* Cb, int npad, int B,
-                               int ldr = 0) {
-  constexpr int WW = W * W;
-  const int nb = npad / W;
-  const long long L = ldr > 0 ? ldr : B;  // row stride of R
-  const int steps = nb > 1 ? 32 - __clz(nb - 1) : 0;
-
-  cr_to_blocks<W>(band, Ab, Bb, Cb, nb);
-  __syncthreads();
-
-  for (int k = 0; k < steps; ++k) {
-    const int s = 1 << k;
-    const int ne = (nb + 2 * s - 1) / (2 * s);  // even rows i = 2 s j < nb
-    // right-hand sides: R_i += alpha R_{i-s} + beta R_{i+s}
-    for (long long e = threadIdx.x; e < (long long)ne * B; e += blockDim.x) {
-      const int j = (int)(e / B), b = (int)(e - (long long)j * B);
-      const int i = 2 * s * j;
-      double alpha[W][W], beta[W][W];
-      cr_coef<W, PIVOT>(Ab, Bb, Cb, i, s, nb, alpha, beta);
-      double ri[W], rm[W], rp[W], out[W];
-      cr_load_rhs<W>(R, L, i, s, nb, b, ri, rm, rp);
-      cr_fold_rhs<W>(alpha, beta, ri, rm, rp, out);
-#pragma unroll
-      for (int r = 0; r < W; ++r) R[(long long)(i * W + r) * L + b] = out[r];
-    }
-    __syncthreads();
-    // blocks: B_i += alpha C_{i-s} + beta A_{i+s}; A_i = alpha A_{i-s};
-    // C_i = beta C_{i+s}
-    for (int j = threadIdx.x; j < ne; j += blockDim.x) {
-      const int i = 2 * s * j;
-      double alpha[W][W], beta[W][W];
-      cr_coef<W, PIVOT>(Ab, Bb, Cb, i, s, nb, alpha, beta);
-      cr_fold_blocks<W>(alpha, beta, Ab, Bb, Cb, i, s, nb);
-    }
-    __syncthreads();
-  }
-
-  // the fully reduced row 0
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    double B0[W][W], r0[W][1], x0[W][1];
-    load_block<W>(Bb, B0);
-#pragma unroll
-    for (int r = 0; r < W; ++r) r0[r][0] = R[(long long)r * L + b];
-    cr_small_solve<W, 1, PIVOT>(B0, r0, x0);
-#pragma unroll
-    for (int r = 0; r < W; ++r) R[(long long)r * L + b] = x0[r][0];
-  }
-  __syncthreads();
-
-  // back substitution: odd rows of level k from the solved rows i +- s
-  for (int k = steps - 1; k >= 0; --k) {
-    const int s = 1 << k;
-    const int no = nb > s ? (nb - s + 2 * s - 1) / (2 * s) : 0;
-    for (long long e = threadIdx.x; e < (long long)no * B; e += blockDim.x) {
-      const int j = (int)(e / B), b = (int)(e - (long long)j * B);
-      const int i = s + 2 * s * j;
-      double Ai[W][W], Ci[W][W], Bi[W][W], xm[W], xp[W], ri[W], xi[W][1];
-      load_block<W>(Ab + (long long)i * WW, Ai);
-      load_block<W>(Cb + (long long)i * WW, Ci);
-      load_block<W>(Bb + (long long)i * WW, Bi);
-#pragma unroll
-      for (int r = 0; r < W; ++r) {
-        xm[r] = R[(long long)((i - s) * W + r) * L + b];
-        xp[r] = (i + s < nb) ? R[(long long)((i + s) * W + r) * L + b] : 0.0;
-        ri[r] = R[(long long)(i * W + r) * L + b];
-      }
-      cr_back_row<W, PIVOT>(Ai, Bi, Ci, xm, xp, ri, xi);
-#pragma unroll
-      for (int r = 0; r < W; ++r) R[(long long)(i * W + r) * L + b] = xi[r][0];
-    }
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Factor once, then solve each right-hand side from the factor.
 //
-// Of what cr_block_solve computes, only the right-hand-side updates depend
-// on the right-hand side. cr_block_factor computes the rest once per band
+// Of what the elimination computes, only the right-hand-side updates
+// depend on the right-hand side. cr_block_factor computes the rest once per band
 // and stores it: for every level k (stride s = 2^k) and even row i = 2 s j
 // the coefficients alpha and beta of cr_coef, and the block triples after
 // the last level, where every row's A, B and C are those its back
 // substitution reads (a row is frozen from the level at which it turns odd;
 // row 0's B is the fully reduced row). cr_block_apply replays the
-// right-hand-side half of cr_block_solve on the stored values: the same
+// right-hand-side half of the elimination on the stored values: the same
 // operands in the same order, so the same bits. Nothing is re-rounded (no
 // stored inverse): the pivoted small solves of row 0 and of the back
 // substitution stay.
@@ -396,7 +314,7 @@ __device__ void cr_block_factor(const double* band, double* F, int npad) {
 }
 
 // Solve with the factor F of a band (npad, 2W+1) against the B columns of R
-// (row stride L), in place, as cr_block_solve<W, PIVOT> would. The columns
+// (row stride L), in place, as eliminating the band itself would. The columns
 // are independent, so blocks may take disjoint column ranges of one system
 // from the same factor. Every thread of the block must call this.
 template <int W, bool PIVOT>

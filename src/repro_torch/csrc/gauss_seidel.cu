@@ -33,7 +33,7 @@
 //     FusedSweep), so its block-CR elimination is factored once by the
 //     caller (cr_block_factor, block_cr.cu's factor launch) and each
 //     dimension step only replays the right-hand-side half of it from the
-//     factor (sweep.cuh apply_cols: cr_block_solve's own expressions in its
+//     factor (sweep.cuh apply_cols: the elimination's own expressions in its
 //     order, so the same bits), reading the factor with no scratch.
 //     Gauss-Seidel multiplies by Phi and never solves with it, so SAPhi's
 //     factor is the only one.

@@ -15,21 +15,48 @@
 // with no extra matvec; a warm whole solve seeds it with
 // k0 = (gather_rank(Phi^{-1} SAPhi gather_sort(x0)) - x0) / s^2.
 //
-// What bounds it on the H100: the block-CR solve of each sweep (a chain of
-// ceil(log2 nb) levels each way with a barrier per level) and the grid-wide
-// barriers between phases; the bytes are a few passes over (D, npad, B)
-// states per sweep. The TPU kernels keep the state in VMEM and carry the
-// cross-dim total in scratch from grid step 0; here the state lives in
-// device memory and the total is a phase before any dimension reads it.
+// What bounds it on the H100: the SAPhi solve of each sweep, a latency
+// chain of ceil(log2 nb) levels each way per (dimension, column chunk)
+// item with a block barrier per level, and the passes over (D, npad, B)
+// states: 77 MB each at the serving path's 10 x 30000 x 32, more than the
+// 50 MB L2, so v, x and k stream from device memory every sweep. The TPU
+// kernels keep the state in VMEM and carry the cross-dim total in scratch
+// from grid step 0; here the state lives in device memory and each thread
+// forms the total of its own rows.
 //
-// Design: one cooperative kernel for both entry points. The per-sweep
+// Design: one cooperative kernel for both entry points; the per-sweep
 // launch (fused="on") is the whole-solve kernel run for one sweep with
 // k taken from its input, so a host loop of sweeps and the whole solve
-// execute the same machine code and agree bit for bit. Phases are separated
-// by grid syncs: total and r (each thread owns a (row, column) pair over all
-// dimensions), the gathered Phi matvec, the SAPhi solve, the update. The
-// SAPhi solve spreads the (dimension, column chunk) items over the blocks
-// (sweep.cuh solve_cols), each block with its own CR scratch.
+// execute the same machine code and agree bit for bit.
+//   * SAPhi (and Phi, which a warm start solves with at w_p >= 1) does not
+//     change during a solve, nor between the launches of one FusedSweep,
+//     so its block-CR elimination is factored once by the caller
+//     (cr_block_factor, block_cr.cu's factor launch) and each sweep only
+//     replays the right-hand-side half of it from the factor (sweep.cuh
+//     apply_cols: the elimination's own expressions in its order, so the
+//     same bits), reading the factor with no scratch. The (dimension, chunk
+//     of cpc columns) items of all D dimensions spread over the grid
+//     (sweep.cuh auto_cols: the narrowest width whose items fit the grid).
+//   * The solve's operand t1 holds each dimension in column chunks
+//     (sweep.cuh chunk_col), so an item's rows are contiguous.
+//   * The elementwise work is one phase between solves: each thread owns a
+//     (row, column) pair over all D dimensions. It updates x and k from the
+//     solved t1 (recomputing r from the sweep's total, kept per row in tp,
+//     where k is kept), sums the next sweep's total in d order as it goes,
+//     then forms the next sweep's r from it. At w_p = 0 (Phi diagonal,
+//     q = 0) sorted row i of t1_d needs r_d at the one row sort_d[i], so
+//     the same phase writes r_d's Phi product straight into t1_d at sorted
+//     row rank_d[j] of its state row j: a location no other thread touches,
+//     and the one it has just read the solved value from. So a sweep is
+//     that phase and the apply, two grid barriers, and r is never stored;
+//     at w_p >= 1 the phase stores r and the gathered Phi matvec is a
+//     phase of its own (three barriers).
+//   * A row takes the loads of DG dimensions at a time (each dimension's
+//     rank, then its t1 element), so a thread has many independent loads
+//     in flight at the grid's one block a SM; each dimension's arithmetic
+//     keeps the expressions, and the total its d order, of the plain loop.
+//   * The first sweep reads x_in and k_in in place of x and k, so a
+//     one-sweep launch makes no copy pass.
 #include <cooperative_groups.h>
 
 #include "sweep.cuh"
@@ -38,12 +65,13 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using repro::gather_mv;
 using repro::make_map;
 using repro::Map;
 
 constexpr int NT = repro::SWEEP_NT;
 constexpr int MAX_BLOCKS_PER_SM = 2;
+constexpr int ILP = repro::ROW_ILP;  // rows of the gathered matvec at a time
+constexpr int DG = 5;  // dimensions of a row whose loads go out together
 
 // how k starts: none kept, from k_in, zero, or Khat^{-1} x_in (warm)
 enum KMode { K_NONE = 0, K_IN = 1, K_ZERO = 2, K_WARM = 3 };
@@ -51,18 +79,19 @@ enum KMode { K_NONE = 0, K_IN = 1, K_ZERO = 2, K_WARM = 3 };
 struct Args : repro::SweepDims {
   const double* phi;
   const double* saphi;
+  const double* fac_p;  // Phi's block-CR factor per dimension (warm, w_p > 0)
+  const double* fac_s;  // SAPhi's block-CR factor per dimension
   const double* sigma2;
   const double* v;
   const double* x_in;
   const double* k_in;
   double* x;
   double* k;
-  double* r;
-  double* t1;
-  double* scratch;
+  double* r;   // r per element (w_p >= 1)
+  double* t1;  // the solve operand, in column chunks of cpc
+  double* tp;  // the sweep's total per (row, column) (w_p = 0, k kept)
   double alpha;
-  long long sstride;  // CR scratch doubles per slot and array
-  int w_p, w_s, iters, kmode, nslots;
+  int w_p, w_s, iters, kmode, cpc;
 };
 
 template <bool PIVOT>
@@ -70,66 +99,156 @@ __global__ void __launch_bounds__(NT) jacobi_kernel(Args A) {
   cg::grid_group grid = cg::this_grid();
   const Map m = make_map(A.B);
   const int B = A.B, D = A.D;
-  const long long rows = (long long)D * A.npad;
+  const long long npad = A.npad, per = npad * B;
   const double s2 = *A.sigma2;
   const double al = A.alpha;
+  const bool fuse = A.w_p == 0;
+  const bool keep_k = A.kmode != K_NONE;
+  // this thread's column of t1: (d, i, m.b) at d per + tc + i tn
+  int tn = 1;
+  const long long tc = repro::chunk_col(m.b, A.npad, B, A.cpc, &tn);
+  const auto t1_store = [&](long long row, double a) {
+    const long long d = row / npad;
+    A.t1[d * per + tc + (row - d * npad) * tn] = a;
+  };
 
-  if (m.on) {
-    for (long long row = m.r0; row < rows; row += m.rs) {
-      const long long e = row * B + m.b;
-      A.x[e] = A.x_in[e];
-      if (A.kmode == K_IN) A.k[e] = A.k_in[e];
-      if (A.kmode == K_ZERO) A.k[e] = 0.0;
+  // the next sweep's right-hand side of state row j, from its total and
+  // the state u: r stored (w_p >= 1), or its Phi product 0 + phi r written
+  // to t1 at sorted row rank_d[j] (w_p = 0, as gather_mv forms it)
+  const auto next_rhs = [&](long long j, double tot, const double* u) {
+    const long long e0 = j * B + m.b;
+    if (fuse && keep_k) A.tp[e0] = tot;
+    for (int d0 = 0; d0 < D; d0 += DG) {
+      double vv[DG], uv[DG], ph[DG];
+      long long ri[DG];
+#pragma unroll
+      for (int q = 0; q < DG; ++q) {
+        const int d = d0 + q;
+        if (d < D) {
+          vv[q] = A.v[d * per + e0];
+          uv[q] = u[d * per + e0];
+          if (fuse) ri[q] = A.rank[d * npad + j];
+        }
+      }
+      if (fuse) {
+#pragma unroll
+        for (int q = 0; q < DG; ++q)
+          if (d0 + q < D) ph[q] = A.phi[(d0 + q) * npad + ri[q]];
+      }
+#pragma unroll
+      for (int q = 0; q < DG; ++q) {
+        const int d = d0 + q;
+        if (d < D) {
+          const double r = vv[q] - (tot - uv[q]) / s2;
+          if (fuse) {
+            double a = 0.0;
+            a += ph[q] * r;
+            A.t1[d * per + tc + ri[q] * tn] = a;
+          } else {
+            A.r[d * per + e0] = r;
+          }
+        }
+      }
+    }
+  };
+
+  if (A.kmode == K_WARM) {
+    // k0 = Khat^{-1} x0 = (P^T Phi^{-1} SAPhi P x0 - x0) / s^2: the
+    // gathered SAPhi matvec here, Phi's solve below (w_p >= 1 from its
+    // factor; w_p = 0 a division in the start phase)
+    repro::gather_mv_to<ILP>(A, m, A.x_in, A.saphi, A.w_s, 0, D, t1_store);
+    grid.sync();
+    if (!fuse) {
+      repro::apply_cols<PIVOT, true>(A, m, A.t1, A.phi, A.fac_p, A.w_p, 0, D,
+                                     A.cpc);
+      grid.sync();
     }
   }
-  if (A.kmode == K_WARM) {
-    // k0 = Khat^{-1} x0 = (P^T Phi^{-1} SAPhi P x0 - x0) / s^2
-    gather_mv(A, m, A.t1, A.x_in, A.saphi, A.w_s);
-    grid.sync();
-    repro::solve_cols<PIVOT>(A, m, A.t1, A.phi, A.w_p, 0, D, A.scratch,
-                             A.sstride, A.nslots);
-    grid.sync();
-    if (m.on) {
-      for (long long row = m.r0; row < rows; row += m.rs) {
-        const int d = (int)(row / A.npad);
-        const long long e = row * B + m.b;
-        const double kw =
-            A.t1[((long long)d * A.npad + A.rank[row]) * B + m.b];
-        A.k[e] = (kw - A.x_in[e]) / s2;
+  // start: the total of x_in per row and the first sweep's right-hand side;
+  // k0 at a warm start; with no sweep, x = x_in and k as kmode says
+  if (m.on) {
+    for (long long j = m.r0; j < npad; j += m.rs) {
+      const long long e0 = j * B + m.b;
+      double tot = 0.0;
+      for (int d = 0; d < D; ++d) {
+        const long long e = d * per + e0;
+        const double xv = A.x_in[e];
+        tot += xv;
+        if (A.kmode == K_WARM) {
+          const long long i = A.rank[d * npad + j];
+          double kw = A.t1[d * per + tc + i * tn];
+          if (fuse) kw = kw / A.phi[d * npad + i];
+          A.k[e] = (kw - xv) / s2;
+        }
+        if (A.iters == 0) {
+          A.x[e] = xv;
+          if (A.kmode == K_IN) A.k[e] = A.k_in[e];
+          if (A.kmode == K_ZERO) A.k[e] = 0.0;
+        }
       }
+      if (A.iters > 0) next_rhs(j, tot, A.x_in);
     }
   }
 
   for (int it = 0; it < A.iters; ++it) {
-    grid.sync();
-    // total over the dimensions, then every dimension's r off it
-    if (m.on) {
-      for (long long i = m.r0; i < A.npad; i += m.rs) {
-        double tot = 0.0;
-        for (int d = 0; d < D; ++d)
-          tot += A.x[((long long)d * A.npad + i) * B + m.b];
-        for (int d = 0; d < D; ++d) {
-          const long long e = ((long long)d * A.npad + i) * B + m.b;
-          A.r[e] = A.v[e] - (tot - A.x[e]) / s2;
-        }
-      }
+    const bool more = it + 1 < A.iters;
+    // the first sweep reads x_in and k_in (zero at K_ZERO; k0 at K_WARM)
+    const double* xs = it == 0 ? A.x_in : A.x;
+    const double* ks =
+        it == 0 && A.kmode == K_IN ? A.k_in
+        : it == 0 && A.kmode == K_ZERO ? nullptr : A.k;
+    if (!fuse) {
+      grid.sync();
+      repro::gather_mv_to<ILP>(A, m, A.r, A.phi, A.w_p, 0, D, t1_store);
     }
     grid.sync();
-    gather_mv(A, m, A.t1, A.r, A.phi, A.w_p);
+    repro::apply_cols<PIVOT, true>(A, m, A.t1, A.saphi, A.fac_s, A.w_s, 0, D,
+                                   A.cpc);
     grid.sync();
-    repro::solve_cols<PIVOT>(A, m, A.t1, A.saphi, A.w_s, 0, D, A.scratch,
-                             A.sstride, A.nslots);
-    grid.sync();
-    if (m.on) {
-      for (long long row = m.r0; row < rows; row += m.rs) {
-        const int d = (int)(row / A.npad);
-        const long long e = row * B + m.b;
-        const double nw =
-            s2 * A.t1[((long long)d * A.npad + A.rank[row]) * B + m.b];
-        A.x[e] = (1.0 - al) * A.x[e] + al * nw;
-        if (A.kmode != K_NONE)
-          A.k[e] = (1.0 - al) * A.k[e] + al * (A.r[e] - nw / s2);
+    if (!m.on) continue;
+    for (long long j = m.r0; j < npad; j += m.rs) {
+      const long long e0 = j * B + m.b;
+      const double to = fuse && keep_k ? A.tp[e0] : 0.0;
+      double tot = 0.0;
+      for (int d0 = 0; d0 < D; d0 += DG) {
+        double xo[DG], ko[DG], rv[DG], tv[DG];
+        long long ri[DG];
+#pragma unroll
+        for (int q = 0; q < DG; ++q) {
+          const int d = d0 + q;
+          if (d < D) {
+            const long long e = d * per + e0;
+            ri[q] = A.rank[d * npad + j];
+            xo[q] = xs[e];
+            if (keep_k) {
+              ko[q] = ks ? ks[e] : 0.0;
+              rv[q] = fuse ? A.v[e] : A.r[e];
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < DG; ++q)
+          if (d0 + q < D) tv[q] = A.t1[(d0 + q) * per + tc + ri[q] * tn];
+#pragma unroll
+        for (int q = 0; q < DG; ++q) {
+          const int d = d0 + q;
+          if (d < D) {
+            const long long e = d * per + e0;
+            const double nw = s2 * tv[q];
+            // each update's one multiply-add is written out (x folds
+            // alpha new, k folds (1 - alpha) k), so its bits do not rest
+            // on the compiler's choice
+            const double xn = __fma_rn(al, nw, __dmul_rn(1.0 - al, xo[q]));
+            A.x[e] = xn;
+            if (keep_k) {
+              const double r = fuse ? rv[q] - (to - xo[q]) / s2 : rv[q];
+              A.k[e] = __fma_rn(1.0 - al, ko[q], __dmul_rn(al, r - nw / s2));
+            }
+            tot += xn;
+          }
+        }
       }
+      if (more) next_rhs(j, tot, A.x);
     }
   }
 }
@@ -140,60 +259,67 @@ int grid_blocks(int* out) {
                                    out);
 }
 
-int slots(int D, int B, int pivot, int* grid, int* nslots) {
-  const int err = pivot ? grid_blocks<true>(grid) : grid_blocks<false>(grid);
-  if (err) return err;
-  const long long items = (long long)D * B;
-  *nslots = items < *grid ? (int)items : *grid;
-  return 0;
-}
-
-long long scratch_stride(int npad, int w_p, int w_s) {
-  const int w = w_p > w_s ? w_p : w_s;
-  return (long long)npad * (w > 1 ? w : 1);
+int grid_size(int pivot, int* grid) {
+  return pivot ? grid_blocks<true>(grid) : grid_blocks<false>(grid);
 }
 
 }  // namespace
 
-// float64 workspace entries of one launch: r, t1 and the CR scratch
-// (negative: -error)
-extern "C" long long repro_jacobi_workspace(int D, int npad, int B, int w_p,
-                                            int w_s, int pivot) {
-  int grid = 0, nslots = 0;
-  const int err = slots(D, B, pivot, &grid, &nslots);
-  if (err) return -(long long)err;
-  return 2LL * D * npad * B + 3LL * nslots * scratch_stride(npad, w_p, w_s);
+// float64 workspace entries of one launch: r, t1 and the total
+extern "C" long long repro_jacobi_workspace(int D, int npad, int B) {
+  return 2LL * D * npad * B + (long long)npad * B;
+}
+
+// Blocks of the cooperative grid (negative: -error).
+extern "C" int repro_jacobi_grid(int pivot) {
+  int grid = 0;
+  const int err = grid_size(pivot, &grid);
+  return err ? -err : grid;
+}
+
+// Columns per solve item that a launch with cpc = 0 takes (negative:
+// -error): sweep.cuh auto_cols over the D dimensions' items.
+extern "C" int repro_jacobi_cols(int D, int B, int pivot) {
+  int grid = 0;
+  const int err = grid_size(pivot, &grid);
+  return err ? -err : repro::auto_cols(D, B, grid);
 }
 
 // x_in (D, npad, B) the start; k_in the carried k (kmode 1); x, k the
-// outputs (k unused at kmode 0); `iters` sweeps; alpha the damping.
+// outputs (k unused at kmode 0); `iters` sweeps; alpha the damping. fac_s
+// holds SAPhi's D block-CR factors, fac_p (read only by a warm start at
+// w_p >= 1) Phi's (block_cr.cu repro_cr_factor_f64, in the launch's pivot
+// mode); cpc is the number of columns each solve item takes (0: chosen by
+// auto_cols).
 extern "C" int repro_jacobi_f64(const double* phi, const double* saphi,
+                                const double* fac_p, const double* fac_s,
                                 const int* sort, const int* rank,
                                 const double* sigma2, const double* v,
                                 const double* x_in, const double* k_in,
                                 double* x, double* k, double* work, int D,
                                 int npad, int B, int w_p, int w_s, int iters,
-                                double alpha, int kmode, int pivot,
+                                int cpc, double alpha, int kmode, int pivot,
                                 void* stream) {
   if (D < 1 || npad < 1 || B < 1 || B > NT || w_p < 0 || w_s < 1 ||
-      w_p > 3 || w_s > 3 || iters < 0 || kmode < K_NONE || kmode > K_WARM)
+      w_p > 3 || w_s > 3 || iters < 0 || cpc < 0 || kmode < K_NONE ||
+      kmode > K_WARM || !fac_s || (kmode == K_WARM && w_p > 0 && !fac_p))
     return (int)cudaErrorInvalidValue;
   if ((w_p > 0 && npad % w_p) || npad % w_s) return (int)cudaErrorInvalidValue;
-  int grid = 0, nslots = 0;
-  const int err = slots(D, B, pivot, &grid, &nslots);
+  int grid = 0;
+  const int err = grid_size(pivot, &grid);
   if (err) return err;
   const long long N = (long long)D * npad * B;
   Args A;
   A.sort = sort; A.rank = rank; A.D = D; A.npad = npad; A.B = B;
-  A.phi = phi; A.saphi = saphi; A.sigma2 = sigma2; A.v = v; A.x_in = x_in;
-  A.k_in = k_in; A.x = x; A.k = k;
+  A.phi = phi; A.saphi = saphi; A.fac_p = fac_p; A.fac_s = fac_s;
+  A.sigma2 = sigma2; A.v = v; A.x_in = x_in; A.k_in = k_in; A.x = x;
+  A.k = k;
   A.r = work;
   A.t1 = A.r + N;
-  A.scratch = A.t1 + N;
+  A.tp = A.t1 + N;
   A.alpha = alpha;
-  A.sstride = scratch_stride(npad, w_p, w_s);
   A.w_p = w_p; A.w_s = w_s; A.iters = iters; A.kmode = kmode;
-  A.nslots = nslots;
+  A.cpc = cpc == 0 ? repro::auto_cols(D, B, grid) : (cpc < B ? cpc : B);
   void* params[] = {&A};
   const void* fn = pivot ? (const void*)jacobi_kernel<true>
                          : (const void*)jacobi_kernel<false>;

@@ -1,9 +1,9 @@
 // Device functions shared by the backfitting solve kernels (mega_pcg.cu,
 // jacobi.cu, gauss_seidel.cu), float64: the thread map, the gathered banded
 // matvec and the cross-dimension total of the elementwise phases, the
-// column-split block-CR solves (solve_cols recomputes the elimination per
-// item; apply_cols reads a stored factor), the chunk width of apply_cols
-// (auto_cols) and the cooperative grid size.
+// column-split block-CR solve from a stored factor (apply_cols), the
+// column-chunked layout of its operand (chunk_col), the chunk width of
+// apply_cols (auto_cols) and the cooperative grid size.
 // (mega_pcg.cu keeps its own inner products: the sweeps need none.)
 //
 // They act on (D, npad, B) state stacks in original point order, with the
@@ -150,49 +150,6 @@ __device__ __forceinline__ void div_rows(const SweepDims& S, const Map& m,
       [&](int u, long long row) { t[row * S.B + m.b] = tv[u] / bv[u]; });
 }
 
-// t <- band^{-1} t for the dimensions [d0, d1), with the columns spread over
-// blocks: the (dimension, column chunk) items go to the first `nslots`
-// blocks, each with its own 3 * sstride doubles of block scratch. The
-// columns of a solve are independent and every block computes the same
-// block values, so the result is the same as one block per dimension.
-template <bool PIVOT>
-__device__ void solve_cols(const SweepDims& S, const Map& m, double* t,
-                           const double* band, int w, int d0, int d1,
-                           double* scratch, long long sstride, int nslots) {
-  const int B = S.B;
-  if (w == 0) {
-    div_rows(S, m, t, band, d0, d1);
-    return;
-  }
-  if ((int)blockIdx.x >= nslots) return;
-  const int nd = d1 - d0;
-  const int cpc = (nd * B + nslots - 1) / nslots;  // columns per item
-  const int chunks = (B + cpc - 1) / cpc;
-  const long long per = (long long)S.npad * B;
-  const long long bper = (long long)S.npad * (2 * w + 1);
-  double* ab = scratch + (long long)blockIdx.x * 3 * sstride;
-  double* bb = ab + sstride;
-  double* cb = bb + sstride;
-  for (int item = blockIdx.x; item < nd * chunks; item += nslots) {
-    const int d = d0 + item / chunks;
-    const int c0 = (item % chunks) * cpc;
-    const int nc = B - c0 < cpc ? B - c0 : cpc;
-    const double* bd = band + d * bper;
-    double* td = t + d * per + c0;
-    switch (w) {
-      case 1:
-        cr_block_solve<1, PIVOT>(bd, td, ab, bb, cb, S.npad, nc, B);
-        break;
-      case 2:
-        cr_block_solve<2, PIVOT>(bd, td, ab, bb, cb, S.npad, nc, B);
-        break;
-      default:
-        cr_block_solve<3, PIVOT>(bd, td, ab, bb, cb, S.npad, nc, B);
-        break;
-    }
-  }
-}
-
 // Where element (i, b) of one dimension's (npad, B) block lies when the
 // block is stored in column chunks of cpc (CHUNKED below): chunk c holds the
 // columns c0 = c cpc ... c0 + nc - 1, nc = min(cpc, B - c0), as an (npad,
@@ -211,10 +168,11 @@ __device__ __forceinline__ long long chunk_col(int b, int npad, int B,
 // w, w) doubles each), with the (dimension, chunk of `cpc` columns) items
 // spread over every block of the grid; w = 0 divides by the diagonal. The
 // factor is read only, so the blocks need no scratch, and each item's
-// result is cr_block_solve's bit for bit. The division takes ROW_ILP rows at
-// a time. CHUNKED: each dimension of t is stored in column chunks of cpc
-// (chunk_col), so an item reads and writes whole rows of its own chunk
-// rather than cpc of every row's B doubles (w >= 1).
+// result has the bits of eliminating the band itself (cr.cuh). The
+// division takes ROW_ILP rows at a time. CHUNKED: each dimension of t is
+// stored in column chunks of cpc (chunk_col), so an item reads and writes
+// whole rows of its own chunk rather than cpc of every row's B doubles;
+// it takes w >= 1 only (the division reads t row-major).
 template <bool PIVOT, bool CHUNKED = false>
 __device__ void apply_cols(const SweepDims& S, const Map& m, double* t,
                            const double* band, const double* fac, int w,

@@ -56,8 +56,10 @@ _SIGNATURES = {
     "repro_mega_pcg_cols": (_c_int, [_c_int] * 3),
     "repro_mega_pcg_f64": (_c_int, [_ptr] * 16 + [_c_int] * 8
                            + [_c_dbl, _c_int, _c_int, _ptr]),
-    "repro_jacobi_workspace": (_c_ll, [_c_int] * 6),
-    "repro_jacobi_f64": (_c_int, [_ptr] * 11 + [_c_int] * 6
+    "repro_jacobi_workspace": (_c_ll, [_c_int] * 3),
+    "repro_jacobi_grid": (_c_int, [_c_int]),
+    "repro_jacobi_cols": (_c_int, [_c_int] * 3),
+    "repro_jacobi_f64": (_c_int, [_ptr] * 13 + [_c_int] * 7
                          + [_c_dbl, _c_int, _c_int, _ptr]),
     "repro_gauss_seidel_workspace": (_c_ll, [_c_int] * 3),
     "repro_gauss_seidel_grid": (_c_int, [_c_int]),

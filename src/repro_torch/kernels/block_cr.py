@@ -27,9 +27,9 @@ bits. On CUDA tensors :func:`block_cr` is one factor and one apply launch,
 and :func:`block_cr_logdet` one factor launch; a caller that solves one band
 many times keeps the factor (``kernels.ops.banded_factor``). The device
 functions are ``csrc/cr.cuh``'s: the whole-solve PCG kernel
-(``csrc/mega_pcg.cu``) and the Gauss-Seidel kernel (``gauss_seidel.cu``)
-apply the same factors, and the Jacobi kernel (``csrc/jacobi.cu``, through
-``csrc/sweep.cuh``) runs the unfactored elimination ``cr_block_solve``.
+(``csrc/mega_pcg.cu``), the Gauss-Seidel kernel (``gauss_seidel.cu``) and
+the Jacobi kernel (``jacobi.cu``) apply the same factors, through
+``csrc/sweep.cuh``'s ``apply_cols``.
 """
 from __future__ import annotations
 

@@ -12,7 +12,9 @@ host loop of them. Each per-iteration launch runs the whole-solve kernel
 of ``mega_solve.py`` for one iteration (PCG: after one seed launch that
 forms r, z, p and rz the way the whole solve starts), and each plain whole
 solve is a loop of the plain iteration, so a host loop and the whole solve
-agree bit for bit.
+agree bit for bit. The CUDA kernels solve Phi and SAPhi from block-CR
+factors (``sweep_factor``) that a ``FusedSweep`` holds for all its
+launches; the plain versions solve from the bands.
 
 Padding: rows are padded to ``npad`` (n rounded up to the lcm of the solved
 half-bandwidths) so every block-CR solve sees whole ``w x w`` blocks. Band
@@ -38,7 +40,8 @@ __all__ = ["FusedSweep", "_pad_len", "_mv", "_gather", "_solve_sym",
            "fused_pcg_iter", "fused_pcg_iter_plain", "pcg_seed",
            "pcg_seed_plain", "pcg_loop", "sweep_backward_error", "MAX_B",
            "MAX_WIDTH", "sweep_factor", "pcg_factors", "pcg_solve_cols",
-           "gauss_seidel_cols", "gauss_seidel_grid"]
+           "gauss_seidel_cols", "gauss_seidel_grid", "jacobi_cols",
+           "jacobi_grid"]
 
 MAX_B = 256  # RHS columns per launch (csrc/sweep.cuh SWEEP_NT)
 MAX_WIDTH = 3  # w_a, w_p, w_s <= 3 (csrc/sweep.cuh instantiations)
@@ -285,24 +288,37 @@ def _check_operands(phi, saphi, sort_idx, rank_idx, sigma2, states, w_p,
 
 
 def _launch_jacobi(name, phi, saphi, sort_idx, rank_idx, sigma2, v, x_in,
-                   k_in, *, w_p, w_s, alpha, iters, kmode, pivot):
-    """``csrc/jacobi.cu`` for ``iters`` sweeps; returns (x, k or None)."""
+                   k_in, *, w_p, w_s, alpha, iters, kmode, pivot,
+                   factors=None, cols=None):
+    """``csrc/jacobi.cu`` for ``iters`` sweeps; returns (x, k or None).
+    ``factors`` are ``(Phi's or None, SAPhi's)`` :func:`sweep_factor` in
+    this pivot mode; Phi's is read only by a warm start at w_p >= 1 (None:
+    each made here where it is read, one ``cr_factor`` launch each).
+    ``cols`` the columns per solve item (None: :func:`jacobi_cols`)."""
     states = (v, x_in) if k_in is None else (v, x_in, k_in)
     D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
                                       sigma2, states, w_p, w_s)
+    need_p = w_p > 0 and kmode == K_WARM
+    if factors is None:
+        factors = pcg_factors(phi, saphi, w_p=w_p if need_p else 0, w_s=w_s,
+                              pivot=pivot)
+    fac_p = _factor_data(factors[0], "Phi", w_p, D, npad, dev) if need_p \
+        else None
+    fac_s = _factor_data(factors[1], "SAPhi", w_s, D, npad, dev)
+    _check_cols(cols)
     lib = _build.load_library()
-    nwork = lib.repro_jacobi_workspace(D, npad, B, w_p, w_s, int(pivot))
-    if nwork < 0:
-        _build.check(int(-nwork), f"{name} workspace query")
-    work = torch.empty((nwork,), dtype=torch.float64, device=dev)
+    work = torch.empty((lib.repro_jacobi_workspace(D, npad, B),),
+                       dtype=torch.float64, device=dev)
     x = torch.empty_like(v)
     k = None if kmode == K_NONE else torch.empty_like(v)
     err = lib.repro_jacobi_f64(
-        phi.data_ptr(), saphi.data_ptr(), sort_idx.data_ptr(),
-        rank_idx.data_ptr(), sigma2.data_ptr(), v.data_ptr(),
-        x_in.data_ptr(), None if k_in is None else k_in.data_ptr(),
-        x.data_ptr(), None if k is None else k.data_ptr(), work.data_ptr(),
-        D, npad, B, w_p, w_s, iters, float(alpha), kmode, int(pivot),
+        phi.data_ptr(), saphi.data_ptr(),
+        None if fac_p is None else fac_p.data_ptr(), fac_s.data_ptr(),
+        sort_idx.data_ptr(), rank_idx.data_ptr(), sigma2.data_ptr(),
+        v.data_ptr(), x_in.data_ptr(),
+        None if k_in is None else k_in.data_ptr(), x.data_ptr(),
+        None if k is None else k.data_ptr(), work.data_ptr(), D, npad, B,
+        w_p, w_s, iters, cols or 0, float(alpha), kmode, int(pivot),
         _build.stream_handle(dev))
     _build.check(err, name)
     _build.count_launch(name)
@@ -341,6 +357,9 @@ def _check_factors(factors, pivot: bool):
 def _factor_data(fac, name, w, D, npad, dev):
     """The data of a :func:`sweep_factor` of a (D, npad) band of
     half-width ``w``, checked for a launch."""
+    if fac is None:
+        raise ValueError(f"the launch solves with {name}: its factor is "
+                         "needed, got None")
     if (fac.w, fac.n) != (w, npad):
         raise ValueError(f"{name} factor is of w = {fac.w}, n = {fac.n}; "
                          f"the operands have w = {w}, npad = {npad}")
@@ -408,6 +427,21 @@ def gauss_seidel_cols(B: int, pivot: bool = False) -> int:
     dimension a step, over its grid (``csrc/gauss_seidel.cu``)."""
     return _query(_build.load_library().repro_gauss_seidel_cols,
                   "gauss_seidel column query", B, int(pivot))
+
+
+def jacobi_grid(pivot: bool = False) -> int:
+    """Blocks of the Jacobi kernel's cooperative grid (at most two a SM, as
+    its occupancy allows)."""
+    return _query(_build.load_library().repro_jacobi_grid,
+                  "jacobi grid query", int(pivot))
+
+
+def jacobi_cols(D: int, B: int, pivot: bool = False) -> int:
+    """The Jacobi kernel's items' columns when the launch leaves ``cols``
+    open: auto_cols (as :func:`pcg_solve_cols`) over the D dimensions'
+    items and its grid (``csrc/jacobi.cu``)."""
+    return _query(_build.load_library().repro_jacobi_cols,
+                  "jacobi column query", D, B, int(pivot))
 
 
 def pcg_factors(phi, saphi, *, w_p: int, w_s: int, pivot: bool = False):
@@ -504,20 +538,28 @@ def pcg_seed(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *, w_a: int,
 def fused_jacobi_iter(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, k=None,
                       *, w_p: int, w_s: int, alpha: float,
                       pivot: bool = False, warm: bool = False,
-                      backend: str | None = None):
+                      backend: str | None = None, factors=None,
+                      cols: int | None = None):
     """One damped block-Jacobi sweep on padded operands: bands
     (D, npad, 2w+1) float64, permutations (D, npad) int32, ``sigma2`` a
     1-element float64 tensor, states (D, npad, B) float64. Returns ``out``,
     or ``(out, k_out)`` when ``k`` is given or ``warm`` (k = Khat^{-1} vt
-    first). CUDA tensors launch ``csrc/jacobi.cu`` for one sweep."""
+    first). CUDA tensors launch ``csrc/jacobi.cu`` for one sweep, solving
+    from ``factors`` (``(Phi's or None, SAPhi's)`` :func:`sweep_factor`,
+    Phi's read only when ``warm`` at w_p >= 1, as :meth:`FusedSweep.
+    cr_factors` holds them; None: made for this call; another pivot mode
+    raises on either device), in items of ``cols`` columns (None:
+    :func:`jacobi_cols`); the plain version solves from the bands."""
     kw = dict(w_p=w_p, w_s=w_s, alpha=alpha, pivot=pivot)
+    _check_factors(factors, pivot)
     if resolve_backend(backend, v.device) == "plain":
         return fused_jacobi_iter_plain(phi, saphi, sort_idx, rank_idx, sigma2,
                                        v, vt, k, warm=warm, **kw)
     kmode = K_WARM if warm else (K_NONE if k is None else K_IN)
     x, k_out = _launch_jacobi("fused_jacobi_iter", phi, saphi, sort_idx,
                               rank_idx, sigma2, v, vt,
-                              None if warm else k, iters=1, kmode=kmode, **kw)
+                              None if warm else k, iters=1, kmode=kmode,
+                              factors=factors, cols=cols, **kw)
     return x if k_out is None else (x, k_out)
 
 
@@ -554,15 +596,20 @@ class FusedSweep:
     (D, n) permutations; ``sigma2`` the noise variance; ``pivot`` selects
     the pivoted block solves; ``backend`` the kernels' backend. Bands get
     identity tails, permutations self-mapping tails (int32, as the kernels
-    read them). The block-CR factors the CUDA kernels solve from are made
-    at the first launch that needs them and kept: Phi's and SAPhi's for
-    PCG (:meth:`cr_factors`), SAPhi's alone for Gauss-Seidel
-    (:meth:`saphi_factor`).
+    read them). The block-CR factors the CUDA kernels solve from are kept:
+    Phi's and SAPhi's for PCG and a warm Jacobi start (:meth:`cr_factors`),
+    SAPhi's alone for Gauss-Seidel and the Jacobi sweeps
+    (:meth:`saphi_factor`). ``factors`` may hand over ``(Phi's, SAPhi's)``
+    (``kernels.ops.banded_factor`` of the unpadded bands, either None, as a
+    ``core.backfitting.DimOps`` holds them): each is taken where it was made
+    for this pivot mode and the band's padding to whole blocks is this
+    stack's ``npad``; the others are made at the first launch that needs
+    them.
     """
 
     def __init__(self, phi, saphi, sort_idx, rank_idx, sigma2, *, w_p: int,
                  w_s: int, a=None, w_a: int = 0, pivot: bool = False,
-                 backend: str | None = None):
+                 backend: str | None = None, factors=(None, None)):
         D, n = sort_idx.shape
         self.D, self.n = D, n
         self.w_a, self.w_p, self.w_s = w_a, w_p, w_s
@@ -578,6 +625,11 @@ class FusedSweep:
         self.sigma2 = torch.as_tensor(sigma2, dtype=self.dtype,
                                       device=self.device).reshape(1)
         self._factors = {}
+        for name, w, f in zip(("phi", "saphi"), (w_p, w_s), factors):
+            if (f is not None and (f.batch, f.n, f.w, f.pivot)
+                    == ((D,), n, w, pivot) and -(-n // w) * w == self.npad):
+                self._factors[name] = BandFactor(f.data, (D,), self.npad, w,
+                                                 pivot)
 
     def _pad_band(self, data, w):
         out = torch.zeros((self.D, self.npad, 2 * w + 1), dtype=self.dtype,
@@ -624,12 +676,15 @@ class FusedSweep:
 
     def jacobi_iter(self, v, vt, alpha: float, k=None, warm: bool = False):
         """One sweep; pass ``k`` (or ``warm``: k = Khat^{-1} vt first) to
-        also carry the residual stack: ``(out, k)``."""
+        also carry the residual stack: ``(out, k)``. Solves from
+        :meth:`cr_factors` (Phi's only for ``warm``); column chunks share
+        them."""
+        fac = self.cr_factors(phi=warm)
         return self.by_columns(
             lambda v_, vt_, k_: fused_jacobi_iter(
                 *self._ops(), v_, vt_, k_, w_p=self.w_p, w_s=self.w_s,
                 alpha=alpha, pivot=self.pivot, warm=warm,
-                backend=self.backend), v, vt, k)
+                backend=self.backend, factors=fac), v, vt, k)
 
     def gauss_seidel_iter(self, v, vt, want_resid: bool = False):
         """One sweep from :meth:`saphi_factor`; column chunks share it."""
@@ -649,23 +704,24 @@ class FusedSweep:
 
     def saphi_factor(self):
         """SAPhi's block-CR factor (:func:`sweep_factor`), the one the
-        Gauss-Seidel kernel solves from, made at the first call (one
-        ``cr_factor`` launch) and kept: (3 nb + 2 sum_k ceil(nb / 2^{k+1}))
-        w^2, about 5 npad w, doubles per dimension (12 MB at npad = 30000,
-        D = 10, q = 0). None on the plain backend, which solves from the
-        band."""
+        Gauss-Seidel and Jacobi kernels solve from, handed over at
+        construction or made at the first call (one ``cr_factor`` launch)
+        and kept: (3 nb + 2 sum_k ceil(nb / 2^{k+1})) w^2, about 5 npad w,
+        doubles per dimension (12 MB at npad = 30000, D = 10, q = 0). None
+        on the plain backend, which solves from the band."""
         if resolve_backend(self.backend, self.device) == "plain":
             return None
         return self._factor("saphi")
 
-    def cr_factors(self):
-        """The block-CR factors the PCG kernel solves from, ``(Phi's or
-        None at w_p = 0, SAPhi's)`` (as :func:`pcg_factors`), each made at
-        its first use and kept (SAPhi's is :meth:`saphi_factor`'s). None on
-        the plain backend."""
+    def cr_factors(self, phi: bool = True):
+        """The block-CR factors the PCG kernel (and a warm Jacobi start)
+        solves from, ``(Phi's or None, SAPhi's)`` (as :func:`pcg_factors`;
+        Phi's None at w_p = 0 or without ``phi``), each handed over or made
+        at its first use and kept (SAPhi's is :meth:`saphi_factor`'s). None
+        on the plain backend."""
         if resolve_backend(self.backend, self.device) == "plain":
             return None
-        return (self._factor("phi") if self.w_p else None,
+        return (self._factor("phi") if phi and self.w_p else None,
                 self._factor("saphi"))
 
     def _pcg_kw(self):

@@ -28,7 +28,9 @@ Counterpart of ``repro.kernels.mega_solve``: the whole solve of
   ``k0 = Khat^{-1} x0`` on a warm start; Gauss-Seidel: exact). The CUDA
   launch is the sweep kernel run for ``iters`` sweeps, and the plain
   version is a loop of the plain sweep, so each agrees bit for bit with a
-  host loop of single sweeps.
+  host loop of single sweeps. Both solve from the block-CR factors a
+  ``FusedSweep`` holds (the Jacobi kernel SAPhi's, and Phi's for a warm
+  start; the Gauss-Seidel kernel SAPhi's).
 """
 from __future__ import annotations
 
@@ -108,17 +110,24 @@ def mega_jacobi_plain(phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
 def mega_jacobi_solve(phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
                       w_p: int, w_s: int, alpha: float, iters: int,
                       pivot: bool = False, warm: bool = False,
-                      backend: str | None = None):
+                      backend: str | None = None, factors=None,
+                      cols: int | None = None):
     """Whole damped-Jacobi solve on padded operands (as
     :func:`mega_pcg_solve`); returns ``(x, k)``. CUDA tensors launch
-    ``csrc/jacobi.cu`` once for all ``iters`` sweeps."""
+    ``csrc/jacobi.cu`` once for all ``iters`` sweeps, solving from
+    ``factors`` (``(Phi's or None, SAPhi's)`` ``fused_sweep.sweep_factor``,
+    Phi's read only when ``warm`` at w_p >= 1; None: made for this call;
+    another pivot mode raises) in items of ``cols`` columns (None:
+    ``fused_sweep.jacobi_cols``)."""
     kw = dict(w_p=w_p, w_s=w_s, alpha=alpha, iters=iters, pivot=pivot)
+    _check_factors(factors, pivot)
     if resolve_backend(backend, v.device) == "plain":
         return mega_jacobi_plain(phi, saphi, sort_idx, rank_idx, sigma2, v,
                                  x0, warm=warm, **kw)
     return _launch_jacobi("mega_jacobi", phi, saphi, sort_idx, rank_idx,
                           sigma2, v, x0, None,
-                          kmode=K_WARM if warm else K_ZERO, **kw)
+                          kmode=K_WARM if warm else K_ZERO, factors=factors,
+                          cols=cols, **kw)
 
 
 def mega_gauss_seidel_plain(phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
@@ -204,12 +213,16 @@ class MegaSolve:
             v, x0, MAX_B)
 
     def jacobi(self, v, x0, *, alpha: float, iters: int):
-        """Whole damped-Jacobi solve; returns ``(x, k)`` unpadded."""
+        """Whole damped-Jacobi solve from ``FusedSweep.cr_factors`` (Phi's
+        only for a warm start; one set for every column chunk); returns
+        ``(x, k)`` unpadded."""
         fs = self.fs
+        warm = x0 is not None
+        fac = fs.cr_factors(phi=warm)
         return self._solve(lambda v_p, x0_p: mega_jacobi_solve(
             fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v_p, x0_p,
             w_p=fs.w_p, w_s=fs.w_s, alpha=alpha, iters=iters, pivot=fs.pivot,
-            warm=x0 is not None, backend=fs.backend), v, x0, MAX_B)
+            warm=warm, backend=fs.backend, factors=fac), v, x0, MAX_B)
 
     def gauss_seidel(self, v, x0, *, iters: int):
         """Whole Gauss-Seidel solve from ``FusedSweep.saphi_factor`` (one

@@ -34,7 +34,9 @@ from repro_torch.kernels.fused_sweep import (fused_gauss_seidel_iter,
                                              fused_pcg_iter,
                                              fused_pcg_iter_plain,
                                              gauss_seidel_cols,
-                                             gauss_seidel_grid, pcg_seed,
+                                             gauss_seidel_grid, jacobi_cols,
+                                             jacobi_grid, pcg_factors,
+                                             pcg_seed,
                                              pcg_seed_plain, pcg_solve_cols,
                                              sweep_backward_error,
                                              sweep_factor)
@@ -500,8 +502,68 @@ def test_gauss_seidel_short_last_chunk(dev, q, B, cols, pivot):
     assert all(torch.equal(a, b) for a, b in zip(got, one))
 
 
-# (B, Gauss-Seidel's columns an item, PCG's at D = 10) on a cooperative grid
-# of one block a SM, 132 on the H100 SXM (PERF.md: the widths measured)
+@pytest.mark.parametrize("q", [0, 1, 2])
+@pytest.mark.parametrize("pivot", [False, True])
+def test_jacobi_from_held_factors(dev, q, pivot):
+    """The Jacobi sweep (no k, k carried, warm) and whole solve (cold,
+    warm) given ``FusedSweep.cr_factors``, at every chunk width, equal the
+    calls that make the factors themselves, bit for bit (the apply replays
+    the elimination's right-hand-side expressions; a column's arithmetic
+    does not depend on its item); without ``factors`` a call makes SAPhi's
+    and, warm at w_p >= 1, Phi's (one cr_factor launch each), with them
+    none."""
+    fs, ops, v, x0, k = _relax_case(dev, q, 16)
+    kw = dict(w_p=fs.w_p, w_s=fs.w_s, alpha=0.4, pivot=pivot)
+    calls = {
+        "none": lambda **c: fused_jacobi_iter(*ops, v, x0, **kw, **c),
+        "k": lambda **c: fused_jacobi_iter(*ops, v, x0, k, **kw, **c),
+        "warm": lambda **c: fused_jacobi_iter(*ops, v, x0, warm=True, **kw,
+                                              **c),
+        "whole": lambda **c: mega_jacobi_solve(
+            *ops, v, torch.zeros_like(v), iters=6, **kw, **c),
+        "whole warm": lambda **c: mega_jacobi_solve(
+            *ops, v, x0, iters=6, warm=True, **kw, **c),
+    }
+    _build.reset_launch_counts()
+    ref = {name: call() for name, call in calls.items()}
+    assert _build.launch_counts()["cr_factor"] == 5 + 2 * (fs.w_p > 0)
+    fac = pcg_factors(fs.phi, fs.saphi, w_p=fs.w_p, w_s=fs.w_s, pivot=pivot)
+    _build.reset_launch_counts()
+    for cols in (None, 1, 2, 4, 8):
+        for name, call in calls.items():
+            got = call(factors=fac, cols=cols)
+            want = ref[name]
+            got, want = ((got, want) if isinstance(got, tuple)
+                         else ((got,), (want,)))
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (
+                name, cols)
+    assert _build.launch_counts()["cr_factor"] == 0
+
+
+@pytest.mark.parametrize("q", [0, 1])
+@pytest.mark.parametrize("B,cols", [(5, 2), (5, 4), (7, 3), (7, 4)])
+@pytest.mark.parametrize("pivot", [False, True])
+def test_jacobi_short_last_chunk(dev, q, B, cols, pivot):
+    """Chunk widths that do not divide B, so the last chunk of t1's
+    column-chunked layout is narrower: the warm sweep and the warm whole
+    solve against their plain versions, and bit for bit the one-column
+    items' results. q = 0 runs the fused w_p = 0 phase, q = 1 the gathered
+    one and Phi's factor."""
+    fs, ops, v, x0, _ = _relax_case(dev, q, B)
+    kw = dict(w_p=fs.w_p, w_s=fs.w_s, alpha=0.4, pivot=pivot, warm=True)
+    fac = pcg_factors(fs.phi, fs.saphi, w_p=fs.w_p, w_s=fs.w_s, pivot=pivot)
+    for fn, plain, extra in (
+            (fused_jacobi_iter, fused_jacobi_iter_plain, {}),
+            (mega_jacobi_solve, mega_jacobi_plain, {"iters": 12})):
+        got = fn(*ops, v, x0, factors=fac, cols=cols, **kw, **extra)
+        _close(got, plain(*ops, v, x0, **kw, **extra), _tol(q))
+        one = fn(*ops, v, x0, factors=fac, cols=1, **kw, **extra)
+        assert all(torch.equal(a, b) for a, b in zip(got, one))
+
+
+# (B, Gauss-Seidel's columns an item, PCG's and Jacobi's at D = 10) on a
+# cooperative grid of one block a SM, 132 on the H100 SXM (PERF.md: the
+# widths measured)
 _H100_WIDTHS = [(1, 1, 1), (16, 1, 2), (32, 1, 4), (160, 2, 16),
                 (256, 2, 32)]
 
@@ -509,25 +571,30 @@ _H100_WIDTHS = [(1, 1, 1), (16, 1, 2), (32, 1, 4), (160, 2, 16),
 def test_solve_chunk_widths(dev):
     """The sweep kernels' own chunk rule (sweep.cuh auto_cols: the narrowest
     power of two giving every (dimension, chunk) item a block) as their
-    queries report it on the H100: both kernels' grids are one block a SM
-    (gs_kernel's 255 registers, mega_pcg's pinned grid)."""
+    queries report it on the H100: the three kernels' grids are one block a
+    SM (gs_kernel's and jacobi_kernel's registers, mega_pcg's pinned
+    grid)."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if sms != 132:
         pytest.skip(f"the widths are those of a 132-SM grid, not {sms}")
     for pivot in (False, True):
         assert gauss_seidel_grid(pivot) == sms
+        assert jacobi_grid(pivot) == sms
         for B, gs, pcg in _H100_WIDTHS:
             assert gauss_seidel_cols(B, pivot) == gs, B
             assert pcg_solve_cols(10, B, pivot) == pcg, B
+            assert jacobi_cols(10, B, pivot) == pcg, B
 
 
 @pytest.mark.parametrize("method", ["jacobi", "gauss_seidel"])
 @pytest.mark.parametrize("warm", [False, True])
 def test_whole_equals_host_loop_bitwise(dev, method, warm):
     """fused="whole" (one launch) and fused="on" (one launch per sweep) give
-    the same bits, the exit residual included. Gauss-Seidel factors SAPhi
-    once per solve in either mode (one cr_factor launch, not one a sweep);
-    Jacobi makes no factor."""
+    the same bits, the exit residual included. The solves take SAPhi's
+    factor from the DimOps (made once, before the counts); at n = 131, q = 1
+    Phi's (w = 1) covers 131 rows where the sweep pads to 132, so a warm
+    Jacobi solve, which solves with Phi, makes Phi's once per solve (one
+    cr_factor launch, not one a sweep)."""
     rng = np.random.default_rng(13)
     dops = dim_ops(solve_operands(rng, 131, 3, 1), dev)
     v = torch.as_tensor(rng.standard_normal((3, 131, 4)), device=dev)
@@ -543,7 +610,7 @@ def test_whole_equals_host_loop_bitwise(dev, method, warm):
             "jacobi" if method == "jacobi" else "gauss_seidel")
         name += "" if fused == "whole" else "_iter"
         assert counts[name] == (1 if fused == "whole" else 9), counts
-        assert counts["cr_factor"] == (method == "gauss_seidel"), counts
+        assert counts["cr_factor"] == (method == "jacobi" and warm), counts
     (xw, iw), (xh, ih) = outs["whole"], outs["on"]
     assert torch.equal(xw, xh) and torch.equal(iw.resid, ih.resid)
 
@@ -551,8 +618,8 @@ def test_whole_equals_host_loop_bitwise(dev, method, warm):
 @pytest.mark.parametrize("method", ["jacobi", "gauss_seidel"])
 def test_relaxation_column_split(dev, method):
     """More than MAX_B = 256 columns: the whole solve runs as two launches
-    (Gauss-Seidel's two share one SAPhi factor launch) and matches the
-    plain version taking all columns at once."""
+    that share one SAPhi factor launch, and matches the plain version
+    taking all columns at once."""
     fs, ops, _, _, _ = _relax_case(dev, 0, 1)
     rng = np.random.default_rng(14)
     v = torch.as_tensor(rng.standard_normal((3, fs.n, 300)), device=dev)
@@ -570,7 +637,7 @@ def test_relaxation_column_split(dev, method):
                                          w_p=fs.w_p, w_s=fs.w_s, iters=10)
     counts = _build.launch_counts()
     assert counts[f"mega_{method}"] == 2, counts
-    assert sum(counts.values()) == (2 if method == "jacobi" else 3), counts
+    assert sum(counts.values()) == 3 and counts["cr_factor"] == 1, counts
     assert _rel(x, fs.unpad(xr)) < 1e-12 and _rel(k, fs.unpad(kr)) < 1e-12
 
 

@@ -23,11 +23,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.block_cr import block_cr_factor, cr_factor_size
 from repro_torch.kernels.fused_sweep import (fused_gauss_seidel_iter,
                                              fused_gauss_seidel_iter_plain,
+                                             fused_jacobi_iter,
                                              fused_pcg_iter, pcg_factors,
                                              pcg_seed, sweep_factor)
 from repro_torch.kernels.mega_solve import (MegaSolve,
                                             mega_gauss_seidel_plain,
                                             mega_gauss_seidel_solve,
+                                            mega_jacobi_solve,
                                             mega_pcg_solve)
 from torch_port_inputs import dim_ops, padded_operands, solve_operands
 
@@ -156,12 +158,18 @@ def _factor_calls(fs, ops, v, x0):
             *a_ops, x0, v, v, rz, pivot=p, factors=f, **pkw),
         "mega_pcg_solve": lambda f, p: mega_pcg_solve(
             *a_ops, v, x0, iters=2, pivot=p, factors=f, **pkw),
+        "fused_jacobi_iter": lambda f, p: fused_jacobi_iter(
+            *ops, v, x0, alpha=0.5, warm=True, pivot=p, factors=f, **kw),
+        "mega_jacobi_solve": lambda f, p: mega_jacobi_solve(
+            *ops, v, x0, alpha=0.5, iters=2, warm=True, pivot=p, factors=f,
+            **kw),
     }
 
 
 @pytest.mark.parametrize("name", ["fused_gauss_seidel_iter",
                                   "mega_gauss_seidel_solve", "pcg_seed",
-                                  "fused_pcg_iter", "mega_pcg_solve"])
+                                  "fused_pcg_iter", "mega_pcg_solve",
+                                  "fused_jacobi_iter", "mega_jacobi_solve"])
 def test_factor_of_other_pivot_mode_raises(name):
     """A factor made in one pivot mode has the shape of the other mode's,
     and a kernel would solve wrongly from it: every wrapper that takes
@@ -169,15 +177,15 @@ def test_factor_of_other_pivot_mode_raises(name):
     would otherwise ignore it), as it rejects a bare tensor; a factor of
     the call's own mode runs."""
     fs, ops, v, x0, _, _ = _case(1)
-    pcg = "pcg" in name
+    pair = "gauss_seidel" not in name  # (Phi's, SAPhi's), as pcg_factors
     call = _factor_calls(fs, ops, v, x0)[name]
     for pivot in (False, True):
         make = (lambda p: pcg_factors(fs.phi, fs.saphi, w_p=fs.w_p,
-                                      w_s=fs.w_s, pivot=p)) if pcg else (
+                                      w_s=fs.w_s, pivot=p)) if pair else (
             lambda p: sweep_factor(fs.saphi, fs.w_s, pivot=p))
         call(make(pivot), pivot)
         with pytest.raises(ValueError, match="pivot"):
             call(make(not pivot), pivot)
     bare = block_cr_factor(fs.saphi, fs.w_s)
     with pytest.raises(TypeError, match="sweep_factor"):
-        call((None, bare) if pcg else bare, False)
+        call((None, bare) if pair else bare, False)
