@@ -22,11 +22,19 @@ one process per source), then:
    bit; the relaxation rows solve from the block-CR factors the operand
    stack holds and print their chunk width, grid and, at the main shape,
    their time bars (``TIME_BARS``); ``kp_gram`` at q = 0 ... 3 against its
-   plain version and the fit's Phi band;
+   plain version and the fit's Phi band. ``rgf_blocks`` (block cyclic
+   reduction with selected inversion on the card, the RGF order on the
+   CPU) is held against the RGF order's plain version (1e-10) and against
+   its plain twin in the card's order (1e-12), and the rgf kernels'
+   registers and spill bytes are printed from the build's ptxas report;
 2. paths on Schwefel data, n = 30000, D = 10 (the paper's Fig. 5 point):
    the serving path ``fit`` -> ``posterior_mean`` -> ``posterior_var`` on
-   100 queries, then the learning path ``log_likelihood`` ->
-   ``mll_gradients`` -> ``fit_hyperparams(steps=3)``, then ``fit`` ->
+   100 queries; on its fit's own H = A Phi^T the rgf kernel's error
+   against an RGF in extended precision on the host, at most twice the
+   float64 RGF's (``variance_band_phase``), and the whole
+   ``variance_band`` call's time; then the learning path
+   ``log_likelihood`` -> ``mll_gradients`` -> ``fit_hyperparams(steps=3)``,
+   then ``fit`` ->
    ``posterior_mean(100)`` -> ``posterior_var(32)`` with
    ``solver="gauss_seidel"`` and ``"jacobi"``, each with ``fused="auto"``
    (the whole-solve kernels) and ``"on"`` (one launch per sweep); the
@@ -102,7 +110,8 @@ def _import_port():
     import repro_torch.core.additive_gp as agp
     from repro_torch.core.additive_gp import (_log_likelihood,
                                               _mll_gradients, _probe_block)
-    from repro_torch.core.band_inverse import _to_blocks
+    from repro_torch.core.band_inverse import (_blocks_to_band, _to_blocks,
+                                               variance_band)
     from repro_torch.core.convert import BAND_KEYS, gp_from_arrays
     from repro_torch.core.stochastic import rademacher_rows
     from repro_torch.core.banded import Banded, add, scale, transpose
@@ -130,7 +139,9 @@ def _import_port():
     from repro_torch.kernels.mega_solve import (
         MegaSolve, mega_gauss_seidel_plain, mega_gauss_seidel_solve,
         mega_jacobi_plain, mega_jacobi_solve, mega_pcg_plain, mega_pcg_solve)
-    from repro_torch.kernels.rgf import rgf_blocks, rgf_blocks_plain
+    from repro_torch.kernels.ref import rgf_band_error, rgf_longdouble_ref
+    from repro_torch.kernels.rgf import (rgf_blocks, rgf_blocks_cr_plain,
+                                         rgf_blocks_plain)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
     from path_trace import trace_call
     return dict(locals())
@@ -338,11 +349,14 @@ def kernel_phase(P, rng, dev, shapes, ops_path, ops_q1):
         pms, cp = _event_ms(lambda: P["band_matmul_plain"](a, b, *w),
                             reps=1, warmup=0)
         err, rel = _errs(c, cp)
-        report("band_matmul", tag, err, rel, 1e-13, ms, pms)
+        dev_ms, how = _device_ms(lambda: P["band_matmul"](a, b, *w))
+        wa, wb = w[0] + w[1] + 1, w[2] + w[3] + 1
+        b_ms, b_by = _bound(8 * D * nn * (wa + wb + wa + wb - 1),
+                            2 * D * nn * wa * wb)
+        report("band_matmul", tag, err, rel, 1e-13, ms, pms,
+               f" device_ms={dev_ms:.4f} ({how}) bound_ms={b_ms:.4f} "
+               f"({b_by})")
         if tag.startswith("path"):
-            wa, wb = w[0] + w[1] + 1, w[2] + w[3] + 1
-            b_ms, b_by = _bound(8 * D * nn * (wa + wb + wa + wb - 1),
-                                2 * D * nn * wa * wb)
             rows.append(dict(name="band_matmul", route="cuda",
                              source="src/repro_torch/csrc/band_matmul.cu",
                              replaces="src/repro/kernels/band_matmul.py:52",
@@ -350,19 +364,12 @@ def kernel_phase(P, rng, dev, shapes, ops_path, ops_q1):
                              plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=None))
 
-    # --- rgf: the variance band's block recurrences -----------------------
+    # --- rgf: the variance band's block inverse ---------------------------
     for tag, (nn, w) in (("path w=1", (n, 1)), ("q1 w=3", (N_Q1, 3))):
         h = _band(rng, D, nn, w, w, dev)
         blocks = [t.contiguous() for t in P["_to_blocks"](h, w, w, w)]
-        ms, out = _event_ms(lambda: P["rgf_blocks"](*blocks), reps=3)
-        pms, outp = _event_ms(lambda: P["rgf_blocks_plain"](*blocks),
-                              reps=1, warmup=0)
-        err, rel = _errs(torch.stack(out), torch.stack(outp))
-        report("rgf_blocks", tag, err, rel, 1e-10, ms, pms)
+        ms, pms, err, rel, b_ms, b_by = _rgf_row(P, report, tag, blocks)
         if tag.startswith("path"):
-            T = blocks[0].shape[1]
-            b_ms, b_by = _bound(8 * 6 * D * T * w * w,
-                                D * T * (23 * w ** 3 + 2 * w * w))
             rows.append(dict(name="rgf_blocks", route="cuda",
                              source="src/repro_torch/csrc/rgf.cu",
                              replaces="src/repro/kernels/rgf.py:90",
@@ -547,27 +554,92 @@ def kernel_phase(P, rng, dev, shapes, ops_path, ops_q1):
                              plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
                              library_ms=None))
 
-    # --- rgf at q = 2 (H = A Phi^T has w = 5); drawn after the rows above
-    # so their inputs stay those of earlier runs ---------------------------
-    h = _band(rng, D, N_Q1, 5, 5, dev)
-    blocks = [t.contiguous() for t in P["_to_blocks"](h, 5, 5, 5)]
-    ms, out = _event_ms(lambda: P["rgf_blocks"](*blocks), reps=3)
-    pms, outp = _event_ms(lambda: P["rgf_blocks_plain"](*blocks), reps=1,
-                          warmup=0)
-    err, rel = _errs(torch.stack(out), torch.stack(outp))
-    report("rgf_blocks", "q2 w=5", err, rel, 1e-10, ms, pms)
-    # ... and at q = 3 (w = 7: the running blocks spill to local memory)
-    h = _band(rng, D, N_Q1, 7, 7, dev)
-    blocks = [t.contiguous() for t in P["_to_blocks"](h, 7, 7, 7)]
-    ms, out = _event_ms(lambda: P["rgf_blocks"](*blocks), reps=3)
-    pms, outp = _event_ms(lambda: P["rgf_blocks_plain"](*blocks), reps=1,
-                          warmup=0)
-    err, rel = _errs(torch.stack(out), torch.stack(outp))
-    T = blocks[0].shape[1]
-    b_ms, b_by = _bound(8 * 6 * D * T * 49, D * T * (23 * 343 + 2 * 49))
-    report("rgf_blocks", "q3 w=7", err, rel, 1e-10, ms, pms,
-           f" bound_ms={b_ms:.4f} ({b_by})")
+    # --- rgf at q = 2 and 3 (H = A Phi^T has w = 5, 7); drawn after the
+    # rows above so their inputs stay those of earlier runs ---------------
+    for w in (5, 7):
+        h = _band(rng, D, N_Q1, w, w, dev)
+        blocks = [t.contiguous() for t in P["_to_blocks"](h, w, w, w)]
+        _rgf_row(P, report, f"q{(w - 1) // 2} w={w}", blocks)
     return rows
+
+
+def _rgf_bound(D, T, w):
+    """(ms, by) of the block inverse: the three block stacks read and the
+    three written once; the work of one block elimination order, ~23 w^3
+    flops a block row."""
+    return _bound(8 * 6 * D * T * w * w, D * T * (23 * w ** 3 + 2 * w * w))
+
+
+def _rgf_row(P, report, tag, blocks):
+    """One rgf_blocks row: the kernel (block-CR order) against the RGF
+    order's plain version (1e-10, the reference's bar) and against its
+    plain twin in the same order (1e-12: only the w x w inverses' rounding
+    and the card's fused multiply-adds differ); event and device times."""
+    ms, out = _event_ms(lambda: P["rgf_blocks"](*blocks), reps=20)
+    dev_ms, how = _device_ms(lambda: P["rgf_blocks"](*blocks), reps=5)
+    pms, outp = _event_ms(lambda: P["rgf_blocks_plain"](*blocks), reps=1,
+                          warmup=0)
+    err, rel = _errs(torch.stack(out), torch.stack(outp))
+    _, twin = _errs(torch.stack(out),
+                    torch.stack(P["rgf_blocks_cr_plain"](*blocks)))
+    G, T, w, _ = blocks[0].shape
+    b_ms, b_by = _rgf_bound(G, T, w)
+    report("rgf_blocks", tag + f" T={T}", err, rel, 1e-10, ms, pms,
+           f" device_ms={dev_ms:.4f} ({how}) bound_ms={b_ms:.4f} ({b_by}) "
+           f"vs rgf_blocks_cr_plain max_rel_err={twin:.3e} (tol 1e-12)")
+    if not twin <= 1e-12:
+        raise RuntimeError(f"rgf_blocks {tag}: {twin:.3e} from its twin")
+    return ms, pms, err, rel, b_ms, b_by
+
+
+def _rgf_ptxas(_build):
+    """Registers and spill bytes of each rgf kernel instantiation, from the
+    build's ptxas report (``nvcc -Xptxas -v``)."""
+    import re
+
+    log = (_build.BUILD_DIR / f"build_{_build._digest()}.log").read_text()
+    sec = log.split("== rgf.cu", 1)[1].split("\n== ", 1)[0]
+    pat = re.compile(r"Function properties for \S*?(tile_fwd|top|tile_bwd)"
+                     r"_kernelILi(\d+)E\S*\s+(\d+) bytes stack frame, "
+                     r"(\d+) bytes spill stores, (\d+) bytes spill loads"
+                     r"\s+ptxas info\s+: Used (\d+) registers")
+    return sorted((int(m[2]), m[1], int(m[6]), int(m[4]), int(m[5]))
+                  for m in pat.finditer(sec))
+
+
+def variance_band_phase(P, gp):
+    """The path's own H = A Phi^T (the fit's factors, n = 30000, w = 1): the
+    kernel's error against an RGF in extended precision on the host, beside
+    the float64 RGF's (both over Gd, Gu and Gl together, relative to G's
+    largest entry, the worst of the D bands); the kernel's must be at most
+    twice the RGF's. The two float64 orders differ there by H's
+    conditioning, not by a defect of either. Then the whole variance_band
+    call's time."""
+    Gb, H = P["variance_band"](gp.ops.A, gp.ops.Phi, return_h=True)
+    hw = gp.ops.A.lo + gp.ops.Phi.lo
+    w = max(H.lo, H.hi, hw, 1)
+    blocks = [t.contiguous() for t in P["_to_blocks"](H.data, H.lo, H.hi, w)]
+    ms, out = _event_ms(lambda: P["rgf_blocks"](*blocks), reps=20)
+    cpu = [t.cpu() for t in blocks]
+    exact = P["rgf_longdouble_ref"](*cpu)
+    e_k = P["rgf_band_error"](out, exact)
+    e_r = P["rgf_band_error"](P["rgf_blocks_plain"](*cpu), exact)
+    e_t = P["rgf_band_error"](P["rgf_blocks_cr_plain"](*cpu), exact)
+    same = torch.equal(Gb.data, P["_blocks_to_band"](*out, H.n, hw))
+    print(f"kernel rgf_blocks   path H w=1 T={blocks[0].shape[1]} (the "
+          f"fit's A Phi^T): error vs long-double RGF: kernel {e_k:.3e}, "
+          f"float64 RGF {e_r:.3e}, plain CR twin {e_t:.3e}; kernel / RGF "
+          f"{e_k / e_r:.3f} (bar 2); kernel_ms={ms:.4f}; the path's Gband "
+          f"from the same call bitwise {same}", flush=True)
+    if not (e_k <= 2 * e_r and same):
+        raise RuntimeError(f"rgf_blocks on the path's H: {e_k:.3e} against "
+                           f"the float64 RGF's {e_r:.3e}, or Gband differs")
+    vb = lambda: P["variance_band"](gp.ops.A, gp.ops.Phi)  # noqa: E731
+    v_ms, _ = _event_ms(vb, reps=10)
+    vd_ms, how = _device_ms(vb, reps=10)
+    print(f"variance_band (band_matmul, mask, blocks, rgf, band) n="
+          f"{H.n} D={H.data.shape[0]} q=0: {v_ms:.4f} ms (events), device "
+          f"{vd_ms:.4f} ms ({how})", flush=True)
 
 
 def _sweep_cost(D, npad, B, w_p, w_s, iters, states, swept, elem, final=0,
@@ -1157,6 +1229,9 @@ def main():
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc in parallel, "
           f"{len(_build.SOURCES)} sources)", flush=True)
+    print("ptxas rgf.cu (W, kernel, registers, spill stores, spill loads): "
+          + "; ".join(f"{w} {k} {r} {st} {ld}"
+                      for w, k, r, st, ld in _rgf_ptxas(_build)), flush=True)
 
     D, n, B = D_PATH, N_PATH, B_PATH
     X, Y, f, bounds = P["sample_test_function"]("schwefel", n, D, seed=0)
@@ -1211,6 +1286,7 @@ def main():
             and (var_np > 0).all() and verdict == "OK"):
         raise RuntimeError("main path output is not finite/positive/OK")
     _require_launched("serving path", counts, SERVING_KERNELS)
+    variance_band_phase(P, gp)
 
     # --- learning path on the same fitted GP and data ---------------------
     torch.cuda.reset_peak_memory_stats()

@@ -1,8 +1,8 @@
-"""Time ``banded_lu`` at lo = hi = 0, the PCG kernels, ``block_cr`` and the
-Gauss-Seidel and Jacobi kernels of one checkout on an NVIDIA GPU, so two
-checkouts can be compared in one call.
+"""Time ``banded_lu`` at lo = hi = 0, the PCG kernels, ``block_cr``, the
+Gauss-Seidel and Jacobi kernels and the variance band of one checkout on an
+NVIDIA GPU, so two checkouts can be compared in one call.
 
-    python scripts/kernel_ab.py run SRC OUT.json [lu|pcg|cr|gs|jacobi]
+    python scripts/kernel_ab.py run SRC OUT.json [lu|pcg|cr|gs|jacobi|rgf]
     python scripts/kernel_ab.py table OUT_A.json OUT_B.json ...
 
 ``run`` imports the port from ``SRC`` (the ``src`` directory of the checkout
@@ -45,14 +45,29 @@ of ``chip_smoke.py``):
    the whole solve at each width of ``JACOBI_WIDTHS``; the sweep's device
    time by kernel.
 
+8. the variance band (``rgf`` only): ``rgf_blocks`` on the path's own
+   H = A Phi^T (w = 1, T = 30000) and on diagonally dominant random bands
+   at w = 3, 5, 7 (n = 4000 and 30000 rows), by CUDA events and
+   ``torch.profiler`` device time; ``band_matmul`` on the path's A and
+   Phi^T split into device time, the wrapper's host time and one call
+   between events, with its bound; the whole ``core.band_inverse.
+   variance_band`` call split into its stages (``transpose``,
+   ``band_band_matmul``, ``mask_band``, ``_to_blocks``, ``rgf_blocks``,
+   ``_blocks_to_band``), each by events, and its device time by kernel;
+   and SHA-256 digests of ``band_matmul``'s outputs and of the pcg path's
+   mean, variance, log-likelihood and gradients, which ``table`` compares
+   across the files.
+
 To compare a parent with a change, unpack the parent with ``git archive``
 into a git-ignored directory and run parent, change, change, parent in one
 call; ``table`` prints the rows of each file side by side. ``lu`` as a
 last argument times 1, 2 and 4 only; ``pcg`` times 3 without the chunk
-widths; ``cr`` times 5 only; ``gs`` times 6 only; ``jacobi`` 7 only.
+widths; ``cr`` times 5 only; ``gs`` times 6 only; ``jacobi`` 7 only;
+``rgf`` 8 only.
 """
 from __future__ import annotations
 
+import hashlib
 import inspect
 import json
 import subprocess
@@ -70,6 +85,8 @@ CHUNK_WIDTHS = (1, 2, 4, 8, 16)
 GS_B = ((1, 3), (16, 3), (32, 3), (160, 1))  # (columns, timed reps)
 GS_WIDTHS = (1, 2, 4, 8)
 JACOBI_WIDTHS = (1, 2, 4, 8, 16)
+RGF_W = (3, 5, 7)
+RGF_N = (4000, N)
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 
 
@@ -311,10 +328,110 @@ def jacobi_rows(P, rng, dev):
     return rows
 
 
+def _digest(*ts):
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _band(rng, G, n, w, dev):
+    """Diagonally dominant (G, n, 2w+1) band, zero out-of-range entries."""
+    data = rng.standard_normal((G, n, 2 * w + 1))
+    i = np.arange(n)[:, None]
+    j = i + np.arange(-w, w + 1)[None, :]
+    data = np.where((j >= 0) & (j < n), data, 0.0)
+    data[..., w] = np.abs(data).sum(-1) + 1.0
+    return torch.as_tensor(data, device=dev)
+
+
+def rgf_rows(P, rng, dev):
+    X, _, _, bounds = P["sample_test_function"]("schwefel", N, D, seed=0)
+    omega = 8.0 / (bounds[:, 1] - bounds[:, 0])
+    Xt = torch.as_tensor(X, device=dev)
+    xs = torch.sort(Xt.T, dim=1).values
+    A, Phi = P["kp_factors"](0, torch.as_tensor(omega, device=dev), xs)
+    rows = {}
+    # band_matmul: H = A Phi^T on the path's operands
+    PhiT = P["transpose"](Phi)
+    a, b = A.data.contiguous(), PhiT.data.contiguous()
+    wid = (A.lo, A.hi, PhiT.lo, PhiT.hi)
+    call = lambda: P["band_matmul"](a, b, *wid)  # noqa: E731
+    wa, wb = a.shape[-1], b.shape[-1]
+    r = dict(events20_ms=_events(call, reps=20), one_call_ms=_one_call(call),
+             host_ms=_host_ms(call), device_ms=_device_split(call),
+             bound_ms=8 * D * N * (wa + wb + wa + wb - 1) / MEM_BYTES_PER_S
+             * 1e3, digest=_digest(call()))
+    a1, b1 = _band(rng, D, 4000, 2, dev), _band(rng, D, 4000, 1, dev)
+    r["q1_events20_ms"] = _events(
+        lambda: P["band_matmul"](a1, b1, 2, 2, 1, 1), reps=20)
+    r["q1_digest"] = _digest(P["band_matmul"](a1, b1, 2, 2, 1, 1))
+    rows["band_matmul"] = r
+    print(f"band_matmul: {json.dumps(r)}", flush=True)
+    # the whole variance band and its stages
+    H = P["mask_band"](P["band_band_matmul"](A, PhiT))
+    hw = A.lo + Phi.lo
+    w = max(H.lo, H.hi, hw, 1)
+    blocks = [t.contiguous() for t in P["_to_blocks"](H.data, H.lo, H.hi, w)]
+    G3 = P["rgf_blocks"](*blocks)
+    stages = {
+        "variance_band": lambda: P["variance_band"](A, Phi),
+        "transpose": lambda: P["transpose"](Phi),
+        "band_band_matmul": lambda: P["band_band_matmul"](A, PhiT),
+        "mask_band": lambda: P["mask_band"](H),
+        "_to_blocks": lambda: P["_to_blocks"](H.data, H.lo, H.hi, w),
+        "rgf_blocks": lambda: P["rgf_blocks"](*blocks),
+        "_blocks_to_band": lambda: P["_blocks_to_band"](*G3, N, hw)}
+    r = {k: _events(f, reps=20) for k, f in stages.items()}
+    r["variance_band_one_call_ms"] = _one_call(stages["variance_band"])
+    r["variance_band_device_ms"] = _device_split(stages["variance_band"])
+    rows["variance_band"] = r
+    print(f"variance_band: {json.dumps(r)}", flush=True)
+    # rgf_blocks: the path's H, then random bands at q = 1, 2, 3 widths
+    call = lambda: P["rgf_blocks"](*blocks)  # noqa: E731
+    rows["rgf w=1 path T=30000"] = dict(
+        events_ms=_events(call, reps=20), one_call_ms=_one_call(call),
+        device_ms=_device_split(call), digest=_digest(*call()))
+    print(f"rgf path: {json.dumps(rows['rgf w=1 path T=30000'])}",
+          flush=True)
+    for wq in RGF_W:
+        for n in RGF_N:
+            h = _band(rng, D, n, wq, dev)
+            bl = [t.contiguous() for t in P["_to_blocks"](h, wq, wq, wq)]
+            call = lambda: P["rgf_blocks"](*bl)  # noqa: E731
+            k = f"rgf w={wq} n={n} T={bl[0].shape[1]}"
+            rows[k] = dict(events_ms=_events(call, reps=5),
+                           device_ms=_device_split(call, reps=5))
+            print(f"{k}: {json.dumps(rows[k])}", flush=True)
+    # the pcg path's outputs (those that do not read the variance band
+    # must keep their bits)
+    Y = torch.as_tensor(P["sample_test_function"]("schwefel", N, D, seed=0)[1])
+    cfg = P["GPConfig"](q=0, solver="pcg", solver_iters=40, precond="none")
+    gp = P["fit"](cfg, X, Y.numpy(), omega, 1.0)
+    Xq = np.random.default_rng(100).uniform(bounds[:, 0], bounds[:, 1],
+                                            size=(100, D))
+    gen = torch.Generator().manual_seed(0)
+    outs = dict(mean=P["posterior_mean"](gp, Xq),
+                var=P["posterior_var"](gp, Xq[:32]),
+                log_likelihood=P["log_likelihood"](gp, gen),
+                mll_gradients=torch.cat([t.reshape(-1) for t in
+                                         P["mll_gradients"](gp, gen)]))
+    rows["digests"] = {k: _digest(v) for k, v in outs.items()}
+    return rows
+
+
 def run(src, out, parts="all"):
     sys.path.insert(0, src)
-    from repro_torch.core.banded import add, scale
+    from repro_torch.core import (GPConfig, fit, log_likelihood,
+                                  mll_gradients, posterior_mean,
+                                  posterior_var)
+    from repro_torch.core.band_inverse import (_blocks_to_band, _to_blocks,
+                                               variance_band)
+    from repro_torch.core.banded import (add, band_band_matmul, mask_band,
+                                         scale, transpose)
     from repro_torch.core.kernel_packets import kp_factors
+    from repro_torch.kernels.band_matmul import band_matmul
+    from repro_torch.kernels.rgf import rgf_blocks
     from repro_torch.data import sample_test_function
     from repro_torch.kernels import _build
     from repro_torch.kernels import block_cr as bcr
@@ -331,7 +448,14 @@ def run(src, out, parts="all"):
              fused_gauss_seidel_iter=fsm.fused_gauss_seidel_iter,
              mega_gauss_seidel_solve=mega_gauss_seidel_solve,
              fused_jacobi_iter=fsm.fused_jacobi_iter,
-             mega_jacobi_solve=mega_jacobi_solve)
+             mega_jacobi_solve=mega_jacobi_solve, GPConfig=GPConfig,
+             fit=fit, posterior_mean=posterior_mean,
+             posterior_var=posterior_var, log_likelihood=log_likelihood,
+             mll_gradients=mll_gradients, _to_blocks=_to_blocks,
+             _blocks_to_band=_blocks_to_band, variance_band=variance_band,
+             band_band_matmul=band_band_matmul, mask_band=mask_band,
+             transpose=transpose, band_matmul=band_matmul,
+             rgf_blocks=rgf_blocks)
     P["gs_factored"] = hasattr(fsm, "gauss_seidel_cols")
     if P["gs_factored"]:
         P["gauss_seidel_cols"] = fsm.gauss_seidel_cols
@@ -361,7 +485,9 @@ def run(src, out, parts="all"):
     _build.load_library()
     res = dict(src=src, card=smi, build_s=time.perf_counter() - t0)
     rng = np.random.default_rng(0)
-    if parts == "cr":
+    if parts == "rgf":
+        res["rgf"] = rgf_rows(P, rng, dev)
+    elif parts == "cr":
         res["cr"] = cr_rows(P, rng, dev)
     elif parts == "gs":
         res["gs"] = gs_rows(P, rng, dev)
@@ -400,6 +526,25 @@ def table(*paths):
     def has(part):
         return any(part in r for r in runs)
 
+    if has("rgf"):
+        keys = [k for k in runs[0]["rgf"] if k != "digests"]
+        for k in keys:
+            for f, v in runs[0]["rgf"][k].items():
+                if isinstance(v, float):
+                    line(f"{k} {f}", lambda r: r["rgf"][k][f])
+            for r in runs:
+                for f in ("device_ms", "variance_band_device_ms"):
+                    if f in r["rgf"].get(k, {}):
+                        print(f"  {k} {f} ({r['src']}): {r['rgf'][k][f]}")
+        ref = dict(runs[0]["rgf"]["digests"],
+                   band_matmul=runs[0]["rgf"]["band_matmul"]["digest"],
+                   band_matmul_q1=runs[0]["rgf"]["band_matmul"]["q1_digest"])
+        for r in runs[1:]:
+            got = dict(r["rgf"]["digests"],
+                       band_matmul=r["rgf"]["band_matmul"]["digest"],
+                       band_matmul_q1=r["rgf"]["band_matmul"]["q1_digest"])
+            print(f"{r['src']} == {runs[0]['src']} bit for bit: "
+                  f"{ {k: got[k] == v for k, v in ref.items()} }")
     for part, name, widths in (("jacobi", "jacobi", JACOBI_WIDTHS),
                                ("gs", "gauss_seidel", GS_WIDTHS)):
         for B, _ in GS_B if has(part) else ():

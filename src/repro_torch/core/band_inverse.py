@@ -1,13 +1,15 @@
 """Central band of the inverse of a banded matrix (paper Algorithm 5).
 
 Counterpart of ``repro.core.band_inverse``: the band of
-``G = (A Phi^T)^{-1}`` for the posterior-variance middle term, by the RGF
-block-tridiagonal algorithm. ``H = A Phi^T`` has half-bandwidth 2q+1; with
-block size ``w >= 2q+1`` it is block-tridiagonal, and the diagonal and
-first off-diagonal blocks of G cover the 2q+1 band.
+``G = (A Phi^T)^{-1}`` for the posterior-variance middle term.
+``H = A Phi^T`` has half-bandwidth 2q+1; with block size ``w >= 2q+1`` it
+is block-tridiagonal, and the diagonal and first off-diagonal blocks of G
+cover the 2q+1 band.
 
-The recurrences run in ``kernels.rgf`` (the CUDA kernel for CUDA tensors);
-the block partition and band extraction here are plain gathers.
+The block inverse runs in ``kernels.rgf``: the reference's RGF recurrences
+for CPU tensors, the CUDA kernel (block cyclic reduction with selected
+inversion) for CUDA tensors; the block partition and band extraction here
+are plain gathers.
 """
 from __future__ import annotations
 

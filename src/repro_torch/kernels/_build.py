@@ -49,9 +49,8 @@ _SIGNATURES = {
     "repro_banded_lu_f64": (_c_int, [_ptr] * 7 + [_c_int] * 5 + [_ptr]),
     "repro_band_matmul_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int,
                                        _c_int, _c_int, _c_int, _c_int, _ptr]),
-    "repro_rgf_blocks_f64": (_c_int, [_ptr, _ptr, _ptr, _ptr, _ptr, _ptr,
-                                      _ptr, _ptr, _c_int, _c_int, _c_int,
-                                      _ptr]),
+    "repro_rgf_workspace": (_c_ll, [_c_int] * 3),
+    "repro_rgf_blocks_f64": (_c_int, [_ptr] * 7 + [_c_int] * 3 + [_ptr]),
     "repro_mega_pcg_workspace": (_c_ll, [_c_int] * 4),
     "repro_mega_pcg_cols": (_c_int, [_c_int] * 3),
     "repro_mega_pcg_f64": (_c_int, [_ptr] * 16 + [_c_int] * 8

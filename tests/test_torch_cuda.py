@@ -48,7 +48,8 @@ from repro_torch.kernels.mega_solve import (MegaSolve, mega_gauss_seidel_plain,
                                             mega_jacobi_plain,
                                             mega_jacobi_solve, mega_pcg_plain,
                                             mega_pcg_solve)
-from repro_torch.kernels.rgf import rgf_blocks, rgf_blocks_plain
+from repro_torch.kernels.rgf import (rgf_blocks, rgf_blocks_cr_plain,
+                                     rgf_blocks_plain, rgf_tile_rows)
 from torch_port_inputs import (band, dim_ops, padded_operands, points,
                                solve_operands)
 
@@ -86,13 +87,34 @@ def test_band_matmul_kernel(dev, widths):
     assert _rel(band_matmul(a, b, *widths), band_matmul_plain(a, b, *widths)) < 1e-14
 
 
-@pytest.mark.parametrize("w", [1, 3, 5, 7])
-def test_rgf_kernel(dev, w):
+def test_band_matmul_path_shape(dev):
+    """At the path's widths, A (1, 1) times Phi^T (0, 0), every output is
+    one product, so the kernel and the plain version agree bit for bit."""
+    rng = np.random.default_rng(6)
+    a = torch.as_tensor(band(rng, 10, 30000, 1, 1), device=dev)
+    b = torch.as_tensor(band(rng, 10, 30000, 0, 0), device=dev)
+    assert torch.equal(band_matmul(a, b, 1, 1, 0, 0),
+                       band_matmul_plain(a, b, 1, 1, 0, 0))
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 7])
+@pytest.mark.parametrize("T", [1, 2, 3, 37, "tiles"])
+def test_rgf_kernel(dev, w, T):
+    """The kernel's block-CR order against the RGF order (1e-10, the
+    reference's bar) and against its plain twin ``rgf_blocks_cr_plain``
+    (1e-12: the same order; only the w x w inverses' rounding and the
+    card's fused multiply-adds differ). "tiles": two tiles and a part of
+    a third, so the tile edges and the top levels run."""
+    T = 2 * rgf_tile_rows(w) + 5 if T == "tiles" else T
     rng = np.random.default_rng(3)
-    data = torch.as_tensor(band(rng, 3, 150, w, w), device=dev)
+    data = torch.as_tensor(band(rng, 3, T * w, w, w), device=dev)
     blocks = [t.contiguous() for t in _to_blocks(data, w, w, w)]
-    for k, p in zip(rgf_blocks(*blocks), rgf_blocks_plain(*blocks)):
+    out = rgf_blocks(*blocks)
+    for k, p in zip(out, rgf_blocks_plain(*blocks)):
         assert _rel(k, p) < 1e-10
+    for k, p in zip(out, rgf_blocks_cr_plain(*blocks)):
+        assert _rel(k, p) < 1e-12
+    assert not out[1][:, -1].any() and not out[2][:, -1].any()
 
 
 @pytest.mark.parametrize("q", [0, 1])
