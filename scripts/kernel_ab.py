@@ -1,8 +1,8 @@
 """Time ``banded_lu`` at lo = hi = 0, the PCG kernels, ``block_cr``, the
-Gauss-Seidel and Jacobi kernels and the variance band of one checkout on an
-NVIDIA GPU, so two checkouts can be compared in one call.
+Gauss-Seidel and Jacobi kernels, the variance band and ``kp_gram`` of one
+checkout on an NVIDIA GPU, so two checkouts can be compared in one call.
 
-    python scripts/kernel_ab.py run SRC OUT.json [lu|pcg|cr|gs|jacobi|rgf]
+    python scripts/kernel_ab.py run SRC OUT.json [lu|pcg|cr|gs|jacobi|rgf|kp]
     python scripts/kernel_ab.py table OUT_A.json OUT_B.json ...
 
 ``run`` imports the port from ``SRC`` (the ``src`` directory of the checkout
@@ -58,12 +58,30 @@ of ``chip_smoke.py``):
    mean, variance, log-likelihood and gradients, which ``table`` compares
    across the files.
 
+9. ``kp_gram`` (``kp`` only) at n = 30000, q = 0 ... 3 on a jittered grid
+   (omega = 4, A from ``kp_factors``): CUDA events over 20 calls, one call
+   between events, the wrapper's host time, the device time by kernel
+   (``torch.profiler``) and the bound (bytes); the host time split into
+   the wrapper's steps, each timed alone with ``perf_counter_ns`` over
+   ``HOST_REPS`` calls through the checkout's own helpers (backend
+   resolution, the two tensor checks, the coefficients, ``torch.empty``,
+   ``load_library``, the stream handle, the data pointers, the ctypes call
+   without a launch (n = 0, refused before any CUDA call) and with it, the
+   error check and count), beside the whole wrapper, ``ops.kp_gram`` and
+   the ctypes floor (``repro_cr_apply_cols``, a host-only entry point);
+   the launch floor (a one-element ``add_``: device time by
+   ``torch.profiler``, host time); SHA-256 digests of Phi, which ``table``
+   compares across the files; and the event and host times of
+   ``band_matmul`` (the path's A Phi^T), ``banded_lu`` (w = 0, B = 32) and
+   ``banded_matvec`` (A, B = 16), whose wrappers share ``_build``'s
+   helpers.
+
 To compare a parent with a change, unpack the parent with ``git archive``
 into a git-ignored directory and run parent, change, change, parent in one
 call; ``table`` prints the rows of each file side by side. ``lu`` as a
 last argument times 1, 2 and 4 only; ``pcg`` times 3 without the chunk
 widths; ``cr`` times 5 only; ``gs`` times 6 only; ``jacobi`` 7 only;
-``rgf`` 8 only.
+``rgf`` 8 only; ``kp`` 9 only.
 """
 from __future__ import annotations
 
@@ -88,6 +106,8 @@ JACOBI_WIDTHS = (1, 2, 4, 8, 16)
 RGF_W = (3, 5, 7)
 RGF_N = (4000, N)
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+KP_Q = (0, 1, 2, 3)
+HOST_REPS = 1000
 
 
 def _events(fn, reps, warmup=1):
@@ -420,6 +440,115 @@ def rgf_rows(P, rng, dev):
     return rows
 
 
+def _ns_ms(fn, reps=HOST_REPS):
+    """Host ms per call of ``fn``: ``perf_counter_ns`` around ``reps``
+    calls, no synchronisation inside."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter_ns() - t0) / reps / 1e6
+    torch.cuda.synchronize()
+    return t
+
+
+def _kp_host_split(P, q, xs, a):
+    """The kp_gram wrapper's host time, step by step, each step alone over
+    HOST_REPS calls through the checkout's own helpers (a checkout that
+    caches the coefficients is timed reading its cache)."""
+    kpm, b = P["kp_module"], P["_build"]
+    n, dev = xs.shape[0], xs.device
+    lib = b.load_library()
+    fn = lib.repro_kp_gram_f64
+    phi = torch.empty((n, 2 * q + 1), dtype=torch.float64, device=dev)
+    if hasattr(kpm, "_COEFFS"):
+        coeffs = lambda: kpm._COEFFS[q]  # noqa: E731
+    else:
+        coeffs = lambda: P["poly_coeffs"](q) + [0.0] * (3 - q)  # noqa: E731
+    c = list(coeffs())
+    ptrs = (xs.data_ptr(), a.data_ptr(), phi.data_ptr())
+    s = b.stream_handle(dev)
+    steps = {
+        "resolve_backend": lambda: P["resolve_backend"](None, xs.device),
+        "expect x2": lambda: (
+            b.expect(xs, "xs", torch.float64, (n,), dev),
+            b.expect(a, "a_band", torch.float64, (n, 2 * q + 3), dev)),
+        "coefficients": coeffs,
+        "torch.empty": lambda: torch.empty((n, 2 * q + 1),
+                                           dtype=torch.float64, device=dev),
+        "load_library": b.load_library,
+        "stream_handle": lambda: b.stream_handle(dev),
+        "data_ptr x3": lambda: (xs.data_ptr(), a.data_ptr(),
+                                phi.data_ptr()),
+        "ctypes, no launch": lambda: fn(*ptrs, 0, q, 4.0, *c, s),
+        "ctypes with launch": lambda: fn(*ptrs, n, q, 4.0, *c, s),
+        "check + count": lambda: (b.check(0, "kp_gram"),
+                                  b.count_launch("kp_gram")),
+    }
+    r = {k: _ns_ms(f) for k, f in steps.items()}
+    r["sum of steps"] = sum(r.values())
+    r["timer pair"] = _ns_ms(lambda: time.perf_counter_ns())
+    r["wrapper"] = _ns_ms(lambda: P["kp_gram"](q, 4.0, xs, a))
+    r["ops.kp_gram"] = _ns_ms(lambda: P["ops_kp_gram"](q, 4.0, xs, a))
+    r["ctypes floor (repro_cr_apply_cols)"] = _ns_ms(
+        lambda: lib.repro_cr_apply_cols(D, 16))
+    return r
+
+
+def kp_rows(P, rng, dev):
+    """kp_gram at n = 30000, q = 0 ... 3 (item 9 of the docstring), then
+    the launch floor and the other host-bound wrappers."""
+    span = 0.1 * N / 4.0
+    x = (np.arange(N) + 0.5 + 0.3 * rng.uniform(-1, 1, N)) * span / N
+    xs = torch.as_tensor(np.sort(x), device=dev)
+    om = torch.tensor(4.0, dtype=torch.float64, device=dev)
+    rows = {}
+    for q in KP_Q:
+        A, _ = P["kp_factors"](q, om, xs)
+        a = A.data.contiguous()
+        call = lambda: P["kp_gram"](q, 4.0, xs, a)  # noqa: E731
+        r = dict(events20_ms=_events(call, reps=20),
+                 one_call_ms=_one_call(call),
+                 host_ms=_ns_ms(call),
+                 device_ms=_device_split(call),
+                 bound_ms=8 * N * (1 + 2 * q + 3 + 2 * q + 1)
+                 / MEM_BYTES_PER_S * 1e3,
+                 digest=_digest(call()))
+        r["host_split_ms"] = _kp_host_split(P, q, xs, a)
+        rows[f"q={q}"] = r
+        print(f"kp_gram q={q}: {json.dumps(r)}", flush=True)
+    one = torch.zeros(1, dtype=torch.float64, device=dev)
+    add = lambda: one.add_(1.0)  # noqa: E731
+    rows["launch floor"] = dict(add_device_ms=_device_split(add),
+                                add_host_ms=_ns_ms(add),
+                                add_events20_ms=_events(add, reps=20))
+    print(f"launch floor: {json.dumps(rows['launch floor'])}", flush=True)
+    X, _, _, bounds = P["sample_test_function"]("schwefel", N, D, seed=0)
+    omega = 8.0 / (bounds[:, 1] - bounds[:, 0])
+    xs = torch.sort(torch.as_tensor(X, device=dev).T, dim=1).values
+    A, Phi = P["kp_factors"](0, torch.as_tensor(omega, device=dev), xs)
+    PhiT = P["transpose"](Phi)
+    a, b = A.data.contiguous(), PhiT.data.contiguous()
+    lu_band = torch.as_tensor(rng.uniform(1.0, 2.0, (D, N, 1)), device=dev)
+    lu_rhs = torch.as_tensor(rng.standard_normal((D, N, B_PATH)),
+                             device=dev)
+    mv_x = torch.as_tensor(rng.standard_normal((D, N, 16)), device=dev)
+    others = {
+        "band_matmul": lambda: P["band_matmul"](a, b, A.lo, A.hi, PhiT.lo,
+                                                PhiT.hi),
+        "banded_lu w=0 B=32": lambda: P["banded_lu"](lu_band, lu_rhs, 0, 0),
+        "banded_matvec A B=16": lambda: P["banded_matvec"](a, mv_x, A.lo,
+                                                           A.hi)}
+    for k, f in others.items():
+        out = f()
+        rows[k] = dict(events20_ms=_events(f, reps=20),
+                       host_ms=_ns_ms(f, reps=200),
+                       digest=_digest(*(out if isinstance(out, tuple)
+                                        else (out,))))
+        print(f"{k}: {json.dumps(rows[k])}", flush=True)
+    return rows
+
+
 def run(src, out, parts="all"):
     sys.path.insert(0, src)
     from repro_torch.core import (GPConfig, fit, log_likelihood,
@@ -437,6 +566,10 @@ def run(src, out, parts="all"):
     from repro_torch.kernels import block_cr as bcr
     from repro_torch.kernels import fused_sweep as fsm
     from repro_torch.kernels.banded_lu import banded_lu
+    from repro_torch.kernels.banded_matvec import banded_matvec
+    from repro_torch.core.matern import _poly_coeffs
+    from repro_torch.kernels import kp_gram as kpm
+    from repro_torch.kernels import ops
     from repro_torch.kernels.mega_solve import (mega_gauss_seidel_solve,
                                                 mega_jacobi_solve,
                                                 mega_pcg_solve)
@@ -455,7 +588,10 @@ def run(src, out, parts="all"):
              _blocks_to_band=_blocks_to_band, variance_band=variance_band,
              band_band_matmul=band_band_matmul, mask_band=mask_band,
              transpose=transpose, band_matmul=band_matmul,
-             rgf_blocks=rgf_blocks)
+             rgf_blocks=rgf_blocks, banded_matvec=banded_matvec,
+             _build=_build, kp_module=kpm, kp_gram=kpm.kp_gram,
+             ops_kp_gram=ops.kp_gram, resolve_backend=ops.resolve_backend,
+             poly_coeffs=_poly_coeffs)
     P["gs_factored"] = hasattr(fsm, "gauss_seidel_cols")
     if P["gs_factored"]:
         P["gauss_seidel_cols"] = fsm.gauss_seidel_cols
@@ -487,6 +623,8 @@ def run(src, out, parts="all"):
     rng = np.random.default_rng(0)
     if parts == "rgf":
         res["rgf"] = rgf_rows(P, rng, dev)
+    elif parts == "kp":
+        res["kp"] = kp_rows(P, rng, dev)
     elif parts == "cr":
         res["cr"] = cr_rows(P, rng, dev)
     elif parts == "gs":
@@ -545,6 +683,23 @@ def table(*paths):
                        band_matmul_q1=r["rgf"]["band_matmul"]["q1_digest"])
             print(f"{r['src']} == {runs[0]['src']} bit for bit: "
                   f"{ {k: got[k] == v for k, v in ref.items()} }")
+    if has("kp"):
+        for k, v in runs[0]["kp"].items():
+            for f, x in v.items():
+                if isinstance(x, float):
+                    line(f"kp {k} {f}", lambda r: r["kp"][k][f])
+                elif f == "host_split_ms":
+                    for s in x:
+                        line(f"kp {k} host us: {s}",
+                             lambda r: 1e3 * r["kp"][k][f][s])
+            for r in runs:
+                if "device_ms" in v:
+                    print(f"  kp {k} device ({r['src']}): "
+                          f"{r['kp'][k]['device_ms']}")
+        for r in runs[1:]:
+            same = {k: r["kp"][k]["digest"] == v["digest"]
+                    for k, v in runs[0]["kp"].items() if "digest" in v}
+            print(f"{r['src']} == {runs[0]['src']} bit for bit: {same}")
     for part, name, widths in (("jacobi", "jacobi", JACOBI_WIDTHS),
                                ("gs", "gauss_seidel", GS_WIDTHS)):
         for B, _ in GS_B if has(part) else ():

@@ -134,8 +134,11 @@ def build_library() -> Path:
 
 
 def load_library():
-    """The loaded kernel library (built at first call)."""
+    """The loaded kernel library (built at first call; later calls take no
+    lock)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
@@ -167,7 +170,12 @@ def expect(t, name: str, dtype, shape, device) -> None:
 
 
 def stream_handle(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of ``device``'s current CUDA stream, read without building
+    a ``torch.cuda.Stream``."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def count_launch(name: str) -> None:

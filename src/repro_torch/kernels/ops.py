@@ -58,7 +58,8 @@ def resolve_backend(backend: str | None, device) -> str:
     b = "auto" if backend is None else backend
     if b not in BACKENDS:
         raise ValueError(f"unknown backend {b!r}; expected one of {BACKENDS}")
-    kind = torch.device(device).type
+    kind = (device if isinstance(device, torch.device)
+            else torch.device(device)).type
     if kind == "cuda":
         return "cuda"
     if kind != "cpu":

@@ -41,7 +41,8 @@ from repro_torch.kernels.fused_sweep import (fused_gauss_seidel_iter,
                                              sweep_backward_error,
                                              sweep_factor)
 from repro_torch.core.kernel_packets import kp_factors
-from repro_torch.kernels.kp_gram import kp_gram, kp_gram_plain
+from repro_torch.kernels.kp_gram import (kp_gram, kp_gram_plain,
+                                        kp_gram_table_plain)
 from repro_torch.precond import kmg_preconditioner
 from repro_torch.kernels.mega_solve import (MegaSolve, mega_gauss_seidel_plain,
                                             mega_gauss_seidel_solve,
@@ -840,21 +841,84 @@ def test_pcg_on_equals_whole_bitwise(dev, warm, tol):
 
 @pytest.mark.parametrize("q", [0, 1, 2, 3])
 def test_kp_gram_kernel(dev, q):
-    """kp_gram against its plain version and against the fit's Phi band
-    (kp_factors) on a jittered grid, n = 1000 (not a multiple of the
-    256-row block). Phi = A K cancels by design, so the bar is relative to
-    the summed terms' scale, max_i sum_t |A[i, t]| (|k| <= 1): one ulp of
-    exp reads far above 1e-12 of |Phi| at q = 2."""
-    rng = np.random.default_rng(18)
-    xs = torch.as_tensor(np.sort(points(rng, 1000, 1)[:, 0]), device=dev)
-    A, Phi = kp_factors(q, torch.tensor(4.0, dtype=torch.float64,
-                                        device=dev), xs)
+    """kp_gram against its plain twin in the kernel's order
+    (kp_gram_table_plain), its plain version and the fit's Phi band
+    (kp_factors) on a jittered grid, at n = 1, 2, 2q+3, 127-129, 255-257
+    and 1000: fewer rows than the window, the window, and one row either
+    side of the 128- and 256-row edges. Phi = A K cancels by design, so the
+    bar is relative to the summed terms' scale, max_i sum_t |A[i, t]|
+    (|k| <= 1): one ulp of exp reads far above 1e-12 of |Phi| at q = 2."""
+    for n in (1, 2, 2 * q + 3, 127, 128, 129, 255, 256, 257, 1000):
+        rng = np.random.default_rng(18 + n)
+        xs = torch.as_tensor(np.sort(points(rng, n, 1)[:, 0]), device=dev)
+        A, Phi = kp_factors(q, torch.tensor(4.0, dtype=torch.float64,
+                                            device=dev), xs)
+        a = A.data.contiguous()
+        _build.reset_launch_counts()
+        got = kp_gram(q, 4.0, xs, a)
+        assert _build.launch_counts()["kp_gram"] == 1, n
+        assert got.shape == (n, 2 * q + 1)
+        terms = float(a.abs().sum(-1).max())
+        for want in (kp_gram_table_plain(q, 4.0, xs, a),
+                     kp_gram_plain(q, 4.0, xs, a), Phi.data):
+            assert float((got - want).abs().max()) / terms < 1e-12, n
+
+
+def _faults(dev, which):
+    """(call, operand name, {fault: (operand, message)}) of a wrapper whose
+    second operand is on the CPU, float32, of a wrong shape or not
+    contiguous: each raises in the wrapper's checks, before any launch."""
+    rng = np.random.default_rng(23)
+    n, q = 300, 1
+    xs = torch.as_tensor(np.sort(points(rng, n, 1)[:, 0]), device=dev)
+    good = {
+        "kp_gram": torch.as_tensor(rng.standard_normal((n, 2 * q + 3)),
+                                   device=dev),
+        "banded_matvec": torch.as_tensor(rng.standard_normal((2, n, 4)),
+                                         device=dev),
+        "band_matmul": torch.as_tensor(rng.standard_normal((2, n, 3)),
+                                       device=dev)}[which]
+    bad = {"cpu": (good.cpu(), "on cpu, expected cuda"),
+           "float32": (good.float(), "dtype torch.float32, expected "
+                                     "torch.float64"),
+           "shape": (good[..., :-1, :].contiguous(), "shape"),
+           "layout": (good.transpose(-1, -2).contiguous().transpose(-1, -2),
+                      "not contiguous")}
+    band = torch.as_tensor(rng.standard_normal((2, n, 3)), device=dev)
+    calls = {
+        "kp_gram": lambda t: kp_gram(q, 4.0, xs, t),
+        "banded_matvec": lambda t: banded_matvec(band, t, 1, 1),
+        "band_matmul": lambda t: band_matmul(band, t, 1, 1, 1, 1)}
+    name = {"kp_gram": "a_band", "banded_matvec": "x",
+            "band_matmul": "b_band"}[which]
+    return calls[which], name, bad
+
+
+@pytest.mark.parametrize("which", ["kp_gram", "banded_matvec",
+                                   "band_matmul"])
+def test_wrapper_errors(dev, which):
+    """The wrappers' checks (``_build.expect``) raise the same ValueError as
+    before for a CPU tensor, a float32 tensor, a wrong shape or a
+    non-contiguous operand, and launch nothing."""
+    call, name, bad = _faults(dev, which)
     _build.reset_launch_counts()
-    got = kp_gram(q, 4.0, xs, A.data.contiguous())
-    assert _build.launch_counts()["kp_gram"] == 1
-    terms = float(A.data.abs().sum(-1).max())
-    for want in (kp_gram_plain(q, 4.0, xs, A.data), Phi.data):
-        assert float((got - want).abs().max()) / terms < 1e-12
+    for fault, (t, msg) in bad.items():
+        with pytest.raises(ValueError, match=f"^{name}: .*{msg}"):
+            call(t)
+    assert sum(_build.launch_counts().values()) == 0
+
+
+def test_kp_gram_wrapper_errors(dev):
+    """kp_gram's own refusals: q above the kernel's MAX_Q, and
+    backend="cuda" on CPU tensors."""
+    rng = np.random.default_rng(24)
+    xs = torch.as_tensor(np.sort(points(rng, 50, 1)[:, 0]))
+    with pytest.raises(ValueError, match="0 <= q <= 3"):
+        kp_gram(4, 4.0, xs.to(dev), torch.zeros((50, 11), device=dev,
+                                                 dtype=torch.float64))
+    with pytest.raises(ValueError, match="backend='cuda' needs CUDA"):
+        kp_gram(0, 4.0, xs, torch.zeros((50, 3), dtype=torch.float64),
+                backend="cuda")
 
 
 def _kmg_gp(dev, n=900):

@@ -26,6 +26,7 @@ from repro_torch.core.kernel_packets import kp_factors
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.banded_lu import banded_lu
 from repro_torch.kernels.fused_sweep import _pad_len
+from repro_torch.kernels.kp_gram import kp_gram_plain, kp_gram_table_plain
 from repro_torch.kernels.mega_solve import mega_pcg_solve
 from repro_torch.kernels.rgf import rgf_inverse_band
 from torch_port_inputs import (OMEGA, band, padded_operands, points,
@@ -231,7 +232,7 @@ def test_dimops_and_mhat_matvec_match_jax(q):
                 j_ops.block_solve(uj, backend="pallas")) < 1e-10
 
 
-@pytest.mark.parametrize("q", [0, 1, 2])
+@pytest.mark.parametrize("q", [0, 1, 2, 3])
 def test_kp_gram_plain_matches_pallas(q):
     """kp_gram's plain version against the Pallas kernel (interpret, block
     128, n = 300 not a multiple of it), the dense-gather oracle and the fit's
@@ -256,3 +257,20 @@ def test_kp_gram_plain_matches_pallas(q):
     assert float(np.abs(phi.numpy() - np.asarray(want)).max()) / terms < 1e-12
     assert _rel(phi, ref.kp_gram_ref(q, OMEGA, xs, A.data)) < 1e-12
     assert _rel(phi, Phi.data) < 1e-12
+
+
+@pytest.mark.parametrize("n", [1, 2, "window", 255, 256, 257, 1000])
+@pytest.mark.parametrize("q", [0, 1, 2, 3])
+def test_kp_gram_table_twin_bitwise(q, n):
+    """The CUDA kernel's order replayed in plain torch (one Matern value per
+    distinct pair, read from a table) equals kp_gram_plain bit for bit on
+    the CPU: fewer rows than the window (n < 2q+3), the window itself,
+    and one row either side of a 256-row edge."""
+    n = 2 * q + 3 if n == "window" else n
+    rng = np.random.default_rng(70 + 10 * q + n)
+    xs = torch.as_tensor(np.sort(points(rng, n, 1)[:, 0]))
+    a = torch.as_tensor(rng.standard_normal((n, 2 * q + 3)))
+    want = kp_gram_plain(q, OMEGA, xs, a)
+    got = kp_gram_table_plain(q, OMEGA, xs, a)
+    assert got.shape == (n, 2 * q + 1)
+    assert torch.equal(got, want)
