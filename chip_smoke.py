@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, hyperparameter-learning, relaxation,
-default-configuration (kernel multigrid), per-iteration PCG and q = 3 paths
-on one NVIDIA GPU and check them.
+default-configuration (kernel multigrid), per-iteration PCG, Bayesian
+optimisation and q = 3 paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -28,8 +28,10 @@ one process per source), then:
    ``rgf_blocks`` (block cyclic reduction with selected inversion on the
    card, the RGF order on the CPU) is held against the RGF order's plain
    version (1e-10) and against its plain twin in the card's order
-   (1e-12). The rgf and kp_gram kernels' registers and spill bytes are
-   printed from the build's ptxas report;
+   (1e-12). The half-width-4 instantiations of the backfitting kernels
+   (q = 3) are held the same way on a jittered q = 3 grid at the main
+   shape (``w4_kernel_phase``). The rgf, kp_gram and backfitting kernels'
+   registers and spill bytes are printed from the build's ptxas report;
 2. paths on Schwefel data, n = 30000, D = 10 (the paper's Fig. 5 point):
    the serving path ``fit`` -> ``posterior_mean`` -> ``posterior_var`` on
    100 queries; on its fit's own H = A Phi^T the rgf kernel's error
@@ -50,9 +52,13 @@ one process per source), then:
    recorded iteration counts; pcg with ``fused="on"`` (``fit``,
    ``posterior_var(32)``) and "on" == "whole" bit for bit; a tol-exit PCG
    over 300 columns (column chunks in lockstep under one exit) against the
-   plain PCG over all of them; q = 3 (fused "auto" -> "off") through
-   ``fit`` -> mean(100) -> var(32) -> ``log_likelihood``. Each path with
-   every kernel's launch count over it;
+   plain PCG over all of them; Bayesian optimisation on the pcg "whole"
+   GP (``bo_phase``: the acquisition at m = 32, ``posterior_mean_grad``,
+   ``propose_next``, three rounds of ``bayes_opt_loop`` from n_init =
+   30000); q = 3 with pcg "off", "whole" and "on" through ``fit`` ->
+   mean(100) -> var(32) -> ``log_likelihood``, and Gauss-Seidel and
+   Jacobi "whole" and "on" through var(32), "on" equal to "whole" bit for
+   bit. Each path with every kernel's launch count over it;
 3. consistency at n = 4000, D = 10, the card against ``device="cpu"``
    (plain versions), all within 1e-7: on the quickstart's Schwefel data the
    q = 0 mean, variance and log-likelihood, pcg with ``fused="on"``, kmg,
@@ -66,7 +72,13 @@ one process per source), then:
    ill-conditioned, the gradients are compared from the same factors and
    the block-CR kernels' backward error on that B is held against the
    plain version's (``schwefel_same_factors``); the q = 3 gradients are
-   gated the same way.
+   gated the same way, and the q = 3 fused solves (pcg "whole" and "on",
+   the relaxation solvers' "whole") are held from the same factors. For
+   Bayesian optimisation: the acquisition value and gradient (UCB, EI)
+   and the mean's gradient on the Schwefel data and at q = 1, the card's
+   gradients against central differences of its own mean and variance at
+   q = 0 and 1 (1e-4), and the dense local cache against the operator
+   path (n = 512, D = 5, q = 1; 1e-8).
 
 Prints the card's name and power limit, the elapsed time after each
 phase, one ``{"kernels": [...]}`` line, and last
@@ -109,7 +121,9 @@ def _import_port():
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.core import (GPConfig, fit, fit_hyperparams,
                                   log_likelihood, mll_gradients,
-                                  posterior_mean, posterior_var)
+                                  posterior_mean, posterior_mean_grad,
+                                  posterior_var)
+    from repro_torch.core import bayesopt as bo
     import repro_torch.core.additive_gp as agp
     from repro_torch.core.additive_gp import (_log_likelihood,
                                               _mll_gradients, _probe_block)
@@ -600,19 +614,24 @@ def _rgf_row(P, report, tag, blocks):
 
 
 def _ptxas(_build, source, kernels):
-    """(template argument, kernel, registers, spill stores, spill loads) of
+    """(template arguments, kernel, registers, spill stores, spill loads) of
     each instantiation of ``kernels`` in ``source``, from the build's
-    ptxas report (``nvcc -Xptxas -v``)."""
+    ptxas report (``nvcc -Xptxas -v``); the arguments are the integer and
+    bool template arguments in order, one alone printed as itself."""
     import re
 
     log = (_build.BUILD_DIR / f"build_{_build._digest()}.log").read_text()
     sec = log.split(f"== {source}", 1)[1].split("\n== ", 1)[0]
     pat = re.compile(r"Function properties for \S*?(" + kernels + r")"
-                     r"_kernelILi(\d+)E\S*\s+(\d+) bytes stack frame, "
-                     r"(\d+) bytes spill stores, (\d+) bytes spill loads"
-                     r"\s+ptxas info\s+: Used (\d+) registers")
-    return sorted((int(m[2]), m[1], int(m[6]), int(m[4]), int(m[5]))
-                  for m in pat.finditer(sec))
+                     r"_kernelI((?:L[bi]\d+E)+)E\S*\s+(\d+) bytes stack "
+                     r"frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                     r"loads\s+ptxas info\s+: Used (\d+) registers")
+    out = []
+    for m in pat.finditer(sec):
+        args = tuple(int(a) for a in re.findall(r"L[bi](\d+)E", m[2]))
+        out.append((args[0] if len(args) == 1 else args, m[1], int(m[6]),
+                    int(m[4]), int(m[5])))
+    return sorted(out)
 
 
 def variance_band_phase(P, gp):
@@ -880,6 +899,166 @@ def relax_kernel_phase(P, rng, dev, ops_path, ops_q1, iters):
               "(jacobi x, k; gauss_seidel x, k)", flush=True)
         if not same:
             raise RuntimeError("whole solve and per-sweep loop differ")
+    return rows
+
+
+W4_KERNELS = {
+    "mega_pcg_w4": ("src/repro_torch/csrc/mega_pcg.cu",
+                    "src/repro/kernels/mega_solve.py:268"),
+    "fused_pcg_iter_w4": ("src/repro_torch/csrc/mega_pcg.cu",
+                          "src/repro/kernels/fused_sweep.py:363"),
+    **{k + "_w4": v for k, v in RELAX_KERNELS.items()},
+}
+
+
+def w4_kernel_phase(P, dev, iters=80, sweeps=10):
+    """The backfitting kernels' half-width-4 instantiations (q = 3: A and
+    SAPhi w = 4, Phi w = 3) against their plain versions on the card, at
+    n = 30000, D = 10, B = 32, on the operands of a jittered q = 3 grid
+    (spacing 0.2 / omega, omega = 4, as the q = 3 consistency grid): the
+    whole PCG solve (``iters`` iterations; its bar, iterations and r as
+    the q = 0 mega_pcg row's; at 40 iterations this system's relative
+    residual is still ~2e-5 and a 1e-14 change of v moves x by 1e-7, so
+    two summation orders part there, while at 80 the residual is ~1e-10
+    and x moves by 5e-11: plain version on the CPU), the PCG seed and one
+    carried iteration,
+    one Jacobi sweep with k and one Gauss-Seidel sweep with k, and the
+    whole warm Jacobi and Gauss-Seidel solves of ``sweeps`` sweeps (the
+    plain Gauss-Seidel solves D systems a sweep one after another). The
+    one-iteration and relaxation rows' bar is max(1e-12, kappa eps), kappa
+    the conditioning of the systems they solve (``relax_kernel_phase``),
+    and one undamped sweep's backward error is held within 10x the plain
+    version's. Its own seeds, so the other phases' draws stay as they
+    were. Returns the six kernel rows."""
+    rng = np.random.default_rng(31)
+    D, n, B = D_PATH, N_PATH, B_PATH
+    fs = _operands(P, _jittered(rng, n, D, spacing=0.2)[0], np.full(D, 4.0),
+                   1.0, 3, dev)
+    assert (fs.w_a, fs.w_p, fs.w_s) == (4, 3, 4)
+    eps = float(torch.finfo(torch.float64).eps)
+    kappa = max(_cond_est(P, fs, fs.saphi, fs.w_s),
+                _cond_est(P, fs, fs.phi, fs.w_p))
+    tol = max(1e-12, kappa * eps)
+    ops = (fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2)
+    pops = (fs.a,) + ops
+    kw = dict(w_p=fs.w_p, w_s=fs.w_s)
+    pkw = dict(kw, w_a=fs.w_a)
+    fac = fs.cr_factors()
+    jkw, gkw, fkw = (dict(kw, factors=fac),
+                     dict(kw, factors=fs.saphi_factor()),
+                     dict(pkw, factors=fac))
+    v = fs.pad_state(torch.as_tensor(rng.standard_normal((D, n, B)),
+                                     device=dev))
+    x0 = fs.pad_state(torch.as_tensor(0.1 * rng.standard_normal((D, n, B)),
+                                      device=dev))
+    k = fs.pad_state(torch.as_tensor(0.1 * rng.standard_normal((D, n, B)),
+                                     device=dev))
+    zero = torch.zeros_like(v)
+    print(f"W = 4 rows (q = 3, n={n} D={D} B={B}): cond <= {kappa:.3e}, bar "
+          f"{tol:.3e}; solve items of pcg {P['pcg_solve_cols'](D, B, maxw=4)}"
+          f", jacobi {P['jacobi_cols'](D, B, maxw=4)}, gauss_seidel "
+          f"{P['gauss_seidel_cols'](B, maxw=4)} columns (grids "
+          f"{P['jacobi_grid'](maxw=4)}, {P['gauss_seidel_grid'](maxw=4)} "
+          "blocks)", flush=True)
+    rows = []
+
+    def row(name, tag, ms, pms, err, rel, bar, cost):
+        b_ms, b_by = _bound(*cost)
+        print(f"kernel {name:27s} {tag:22s} max_abs_err={err:.3e} "
+              f"max_rel_err={rel:.3e} (tol {bar:.1e}) kernel_ms={ms:.4f} "
+              f"plain_ms={pms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              "library_ms=none", flush=True)
+        if not rel <= bar:
+            raise RuntimeError(f"{name} {tag}: error {rel:.3e} > {bar:.1e}")
+        rows.append(dict(name=name, route="cuda", source=W4_KERNELS[name][0],
+                         replaces=W4_KERNELS[name][1], max_abs_err=err,
+                         max_rel_err=rel, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None))
+
+    # the whole PCG solve
+    ms, (x, r, it) = _event_ms(lambda: P["mega_pcg_solve"](
+        *pops, v, zero, iters=iters, **fkw), reps=3)
+    pms, (xp, rp, itp) = _event_ms(lambda: P["mega_pcg_plain"](
+        *pops, v, zero, iters=iters, **pkw), reps=1, warmup=0)
+    err, rel = _errs(x, xp)
+    r_err = float((r - rp).abs().max()) / float(v.abs().max())
+    print(f"mega_pcg_w4 q3: |r| / |v| kernel "
+          f"{float(r.abs().max() / v.abs().max()):.3e}, plain "
+          f"{float(rp.abs().max() / v.abs().max()):.3e} after {iters} "
+          f"iterations; r error at |v| {r_err:.3e}", flush=True)
+    if int(it) != int(itp) or not r_err < 1e-7:
+        raise RuntimeError(f"mega_pcg_w4: iters {int(it)} vs {int(itp)}, r "
+                           f"error {r_err:.3e}")
+    row("mega_pcg_w4", f"q3 B={B} {iters} iters", ms, pms, err, rel, 1e-7,
+        _mega_cost(D, fs.npad, B, fs.w_a, fs.w_p, fs.w_s, int(it)))
+    # the seed (cold, warm) and one carried iteration
+    seed_err = 0.0
+    for warm in (False, True):
+        start = x0 if warm else zero
+        got = P["pcg_seed"](*pops, v, start, warm=warm, **fkw)
+        want = P["pcg_seed_plain"](*pops, v, start, warm=warm, **pkw)
+        seed_err = max(seed_err, _errs(_flat(got), _flat(want))[1])
+    ms, out = _event_ms(lambda: P["fused_pcg_iter"](*pops, *got, **fkw),
+                        reps=10)
+    pms, outp = _event_ms(lambda: P["fused_pcg_iter_plain"](*pops, *got,
+                                                            **pkw),
+                          reps=1, warmup=0)
+    err, rel = _errs(_flat(out[k] for k in (0, 2, 3)),
+                     _flat(outp[k] for k in (0, 2, 3)))
+    r_err = float((out[1] - outp[1]).abs().max() / got[1].abs().max())
+    if not (seed_err <= tol and r_err <= tol):
+        raise RuntimeError(f"fused_pcg_iter_w4: seed {seed_err:.3e}, r "
+                           f"{r_err:.3e} > {tol:.3e}")
+    row("fused_pcg_iter_w4", f"q3 B={B} seed+iteration", ms, pms, err, rel,
+        tol, _pcg_iter_cost(D, fs.npad, B, fs.w_a, fs.w_p, fs.w_s))
+    # the relaxation kernels
+    al = 1.0 / D
+    shape = (D, fs.npad, B, fs.w_p, fs.w_s)
+    for name, tag, fn, plain, cost, reps in (
+            ("fused_jacobi_iter_w4", f"q3 B={B} k",
+             lambda: P["fused_jacobi_iter"](*ops, v, x0, k, alpha=al, **jkw),
+             lambda: P["fused_jacobi_iter_plain"](*ops, v, x0, k, alpha=al,
+                                                  **kw),
+             _sweep_cost(*shape, 1, 5, JACOBI_SWEPT,
+                         JACOBI_ELEM + JACOBI_K_ELEM), 10),
+            ("fused_gauss_seidel_iter_w4", f"q3 B={B} k",
+             lambda: P["fused_gauss_seidel_iter"](*ops, v, x0,
+                                                  want_resid=True, **gkw),
+             lambda: P["fused_gauss_seidel_iter_plain"](*ops, v, x0,
+                                                        want_resid=True,
+                                                        **kw),
+             _sweep_cost(*shape, 1, GS_STATES, GS_SWEPT, GS_ELEM,
+                         GS_K_FINAL), 3),
+            ("mega_jacobi_w4", f"q3 B={B} warm {sweeps} it",
+             lambda: P["mega_jacobi_solve"](*ops, v, x0, alpha=al,
+                                            iters=sweeps, warm=True, **jkw),
+             lambda: P["mega_jacobi_plain"](*ops, v, x0, alpha=al,
+                                            iters=sweeps, warm=True, **kw),
+             _sweep_cost(*shape, sweeps, 4, JACOBI_SWEPT,
+                         JACOBI_ELEM + JACOBI_K_ELEM, warm=True), 3),
+            ("mega_gauss_seidel_w4", f"q3 B={B} {sweeps} it",
+             lambda: P["mega_gauss_seidel_solve"](*ops, v, x0, iters=sweeps,
+                                                  **gkw),
+             lambda: P["mega_gauss_seidel_plain"](*ops, v, x0, iters=sweeps,
+                                                  **kw),
+             _sweep_cost(*shape, sweeps, GS_STATES, GS_SWEPT, GS_ELEM,
+                         GS_K_FINAL), 1)):
+        ms, out = _event_ms(fn, reps=reps)
+        pms, outp = _event_ms(plain, reps=1, warmup=0)
+        row(name, tag, ms, pms, *_errs(_flat(out), _flat(outp)), tol, cost)
+    for name, seq, fn, fkw_ in (
+            ("jacobi", False, lambda f, a: f(*ops, v, x0, alpha=1.0, **a),
+             jkw),
+            ("gauss_seidel", True, lambda f, a: f(*ops, v, x0, **a), gkw)):
+        kern, plain = (P[f"fused_{name}_iter{sfx}"] for sfx in ("", "_plain"))
+        be = [P["sweep_backward_error"](*ops, v, x0, fn(f, a), sequential=seq,
+                                        **kw)
+              for f, a in ((kern, fkw_), (plain, kw))]
+        print(f"backward error {name} sweep q3 (W = 4): kernel {be[0]:.3e} "
+              f"plain {be[1]:.3e}", flush=True)
+        if not be[0] <= 10 * max(be[1], eps):
+            raise RuntimeError(f"{name} sweep q3: backward error "
+                               f"{be[0]:.3e} > 10 x {be[1]:.3e}")
     return rows
 
 
@@ -1235,6 +1414,160 @@ def schwefel_same_factors(P, g_cpu, V, dev):
         raise RuntimeError("Schwefel gradients are not finite")
 
 
+BO_KERNELS = ("banded_lu", "mega_pcg", "cr_factor", "cr_apply")
+
+
+def _bo_counts(counts, calls=1):
+    """The BO kernels' launches per call."""
+    return ", ".join(f"{k} {counts[k] / calls:g}" for k in BO_KERNELS)
+
+
+def bo_phase(P, gp, bounds, Xq, f, dev):
+    """Bayesian optimisation (paper Sec. 6) on the main path's fitted GP
+    (Schwefel, n = 30000, D = 10, q = 0, pcg "whole", 40 iterations): the
+    acquisition value and gradient at m = 32 (UCB, beta = 2, and EI), the
+    mean's gradient at the 100 queries, one ``propose_next`` (32 starts, 20
+    ascent steps) and the refit loop (``bayes_opt_loop`` on the Schwefel
+    function: n_init = 30000 points of its own draw, the path's omega and
+    sigma, 3 rounds, hyperparameters re-learned at round 2 in 2 steps),
+    each a wall ending in a synchronise with its launches per call.
+    Returns the launch counts over the phase."""
+    bo = P["bo"]
+    _build = P["_build"]
+    cfg = dataclasses.replace(gp.config, fused="whole")
+    best = float(gp.Y.max())
+    total = dict.fromkeys(_build.KERNELS, 0)
+
+    def timed(name, fn, calls=1):
+        _build.reset_launch_counts()
+        out, t = _sync_time(fn)
+        c = _build.launch_counts()
+        for k, v in c.items():
+            total[k] += v
+        print(f"bo {name}: {t * 1e3:.1f} ms; launches per call: "
+              f"{_bo_counts(c, calls)}", flush=True)
+        return out, c
+
+    m = B_PATH
+    for kind in ("ucb", "ei"):
+        (val, grad), c = timed(
+            f"acquisition_value_and_grad {kind} m={m}",
+            lambda: bo.acquisition_value_and_grad(gp, Xq[:m], 2.0, best,
+                                                  kind=kind))
+        _require_launched(f"acquisition ({kind})", c, ("banded_lu",
+                                                       "mega_pcg"))
+        if not (val.shape == (m,) and grad.shape == (m, D_PATH) and bool(
+                torch.isfinite(torch.cat([val, grad.flatten()])).all())):
+            raise RuntimeError(f"acquisition {kind}: not finite")
+    dmu, _ = timed("posterior_mean_grad(100)",
+                   lambda: P["posterior_mean_grad"](gp, Xq))
+    if not (dmu.shape == (100, D_PATH) and bool(torch.isfinite(dmu).all())):
+        raise RuntimeError("posterior_mean_grad: not finite")
+    bcfg = bo.BOConfig(ascent_steps=20, n_starts=32, refit_every=2,
+                       hyper_steps=2, incremental=False, use_engine=False)
+    b = torch.as_tensor(bounds, device=dev)
+    x, c = timed(f"propose_next ({bcfg.n_starts} starts, "
+                 f"{bcfg.ascent_steps} steps)",
+                 lambda: bo.propose_next(gp, b, torch.Generator().manual_seed(
+                     5), bcfg, best), calls=bcfg.ascent_steps + 1)
+    _require_launched("propose_next", c, ("banded_lu", "mega_pcg"))
+    if not (x.shape == (D_PATH,) and bool(((x >= b[:, 0]) & (x <= b[:, 1]))
+                                          .all())):
+        raise RuntimeError(f"propose_next left the bounds: {x}")
+    budget = 3
+    (lgp, LX, LY, hist), c = timed(
+        f"bayes_opt_loop (n_init={N_PATH}, {budget} rounds, refit_every="
+        f"{bcfg.refit_every}, hyper_steps={bcfg.hyper_steps})",
+        lambda: bo.bayes_opt_loop(f, b, budget, cfg, bcfg,
+                                  torch.Generator().manual_seed(6),
+                                  n_init=N_PATH, omega0=gp.omega,
+                                  sigma0=float(gp.sigma)),
+        calls=budget)
+    print(f"bo loop: best {hist['best']}, sigma {hist['sigma']}; X "
+          f"{tuple(LX.shape)}", flush=True)
+    _require_launched("bayes_opt_loop", c, ("banded_lu", "mega_pcg"))
+    if not (LX.shape == (N_PATH + budget, D_PATH) and lgp.n == N_PATH + budget
+            and np.isfinite(hist["best"]).all()
+            and hist["best"][-1] >= hist["best"][0]
+            and bool(((LX >= b[:, 0]) & (LX <= b[:, 1])).all())):
+        raise RuntimeError("bayes_opt_loop: bad history")
+    return total
+
+
+def bo_consistency(P, g_card, g_cpu, Xq, tag):
+    """Card against the plain CPU port from two fits of the same data: the
+    acquisition value and gradient (UCB, EI) and the mean's gradient. EI's
+    incumbent is the largest posterior mean at the queries, so EI is of the
+    posterior's scale there (at the data's best value it underflows to 0
+    on the Schwefel queries)."""
+    bo = P["bo"]
+    best = float(P["posterior_mean"](g_cpu, Xq, device="cpu").max())
+    for kind in ("ucb", "ei"):
+        got = bo.acquisition_value_and_grad(g_card, Xq, 2.0, best, kind=kind)
+        want = bo.acquisition_value_and_grad(g_cpu, Xq, 2.0, best, kind=kind,
+                                             device="cpu")
+        for name, a, w in zip(("value", "grad"), got, want):
+            _check(f"{tag} acquisition {kind} {name}", a, w)
+    _check(f"{tag} posterior_mean_grad",
+           P["posterior_mean_grad"](g_card, Xq),
+           P["posterior_mean_grad"](g_cpu, Xq, device="cpu"))
+
+
+def bo_finite_differences(P, cfg, X, Y, Xq, tag, eps=1e-5, bar=1e-4):
+    """The card's mean and variance gradients (the variance's from the UCB
+    gradient, beta = 2) against central differences of its own
+    posterior_mean / posterior_var at ``Xq``, the JAX package's bar, on a
+    card fit of (X, Y) (omega = 4, sigma = 1) whose solves run 200
+    iterations: the gradient is that of the exact posterior variance, and
+    on these grids 40 PCG iterations leave a relative residual of 9e-5
+    (q = 0) and 1e-5 (q = 1), 200 below 1e-20 (plain version on the CPU),
+    so a central difference of an unconverged variance is no witness."""
+    g = P["fit"](dataclasses.replace(cfg, solver_iters=200), X, Y,
+                 np.full(X.shape[1], 4.0), 1.0)
+    Xq = torch.as_tensor(Xq, device=g.device)
+    m, D = Xq.shape
+    _, grad, _, var = P["bo"].acquisition_stats(g, Xq, 2.0, 0.0)
+    dmu = P["posterior_mean_grad"](g, Xq)
+    dvar = (grad - dmu) * torch.sqrt(var)[:, None]  # = 2 sqrt(s) / beta
+    e = eps * torch.eye(D, dtype=Xq.dtype, device=Xq.device)
+    pts = torch.stack([torch.stack([Xq + s * e[j] for j in range(D)])
+                       for s in (1.0, -1.0)]).reshape(-1, D)
+    mu_s = P["posterior_mean"](g, pts).reshape(2, D, m)
+    var_s = P["posterior_var"](g, pts).reshape(2, D, m)
+    fd_m = ((mu_s[0] - mu_s[1]) / (2 * eps)).T
+    fd_v = ((var_s[0] - var_s[1]) / (2 * eps)).T
+    gaps = (float((dmu - fd_m).abs().max()), float((dvar - fd_v).abs().max()))
+    print(f"{tag} gradients vs central differences (eps {eps:g}): dmu "
+          f"{gaps[0]:.3e}, dvar {gaps[1]:.3e} (bar {bar:g})", flush=True)
+    if not max(gaps) < bar:
+        raise RuntimeError(f"{tag}: gradients off their central differences")
+
+
+def local_cache_check(P, dev, n=512, D=5, q=1):
+    """The dense M-tilde cache on the card (jittered grid, omega = 4):
+    ``acq_local`` against the operator path within 1e-8."""
+    rng = np.random.default_rng(41)
+    X, span = _jittered(rng, n, D)
+    Y = np.sin(X * 6.0 * np.pi / span).sum(1) + 0.1 * rng.standard_normal(n)
+    g = P["fit"](P["GPConfig"](q=q, solver_iters=80, precond="none"), X, Y,
+                 np.full(D, 4.0), 1.0)
+    bo = P["bo"]
+    cache, t = _sync_time(lambda: bo.build_local_cache(g))
+    Xq = torch.as_tensor(rng.uniform(0.0, span, (4, D)), device=dev)
+    best = float(g.Y.max())
+    gap = 0.0
+    for kind in ("ucb", "ei"):
+        vo, go = bo.acquisition_value_and_grad(g, Xq, 2.0, best, kind=kind)
+        for i in range(len(Xq)):
+            v, gr = bo.acq_local(g, cache, Xq[i], 2.0, best, kind=kind)
+            gap = max(gap, _errs(v, vo[i])[1], _errs(gr, go[i])[1])
+    print(f"bo local cache n={n} D={D} q={q}: build {t * 1e3:.1f} ms "
+          f"({cache.M_tilde.numel() * 8 / 2**20:.1f} MiB); acq_local vs the "
+          f"operator path max rel {gap:.3e} (tol 1e-8)", flush=True)
+    if not gap < 1e-8:
+        raise RuntimeError(f"acq_local off the operator path: {gap:.3e}")
+
+
 def _jittered(rng, n, D, spacing=0.1):
     """(n, D) points, each column a shuffled jittered grid whose spacing is
     ``spacing`` / omega at omega = 4, and the grid's span. At q >= 1 the KP
@@ -1278,7 +1611,10 @@ def main():
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc in parallel, "
           f"{len(_build.SOURCES)} sources)", flush=True)
     for src, kernels, arg in (("rgf.cu", "tile_fwd|top|tile_bwd", "W"),
-                              ("kp_gram.cu", "kp_gram", "q")):
+                              ("kp_gram.cu", "kp_gram", "q"),
+                              ("mega_pcg.cu", "mega_pcg", "PIVOT, MAXW"),
+                              ("jacobi.cu", "jacobi", "PIVOT, MAXW"),
+                              ("gauss_seidel.cu", "gs", "PIVOT, MAXW")):
         print(f"ptxas {src} ({arg}, kernel, registers, spill stores, spill "
               "loads): " + "; ".join(
                   f"{w} {k} {r} {st} {ld}"
@@ -1315,6 +1651,8 @@ def main():
     del ops_path, ops_q1
     rows += kp_gram_phase(P, rng, dev)
     _stamp("per-iteration PCG and kp_gram kernel phase")
+    rows += w4_kernel_phase(P, dev)
+    _stamp("W = 4 kernel phase")
 
     # --- main path at the paper's Fig. 5 point ----------------------------
     cfg = P["GPConfig"](q=0, solver="pcg", solver_iters=40, precond="none")
@@ -1574,45 +1912,83 @@ def main():
     del fs, v300, v3p, xp3, x3
     _stamp("pcg fused=on path and tol-exit over 300 columns")
 
+    # --- Bayesian optimisation (Sec. 6) on the main path's GP ------------
+    counts_bo = bo_phase(P, gp, bounds, Xq, lambda x: float(f(x)[0]), dev)
+    _stamp("Bayesian optimisation path")
+
     # --- q = 3 (Matern-7/2) at the main size on a jittered grid (omega = 4:
     # on the Schwefel points the q = 3 KP windows are ill-conditioned,
-    # ROADMAP Queue 3): fused "auto" -> "off", block CR at w = 3, 4, 5
-    # (factors held by the GP), rgf at w = 7 -------------------------------
+    # ROADMAP Queue 3): unfused ("off"; block CR at w = 3, 4, 5, the factors
+    # held by the GP; rgf at w = 7), then pcg "whole" and "on" (the
+    # half-width-4 instantiation of mega_pcg.cu) and the relaxation solvers
+    # "whole" and "on" (jacobi.cu, gauss_seidel.cu), each "on" equal to its
+    # "whole" bit for bit --------------------------------------------------
     r3 = np.random.default_rng(7)
     X3, span3 = _jittered(r3, n, D)
     Y3 = np.sin(X3 * 6.0 * np.pi / span3).sum(1) + 0.1 * r3.standard_normal(n)
     Xq3 = r3.uniform(0.0, span3, (100, D))
-    q3cfg = P["GPConfig"](q=3, solver_iters=40, precond="none")
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()
-    g3, t3f = _sync_time(lambda: P["fit"](q3cfg, X3, Y3, np.full(D, 4.0),
-                                          sigma))
-    mu3, t3m = _sync_time(lambda: P["posterior_mean"](g3, Xq3))
-    var3, t3v = _sync_time(lambda: P["posterior_var"](g3, Xq3[:B]))
-    ll3, t3l = _sync_time(lambda: P["log_likelihood"](
-        g3, torch.Generator().manual_seed(4)))
-    counts_3 = _build.launch_counts()
-    peak_3 = torch.cuda.max_memory_allocated()
-    vals3 = torch.cat([mu3, var3, ll3.reshape(1)]).cpu()
-    print(f"q=3 path (jittered grid) n={n} D={D} iters=40: fused "
-          f"{g3.config.fused}, fit "
-          f"{t3f * 1e3:.1f} ms, posterior_mean(100) {t3m * 1e3:.1f} ms, "
-          f"posterior_var({B}) {t3v * 1e3:.1f} ms, log_likelihood "
-          f"{t3l * 1e3:.1f} ms; fit solve verdict "
-          f"{P['verdict_name'](g3.health.verdict)}; peak memory "
-          f"{peak_3 / 2**20:.1f} MiB; launches {counts_3}", flush=True)
-    if not (g3.config.fused == "off" and bool(torch.isfinite(vals3).all())
-            and bool((var3 > 0).all())
-            and P["verdict_name"](g3.health.verdict) in ("OK", "STALLED")):
-        raise RuntimeError("q = 3 path: not finite/positive, or diverged")
-    _require_launched("q = 3 path", counts_3,
-                      ("band_matmul", "rgf_blocks", "cr_factor", "cr_apply",
-                       "banded_matvec"))
-    del g3
+    counts_3 = []
+    out3 = {}
+    for solver, fused in (("pcg", "off"), ("pcg", "whole"), ("pcg", "on"),
+                          ("gauss_seidel", "whole"), ("gauss_seidel", "on"),
+                          ("jacobi", "whole"), ("jacobi", "on")):
+        q3cfg = P["GPConfig"](q=3, solver=solver, solver_iters=40,
+                              precond="none", fused=fused)
+        pcg = solver == "pcg"
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        g3, t3f = _sync_time(lambda: P["fit"](q3cfg, X3, Y3,
+                                              np.full(D, 4.0), sigma))
+        mu3, t3m = _sync_time(lambda: P["posterior_mean"](g3, Xq3))
+        var3, t3v = _sync_time(lambda: P["posterior_var"](g3, Xq3[:B]))
+        ll3, t3l = (_sync_time(lambda: P["log_likelihood"](
+            g3, torch.Generator().manual_seed(4))) if pcg
+            else (torch.zeros(()), 0.0))
+        c3 = _build.launch_counts()
+        counts_3.append(c3)
+        peak_3 = torch.cuda.max_memory_allocated()
+        vals3 = torch.cat([mu3, var3, ll3.reshape(1).to(dev)]).cpu()
+        verdict3 = P["verdict_name"](g3.health.verdict)
+        ll_txt = (f", log_likelihood {t3l * 1e3:.1f} ms (value "
+                  f"{float(ll3):.6f})" if pcg else "")
+        print(f"q=3 path (jittered grid) {solver} n={n} D={D} iters=40: "
+              f"fused {g3.config.fused}, fit "
+              f"{t3f * 1e3:.1f} ms, posterior_mean(100) {t3m * 1e3:.1f} ms, "
+              f"posterior_var({B}) {t3v * 1e3:.1f} ms{ll_txt}; fit solve "
+              f"verdict {verdict3}; peak memory "
+              f"{peak_3 / 2**20:.1f} MiB; launches {c3}", flush=True)
+        if not (g3.config.fused == fused and bool(torch.isfinite(vals3).all())
+                and bool((var3 > 0).all())
+                and verdict3 in ("OK", "STALLED")):
+            raise RuntimeError(f"q = 3 path {solver} {fused}: not "
+                               "finite/positive, or diverged")
+        need = ["band_matmul", "rgf_blocks", "cr_factor"]
+        if fused == "off":
+            need += ["cr_apply", "banded_matvec"]
+            if c3["mega_pcg"] or c3["mega_pcg_w4"]:
+                raise RuntimeError("the q = 3 'off' path ran a fused kernel")
+        else:
+            need.append(("mega_" if fused == "whole" else "fused_") + solver
+                        + ("_iter" if fused == "on" else "") + "_w4")
+        _require_launched(f"q = 3 path {solver} {fused}", c3, need)
+        out3[solver, fused] = (g3.u_sy, g3.bY, mu3, var3, ll3)
+        del g3
+    for solver in ("pcg", "gauss_seidel", "jacobi"):
+        same = all(torch.equal(a, b) for a, b in zip(out3[solver, "whole"],
+                                                     out3[solver, "on"]))
+        print(f"q=3 {solver} on == whole (fit caches, mean, variance"
+              f"{', log-likelihood' if solver == 'pcg' else ''}): bitwise "
+              f"{same}", flush=True)
+        if not same:
+            raise RuntimeError(f"q = 3 {solver}: 'on' and 'whole' differ")
+    gap = _errs(out3["pcg", "whole"][2], out3["pcg", "off"][2])[1]
+    print(f"q=3 pcg mean, whole vs off: max rel {gap:.3e} (not a gate: "
+          "both stop after 40 iterations)", flush=True)
+    del out3
     _stamp("q = 3 path")
 
     all_counts = [counts, counts_l, *relax_counts, counts_k, counts_d,
-                  counts_o, counts_t, counts_3]
+                  counts_o, counts_t, counts_bo, *counts_3]
     for row in rows:
         row["launches"] = sum(c[row["name"]] for c in all_counts)
 
@@ -1628,6 +2004,9 @@ def main():
     for name, fn, xq in (("mean", P["posterior_mean"], Xqc),
                          ("var", P["posterior_var"], Xqr)):
         _check(f"n={N_CHECK} D={D} {name}", fn(g_card, xq), want_c[name])
+    # Bayesian optimisation: the acquisition and the mean's gradient
+    # (8 queries: the CPU side's plain PCG runs once per kind)
+    bo_consistency(P, g_card, g_cpu, Xqr[:8], f"n={N_CHECK} D={D}")
     # the per-iteration pcg path on the card against the CPU's whole solve
     # (the CPU's "on" equals its "whole" bit for bit: the CPU tests)
     g_on = P["fit"](dataclasses.replace(cfg, fused="on"), Xc, Yc, omc, 1.0)
@@ -1683,6 +2062,8 @@ def main():
     _check(f"n={N_Q1} D={D} jittered mll_gradients",
            torch.cat([ga[0], ga[1].reshape(1)]),
            torch.cat([gb[0], gb[1].reshape(1)]))
+    bo_finite_differences(P, cfg, Xj, Yj, Xqj[:4],
+                          f"n={N_Q1} D={D} q=0 jittered")
     del q0
     cfg1 = P["GPConfig"](q=1, solver="pcg", solver_iters=40, precond="none")
     q1 = [P["fit"](cfg1, Xj, Yj, np.full(D, 4.0), 1.0, device=d)
@@ -1695,7 +2076,13 @@ def main():
     _check(f"n={N_Q1} D={D} q=1 log_likelihood",
            P["_log_likelihood"](q1[0], pm1.to(dev), pv1.to(dev)),
            P["_log_likelihood"](q1[1], pm1, pv1))
-    _stamp("consistency: jittered q = 0 gradients, q = 1")
+    # Bayesian optimisation at q = 1: Phi^T is solved by block CR
+    bo_consistency(P, q1[0], q1[1], Xqj[:8], f"n={N_Q1} D={D} q=1")
+    bo_finite_differences(P, cfg1, Xj, Yj, Xqj[:4],
+                          f"n={N_Q1} D={D} q=1 jittered")
+    del q1
+    local_cache_check(P, dev)
+    _stamp("consistency: jittered q = 0 gradients, q = 1, BO")
 
     # relaxation solvers: the card in every fused mode against the CPU's
     # whole solve on the quickstart's data (the CPU's "on" is a loop of the
@@ -1739,7 +2126,8 @@ def main():
     # gradients, through the generalized-KP B (w = 5), are gated by the
     # block-CR kernels' backward error on that B against the plain
     # version's, from the same factors
-    cfg3 = P["GPConfig"](q=3, solver="pcg", solver_iters=80, precond="none")
+    cfg3 = P["GPConfig"](q=3, solver="pcg", solver_iters=80, precond="none",
+                         fused="off")
     Xj3, span3 = _jittered(rq, N_Q1, D, spacing=0.2)
     Yj3 = np.sin(Xj3 * 6.0 * np.pi / span3).sum(1) \
         + 0.1 * rq.standard_normal(N_Q1)
@@ -1757,9 +2145,38 @@ def main():
                      ("var", P["posterior_var"])):
         _check(f"n={N_Q1} D={D} q=3 (same factors) {name}",
                fn(q3[0], Xqj[:B]), fn(q3[1], Xqj[:B], device="cpu"))
+    ll3 = P["_log_likelihood"](q3[1], pm3, pv3)
     _check(f"n={N_Q1} D={D} q=3 (same factors) log_likelihood",
-           P["_log_likelihood"](q3[0], pm3.to(dev), pv3.to(dev)),
-           P["_log_likelihood"](q3[1], pm3, pv3))
+           P["_log_likelihood"](q3[0], pm3.to(dev), pv3.to(dev)), ll3)
+    # the fused solves at q = 3 (the half-width-4 kernels) from the same
+    # factors, against the CPU's plain whole solve of the same solver
+    # (pcg 80 iterations, the relaxation solvers 40 sweeps; the CPU redoes
+    # only the mean solve, the variance band being the fit's), 8 variance
+    # queries; the likelihood against the CPU's above (its solves enter
+    # only through the mean cache)
+    for solver in ("pcg", "gauss_seidel", "jacobi"):
+        ccfg = dataclasses.replace(q3[1].config, solver=solver,
+                                   fused="whole",
+                                   solver_iters=80 if solver == "pcg" else 40)
+        u_sy, bY = P["agp"].mean_caches(ccfg, q3[1].ops, q3[1].Y)
+        cpu3 = dataclasses.replace(q3[1], config=ccfg, u_sy=u_sy, bY=bY)
+        want = [fn(cpu3, xq, device="cpu") for fn, xq in (
+            (P["posterior_mean"], Xqj[:B]), (P["posterior_var"], Xqj[:8]))]
+        for fused in ("whole", "on") if solver == "pcg" else ("whole",):
+            card3 = _refit_on(P, dataclasses.replace(cpu3, config=(
+                dataclasses.replace(cpu3.config, fused=fused))), dev)
+            for name, fn, xq, w in (
+                    ("mean", P["posterior_mean"], Xqj[:B], want[0]),
+                    ("var", P["posterior_var"], Xqj[:8], want[1])):
+                _check(f"n={N_Q1} D={D} q=3 {solver} fused={fused} (same "
+                       f"factors) {name}", fn(card3, xq), w)
+            if solver == "pcg":
+                _check(f"n={N_Q1} D={D} q=3 pcg fused={fused} (same factors)"
+                       " log_likelihood",
+                       P["_log_likelihood"](card3, pm3.to(dev), pv3.to(dev)),
+                       ll3)
+            del card3
+        del cpu3
     Bq3 = q3[1].B
     vs3 = q3[1].ops.to_sorted(V[None].expand((D,) + tuple(V.shape)))
     rhs3 = P["banded_matvec_plain"](q3[1].Psi.data, vs3.contiguous(),

@@ -1,10 +1,10 @@
 """Additive-GP core: the serving path and hyperparameter learning of the
-paper's Sec. 5."""
+paper's Sec. 5; Bayesian optimisation (Sec. 6) in ``core.bayesopt``."""
 from .additive_gp import (GPConfig, AdditiveGP, fit, fit_hyperparams,
                           log_likelihood, mll_gradients, posterior_mean,
-                          posterior_var, prior_var)
+                          posterior_mean_grad, posterior_var, prior_var)
 from .convert import gp_from_arrays
 
 __all__ = ["GPConfig", "AdditiveGP", "fit", "posterior_mean", "posterior_var",
-           "prior_var", "log_likelihood", "mll_gradients", "fit_hyperparams",
-           "gp_from_arrays"]
+           "posterior_mean_grad", "prior_var", "log_likelihood",
+           "mll_gradients", "fit_hyperparams", "gp_from_arrays"]

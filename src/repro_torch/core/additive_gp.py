@@ -41,10 +41,11 @@ from .backfitting import (DimOps, SolveConfig, check_solve_config, fused_mode,
                           mhat_matvec, solve_mhat)
 from .band_inverse import variance_band
 from .banded import Banded, add, logdet, matvec, scale, solve, transpose
-from .kernel_packets import gkp_factors, kp_factors, phi_at
+from .kernel_packets import gkp_factors, kp_factors, phi_at, phi_grad_at
 
 __all__ = ["GPConfig", "AdditiveGP", "fit", "build_gp_hier", "mean_caches",
-           "posterior_caches", "posterior_mean", "posterior_var", "prior_var",
+           "posterior_caches", "posterior_mean", "posterior_var",
+           "posterior_mean_grad", "prior_var",
            "resolve_device", "log_likelihood", "mll_gradients",
            "fit_hyperparams", "TIE_EPS"]
 
@@ -64,8 +65,8 @@ class GPConfig:
 
     Every ``solver`` ("pcg", "jacobi", "gauss_seidel") runs, with ``fused``
     "auto" (baked at ``fit`` to "whole" where the bands allow the fused
-    kernels and the preconditioner is not kmg, else "off"; at q = 3 the
-    bands are wider than the fused kernels take, so "off"), "whole" (one
+    kernels and the preconditioner is not kmg, else "off"; the fused
+    kernels take every q, up to q = 3's half-width-4 bands), "whole" (one
     whole-solve launch per solve), "on" (a host loop of one-iteration
     launches) or "off" (the unfused host loops). ``precond`` "auto"
     resolves at ``fit`` to "kmg" at q == 0 and n >= 4096, else "none".
@@ -277,11 +278,13 @@ def _query(gp: AdditiveGP, Xq, device):
     return _as_f64(Xq, device)
 
 
-def _phi_windows(gp: AdditiveGP, Xq):
-    """Sparse phi_d(x*_d) for all dims/queries: rows, vals (D, m, 2q+2)."""
+def _phi_windows(gp: AdditiveGP, Xq, grad: bool = False):
+    """Sparse phi_d(x*_d) for all dims/queries: rows, vals (D, m, 2q+2);
+    ``grad``: d phi_d / d x*_d on the same rows."""
     q = gp.config.q
     A = Banded(gp.ops.A.data, q + 1, q + 1)
-    return phi_at(q, gp.omega, gp.xs, A, Xq.T.contiguous())
+    return (phi_grad_at if grad else phi_at)(q, gp.omega, gp.xs, A,
+                                             Xq.T.contiguous())
 
 
 def posterior_mean(gp: AdditiveGP, Xq, device=None):
@@ -293,25 +296,29 @@ def posterior_mean(gp: AdditiveGP, Xq, device=None):
     return (vals * bwin).sum(dim=(0, 2))
 
 
-def posterior_var(gp: AdditiveGP, Xq, device=None):
-    """s(x*) for Xq (m, D) — Eq. (13)."""
-    Xq = _query(gp, Xq, device)
-    q = gp.config.q
-    W = 2 * q + 2
-    D, n = gp.D, gp.n
-    m = Xq.shape[0]
-    dev = Xq.device
-    rows, vals, _ = _phi_windows(gp, Xq)  # (D, m, W)
-
-    # term 2: sum_d phi_d^T G_d phi_d — local window quadratic
-    hw = gp.Gband.lo
+def _g_entries(gp: AdditiveGP, rows):
+    """The variance band G_d over each query's window rows: (D, m, W, W)."""
+    D, _, W = rows.shape
+    dev = rows.device
     ar = torch.arange(W, device=dev)
     off = ar[None, :] - ar[:, None]  # b - a
-    g_entries = gp.Gband.data[torch.arange(D, device=dev)[:, None, None, None],
-                              rows[:, :, :, None], hw + off[None, None]]
-    term2 = torch.einsum("dma,dmab,dmb->m", vals, g_entries, vals)
+    return gp.Gband.data[torch.arange(D, device=dev)[:, None, None, None],
+                         rows[:, :, :, None], gp.Gband.lo + off[None, None]]
 
-    # term 3: w^T Mhat^{-1} w, w_d = P^T Phi_d^{-1} phi_d, in column chunks
+
+def _var_chunks(gp: AdditiveGP, rows, vals):
+    """The variance's Mhat solves, in column chunks of ``_VAR_CHUNK``
+    queries (peak memory O(D n _VAR_CHUNK) for any batch): yields, per
+    chunk, ``(rc, w, z)``: the chunk's window rows (D, mc, W), w_d = P^T
+    Phi_d^{-1} phi_d(x*) and z = Mhat^{-1} w (D, n, mc). The last chunk is
+    padded with zero KP values (zero columns of w and z). A caller that
+    drops a chunk's w and z before asking for the next keeps one chunk
+    alive. phi is scattered into dense columns by index_put_ with
+    accumulation: rows that repeat at the clipped window ends carry zero
+    values."""
+    D, m, W = rows.shape
+    n = gp.n
+    dev = rows.device
     mc = min(m, _VAR_CHUNK)
     nchunk = -(-m // mc)
     pad = nchunk * mc - m
@@ -320,20 +327,42 @@ def posterior_var(gp: AdditiveGP, Xq, device=None):
     d_idx = torch.arange(D, device=dev)[:, None, None].expand(D, mc, W)
     m_idx = torch.arange(mc, device=dev)[None, :, None].expand(D, mc, W)
     cfg = gp.config.solve_cfg()
-    term3 = []
     for c in range(nchunk):
         rc = rows_p[:, c * mc:(c + 1) * mc]
         vc = vals_p[:, c * mc:(c + 1) * mc]
-        phi_cols = torch.zeros((D, n, mc), dtype=Xq.dtype, device=dev)
+        phi_cols = torch.zeros((D, n, mc), dtype=vals.dtype, device=dev)
         phi_cols.index_put_((d_idx, rc, m_idx), vc, accumulate=True)
         w_sorted = gp.ops.phi_solve(phi_cols, pivot=gp.config.pivot,
                                     backend=gp.config.backend,
                                     alg=gp.config.solve_alg)
         w = gp.ops.from_sorted(w_sorted)
-        z = solve_mhat(gp.ops, w, cfg, hier=gp.hier)
+        yield rc, w, solve_mhat(gp.ops, w, cfg, hier=gp.hier)
+
+
+def posterior_var(gp: AdditiveGP, Xq, device=None):
+    """s(x*) for Xq (m, D) — Eq. (13)."""
+    Xq = _query(gp, Xq, device)
+    m = Xq.shape[0]
+    rows, vals, _ = _phi_windows(gp, Xq)  # (D, m, W)
+    # term 2: sum_d phi_d^T G_d phi_d — local window quadratic
+    term2 = torch.einsum("dma,dmab,dmb->m", vals, _g_entries(gp, rows), vals)
+    # term 3: w^T Mhat^{-1} w, w_d = P^T Phi_d^{-1} phi_d (a chunk's w and
+    # z are let go before the next chunk's solve)
+    term3 = []
+    for _, w, z in _var_chunks(gp, rows, vals):
         term3.append((w * z).sum(dim=(0, 1)))
-    term3 = torch.cat(term3)[:m]
-    return prior_var(gp, Xq.dtype) - term2 + term3
+        del w, z
+    return prior_var(gp, Xq.dtype) - term2 + torch.cat(term3)[:m]
+
+
+def posterior_mean_grad(gp: AdditiveGP, Xq, device=None):
+    """grad_x mu(x*) (m, D) — Eq. (30) left, from the sparse KP derivative
+    windows; the query follows :func:`posterior_mean`'s device rule."""
+    Xq = _query(gp, Xq, device)
+    rows, dvals, _ = _phi_windows(gp, Xq, grad=True)  # (D, m, W)
+    D, m, W = rows.shape
+    bwin = torch.gather(gp.bY, 1, rows.reshape(D, -1)).reshape(D, m, W)
+    return (dvals * bwin).sum(dim=2).T
 
 
 def prior_var(gp: AdditiveGP, dtype=torch.float64):

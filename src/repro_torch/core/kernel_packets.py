@@ -20,7 +20,8 @@ from . import matern as mk
 from .banded import Banded, mask_band
 
 __all__ = ["kp_coefficient_rows", "kp_coefficients", "gram_band_rows",
-           "kp_factors", "gkp_factors", "query_window_start", "phi_at"]
+           "kp_factors", "gkp_factors", "query_window_start", "phi_at",
+           "phi_grad_at"]
 
 
 def _kp_row_inputs(n: int, q: int, rows: torch.Tensor):
@@ -146,12 +147,11 @@ def query_window_start(xs, xq):
     return torch.searchsorted(xs.contiguous(), xq.contiguous(), side="left")
 
 
-def phi_at(q: int, omega, xs, A: Banded, xq):
-    """Sparse KP vectors phi(x*) = A k(X, x*) for every dim and query.
-
-    omega (D,), xs (D, n), A data (D, n, 2q+3), xq (D, m). Returns
-    (rows (D, m, 2q+2), vals (D, m, 2q+2), valid mask).
-    """
+def _query_windows(q: int, omega, xs, A: Banded, xq, kfun):
+    """Rows and values of A kfun(X, x*) in each query's KP window, for every
+    dim and query: ``kfun(om, xj, xq)`` evaluates the kernel (or its
+    derivative) at the window points ``xj`` (D, m, 2q+2, 2q+3), with ``om``
+    (D, 1, 1, 1) and ``xq`` (D, m, 1, 1)."""
     D, n = xs.shape
     m = xq.shape[-1]
     dev = xs.device
@@ -165,10 +165,26 @@ def phi_at(q: int, omega, xs, A: Banded, xq):
     jc = j.clamp(0, n - 1)
     xj = torch.where(jv, torch.gather(xs, 1, jc.reshape(D, -1)).reshape(
         jc.shape), zero)
-    kv = mk.matern(q, omega[:, None, None, None], xj,
-                   xq[..., None, None]) * jv
+    kv = kfun(omega[:, None, None, None], xj, xq[..., None, None]) * jv
     wA = A.data.shape[-1]
     arows = torch.gather(A.data, 1, rows_c.reshape(D, -1, 1).expand(-1, -1, wA))
     avals = torch.where(valid[..., None], arows.reshape(D, m, -1, wA), zero)
     vals = torch.einsum("...rs,...rs->...r", avals, kv) * valid
     return rows_c, vals, valid
+
+
+def phi_at(q: int, omega, xs, A: Banded, xq):
+    """Sparse KP vectors phi(x*) = A k(X, x*) for every dim and query.
+
+    omega (D,), xs (D, n), A data (D, n, 2q+3), xq (D, m). Returns
+    (rows (D, m, 2q+2), vals (D, m, 2q+2), valid mask).
+    """
+    return _query_windows(q, omega, xs, A, xq,
+                          lambda om, xj, x: mk.matern(q, om, xj, x))
+
+
+def phi_grad_at(q: int, omega, xs, A: Banded, xq):
+    """d phi(x*) / d x* for every dim and query, as :func:`phi_at` lays it
+    out (the same rows and validity)."""
+    return _query_windows(q, omega, xs, A, xq,
+                          lambda om, xj, x: mk.matern_dx(q, om, x, xj))

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-__all__ = ["SUPPORTED_Q", "matern", "matern_domega"]
+__all__ = ["SUPPORTED_Q", "matern", "matern_domega", "matern_dx"]
 
 SUPPORTED_Q = (0, 1, 2, 3)
 
@@ -50,3 +50,22 @@ def matern_domega(q: int, omega, x, y):
     for m in range(q, 0, -1):
         dp = dp * u + coeffs[m] * m * (2.0 ** m)
     return r * torch.exp(-u) * (dp - p)
+
+
+def matern_dx(q: int, omega, x, y):
+    """d k(x, y | omega) / dx (gradient in the *first* argument).
+
+    k = exp(-u) P(u), u = omega |x - y|; dk/dx = sign(x - y) omega exp(-u)
+    (P'(u) - P(u)), zero at x == y (sign(0) = 0; for q = 0 the one-sided
+    value times the sign).
+    """
+    d = x - y
+    u = omega * torch.abs(d)
+    coeffs = _poly_coeffs(q)
+    p = torch.zeros_like(u) + coeffs[q]
+    for m in range(q - 1, -1, -1):
+        p = p * (2.0 * u) + coeffs[m]
+    dp = torch.zeros_like(u)
+    for m in range(q, 0, -1):
+        dp = dp * u + coeffs[m] * m * (2.0 ** m)
+    return torch.sign(d) * omega * torch.exp(-u) * (dp - p)

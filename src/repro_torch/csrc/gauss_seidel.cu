@@ -52,6 +52,8 @@
 //     sort[i] for sorted row i (the sweep's first phase does so for
 //     t1_0): two grid barriers a dimension instead of three, and r is
 //     stored only where the final sweep's k reads it.
+//   * MAXW is the widest band: 3 (q <= 2), or 4 for q = 3's SAPhi, a
+//     second instantiation so that the first keeps its machine code.
 #include <cooperative_groups.h>
 
 #include "sweep.cuh"
@@ -83,7 +85,7 @@ struct Args : repro::SweepDims {
   int w_p, w_s, iters, cpc;
 };
 
-template <bool PIVOT>
+template <bool PIVOT, int MAXW>
 __global__ void __launch_bounds__(NT) gs_kernel(Args A) {
   cg::grid_group grid = cg::this_grid();
   const Map m = make_map(A.B);
@@ -149,8 +151,8 @@ __global__ void __launch_bounds__(NT) gs_kernel(Args A) {
                                  });
       }
       grid.sync();
-      repro::apply_cols<PIVOT, true>(A, m, A.t1, A.saphi, A.fac_s, A.w_s, d,
-                                     d + 1, A.cpc);
+      repro::apply_cols<PIVOT, true, MAXW>(A, m, A.t1, A.saphi, A.fac_s,
+                                           A.w_s, d, d + 1, A.cpc);
       grid.sync();
       // the update of dimension d and r of dimension d + 1 (fused, also
       // t1_{d+1}), ILP rows at a time (sweep.cuh for_rows: the loads, then
@@ -200,13 +202,18 @@ __global__ void __launch_bounds__(NT) gs_kernel(Args A) {
   }
 }
 
-template <bool PIVOT>
-int grid_blocks(int* out) {
-  return repro::cooperative_blocks(gs_kernel<PIVOT>, MAX_BLOCKS_PER_SM, out);
+// f(kernel) for the instantiation of the pivot mode and the widest band
+// (wide: w = 4)
+template <typename F>
+int with_kernel(int pivot, bool wide, F&& f) {
+  if (wide) return pivot ? f(gs_kernel<true, 4>) : f(gs_kernel<false, 4>);
+  return pivot ? f(gs_kernel<true, 3>) : f(gs_kernel<false, 3>);
 }
 
-int grid_size(int pivot, int* grid) {
-  return pivot ? grid_blocks<true>(grid) : grid_blocks<false>(grid);
+int grid_size(int pivot, bool wide, int* grid) {
+  return with_kernel(pivot, wide, [&](auto k) {
+    return repro::cooperative_blocks(k, MAX_BLOCKS_PER_SM, grid);
+  });
 }
 
 }  // namespace
@@ -216,18 +223,19 @@ extern "C" long long repro_gauss_seidel_workspace(int D, int npad, int B) {
   return 2LL * D * npad * B + (long long)npad * B;
 }
 
-// Blocks of the cooperative grid (negative: -error).
-extern "C" int repro_gauss_seidel_grid(int pivot) {
+// Blocks of the cooperative grid (negative: -error) of the instantiation
+// for the widest band maxw.
+extern "C" int repro_gauss_seidel_grid(int pivot, int maxw) {
   int grid = 0;
-  const int err = grid_size(pivot, &grid);
+  const int err = grid_size(pivot, maxw > 3, &grid);
   return err ? -err : grid;
 }
 
 // Columns per solve item that a launch with cpc = 0 takes (negative:
 // -error): sweep.cuh auto_cols for the one active dimension.
-extern "C" int repro_gauss_seidel_cols(int B, int pivot) {
+extern "C" int repro_gauss_seidel_cols(int B, int pivot, int maxw) {
   int grid = 0;
-  const int err = grid_size(pivot, &grid);
+  const int err = grid_size(pivot, maxw > 3, &grid);
   return err ? -err : repro::auto_cols(1, B, grid);
 }
 
@@ -235,7 +243,8 @@ extern "C" int repro_gauss_seidel_cols(int B, int pivot) {
 // final sweep's Khat^{-1} x (zeros when iters == 0); `iters` sweeps. fac_s
 // holds SAPhi's D block-CR factors (block_cr.cu repro_cr_factor_f64 of
 // saphi, in the launch's pivot mode); cpc is the number of columns each
-// solve item takes (0: chosen by auto_cols).
+// solve item takes (0: chosen by auto_cols). Bands of half-width up to 4;
+// a launch with one of 4 runs the wide instantiation.
 extern "C" int repro_gauss_seidel_f64(const double* phi, const double* saphi,
                                       const double* fac_s, const int* sort,
                                       const int* rank, const double* sigma2,
@@ -245,11 +254,12 @@ extern "C" int repro_gauss_seidel_f64(const double* phi, const double* saphi,
                                       int w_s, int iters, int cpc, int pivot,
                                       void* stream) {
   if (D < 1 || npad < 1 || B < 1 || B > NT || w_p < 0 || w_s < 1 ||
-      w_p > 3 || w_s > 3 || iters < 0 || cpc < 0 || !fac_s)
+      w_p > 4 || w_s > 4 || iters < 0 || cpc < 0 || !fac_s)
     return (int)cudaErrorInvalidValue;
   if ((w_p > 0 && npad % w_p) || npad % w_s) return (int)cudaErrorInvalidValue;
+  const bool wide = w_p > 3 || w_s > 3;
   int grid = 0;
-  const int err = grid_size(pivot, &grid);
+  const int err = grid_size(pivot, wide, &grid);
   if (err) return err;
   const long long N = (long long)D * npad * B;
   Args A;
@@ -262,9 +272,10 @@ extern "C" int repro_gauss_seidel_f64(const double* phi, const double* saphi,
   A.w_p = w_p; A.w_s = w_s; A.iters = iters;
   A.cpc = cpc == 0 ? repro::auto_cols(1, B, grid) : (cpc < B ? cpc : B);
   void* params[] = {&A};
-  const void* fn = pivot ? (const void*)gs_kernel<true>
-                         : (const void*)gs_kernel<false>;
-  REPRO_RETURN_IF_ERR(cudaLaunchCooperativeKernel(
-      fn, dim3(grid), dim3(NT), params, 0, (cudaStream_t)stream));
-  return (int)cudaGetLastError();
+  return with_kernel(pivot, wide, [&](auto k) {
+    REPRO_RETURN_IF_ERR(cudaLaunchCooperativeKernel(
+        (const void*)k, dim3(grid), dim3(NT), params, 0,
+        (cudaStream_t)stream));
+    return (int)cudaGetLastError();
+  });
 }

@@ -57,6 +57,8 @@
 //     keeps the expressions, and the total its d order, of the plain loop.
 //   * The first sweep reads x_in and k_in in place of x and k, so a
 //     one-sweep launch makes no copy pass.
+//   * MAXW is the widest band: 3 (q <= 2), or 4 for q = 3's SAPhi, a
+//     second instantiation so that the first keeps its machine code.
 #include <cooperative_groups.h>
 
 #include "sweep.cuh"
@@ -94,7 +96,7 @@ struct Args : repro::SweepDims {
   int w_p, w_s, iters, kmode, cpc;
 };
 
-template <bool PIVOT>
+template <bool PIVOT, int MAXW>
 __global__ void __launch_bounds__(NT) jacobi_kernel(Args A) {
   cg::grid_group grid = cg::this_grid();
   const Map m = make_map(A.B);
@@ -159,8 +161,8 @@ __global__ void __launch_bounds__(NT) jacobi_kernel(Args A) {
     repro::gather_mv_to<ILP>(A, m, A.x_in, A.saphi, A.w_s, 0, D, t1_store);
     grid.sync();
     if (!fuse) {
-      repro::apply_cols<PIVOT, true>(A, m, A.t1, A.phi, A.fac_p, A.w_p, 0, D,
-                                     A.cpc);
+      repro::apply_cols<PIVOT, true, MAXW>(A, m, A.t1, A.phi, A.fac_p,
+                                           A.w_p, 0, D, A.cpc);
       grid.sync();
     }
   }
@@ -202,8 +204,8 @@ __global__ void __launch_bounds__(NT) jacobi_kernel(Args A) {
       repro::gather_mv_to<ILP>(A, m, A.r, A.phi, A.w_p, 0, D, t1_store);
     }
     grid.sync();
-    repro::apply_cols<PIVOT, true>(A, m, A.t1, A.saphi, A.fac_s, A.w_s, 0, D,
-                                   A.cpc);
+    repro::apply_cols<PIVOT, true, MAXW>(A, m, A.t1, A.saphi, A.fac_s,
+                                         A.w_s, 0, D, A.cpc);
     grid.sync();
     if (!m.on) continue;
     for (long long j = m.r0; j < npad; j += m.rs) {
@@ -253,14 +255,19 @@ __global__ void __launch_bounds__(NT) jacobi_kernel(Args A) {
   }
 }
 
-template <bool PIVOT>
-int grid_blocks(int* out) {
-  return repro::cooperative_blocks(jacobi_kernel<PIVOT>, MAX_BLOCKS_PER_SM,
-                                   out);
+// f(kernel) for the instantiation of the pivot mode and the widest band
+// (wide: w = 4)
+template <typename F>
+int with_kernel(int pivot, bool wide, F&& f) {
+  if (wide)
+    return pivot ? f(jacobi_kernel<true, 4>) : f(jacobi_kernel<false, 4>);
+  return pivot ? f(jacobi_kernel<true, 3>) : f(jacobi_kernel<false, 3>);
 }
 
-int grid_size(int pivot, int* grid) {
-  return pivot ? grid_blocks<true>(grid) : grid_blocks<false>(grid);
+int grid_size(int pivot, bool wide, int* grid) {
+  return with_kernel(pivot, wide, [&](auto k) {
+    return repro::cooperative_blocks(k, MAX_BLOCKS_PER_SM, grid);
+  });
 }
 
 }  // namespace
@@ -270,18 +277,19 @@ extern "C" long long repro_jacobi_workspace(int D, int npad, int B) {
   return 2LL * D * npad * B + (long long)npad * B;
 }
 
-// Blocks of the cooperative grid (negative: -error).
-extern "C" int repro_jacobi_grid(int pivot) {
+// Blocks of the cooperative grid (negative: -error) of the instantiation
+// for the widest band maxw.
+extern "C" int repro_jacobi_grid(int pivot, int maxw) {
   int grid = 0;
-  const int err = grid_size(pivot, &grid);
+  const int err = grid_size(pivot, maxw > 3, &grid);
   return err ? -err : grid;
 }
 
 // Columns per solve item that a launch with cpc = 0 takes (negative:
 // -error): sweep.cuh auto_cols over the D dimensions' items.
-extern "C" int repro_jacobi_cols(int D, int B, int pivot) {
+extern "C" int repro_jacobi_cols(int D, int B, int pivot, int maxw) {
   int grid = 0;
-  const int err = grid_size(pivot, &grid);
+  const int err = grid_size(pivot, maxw > 3, &grid);
   return err ? -err : repro::auto_cols(D, B, grid);
 }
 
@@ -290,7 +298,8 @@ extern "C" int repro_jacobi_cols(int D, int B, int pivot) {
 // holds SAPhi's D block-CR factors, fac_p (read only by a warm start at
 // w_p >= 1) Phi's (block_cr.cu repro_cr_factor_f64, in the launch's pivot
 // mode); cpc is the number of columns each solve item takes (0: chosen by
-// auto_cols).
+// auto_cols). Bands of half-width up to 4; a launch with one of 4 runs the
+// wide instantiation.
 extern "C" int repro_jacobi_f64(const double* phi, const double* saphi,
                                 const double* fac_p, const double* fac_s,
                                 const int* sort, const int* rank,
@@ -301,12 +310,13 @@ extern "C" int repro_jacobi_f64(const double* phi, const double* saphi,
                                 int cpc, double alpha, int kmode, int pivot,
                                 void* stream) {
   if (D < 1 || npad < 1 || B < 1 || B > NT || w_p < 0 || w_s < 1 ||
-      w_p > 3 || w_s > 3 || iters < 0 || cpc < 0 || kmode < K_NONE ||
+      w_p > 4 || w_s > 4 || iters < 0 || cpc < 0 || kmode < K_NONE ||
       kmode > K_WARM || !fac_s || (kmode == K_WARM && w_p > 0 && !fac_p))
     return (int)cudaErrorInvalidValue;
   if ((w_p > 0 && npad % w_p) || npad % w_s) return (int)cudaErrorInvalidValue;
+  const bool wide = w_p > 3 || w_s > 3;
   int grid = 0;
-  const int err = grid_size(pivot, &grid);
+  const int err = grid_size(pivot, wide, &grid);
   if (err) return err;
   const long long N = (long long)D * npad * B;
   Args A;
@@ -321,9 +331,10 @@ extern "C" int repro_jacobi_f64(const double* phi, const double* saphi,
   A.w_p = w_p; A.w_s = w_s; A.iters = iters; A.kmode = kmode;
   A.cpc = cpc == 0 ? repro::auto_cols(D, B, grid) : (cpc < B ? cpc : B);
   void* params[] = {&A};
-  const void* fn = pivot ? (const void*)jacobi_kernel<true>
-                         : (const void*)jacobi_kernel<false>;
-  REPRO_RETURN_IF_ERR(cudaLaunchCooperativeKernel(
-      fn, dim3(grid), dim3(NT), params, 0, (cudaStream_t)stream));
-  return (int)cudaGetLastError();
+  return with_kernel(pivot, wide, [&](auto k) {
+    REPRO_RETURN_IF_ERR(cudaLaunchCooperativeKernel(
+        (const void*)k, dim3(grid), dim3(NT), params, 0,
+        (cudaStream_t)stream));
+    return (int)cudaGetLastError();
+  });
 }

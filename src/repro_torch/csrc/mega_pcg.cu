@@ -38,7 +38,9 @@
 // same operations in the same order as the per-solve elimination, so the
 // same bits); the (dimension, chunk of `cpc` columns) items spread over the
 // whole grid instead of one block per dimension. At w = 0 a solve is a
-// division. PIVOT selects the pivoted block solves (SolveConfig.pivot).
+// division. PIVOT selects the pivoted block solves (SolveConfig.pivot);
+// MAXW the widest band: 3 (q <= 2), or 4 for q = 3's A and SAPhi, a
+// second instantiation so that the first keeps its machine code.
 // With one block of 256 threads per SM, the elementwise phases of an
 // iteration are bound by memory latency (a gather is two dependent loads),
 // so each thread takes ILP of its rows at a time, all their loads before
@@ -97,10 +99,11 @@ using repro::make_map;
 using repro::Map;
 
 // t <- band^{-1} t per dimension, from the band's factor
-template <bool PIVOT>
+template <bool PIVOT, int MAXW>
 __device__ void solve(const Args& A, const Map& m, double* t,
                       const double* band, const double* fac, int w) {
-  repro::apply_cols<PIVOT>(A, m, t, band, fac, w, 0, A.D, A.cpc);
+  repro::apply_cols<PIVOT, false, MAXW>(A, m, t, band, fac, w, 0, A.D,
+                                        A.cpc);
 }
 
 // per-block partial sums of one column-wise inner product (fixed order)
@@ -128,7 +131,7 @@ __device__ void grid_total(const Args& A, const double* part, double* out) {
   __syncthreads();
 }
 
-template <bool PIVOT>
+template <bool PIVOT, int MAXW>
 __global__ void __launch_bounds__(NT, 1) mega_pcg_kernel(Args A) {
   cg::grid_group grid = cg::this_grid();
   __shared__ double sh[NT];
@@ -160,7 +163,7 @@ __global__ void __launch_bounds__(NT, 1) mega_pcg_kernel(Args A) {
     }
     grid.sync();
     if (warm) {
-      solve<PIVOT>(A, m, A.t1, A.phi, A.fac_p, A.w_p);
+      solve<PIVOT, MAXW>(A, m, A.t1, A.phi, A.fac_p, A.w_p);
       grid.sync();
       if (m.on) {
         for (long long row = m.r0; row < rows; row += m.rs) {
@@ -178,7 +181,7 @@ __global__ void __launch_bounds__(NT, 1) mega_pcg_kernel(Args A) {
     // z = M_pre^{-1} r; p = z; rz = <r, z>
     gather_mv(A, m, A.t1, A.r, A.phi, A.w_p);
     grid.sync();
-    solve<PIVOT>(A, m, A.t1, A.saphi, A.fac_s, A.w_s);
+    solve<PIVOT, MAXW>(A, m, A.t1, A.saphi, A.fac_s, A.w_s);
     grid.sync();
     {
       double acc = 0.0;
@@ -216,7 +219,7 @@ __global__ void __launch_bounds__(NT, 1) mega_pcg_kernel(Args A) {
     repro::sum_dims(A, m, A.tp, A.p);
     gather_mv<ILP>(A, m, A.t1, A.p, A.a, A.w_a);
     grid.sync();
-    solve<PIVOT>(A, m, A.t1, A.phi, A.fac_p, A.w_p);
+    solve<PIVOT, MAXW>(A, m, A.t1, A.phi, A.fac_p, A.w_p);
     grid.sync();
     {
       double acc = 0.0;
@@ -269,7 +272,7 @@ __global__ void __launch_bounds__(NT, 1) mega_pcg_kernel(Args A) {
     // z = M_pre^{-1} r, rz_new = <r, z>
     gather_mv<ILP>(A, m, A.t1, A.r, A.phi, A.w_p);
     grid.sync();
-    solve<PIVOT>(A, m, A.t1, A.saphi, A.fac_s, A.w_s);
+    solve<PIVOT, MAXW>(A, m, A.t1, A.saphi, A.fac_s, A.w_s);
     grid.sync();
     {
       double acc = 0.0;
@@ -321,20 +324,29 @@ __global__ void __launch_bounds__(NT, 1) mega_pcg_kernel(Args A) {
   }
 }
 
-int grid_blocks(bool pivot, int* out) {
-  return pivot ? repro::cooperative_blocks(mega_pcg_kernel<true>,
-                                           MAX_BLOCKS_PER_SM, out)
-               : repro::cooperative_blocks(mega_pcg_kernel<false>,
-                                           MAX_BLOCKS_PER_SM, out);
+// f(kernel) for the instantiation of the pivot mode and the widest band
+// (wide: w = 4)
+template <typename F>
+int with_kernel(bool pivot, bool wide, F&& f) {
+  if (wide)
+    return pivot ? f(mega_pcg_kernel<true, 4>) : f(mega_pcg_kernel<false, 4>);
+  return pivot ? f(mega_pcg_kernel<true, 3>) : f(mega_pcg_kernel<false, 3>);
+}
+
+int grid_blocks(bool pivot, bool wide, int* out) {
+  return with_kernel(pivot, wide, [&](auto k) {
+    return repro::cooperative_blocks(k, MAX_BLOCKS_PER_SM, out);
+  });
 }
 
 }  // namespace
 
-// Number of float64 workspace entries a launch needs (negative: -error).
+// Number of float64 workspace entries a launch needs (negative: -error);
+// maxw is the launch's widest band, which picks its instantiation.
 extern "C" long long repro_mega_pcg_workspace(int D, int npad, int B,
-                                              int pivot) {
+                                              int pivot, int maxw) {
   int grid = 0;
-  const int err = grid_blocks(pivot != 0, &grid);
+  const int err = grid_blocks(pivot != 0, maxw > 3, &grid);
   if (err) return -(long long)err;
   const long long N = (long long)D * npad * B;
   return 3 * N + (long long)npad * B + 2 * (long long)grid * B;
@@ -342,9 +354,9 @@ extern "C" long long repro_mega_pcg_workspace(int D, int npad, int B,
 
 // Columns per solve item that a launch with cpc = 0 takes (negative:
 // -error).
-extern "C" int repro_mega_pcg_cols(int D, int B, int pivot) {
+extern "C" int repro_mega_pcg_cols(int D, int B, int pivot, int maxw) {
   int grid = 0;
-  const int err = grid_blocks(pivot != 0, &grid);
+  const int err = grid_blocks(pivot != 0, maxw > 3, &grid);
   return err ? -err : repro::auto_cols(D, B, grid);
 }
 
@@ -353,7 +365,8 @@ extern "C" int repro_mega_pcg_cols(int D, int B, int pivot) {
 // 0). iters_out receives the iterations run. fac_p (w_p >= 1) and fac_s
 // hold D block-CR factors each (block_cr.cu repro_cr_factor_f64 of phi and
 // saphi); cpc is the number of columns each solve item takes (0: chosen
-// by sweep.cuh auto_cols).
+// by sweep.cuh auto_cols). Bands of half-width up to 4; a launch with one
+// of 4 runs the wide instantiation.
 extern "C" int repro_mega_pcg_f64(const double* a, const double* phi,
                                   const double* saphi, const double* fac_p,
                                   const double* fac_s, const int* sort,
@@ -365,13 +378,14 @@ extern "C" int repro_mega_pcg_f64(const double* a, const double* phi,
                                   int iters, int cpc, double tol, int mode,
                                   int pivot, void* stream) {
   if (D < 1 || npad < 1 || B < 1 || B > NT || w_a < 0 || w_p < 0 ||
-      w_s < 0 || w_a > 3 || w_p > 3 || w_s > 3 || iters < 0 || cpc < 0 ||
+      w_s < 0 || w_a > 4 || w_p > 4 || w_s > 4 || iters < 0 || cpc < 0 ||
       mode < SEED_COLD || mode > CARRY || (mode == CARRY && tol != 0.0))
     return (int)cudaErrorInvalidValue;
   if ((w_p > 0 && (npad % w_p || !fac_p)) || (w_s > 0 && (npad % w_s || !fac_s)))
     return (int)cudaErrorInvalidValue;
+  const bool wide = w_a > 3 || w_p > 3 || w_s > 3;
   int grid = 0;
-  const int err = grid_blocks(pivot != 0, &grid);
+  const int err = grid_blocks(pivot != 0, wide, &grid);
   if (err) return err;
   const long long N = (long long)D * npad * B;
   Args A;
@@ -389,9 +403,10 @@ extern "C" int repro_mega_pcg_f64(const double* a, const double* phi,
   A.iters = iters; A.mode = mode; A.tol = tol;
   A.cpc = cpc == 0 ? repro::auto_cols(D, B, grid) : (cpc < B ? cpc : B);
   void* params[] = {&A};
-  const void* fn = pivot ? (const void*)mega_pcg_kernel<true>
-                         : (const void*)mega_pcg_kernel<false>;
-  REPRO_RETURN_IF_ERR(cudaLaunchCooperativeKernel(
-      fn, dim3(grid), dim3(NT), params, 0, (cudaStream_t)stream));
-  return (int)cudaGetLastError();
+  return with_kernel(pivot != 0, wide, [&](auto k) {
+    REPRO_RETURN_IF_ERR(cudaLaunchCooperativeKernel(
+        (const void*)k, dim3(grid), dim3(NT), params, 0,
+        (cudaStream_t)stream));
+    return (int)cudaGetLastError();
+  });
 }

@@ -172,11 +172,15 @@ __device__ __forceinline__ long long chunk_col(int b, int npad, int B,
 // division takes ROW_ILP rows at a time. CHUNKED: each dimension of t is
 // stored in column chunks of cpc (chunk_col), so an item reads and writes
 // whole rows of its own chunk rather than cpc of every row's B doubles;
-// it takes w >= 1 only (the division reads t row-major).
-template <bool PIVOT, bool CHUNKED = false>
+// it takes w >= 1 only (the division reads t row-major). MAXW is the
+// widest band the instantiation solves: 3 (every band up to q = 2) or 4
+// (q = 3's A and SAPhi). Each has its own switch, so the narrow kernels'
+// machine code holds no w = 4 case.
+template <bool PIVOT, bool CHUNKED = false, int MAXW = 3>
 __device__ void apply_cols(const SweepDims& S, const Map& m, double* t,
                            const double* band, const double* fac, int w,
                            int d0, int d1, int cpc) {
+  static_assert(MAXW == 3 || MAXW == 4, "MAXW is 3 or 4");
   const int B = S.B;
   if (w == 0) {
     div_rows<ROW_ILP>(S, m, t, band, d0, d1);
@@ -193,10 +197,19 @@ __device__ void apply_cols(const SweepDims& S, const Map& m, double* t,
     const double* fd = fac + d * fper;
     double* td = t + d * per + (CHUNKED ? (long long)c0 * S.npad : c0);
     const long long L = CHUNKED ? nc : B;
-    switch (w) {
-      case 1: cr_block_apply<1, PIVOT>(fd, td, S.npad, nc, L); break;
-      case 2: cr_block_apply<2, PIVOT>(fd, td, S.npad, nc, L); break;
-      default: cr_block_apply<3, PIVOT>(fd, td, S.npad, nc, L); break;
+    if constexpr (MAXW == 3) {
+      switch (w) {
+        case 1: cr_block_apply<1, PIVOT>(fd, td, S.npad, nc, L); break;
+        case 2: cr_block_apply<2, PIVOT>(fd, td, S.npad, nc, L); break;
+        default: cr_block_apply<3, PIVOT>(fd, td, S.npad, nc, L); break;
+      }
+    } else {
+      switch (w) {
+        case 1: cr_block_apply<1, PIVOT>(fd, td, S.npad, nc, L); break;
+        case 2: cr_block_apply<2, PIVOT>(fd, td, S.npad, nc, L); break;
+        case 3: cr_block_apply<3, PIVOT>(fd, td, S.npad, nc, L); break;
+        default: cr_block_apply<4, PIVOT>(fd, td, S.npad, nc, L); break;
+      }
     }
   }
 }

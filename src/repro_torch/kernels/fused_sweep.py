@@ -39,18 +39,33 @@ __all__ = ["FusedSweep", "_pad_len", "_mv", "_gather", "_solve_sym",
            "fused_gauss_seidel_iter", "fused_gauss_seidel_iter_plain",
            "fused_pcg_iter", "fused_pcg_iter_plain", "pcg_seed",
            "pcg_seed_plain", "pcg_loop", "sweep_backward_error", "MAX_B",
-           "MAX_WIDTH", "sweep_factor", "pcg_factors", "pcg_solve_cols",
-           "gauss_seidel_cols", "gauss_seidel_grid", "jacobi_cols",
-           "jacobi_grid"]
+           "MAX_WIDTH", "NARROW_WIDTH", "sweep_factor", "pcg_factors",
+           "pcg_solve_cols", "gauss_seidel_cols", "gauss_seidel_grid",
+           "jacobi_cols", "jacobi_grid"]
 
 MAX_B = 256  # RHS columns per launch (csrc/sweep.cuh SWEEP_NT)
-MAX_WIDTH = 3  # w_a, w_p, w_s <= 3 (csrc/sweep.cuh instantiations)
+# w_a, w_p, w_s <= 4: each kernel has two instantiations (csrc/sweep.cuh
+# apply_cols' MAXW), one for bands up to half-width 3 (q <= 2) and one for
+# 4 (q = 3's A and SAPhi), whose launches count under the name + "_w4"
+MAX_WIDTH = 4
+NARROW_WIDTH = 3
 
 
 # csrc/jacobi.cu: how the sweep kernel starts k
 K_NONE, K_IN, K_ZERO, K_WARM = 0, 1, 2, 3
 # csrc/mega_pcg.cu: a cold or warm seed, or a carried (x, r, p, rz)
 PCG_COLD, PCG_WARM, PCG_CARRY = 0, 1, 2
+
+
+def _maxw(*widths) -> int:
+    """The instantiation a launch over bands of these half-widths runs:
+    NARROW_WIDTH, or MAX_WIDTH where a band is wider."""
+    return MAX_WIDTH if max(widths) > NARROW_WIDTH else NARROW_WIDTH
+
+
+def _counted(name: str, *widths) -> str:
+    """The launch-count name of a launch over these half-widths."""
+    return name + "_w4" if _maxw(*widths) == MAX_WIDTH else name
 
 
 def _pad_len(n: int, widths) -> int:
@@ -321,7 +336,7 @@ def _launch_jacobi(name, phi, saphi, sort_idx, rank_idx, sigma2, v, x_in,
         w_p, w_s, iters, cols or 0, float(alpha), kmode, int(pivot),
         _build.stream_handle(dev))
     _build.check(err, name)
-    _build.count_launch(name)
+    _build.count_launch(_counted(name, w_p, w_s))
     return x, k
 
 
@@ -393,7 +408,7 @@ def _launch_gauss_seidel(name, phi, saphi, sort_idx, rank_idx, sigma2, v,
         None if k is None else k.data_ptr(), work.data_ptr(), D, npad, B,
         w_p, w_s, iters, cols or 0, int(pivot), _build.stream_handle(dev))
     _build.check(err, name)
-    _build.count_launch(name)
+    _build.count_launch(_counted(name, w_p, w_s))
     return x, k
 
 
@@ -404,44 +419,49 @@ def _query(fn, what, *args):
     return out
 
 
-def pcg_solve_cols(D: int, B: int, pivot: bool = False) -> int:
+def pcg_solve_cols(D: int, B: int, pivot: bool = False,
+                   maxw: int = NARROW_WIDTH) -> int:
     """Columns per (dimension, column chunk) item of the PCG kernel's
     block-CR solves when the launch leaves ``cols`` open: ``csrc/sweep.cuh``
     auto_cols, the narrowest power of two (at most B) that gives every one
     of the D ceil(B / c) items a block of the kernel's cooperative grid
-    (``csrc/mega_pcg.cu``; the widths are measured in PERF.md)."""
+    (``csrc/mega_pcg.cu``; the widths are measured in PERF.md). ``maxw``,
+    here and in the queries below: the launch's widest band, which picks
+    its instantiation."""
     return _query(_build.load_library().repro_mega_pcg_cols,
-                  "mega_pcg column query", D, B, int(pivot))
+                  "mega_pcg column query", D, B, int(pivot), maxw)
 
 
-def gauss_seidel_grid(pivot: bool = False) -> int:
+def gauss_seidel_grid(pivot: bool = False, maxw: int = NARROW_WIDTH) -> int:
     """Blocks of the Gauss-Seidel kernel's cooperative grid (at most two a
     SM, as its occupancy allows)."""
     return _query(_build.load_library().repro_gauss_seidel_grid,
-                  "gauss_seidel grid query", int(pivot))
+                  "gauss_seidel grid query", int(pivot), maxw)
 
 
-def gauss_seidel_cols(B: int, pivot: bool = False) -> int:
+def gauss_seidel_cols(B: int, pivot: bool = False,
+                      maxw: int = NARROW_WIDTH) -> int:
     """The Gauss-Seidel kernel's items' columns when the launch leaves
     ``cols`` open: auto_cols (as :func:`pcg_solve_cols`) with D = 1, one
     dimension a step, over its grid (``csrc/gauss_seidel.cu``)."""
     return _query(_build.load_library().repro_gauss_seidel_cols,
-                  "gauss_seidel column query", B, int(pivot))
+                  "gauss_seidel column query", B, int(pivot), maxw)
 
 
-def jacobi_grid(pivot: bool = False) -> int:
+def jacobi_grid(pivot: bool = False, maxw: int = NARROW_WIDTH) -> int:
     """Blocks of the Jacobi kernel's cooperative grid (at most two a SM, as
     its occupancy allows)."""
     return _query(_build.load_library().repro_jacobi_grid,
-                  "jacobi grid query", int(pivot))
+                  "jacobi grid query", int(pivot), maxw)
 
 
-def jacobi_cols(D: int, B: int, pivot: bool = False) -> int:
+def jacobi_cols(D: int, B: int, pivot: bool = False,
+                maxw: int = NARROW_WIDTH) -> int:
     """The Jacobi kernel's items' columns when the launch leaves ``cols``
     open: auto_cols (as :func:`pcg_solve_cols`) over the D dimensions'
     items and its grid (``csrc/jacobi.cu``)."""
     return _query(_build.load_library().repro_jacobi_cols,
-                  "jacobi column query", D, B, int(pivot))
+                  "jacobi column query", D, B, int(pivot), maxw)
 
 
 def pcg_factors(phi, saphi, *, w_p: int, w_s: int, pivot: bool = False):
@@ -479,7 +499,8 @@ def _launch_pcg(name, a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
                                        (w_s, factors[1], "SAPhi")))
     _check_cols(cols)
     lib = _build.load_library()
-    nwork = lib.repro_mega_pcg_workspace(D, npad, B, int(pivot))
+    nwork = lib.repro_mega_pcg_workspace(D, npad, B, int(pivot),
+                                         _maxw(w_a, w_p, w_s))
     if nwork < 0:
         _build.check(int(-nwork), f"{name} workspace query")
     work = torch.empty((nwork,), dtype=f64, device=dev)
@@ -494,7 +515,7 @@ def _launch_pcg(name, a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
         B, w_a, w_p, w_s, iters, cols or 0, float(tol), mode, int(pivot),
         _build.stream_handle(dev))
     _build.check(err, name)
-    _build.count_launch(name)
+    _build.count_launch(_counted(name, w_a, w_p, w_s))
     return x, r, p, rz, it[0]
 
 

@@ -26,8 +26,8 @@ and ``factor_solve`` solves from it (one apply launch), with the bits of
 How a backfitting solve fuses (``resolve_fused``) follows the reference's
 rules without its VMEM model: the per-iteration kernels ("on") or the
 whole-solve kernels ("whole") need symmetric bands of half-width at most
-the kernels' ``MAX_WIDTH`` (3), block CR and the block preconditioner;
-"off" runs the unfused host loops. ``kp_gram`` assembles the Kernel Packet
+the kernels' ``MAX_WIDTH`` (4, so every q), block CR and the block
+preconditioner; "off" runs the unfused host loops. ``kp_gram`` assembles the Kernel Packet
 Gram band (Algorithm 2) without forming K.
 """
 from __future__ import annotations

@@ -293,6 +293,46 @@ def test_q2_card_matches_cpu(dev):
     assert _rel(go, goc) < 1e-7 and _rel(gs, gsc) < 1e-7
 
 
+def test_bayesopt_card_matches_cpu(dev):
+    """Bayesian optimisation on the card: the acquisition value and
+    gradient (UCB, EI) and the mean's gradient within 1e-7 of the CPU's at
+    q = 0 (Phi^T by banded_lu) and q = 1 (by block CR); one propose_next
+    stays in bounds; the dense cache's acq_local equals the operator path
+    within 1e-8."""
+    from repro_torch.core import bayesopt as bo, posterior_mean_grad
+
+    rng = np.random.default_rng(15)
+    n, D = 131, 3
+    X, Y, Xq = _gp_data(rng, n, D)
+    best = float(Y.max())
+    for q in (0, 1):
+        cfg = GPConfig(q=q, solver_iters=60, precond="none")
+        g = fit(cfg, X, Y, np.full(D, 4.0), 0.5)
+        c = fit(cfg, X, Y, np.full(D, 4.0), 0.5, device="cpu")
+        _build.reset_launch_counts()
+        for kind in ("ucb", "ei"):
+            got = bo.acquisition_value_and_grad(g, Xq, 2.0, best, kind=kind)
+            want = bo.acquisition_value_and_grad(c, Xq, 2.0, best, kind=kind,
+                                                 device="cpu")
+            assert all(_rel(a, b) < 1e-7 for a, b in zip(got, want))
+        counts = _build.launch_counts()
+        # 40 queries: two variance chunks (of 32 and 8) a call
+        assert counts["mega_pcg"] == 4 and counts[
+            "banded_lu" if q == 0 else "cr_apply"] > 0, counts
+        assert _rel(posterior_mean_grad(g, Xq),
+                    posterior_mean_grad(c, Xq, device="cpu")) < 1e-7
+    cfg = bo.BOConfig(ascent_steps=5, n_starts=8, incremental=False,
+                      use_engine=False)
+    b = torch.tensor([[0.0, 4.0]] * D, dtype=torch.float64, device=dev)
+    x = bo.propose_next(g, b, torch.Generator().manual_seed(0), cfg, best)
+    assert x.shape == (D,) and bool(((x >= 0) & (x <= 4)).all())
+    cache = bo.build_local_cache(g)
+    vo, go = bo.acquisition_value_and_grad(g, Xq[:3], 2.0, best)
+    for i in range(3):
+        v, gr = bo.acq_local(g, cache, Xq[i], 2.0, best)
+        assert _rel(v, vo[i]) < 1e-8 and _rel(gr, go[i]) < 1e-8
+
+
 def _backward_err(band, x, rhs, w):
     """Normwise backward error |M x - r| / (|M| |x| + |r|), max norms."""
     res = banded_matvec_plain(band, x, w, w) - rhs
@@ -327,9 +367,8 @@ def _refit_on(gp, dev):
 
 
 def test_q3_on_card_runs(dev):
-    """q = 3 (Matern-7/2) on the card: "auto" runs unfused (its bands are
-    wider than the fused kernels take), block CR at w = 3, 4 and 5, rgf at
-    w = 7. On a jittered grid with omega * spacing = 0.2, the card's fit
+    """q = 3 (Matern-7/2) on the card, unfused (``fused="off"``): block CR
+    at w = 3, 4 and 5, rgf at w = 7. On a jittered grid with omega * spacing = 0.2, the card's fit
     redone from the CPU fit's KP factors gives mean, variance and
     log-likelihood within 1e-7 of the CPU's (the factors themselves come
     from batched SVDs whose q = 3 null vectors differ between the card's
@@ -345,7 +384,7 @@ def test_q3_on_card_runs(dev):
     X = points(rng, n, D, span=span)
     Y = np.sin(X * 6.0 * np.pi / span).sum(1) + 0.1 * rng.standard_normal(n)
     Xq = rng.uniform(0, span, (40, D))
-    cfg = GPConfig(q=3, solver_iters=60, precond="none")
+    cfg = GPConfig(q=3, solver_iters=60, precond="none", fused="off")
     omega = np.full(D, 4.0)
     _build.reset_launch_counts()
     g = fit(cfg, X, Y, omega, 0.5)
@@ -355,7 +394,7 @@ def test_q3_on_card_runs(dev):
     assert bool(torch.isfinite(torch.cat([mu, var])).all())
     assert all(counts[k] > 0 for k in ("rgf_blocks", "cr_factor", "cr_apply",
                                        "banded_matvec", "band_matmul"))
-    assert counts["mega_pcg"] == 0, counts
+    assert counts["mega_pcg"] == counts["mega_pcg_w4"] == 0, counts
     c = fit(cfg, X, Y, omega, 0.5, device="cpu")
     s = _refit_on(c, dev)
     assert _rel(posterior_mean(s, Xq), posterior_mean(c, Xq, device="cpu")) < 1e-7
@@ -371,6 +410,88 @@ def test_q3_on_card_runs(dev):
         _backward_err(c.B.data, xp, rhs, 5), eps)
     go, gs = mll_gradients(s, torch.Generator().manual_seed(3))
     assert bool(torch.isfinite(go).all()) and bool(torch.isfinite(gs))
+
+
+def test_w4_kernels(dev):
+    """The backfitting kernels' half-width-4 instantiations (q = 3: A and
+    SAPhi w = 4, Phi w = 3) against their plain versions, both pivot modes,
+    B = 1 and 5: the PCG seed, one carried iteration and the whole solve;
+    one Jacobi sweep (no k, k carried, warm) and the whole warm solve; one
+    Gauss-Seidel sweep (with and without k) and the whole solve. Each
+    launch counts under its "_w4" name and none under the narrow one. Then
+    ``solve_mhat`` with fused "on" against "whole", bit for bit, for every
+    solver. At n = 37 (omega * spacing = 0.43) cond(SAPhi) is ~1e4 (at
+    n = 61 it is ~3e5, and the seed's three chained solves differ from the
+    plain version's by 1.6e-10 there), so the kernel's other rounding is
+    held to 1e-10, as ``_tol`` holds q = 2; the whole PCG, whose summation
+    orders differ, to 1e-8 after 12 iterations (relative residual 3e-3;
+    past that this small system's CG amplifies rounding: a 1e-14 change
+    of v moves x by 4e-13 at 12 iterations and 6e-9 at 20, plain version
+    on the CPU)."""
+    rng = np.random.default_rng(14)
+    n = 37
+    ops_np = solve_operands(rng, n, 3, 3)
+    assert (ops_np["w_a"], ops_np["w_p"], ops_np["w_s"]) == (4, 3, 4)
+    for pivot in (False, True):
+        for B in (1, 5):
+            fs, v, x0 = padded_operands(ops_np, dev, B, rng)
+            v, x0 = (fs.pad_state(torch.as_tensor(t)) for t in (v, x0))
+            k = fs.pad_state(torch.as_tensor(
+                0.1 * rng.standard_normal((3, n, B))))
+            ops = (fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2)
+            pops = (fs.a,) + ops
+            kw = dict(w_p=fs.w_p, w_s=fs.w_s, pivot=pivot)
+            pkw = dict(kw, w_a=fs.w_a)
+            _build.reset_launch_counts()
+            for warm in (False, True):
+                start = x0 if warm else torch.zeros_like(v)
+                got = pcg_seed(*pops, v, start, warm=warm, **pkw)
+                _close(got, pcg_seed_plain(*pops, v, start, warm=warm,
+                                           **pkw), 1e-10)
+                _close(fused_pcg_iter(*pops, *got, **pkw)[::2],
+                       fused_pcg_iter_plain(*pops, *got, **pkw)[::2], 1e-10)
+                _close(mega_pcg_solve(*pops, v, start, iters=12, warm=warm,
+                                      **pkw)[0],
+                       mega_pcg_plain(*pops, v, start, iters=12, warm=warm,
+                                      **pkw)[0], 1e-8)
+            for extra in ({}, {"k": k}, {"warm": True}):
+                _close(fused_jacobi_iter(*ops, v, x0, alpha=0.4, **extra,
+                                         **kw),
+                       fused_jacobi_iter_plain(*ops, v, x0, alpha=0.4,
+                                               **extra, **kw), 1e-10)
+            _close(mega_jacobi_solve(*ops, v, x0, alpha=1 / 3, iters=12,
+                                     warm=True, **kw),
+                   mega_jacobi_plain(*ops, v, x0, alpha=1 / 3, iters=12,
+                                     warm=True, **kw), 1e-10)
+            for want in (False, True):
+                _close(fused_gauss_seidel_iter(*ops, v, x0, want_resid=want,
+                                               **kw),
+                       fused_gauss_seidel_iter_plain(*ops, v, x0,
+                                                     want_resid=want, **kw),
+                       1e-10)
+            _close(mega_gauss_seidel_solve(*ops, v, x0, iters=12, **kw),
+                   mega_gauss_seidel_plain(*ops, v, x0, iters=12, **kw),
+                   1e-10)
+            counts = _build.launch_counts()
+            assert counts["mega_pcg_w4"] == 2 and counts["mega_jacobi_w4"] \
+                == counts["mega_gauss_seidel_w4"] == 1, counts
+            assert counts["fused_pcg_iter_w4"] == 4 and counts[
+                "fused_jacobi_iter_w4"] == 3 and counts[
+                "fused_gauss_seidel_iter_w4"] == 2, counts
+            assert not any(counts[n] for n in (
+                "mega_pcg", "fused_pcg_iter", "mega_jacobi",
+                "fused_jacobi_iter", "mega_gauss_seidel",
+                "fused_gauss_seidel_iter")), counts
+    dops = dim_ops(ops_np, dev)
+    v = torch.as_tensor(rng.standard_normal((3, n, 4)), device=dev)
+    for method in ("pcg", "jacobi", "gauss_seidel"):
+        for x0 in (None, 0.5 * v):
+            outs = [solve_mhat(dops, v, SolveConfig(method=method, iters=9,
+                                                    fused=f, tol=t),
+                               x0=x0, return_info=True)
+                    for f, t in (("whole", 0.0), ("on", 0.0))]
+            (xw, iw), (xo, io) = outs
+            assert torch.equal(xw, xo) and torch.equal(iw.resid, io.resid)
 
 
 # ---------------------------------------------------------------------------

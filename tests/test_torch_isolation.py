@@ -5,9 +5,9 @@
   and a scan of their sources finds no such import.
 * Device rule: the entry points run on CUDA unless told ``device="cpu"``,
   and raise without a GPU; ``backend="cuda"`` on CPU tensors raises.
-* Configurations whose path is not ported raise ``NotImplementedError``;
-  those ported since (pcg with ``fused="on"``, kmg, q = 3 on CUDA)
-  resolve.
+* Configurations whose path is not ported raise ``NotImplementedError``
+  (also the streaming branch of ``bayes_opt_loop``); those ported since
+  (pcg with ``fused="on"``, kmg, q = 3 on CUDA, fused) resolve.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import torch
 import repro_torch
 from repro_torch.core import GPConfig, fit, posterior_mean, posterior_var
 from repro_torch.core.additive_gp import resolve_config
+from repro_torch.core.bayesopt import BOConfig, bayes_opt_loop
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.banded_lu import banded_lu
 
@@ -115,14 +116,25 @@ def _case(i, cfg, n, device, resolves_to=None):
           dict(fused="off", precond="kmg")),
     # "auto" resolves to kmg at q = 0, n >= 4096
     _case(6, GPConfig(), 4096, "cpu", dict(fused="off", precond="kmg")),
-    # q = 3: its bands are wider than the fused kernels take, so "auto"
-    # runs unfused (the reference's "auto" also falls back to unfused)
+    # q = 3: the fused kernels take its half-width-4 bands, so "auto" runs
+    # the whole-solve kernel, as at q <= 2 (and as the reference's "auto"
+    # at this size)
     _case(7, GPConfig(q=3, precond="none"), 20, "cuda",
-          dict(fused="off", precond="none")),
+          dict(fused="whole", precond="none")),
+    # bayes_opt_loop's streaming branch (the reference's default BOConfig)
+    _case(8, BOConfig(), 20, "cpu"),
+    _case(9, BOConfig(incremental=True, use_engine=False), 20, "cpu"),
+    _case(10, BOConfig(incremental=False, use_engine=True), 20, "cpu"),
 ])
 def test_unported_paths_raise(cfg, n, device, resolves_to):
     """The unported paths raise; the cases ported since resolve as the
     reference resolves them."""
+    if isinstance(cfg, BOConfig):
+        with pytest.raises(NotImplementedError, match="streaming"):
+            bayes_opt_loop(lambda x: float(np.sum(x)), np.array([[0., 1.]]),
+                           1, GPConfig(precond="none"), cfg,
+                           torch.Generator(), n_init=n, device=device)
+        return
     if resolves_to is None:
         with pytest.raises(NotImplementedError):
             resolve_config(cfg, n, device)
