@@ -20,6 +20,13 @@ plain versions run. Paths that are not ported yet raise
 reference) ``fit`` builds the coarse hierarchy (``gp.hier``) and every
 solve of the GP runs the V-cycle preconditioner.
 
+Capacity padding: ``fit(..., capacity=)`` / :func:`with_capacity` return a
+GP whose row-indexed tensors have ``capacity`` rows with ``n_active`` (a
+0-d int32 tensor on the GP's device) of them real; the tail is padding that
+every op treats as a decoupled identity block (``repro_torch.masking``).
+Every entry point works on a padded GP, and its active results equal the
+unpadded GP's; ``repro_torch.streaming`` mutates such a GP in place.
+
 Randomness: where the reference takes a ``jax.random`` key, the port takes
 a ``torch.Generator``; every probe is drawn through
 ``stochastic.rademacher_rows``. The private ``_log_likelihood`` and
@@ -35,6 +42,7 @@ import torch
 
 from ..health import verdict as hv
 from ..kernels import ops as _kops
+from ..masking import mask_rows
 from . import matern as mk
 from . import stochastic as st
 from .backfitting import (DimOps, SolveConfig, check_solve_config, fused_mode,
@@ -43,7 +51,8 @@ from .band_inverse import variance_band
 from .banded import Banded, add, logdet, matvec, scale, solve, transpose
 from .kernel_packets import gkp_factors, kp_factors, phi_at, phi_grad_at
 
-__all__ = ["GPConfig", "AdditiveGP", "fit", "build_gp_hier", "mean_caches",
+__all__ = ["GPConfig", "AdditiveGP", "fit", "with_capacity",
+           "build_gp_hier", "mean_caches",
            "posterior_caches", "posterior_mean", "posterior_var",
            "posterior_mean_grad", "prior_var",
            "resolve_device", "log_likelihood", "mll_gradients",
@@ -104,7 +113,12 @@ class GPConfig:
 
 @dataclasses.dataclass(frozen=True)
 class AdditiveGP:
-    """Fitted additive GP: data, banded factors, posterior caches."""
+    """Fitted additive GP: data, banded factors, posterior caches.
+
+    Every row-indexed tensor has the static row count ``n``: the capacity
+    when ``n_active`` (0-d int32 tensor on the GP's device) is set, and then
+    only the first ``n_active`` rows are observations. ``None`` = fully
+    active."""
 
     X: torch.Tensor  # (n, D)
     Y: torch.Tensor  # (n,)
@@ -123,10 +137,25 @@ class AdditiveGP:
     # coarse KMG hierarchy (tuple of precond.CoarseLevel) when
     # config.precond == "kmg"; None otherwise
     hier: tuple | None = None
+    n_active: torch.Tensor | None = None
 
     @property
     def n(self) -> int:
+        """Static row count: the capacity when ``n_active`` is set."""
         return self.X.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.X.shape[0]
+
+    def active(self):
+        """Active observation count: an int when unpadded, the 0-d
+        ``n_active`` tensor otherwise (no host sync either way)."""
+        return self.n if self.n_active is None else self.n_active
+
+    def num_points(self) -> int:
+        """The active count as an int (a host sync when padded)."""
+        return self.n if self.n_active is None else int(self.n_active)
 
     @property
     def D(self) -> int:
@@ -203,13 +232,19 @@ def build_gp_hier(config: GPConfig, omega, sigma, X, xs, ops: DimOps):
                            coarsen=config.precond_coarsen)
 
 
-def mean_caches(config: GPConfig, ops: DimOps, Y, hier=None,
+def mean_caches(config: GPConfig, ops: DimOps, Y, x0=None,
+                iters: int | None = None, hier=None,
                 return_info: bool = False):
     """(u_sy, bY) solve-dependent posterior-mean caches (+ SolveInfo);
-    ``hier`` the KMG hierarchy (required when config.precond == "kmg")."""
+    ``hier`` the KMG hierarchy (required when config.precond == "kmg").
+    The streaming mutations pass ``x0``, the pre-mutation ``Mhat^{-1} S Y``
+    spliced at the changed point, to warm-start the solve, and ``iters`` to
+    cap it."""
+    cfg = config.solve_cfg()
+    if iters is not None:
+        cfg = dataclasses.replace(cfg, iters=iters)
     SY = Y[None, :].expand(ops.D, ops.n)
-    res = solve_mhat(ops, SY, config.solve_cfg(), hier=hier,
-                     return_info=return_info)
+    res = solve_mhat(ops, SY, cfg, x0=x0, hier=hier, return_info=return_info)
     u_sy, info = res if return_info else (res, None)
     bY = solve(transpose(ops.Phi), ops.to_sorted(u_sy) / ops.sigma2,
                pivot=config.pivot, backend=config.backend,
@@ -231,8 +266,12 @@ def posterior_caches(config: GPConfig, ops: DimOps, Y, hier=None,
     return res[:2] + (Gband, Hband) + res[2:]
 
 
-def fit(config: GPConfig, X, Y, omega, sigma, device=None) -> AdditiveGP:
-    """Build all sparse factors and posterior caches — O(n log n)."""
+def fit(config: GPConfig, X, Y, omega, sigma, device=None,
+        capacity: int | None = None) -> AdditiveGP:
+    """Build all sparse factors and posterior caches — O(n log n).
+
+    ``capacity`` (>= n) returns the capacity-padded GP (:func:`with_capacity`
+    of the unpadded fit: the active rows keep the unpadded fit's bits)."""
     device = resolve_device(device)
     X = _as_f64(X, device)
     Y = _as_f64(Y, device)
@@ -265,9 +304,78 @@ def fit(config: GPConfig, X, Y, omega, sigma, device=None) -> AdditiveGP:
     else:
         u_sy, bY, Gband, Hband = posterior_caches(config, ops, Y, hier=hier)
         health = None
-    return AdditiveGP(X=X, Y=Y, omega=omega, sigma=sigma, xs=xs, ops=ops,
-                      B=Bg, Psi=Psi, bY=bY, u_sy=u_sy, Gband=Gband,
-                      Hband=Hband, config=config, health=health, hier=hier)
+    gp = AdditiveGP(X=X, Y=Y, omega=omega, sigma=sigma, xs=xs, ops=ops,
+                    B=Bg, Psi=Psi, bY=bY, u_sy=u_sy, Gband=Gband,
+                    Hband=Hband, config=config, health=health, hier=hier)
+    return gp if capacity is None else with_capacity(gp, capacity)
+
+
+def _pad_rows(x, capacity: int, axis: int):
+    """Zero-pad ``x`` to ``capacity`` rows along ``axis``."""
+    ax = axis % x.ndim
+    shape = list(x.shape)
+    shape[ax] = capacity - x.shape[ax]
+    return torch.cat([x, x.new_zeros(shape)], dim=ax)
+
+
+def _pad_band_rows(b: Banded, capacity: int, n_active) -> Banded:
+    """Pad a Banded to ``capacity`` rows with a decoupled identity tail."""
+    tail = b.data.new_zeros(b.data.shape[:-2] + (capacity - b.n, b.width))
+    tail[..., b.lo] = 1.0
+    return Banded(torch.cat([b.data, tail], dim=-2), b.lo, b.hi, n_active)
+
+
+def _pad_perm(idx, capacity: int):
+    """Pad permutations (D, n) -> (D, capacity) with identity tails."""
+    D, n = idx.shape
+    tail = torch.arange(n, capacity, dtype=idx.dtype,
+                        device=idx.device).expand(D, -1)
+    return torch.cat([idx, tail], dim=1)
+
+
+def with_capacity(gp: AdditiveGP, capacity: int) -> AdditiveGP:
+    """Re-home a fitted GP into a ``capacity``-row padded allocation.
+
+    Pure padding, no solve: active rows are copied bit for bit, band tails
+    become decoupled identity rows, state tails zeros, permutation tails the
+    identity; the kmg hierarchy is rebuilt at the new size. Works on
+    unpadded and padded GPs alike (growing a full GP to the next tier)."""
+    capacity = int(capacity)
+    if capacity < gp.n:
+        raise ValueError(
+            f"capacity {capacity} < current allocation {gp.n} (capacity "
+            "shrinking is not supported; evict instead)")
+    if capacity == gp.n and gp.n_active is not None:
+        return gp
+    na = (torch.full((), gp.n, dtype=torch.int32, device=gp.device)
+          if gp.n_active is None else gp.n_active)
+    ops = gp.ops
+    ops_p = DimOps(A=_pad_band_rows(ops.A, capacity, na),
+                   Phi=_pad_band_rows(ops.Phi, capacity, na),
+                   SAPhi=_pad_band_rows(ops.SAPhi, capacity, na),
+                   sort_idx=_pad_perm(ops.sort_idx, capacity),
+                   rank_idx=_pad_perm(ops.rank_idx, capacity),
+                   sigma2=ops.sigma2, pivot=ops.pivot, alg=ops.alg,
+                   n_active=na)
+    # xs tail values are never read through an active mask; keep them
+    # finite and increasing above the active range
+    span = gp.xs[:, -1:] - gp.xs[:, :1] + 1.0
+    steps = torch.arange(1, capacity - gp.n + 1, dtype=gp.xs.dtype,
+                         device=gp.device)
+    xs_p = torch.cat([gp.xs, gp.xs[:, -1:] + span * steps[None, :]], dim=1)
+    X_p = _pad_rows(gp.X, capacity, 0)
+    return AdditiveGP(
+        X=X_p, Y=_pad_rows(gp.Y, capacity, 0), omega=gp.omega,
+        sigma=gp.sigma, xs=xs_p, ops=ops_p,
+        B=_pad_band_rows(gp.B, capacity, na),
+        Psi=_pad_band_rows(gp.Psi, capacity, na),
+        bY=_pad_rows(gp.bY, capacity, 1), u_sy=_pad_rows(gp.u_sy, capacity, 1),
+        Gband=_pad_band_rows(gp.Gband, capacity, na), config=gp.config,
+        Hband=(None if gp.Hband is None
+               else _pad_band_rows(gp.Hband, capacity, na)),
+        health=gp.health,
+        hier=build_gp_hier(gp.config, gp.omega, gp.sigma, X_p, xs_p, ops_p),
+        n_active=na)
 
 
 def _query(gp: AdditiveGP, Xq, device):
@@ -284,7 +392,8 @@ def _phi_windows(gp: AdditiveGP, Xq, grad: bool = False):
     q = gp.config.q
     A = Banded(gp.ops.A.data, q + 1, q + 1)
     return (phi_grad_at if grad else phi_at)(q, gp.omega, gp.xs, A,
-                                             Xq.T.contiguous())
+                                             Xq.T.contiguous(),
+                                             n_active=gp.n_active)
 
 
 def posterior_mean(gp: AdditiveGP, Xq, device=None):
@@ -376,6 +485,12 @@ def prior_var(gp: AdditiveGP, dtype=torch.float64):
 # ---------------------------------------------------------------------------
 
 
+def _count(gp: AdditiveGP):
+    """The active count for the likelihood's constants: an int, or a 0-d
+    float tensor of the GP's dtype when padded."""
+    return gp.n if gp.n_active is None else gp.n_active.to(gp.Y.dtype)
+
+
 def _r_apply(gp: AdditiveGP, v, cfg: SolveConfig):
     """R v = sigma^{-2} v - sigma^{-4} S^T Mhat^{-1} S v, v: (n,) or (n, B)."""
     SV = v[None].expand((gp.D,) + tuple(v.shape))
@@ -384,25 +499,32 @@ def _r_apply(gp: AdditiveGP, v, cfg: SolveConfig):
 
 
 def _probe_block(gp: AdditiveGP, generator: torch.Generator, Q: int):
-    """Rademacher probes (D, n, Q), drawn as (n, D, Q) like the reference."""
+    """Row-keyed Rademacher probes (D, n, Q), drawn as (n, D, Q) like the
+    reference and masked to the active prefix: a padded GP sees the
+    unpadded GP's probes there."""
     v = st.rademacher_rows(generator, gp.n, (gp.D, Q), dtype=gp.Y.dtype,
                            device=gp.device)
-    return v.permute(1, 0, 2).contiguous()
+    return mask_rows(v.permute(1, 0, 2).contiguous(), gp.n_active, axis=1)
 
 
 def _logdet_mhat(gp: AdditiveGP, pm_v0, probe_v):
     """log|Mhat| — paper Alg 8 ("taylor") or preconditioned ("taylor_pc"),
     with the power method's restarts ``pm_v0`` (D, n, 4) and the Hutchinson
-    probes ``probe_v`` (D, n, Q) given."""
+    probes ``probe_v`` (D, n, Q) given. Under capacity padding the probes
+    are masked to the active prefix, the operators act as the identity on
+    the tail, and the dimension count is the active one."""
     c = gp.config
     n, D = gp.n, gp.D
+    dim = D * _count(gp)
+    pm_v0 = mask_rows(pm_v0, gp.n_active, axis=1)
+    probe_v = mask_rows(probe_v, gp.n_active, axis=1)
     kw = dict(order=c.logdet_order, probes=probe_v.shape[-1],
               power_iters=c.power_iters, dtype=gp.Y.dtype, probe_v=probe_v,
               power_v0=pm_v0)
     if c.logdet_method == "taylor":
         mv = lambda u: mhat_matvec(gp.ops, u, backend=c.backend,
                                    alg=c.solve_alg)
-        return st.logdet_taylor(mv, D * n, (D, n), None, **kw)
+        return st.logdet_taylor(mv, dim, (D, n), None, **kw)
     # taylor_pc: C = Khat^{-1} + sigma^{-2} I (block diagonal), log|C| exact:
     # log|K_d^{-1} + s^{-2} I| = log|A_d + s^{-2} Phi_d| - log|Phi_d|
     lk = dict(pivot=c.pivot, backend=c.backend, alg=c.solve_alg)
@@ -411,15 +533,19 @@ def _logdet_mhat(gp: AdditiveGP, pm_v0, probe_v):
     nv = lambda u: gp.ops.block_solve(
         mhat_matvec(gp.ops, u, backend=c.backend, alg=c.solve_alg),
         backend=c.backend, alg=c.solve_alg)
-    return ld_c + st.logdet_taylor(nv, D * n, (D, n), None, **kw)
+    return ld_c + st.logdet_taylor(nv, dim, (D, n), None, **kw)
 
 
 def _log_likelihood(gp: AdditiveGP, pm_v0, probe_v,
                     return_verdict: bool = False):
-    """Eq. (14) with the log-determinant's probe blocks given."""
-    n = gp.n
-    um = gp.u_sy.sum(dim=0)
-    quad = gp.Y @ gp.Y / gp.sigma ** 2 - (gp.Y @ um) / gp.sigma ** 4
+    """Eq. (14) with the log-determinant's probe blocks given. Under
+    capacity padding the quadratic term masks the tails, the banded
+    log-determinants gain exactly 0 from the identity tails, and the
+    constants use the active count."""
+    n = _count(gp)
+    Ym = mask_rows(gp.Y, gp.n_active, axis=0)
+    um = mask_rows(gp.u_sy.sum(dim=0), gp.n_active, axis=0)
+    quad = Ym @ Ym / gp.sigma ** 2 - (Ym @ um) / gp.sigma ** 4
     ld_mhat = _logdet_mhat(gp, pm_v0, probe_v)
     lk = dict(pivot=gp.config.pivot, backend=gp.config.backend,
               alg=gp.config.solve_alg)
@@ -458,13 +584,16 @@ def _dk_apply(gp: AdditiveGP, v):
 
 
 def _mll_gradients(gp: AdditiveGP, V, return_info: bool = False):
-    """Eq. (15) with the Hutchinson probe block ``V`` (n, Q) given."""
+    """Eq. (15) with the Hutchinson probe block ``V`` (n, Q) given. Under
+    capacity padding the probes and ``u = R Y`` are masked to the active
+    prefix and ``tr R``'s exact part uses the active count."""
     cfg = gp.config.solve_cfg()
     n, D = gp.n, gp.D
     Q = V.shape[-1]
+    V = mask_rows(V, gp.n_active, axis=0)
     s2, s4 = gp.sigma ** 2, gp.sigma ** 4
     # u = R Y (exact, reusing the fitted Mhat^{-1} S Y)
-    u = gp.Y / s2 - gp.u_sy.sum(dim=0) / s4
+    u = mask_rows(gp.Y / s2 - gp.u_sy.sum(dim=0) / s4, gp.n_active, axis=0)
     gu = _dk_apply(gp, u[:, None])[..., 0]  # (D, n)
     term1 = gu @ u  # (D,)
 
@@ -484,7 +613,7 @@ def _mll_gradients(gp: AdditiveGP, V, return_info: bool = False):
                      return_info=return_info)
     zs, info_s = rzs if return_info else (rzs, None)
     quadS = torch.einsum("nq,nq->q", V, zs.sum(dim=0))
-    tr_r = n / s2 - quadS.mean() / s4
+    tr_r = _count(gp) / s2 - quadS.mean() / s4
     grad_sigma = 0.5 * (u @ u - tr_r) * 2.0 * gp.sigma
     if not return_info:
         return grad_omega, grad_sigma

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from ..health.verdict import classify_solve
-from ..masking import tree_sum
+from ..masking import canonical_perm, mask_rows, tree_sum
 from .banded import Banded, matvec, solve
 
 __all__ = ["SolveConfig", "SolveInfo", "DimOps", "solve_mhat", "mhat_matvec"]
@@ -62,7 +62,7 @@ class SolveInfo(NamedTuple):
     """Diagnostics from ``solve_mhat(..., return_info=True)`` (tensors)."""
 
     iters: torch.Tensor  # iterations executed (== cfg.iters unless tol fired)
-    n_active: torch.Tensor  # system size the solve ran over
+    n_active: torch.Tensor  # active system size the solve ran over
     resid: torch.Tensor  # L2 norm of v - Mhat x at exit
     rhs: torch.Tensor  # L2 norm of v
     verdict: torch.Tensor  # int32 health code
@@ -81,6 +81,11 @@ class DimOps:
     CUDA tensors), and every solve with that band in the same mode applies
     it (``kernels.ops.factor_solve``), with the bits of a solve from the
     band. A solve in another mode solves from the band.
+
+    ``n_active`` (0-d int32 tensor, optional) is the active length under
+    capacity padding; the factor Bandeds carry the same value. Here it
+    canonicalizes the permutations (identity tails) and keeps states
+    exactly zero past the prefix.
     """
 
     A: Banded
@@ -91,6 +96,7 @@ class DimOps:
     sigma2: torch.Tensor
     pivot: bool = False
     alg: str | None = None
+    n_active: torch.Tensor | None = None
     phi_factor: object = dataclasses.field(default=None, init=False,
                                            repr=False, compare=False)
     saphi_factor: object = dataclasses.field(default=None, init=False,
@@ -102,7 +108,8 @@ class DimOps:
         for name, b in (("phi_factor", self.Phi),
                         ("saphi_factor", self.SAPhi)):
             object.__setattr__(self, name, _kops.banded_factor(
-                b.data, b.lo, b.hi, pivot=self.pivot, alg=self.alg))
+                b.data, b.lo, b.hi, pivot=self.pivot, alg=self.alg,
+                n_active=self.n_active))
 
     @property
     def D(self) -> int:
@@ -113,8 +120,12 @@ class DimOps:
         return self.sort_idx.shape[1]
 
     def _permute(self, u, idx):
+        """Gather along the point axis with the canonical permutation; the
+        tail is zeroed again, so poisoned pad slots cannot leak."""
+        idx = canonical_perm(idx, self.n_active)
         idx = idx[..., None] if u.ndim == 3 else idx
-        return torch.gather(u, 1, idx.expand(u.shape))
+        return mask_rows(torch.gather(u, 1, idx.expand(u.shape)),
+                         self.n_active, axis=1)
 
     def to_sorted(self, u):
         """(D, n[, B]) original order -> sorted order per dim."""
@@ -217,7 +228,8 @@ def _maybe_fused(ops: DimOps, v, cfg: SolveConfig):
         ops.Phi.data, ops.SAPhi.data, ops.sort_idx, ops.rank_idx, ops.sigma2,
         w_p=ops.Phi.lo, w_s=ops.SAPhi.lo,
         a=ops.A.data if need_a else None, w_a=ops.A.lo, pivot=cfg.pivot,
-        backend=cfg.backend, factors=(ops.phi_factor, ops.saphi_factor))
+        backend=cfg.backend, factors=(ops.phi_factor, ops.saphi_factor),
+        n_active=ops.n_active)
 
 
 def _kinv0(ops: DimOps, x0, cfg: SolveConfig):
@@ -266,14 +278,16 @@ def _gauss_seidel(ops: DimOps, v, cfg: SolveConfig, x0=None,
 
     kw = dict(pivot=cfg.pivot, backend=cfg.backend, alg=cfg.alg)
 
+    na = ops.n_active
+
     def solve_one_dim(d, r_d):
         # one dimension's block solve, r_d: (n, B)
-        saphi = Banded(ops.SAPhi.data[d], ops.SAPhi.lo, ops.SAPhi.hi)
-        phi = Banded(ops.Phi.data[d], ops.Phi.lo, ops.Phi.hi)
-        rs = r_d[ops.sort_idx[d]]
+        saphi = Banded(ops.SAPhi.data[d], ops.SAPhi.lo, ops.SAPhi.hi, na)
+        phi = Banded(ops.Phi.data[d], ops.Phi.lo, ops.Phi.hi, na)
+        rs = mask_rows(r_d[canonical_perm(ops.sort_idx[d], na)], na, axis=0)
         w = ops.sigma2 * solve(saphi, matvec(phi, rs, backend=cfg.backend),
                                **kw)
-        return w[ops.rank_idx[d]]
+        return mask_rows(w[canonical_perm(ops.rank_idx[d], na)], na, axis=0)
 
     def sweep(vt, instrument=False):
         total = tree_sum(vt, axis=0)
@@ -379,7 +393,7 @@ def _pcg(ops: DimOps, v, cfg: SolveConfig, x0=None, hier=None):
         (x, r, _, _), i = pcg_loop(fs.pcg_iter, fs.pcg_seed(v, x0),
                                    iters=cfg.iters, tol=cfg.tol)
         x, r = fs.unpad(x), fs.unpad(r)
-        return (x, torch.tensor(i, dtype=torch.int32, device=v.device),
+        return (x, torch.full((), i, dtype=torch.int32, device=v.device),
                 torch.sqrt(tree_sum(_det_dot(r, r), axis=0)))
     if cfg.precond == "kmg":
         if hier is None:
@@ -419,7 +433,7 @@ def _pcg(ops: DimOps, v, cfg: SolveConfig, x0=None, hier=None):
         rz = rz_new
         i += 1
     resid = torch.sqrt(tree_sum(_det_dot(r, r), axis=0))
-    return x, torch.tensor(i, dtype=torch.int32, device=v.device), resid
+    return x, torch.full((), i, dtype=torch.int32, device=v.device), resid
 
 
 def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
@@ -445,9 +459,14 @@ def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
         v = v[..., None]
         x0 = None if x0 is None else x0[..., None]
     dtype = torch.promote_types(v.dtype, ops.SAPhi.data.dtype)
-    v = v.to(dtype)
-    x0 = None if x0 is None else x0.to(dtype)
-    iters_used = torch.tensor(cfg.iters, dtype=torch.int32, device=v.device)
+    # under capacity padding the state tails are zeroed up front: every
+    # iterate stays exactly zero past the active prefix, so the inner
+    # products and residual norms run over the prefix only
+    v = mask_rows(v.to(dtype), ops.n_active, axis=1)
+    x0 = None if x0 is None else mask_rows(x0.to(dtype), ops.n_active,
+                                           axis=1)
+    iters_used = torch.full((), cfg.iters, dtype=torch.int32,
+                            device=v.device)
     if cfg.method == "gauss_seidel":
         out, resid = _gauss_seidel(ops, v, cfg, x0, want_resid=return_info)
     elif cfg.method == "jacobi":
@@ -466,6 +485,7 @@ def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
     rhs_norm = torch.sqrt(tree_sum(_det_dot(v, v), axis=0))
     verdict = classify_solve(out, resid, rhs_norm,
                              at_cap=iters_used >= cfg.iters)
-    n_active = torch.tensor(ops.n, dtype=torch.int32, device=v.device)
+    n_active = (torch.full((), ops.n, dtype=torch.int32, device=v.device)
+                if ops.n_active is None else ops.n_active.to(torch.int32))
     return result, SolveInfo(iters=iters_used, n_active=n_active, resid=resid,
                              rhs=rhs_norm, verdict=verdict)

@@ -70,14 +70,21 @@ def _blocks_to_band(Gd, Gu, Gl, n: int, hw: int):
 
 
 def inverse_band(H: Banded, hw: int, backend: str | None = None) -> Banded:
-    """Band of H^{-1}; batched over the leading dims of H.data."""
+    """Band of H^{-1}; batched over the leading dims of H.data.
+
+    Capacity padding: ``H`` is canonicalized to ``blockdiag(H_active, I)``
+    first, so the result is ``blockdiag(G_active, I)``: active rows match
+    the unpadded inverse, tail rows are identity rows."""
+    H = H.canonical()
     return Banded(rgf_inverse_band(H.data, H.lo, H.hi, hw, backend=backend),
-                  hw, hw)
+                  hw, hw, H.n_active)
 
 
 def variance_band(A: Banded, Phi: Banded, backend: str | None = None, *,
                   return_h: bool = False):
-    """The 2q+1 band of (A Phi^T)^{-1}; ``return_h`` also returns H = A Phi^T."""
+    """The 2q+1 band of (A Phi^T)^{-1}; ``return_h`` also returns the
+    canonical band of H = A Phi^T (the cache the windowed streaming updates
+    of ``core.gband_update`` carry)."""
     H = mask_band(band_band_matmul(A, transpose(Phi), backend=backend))
     G = inverse_band(H, A.lo + Phi.lo, backend=backend)
-    return (G, H) if return_h else G
+    return (G, H.canonical()) if return_h else G

@@ -8,6 +8,13 @@ ints (half-bandwidths).
 The public ``matvec`` / ``solve`` / ``logdet`` / ``band_band_matmul`` entry
 points dispatch through ``repro_torch.kernels.ops``: hand-written CUDA
 kernels for CUDA tensors, the plain versions for CPU tensors.
+
+Capacity padding: a ``Banded`` may carry ``n_active``, a 0-d int32 tensor on
+the band's device, beside its static row count (the capacity). Rows
+``>= n_active`` are padding; every dispatched op canonicalizes them to
+decoupled identity rows (and the matching right-hand-side rows to zeros)
+before computing (``repro_torch.masking``), so results are exact on the
+active prefix whatever the padding holds.
 """
 from __future__ import annotations
 
@@ -15,17 +22,24 @@ import dataclasses
 
 import torch
 
+from ..masking import canonical_band
+
 __all__ = ["Banded", "from_dense", "to_dense", "matvec", "transpose",
            "band_band_matmul", "solve", "logdet", "add", "scale", "mask_band"]
 
 
 @dataclasses.dataclass(frozen=True)
 class Banded:
-    """Banded matrix; ``data`` has shape ``(..., n, lo + hi + 1)``."""
+    """Banded matrix; ``data`` has shape ``(..., n, lo + hi + 1)``.
+
+    ``n_active`` (0-d int32 tensor, optional) marks the capacity-padded
+    form: the matrix is ``n_active x n_active`` stored in ``n`` rows.
+    ``None`` = fully active."""
 
     data: torch.Tensor
     lo: int
     hi: int
+    n_active: torch.Tensor | None = None
 
     def __post_init__(self):
         if self.data.shape[-1] != self.lo + self.hi + 1:
@@ -38,8 +52,25 @@ class Banded:
         return self.data.shape[-2]
 
     @property
+    def capacity(self) -> int:
+        return self.data.shape[-2]
+
+    @property
     def width(self) -> int:
         return self.lo + self.hi + 1
+
+    def canonical(self) -> "Banded":
+        """Identity-tail canonical form (the band itself when unpadded)."""
+        if self.n_active is None:
+            return self
+        return Banded(canonical_band(self.data, self.lo, self.hi,
+                                     self.n_active),
+                      self.lo, self.hi, self.n_active)
+
+
+def _join_active(a: Banded, b: Banded):
+    """The shared ``n_active`` of two operands (either may be unpadded)."""
+    return a.n_active if a.n_active is not None else b.n_active
 
 
 def _band_mask(n: int, lo: int, hi: int, device=None) -> torch.Tensor:
@@ -51,7 +82,7 @@ def _band_mask(n: int, lo: int, hi: int, device=None) -> torch.Tensor:
 
 def mask_band(b: Banded) -> Banded:
     mask = _band_mask(b.n, b.lo, b.hi, device=b.data.device)
-    return Banded(b.data * mask, b.lo, b.hi)
+    return Banded(b.data * mask, b.lo, b.hi, b.n_active)
 
 
 def from_dense(mat: torch.Tensor, lo: int, hi: int) -> Banded:
@@ -107,36 +138,42 @@ def matvec(b: Banded, x: torch.Tensor, *, backend: str | None = None):
     """y = M @ x; x (..., n) or (..., n, k). Dispatches through ``ops``."""
     from ..kernels import ops as _ops
 
-    return _ops.banded_matvec(b.data, x, b.lo, b.hi, backend=backend)
+    return _ops.banded_matvec(b.data, x, b.lo, b.hi, backend=backend,
+                              n_active=b.n_active)
 
 
 def transpose(b: Banded) -> Banded:
     """M^T in band form: loT = hi, hiT = lo."""
     cols = [_shift(b.data[..., :, b.lo - m], m) for m in range(-b.hi, b.lo + 1)]
-    return mask_band(Banded(torch.stack(cols, dim=-1), b.hi, b.lo))
+    return mask_band(Banded(torch.stack(cols, dim=-1), b.hi, b.lo,
+                            b.n_active))
 
 
 def band_band_matmul(a: Banded, b: Banded, *, backend: str | None = None):
     """C = A @ B in band form; dispatches through ``ops``."""
     from ..kernels import ops as _ops
 
+    n_active = _join_active(a, b)
     data = _ops.band_band_matmul(a.data, b.data, a.lo, a.hi, b.lo, b.hi,
-                                 backend=backend)
-    return Banded(data, a.lo + b.lo, a.hi + b.hi)
+                                 backend=backend, n_active=n_active)
+    return Banded(data, a.lo + b.lo, a.hi + b.hi, n_active)
 
 
 def add(a: Banded, b: Banded) -> Banded:
-    """A + B in band form (result bandwidths are the max of the two)."""
+    """A + B in band form (result bandwidths are the max of the two).
+
+    Identity tails of padded operands sum to ``2 I``; the result carries
+    ``n_active``, so the next dispatched op canonicalizes the tail again."""
     lo, hi = max(a.lo, b.lo), max(a.hi, b.hi)
     batch = torch.broadcast_shapes(a.data.shape[:-2], b.data.shape[:-2])
     out = a.data.new_zeros(batch + (a.n, lo + hi + 1))
     out[..., :, lo - a.lo: lo + a.hi + 1] += a.data
     out[..., :, lo - b.lo: lo + b.hi + 1] += b.data
-    return Banded(out, lo, hi)
+    return Banded(out, lo, hi, _join_active(a, b))
 
 
 def scale(a: Banded, s) -> Banded:
-    return Banded(a.data * s, a.lo, a.hi)
+    return Banded(a.data * s, a.lo, a.hi, a.n_active)
 
 
 def solve(b: Banded, rhs: torch.Tensor, pivot: bool = True, *,
@@ -150,7 +187,7 @@ def solve(b: Banded, rhs: torch.Tensor, pivot: bool = True, *,
     from ..kernels import ops as _ops
 
     return _ops.banded_solve(b.data, rhs, b.lo, b.hi, pivot=pivot,
-                             backend=backend, alg=alg)
+                             backend=backend, alg=alg, n_active=b.n_active)
 
 
 def logdet(b: Banded, pivot: bool = True, *, backend: str | None = None,
@@ -159,4 +196,4 @@ def logdet(b: Banded, pivot: bool = True, *, backend: str | None = None,
     from ..kernels import ops as _ops
 
     return _ops.banded_logdet(b.data, b.lo, b.hi, pivot=pivot,
-                              backend=backend, alg=alg)
+                              backend=backend, alg=alg, n_active=b.n_active)

@@ -19,9 +19,11 @@ the reference takes a ``jax.random`` key, :func:`propose_next` and
 :func:`bayes_opt_loop` is a black box on the host: it takes one point as a
 float64 numpy array (D,) and returns a number.
 
-Only the reference's refit loop is ported (``BOConfig(incremental=False,
-use_engine=False)``): its streaming branch, the default, needs capacity
-padding and the streaming engine, and raises ``NotImplementedError``.
+:func:`bayes_opt_loop` runs both of the reference's loops: the streaming
+one (the default ``BOConfig()``: each round's point is inserted in place,
+``repro_torch.streaming``, and with ``use_engine`` the ascent is served by
+the slot-batched ``GPServeEngine``) and the refit one
+(``BOConfig(incremental=False, use_engine=False)``).
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ import torch
 from .additive_gp import (AdditiveGP, GPConfig, _as_f64, _g_entries,
                           _phi_windows, _query, _var_chunks, fit,
                           fit_hyperparams, prior_var, resolve_device)
+from ..masking import mask_rows
 from .backfitting import solve_mhat
 from .banded import solve, transpose
 
@@ -45,9 +48,7 @@ __all__ = ["BOConfig", "acquisition_value_and_grad", "acquisition_stats",
 
 @dataclasses.dataclass(frozen=True)
 class BOConfig:
-    """The reference's fields and defaults. ``incremental`` and
-    ``use_engine`` (the streaming loop, the reference's default) are not
-    ported: pass ``BOConfig(incremental=False, use_engine=False)``."""
+    """The reference's fields and defaults."""
 
     kind: str = "ucb"  # "ucb" | "ei"
     beta: float = 2.0
@@ -175,21 +176,17 @@ def bayes_opt_loop(f: Callable[[np.ndarray], float], bounds, budget: int,
     """Algorithm 1 with sparse posteriors; maximizes ``f``. Returns
     ``(gp, X, Y, hist)``.
 
-    The reference's refit loop: every round refits the posterior on all
-    points; every ``refit_every`` rounds (after the first) the
-    hyperparameters are re-learned from the previously learned ``(omega,
-    sigma)`` (``fit_hyperparams``, its probes drawn from ``generator``).
-    ``hist`` holds numpy / Python copies of each round's point, value,
-    best value, omega and sigma. The streaming branch
-    (``incremental=True`` or ``use_engine=True``) is not ported.
+    The streaming loop (Sec. 6, the default): between hyperparameter refits
+    the posterior grows by ``streaming.insert`` (O(q)-window factor updates
+    and a warm-started solve) instead of a refit, and with ``use_engine``
+    the ascent is served by the slot-batched ``GPServeEngine`` (the insert
+    goes behind its fence). ``incremental=False`` refits every round. Every
+    ``refit_every`` rounds (after the first) the hyperparameters are
+    re-learned from the previously learned ``(omega, sigma)``
+    (``fit_hyperparams``, its probes drawn from ``generator``). ``hist``
+    holds numpy / Python copies of each round's point, value, best value,
+    omega and sigma.
     """
-    if bo_config.incremental or bo_config.use_engine:
-        raise NotImplementedError(
-            "bayes_opt_loop's streaming branch (incremental=True or "
-            "use_engine=True, the reference's default) needs capacity "
-            "padding and the streaming engine, which are not ported "
-            "(ROADMAP Queue 1, streaming); pass BOConfig(incremental=False, "
-            "use_engine=False) for the refit loop")
     device = resolve_device(device)
     bounds = _as_f64(bounds, device)
     D = bounds.shape[0]
@@ -204,20 +201,48 @@ def bayes_opt_loop(f: Callable[[np.ndarray], float], bounds, budget: int,
     sigma = torch.tensor(sigma0, dtype=bounds.dtype, device=device)
     hist = {"x": [], "y": [], "best": [], "omega": [], "sigma": []}
     gp = fit(gp_config, X, Y, omega, sigma, device=device)
+    engine = None
+    if bo_config.use_engine or bo_config.incremental:
+        from ..streaming import GPServeEngine, propose_via_engine
+        from ..streaming import insert as stream_insert
+    if bo_config.use_engine:
+        engine = GPServeEngine(gp, bounds.cpu().numpy(),
+                               batch_slots=bo_config.n_starts,
+                               kind=bo_config.kind, beta=bo_config.beta,
+                               lr=bo_config.lr,
+                               insert_iters=bo_config.insert_iters or None)
     for t in range(budget):
         if bo_config.refit_every and t % bo_config.refit_every == 0 and t > 0:
             gp, (omega, sigma), _ = fit_hyperparams(
                 gp_config, X, Y, omega, sigma, generator,
                 steps=bo_config.hyper_steps, lr=bo_config.hyper_lr,
                 device=device)
+            if engine is not None:
+                engine.set_posterior(gp)
         best_y = torch.max(Y)
-        x_new = propose_next(gp, bounds, generator, bo_config, best_y,
-                             device=device)
+        if engine is not None:
+            x_new = torch.as_tensor(propose_via_engine(
+                engine, generator, bo_config, best_y), device=device)
+        else:
+            x_new = propose_next(gp, bounds, generator, bo_config, best_y,
+                                 device=device)
         y_new = float(f(x_new.cpu().numpy()))
         X = torch.cat([X, x_new[None]], dim=0)
         Y = torch.cat([Y, torch.tensor([y_new], dtype=Y.dtype,
                                        device=device)])
-        gp = fit(gp_config, X, Y, omega, sigma, device=device)
+        if bo_config.incremental:
+            if engine is not None:
+                # the insert behind the engine's fence, applied by a tick
+                engine.insert(x_new.cpu().numpy(), y_new)
+                engine.step()
+                gp = engine.gp
+            else:
+                gp = stream_insert(gp, x_new, y_new,
+                                   iters=bo_config.insert_iters or None)
+        else:
+            gp = fit(gp_config, X, Y, omega, sigma, device=device)
+            if engine is not None:
+                engine.set_posterior(gp)
         hist["x"].append(x_new.cpu().numpy())
         hist["y"].append(y_new)
         hist["best"].append(float(torch.max(Y)))
@@ -226,7 +251,6 @@ def bayes_opt_loop(f: Callable[[np.ndarray], float], bounds, budget: int,
         if verbose and (t + 1) % 10 == 0:
             print(f"  BO iter {t+1}/{budget} best={hist['best'][-1]:.4f}")
     return gp, X, Y, hist
-
 
 # ---------------------------------------------------------------------------
 # The paper's O(1)-per-evaluation path: the dense M-tilde cache ("given the
@@ -248,11 +272,15 @@ def build_local_cache(gp: AdditiveGP) -> LocalAcqCache:
     float64: 8 D^2 n^2 bytes (52 MB at n = 512, D = 5), and D solves of n
     right-hand sides each (Phi, Mhat, Phi^T; the Mhat solve of more than
     ``MAX_B`` = 256 columns runs in column chunks). ``Mhat`` is SPD, so
-    ``M~`` equals its ``(d, i) <-> (e, j)`` transpose.
+    ``M~`` equals its ``(d, i) <-> (e, j)`` transpose. Under capacity
+    padding the e_i right-hand sides are masked to the active prefix: the
+    tail rows and columns are zeros and the active block is the unpadded
+    cache's.
     """
     D, n = gp.D, gp.n
     c = gp.config
-    eye = torch.eye(n, dtype=gp.Y.dtype, device=gp.device)
+    eye = mask_rows(torch.eye(n, dtype=gp.Y.dtype, device=gp.device),
+                    gp.n_active, axis=0)
     cols = []
     for d in range(D):
         rhs = torch.zeros((D, n, n), dtype=gp.Y.dtype, device=gp.device)

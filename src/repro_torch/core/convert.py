@@ -7,7 +7,9 @@ identical factors. Keys:
   * ``X`` (n, D), ``Y`` (n,), ``omega`` (D,), ``sigma`` (), ``xs`` (D, n),
     ``sort_idx`` / ``rank_idx`` (D, n), ``bY`` / ``u_sy`` (D, n);
   * for each band ``N`` in ``A, Phi, SAPhi, B, Psi, Gband, Hband``: the data
-    ``N`` (D, n, lo+hi+1) with its half-widths ``N_lo`` and ``N_hi``.
+    ``N`` (D, n, lo+hi+1) with its half-widths ``N_lo`` and ``N_hi``;
+  * optionally ``n_active`` (): a capacity-padded GP, whose arrays are taken
+    as they are (n is then the capacity).
 
 The GP carries no health state (no solve ran here). When the config
 resolves to ``precond="kmg"`` the coarse hierarchy is rebuilt from the
@@ -35,20 +37,27 @@ def gp_from_arrays(arrays: dict[str, np.ndarray], config: GPConfig,
         return torch.as_tensor(np.array(arrays[key])).to(device=device,
                                                            dtype=dtype)
 
+    na = (t("n_active", torch.int32).reshape(())
+          if arrays.get("n_active") is not None else None)
+
     def band(key):
         return Banded(t(key), int(arrays[f"{key}_lo"]),
-                      int(arrays[f"{key}_hi"]))
+                      int(arrays[f"{key}_hi"]), na)
 
     X = t("X")
-    config = resolve_config(config, X.shape[0], device)
+    # the precond rule reads the point count the GP was fitted at
+    config = resolve_config(
+        config, X.shape[0] if na is None else int(arrays["n_active"]),
+        device)
     sigma = t("sigma").reshape(())
     ops = DimOps(A=band("A"), Phi=band("Phi"), SAPhi=band("SAPhi"),
                  sort_idx=t("sort_idx", torch.int64),
                  rank_idx=t("rank_idx", torch.int64), sigma2=sigma ** 2,
-                 pivot=config.pivot, alg=config.solve_alg)
+                 pivot=config.pivot, alg=config.solve_alg, n_active=na)
     omega, xs = t("omega"), t("xs")
     return AdditiveGP(X=X, Y=t("Y"), omega=omega, sigma=sigma, xs=xs,
                       ops=ops, B=band("B"), Psi=band("Psi"), bY=t("bY"),
                       u_sy=t("u_sy"), Gband=band("Gband"), config=config,
                       Hband=band("Hband"), health=None,
-                      hier=build_gp_hier(config, omega, sigma, X, xs, ops))
+                      hier=build_gp_hier(config, omega, sigma, X, xs, ops),
+                      n_active=na)

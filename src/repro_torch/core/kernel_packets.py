@@ -24,12 +24,15 @@ __all__ = ["kp_coefficient_rows", "kp_coefficients", "gram_band_rows",
            "phi_grad_at"]
 
 
-def _kp_row_inputs(n: int, q: int, rows: torch.Tensor):
-    """Window indices, validity, signs and auxiliary-equation counts."""
-    t = torch.arange(-(q + 1), q + 2, device=rows.device)[None, :]
-    j = rows[:, None] + t
+def _kp_row_inputs(n, q: int, rows: torch.Tensor, clip_n: int | None = None):
+    """Window indices, validity, signs and auxiliary-equation counts for
+    ``rows`` (..., r). ``n`` is the matrix size, a python int or (capacity
+    padding) a 0-d tensor that only enters comparisons; ``clip_n`` the
+    static allocation the gather indices are clipped to (default n)."""
+    t = torch.arange(-(q + 1), q + 2, device=rows.device)
+    j = rows[..., None] + t
     valid = (j >= 0) & (j < n)
-    j_idx = j.clamp(0, n - 1)
+    j_idx = j.clamp(0, (n if clip_n is None else clip_n) - 1)
     is_left = rows <= q
     is_right = rows >= n - q - 1
     one = torch.ones((), dtype=torch.float64, device=rows.device)
@@ -41,10 +44,14 @@ def _kp_row_inputs(n: int, q: int, rows: torch.Tensor):
 
 
 def _kp_build_rows(q: int, omega, xrow, vrow, psign, asign, naux):
-    """KP coefficient rows from window points (..., r, P) + categories (r,)."""
+    """KP coefficient rows from window points (..., r, P) + categories
+    (..., r), the categories broadcast against the points' leading dims."""
     P = 2 * q + 3
     dev, dt = xrow.device, xrow.dtype
     zero = torch.zeros((), dtype=dt, device=dev)
+    vrow = vrow.expand(xrow.shape)
+    bshape = xrow.shape[:-1]
+    psign, asign, naux = (t.expand(bshape) for t in (psign, asign, naux))
     om = omega[..., None, None]
     c = torch.where(vrow, xrow, zero).sum(-1) / vrow.sum(-1).clamp(min=1)
     xt = torch.where(vrow, xrow - c[..., None], zero)
@@ -53,25 +60,25 @@ def _kp_build_rows(q: int, omega, xrow, vrow, psign, asign, naux):
     col_log = -om * torch.abs(xt)
     ls = torch.arange(q + 1, dtype=dt, device=dev)[:, None]
     powx = xh[..., None, :] ** ls
-    prim = powx * torch.exp(psign[:, None, None] * om[..., None] * xt[..., None, :]
-                            + col_log[..., None, :])
-    aux = powx * torch.exp(asign[:, None, None] * om[..., None] * xt[..., None, :]
-                           + col_log[..., None, :])
-    aux_valid = torch.arange(q + 1, device=dev)[None, :] < naux[:, None]
-    aux = torch.where(aux_valid[:, :, None], aux, zero)
+    prim = powx * torch.exp(psign[..., None, None] * om[..., None]
+                            * xt[..., None, :] + col_log[..., None, :])
+    aux = powx * torch.exp(asign[..., None, None] * om[..., None]
+                           * xt[..., None, :] + col_log[..., None, :])
+    aux_valid = torch.arange(q + 1, device=dev) < naux[..., None]
+    aux = torch.where(aux_valid[..., None], aux, zero)
     E = torch.cat([prim, aux], dim=-2)  # (..., r, 2q+2, P)
     # pin a_j = 0 on invalid columns: each masked aux slot takes a unit row
     # selecting one invalid column
     inv_cols = ~vrow
     inv_rank = (torch.cumsum(inv_cols.long(), -1) - 1).clamp(0, q)
     pin_rows = (torch.nn.functional.one_hot(inv_rank, q + 1).to(dt)
-                * inv_cols[..., None]).transpose(-1, -2)  # (r, q+1, P)
-    slot = torch.arange(q + 1, device=dev)[None, :]
-    shift = slot - naux[:, None]
-    take = (shift >= 0) & (slot >= naux[:, None])
-    pin = torch.gather(pin_rows, 1,
-                       shift.clamp(0, q)[:, :, None].expand(-1, -1, P))
-    pin = torch.where(take[:, :, None], pin, zero)
+                * inv_cols[..., None]).transpose(-1, -2)  # (..., r, q+1, P)
+    slot = torch.arange(q + 1, device=dev)
+    shift = slot - naux[..., None]
+    take = (shift >= 0) & (slot >= naux[..., None])
+    pin = torch.gather(pin_rows, -2,
+                       shift.clamp(0, q)[..., None].expand(pin_rows.shape))
+    pin = torch.where(take[..., None], pin, zero)
     E = torch.cat([E[..., :q + 1, :], E[..., q + 1:, :] + pin], dim=-2)
     _, _, vh = torch.linalg.svd(E, full_matrices=True)
     a = vh[..., -1, :] * torch.exp(col_log)
@@ -82,12 +89,29 @@ def _kp_build_rows(q: int, omega, xrow, vrow, psign, asign, naux):
     return a * sign[..., None]
 
 
-def kp_coefficient_rows(q: int, omega, xs, rows):
-    """KP coefficient rows (..., len(rows), 2q+3) for a subset of rows."""
+def _take(xs, idx):
+    """xs (..., n) at window indices: idx (r, w) shared by every leading
+    dim, or (..., r, w) per leading dim."""
+    if idx.ndim == 2:
+        return xs[..., idx]
+    return torch.gather(xs, -1, idx.reshape(idx.shape[:-2] + (-1,))).reshape(
+        idx.shape)
+
+
+def kp_coefficient_rows(q: int, omega, xs, rows, n_active=None):
+    """KP coefficient rows (..., r, 2q+3) for a subset of rows: ``rows``
+    (r,) shared by the leading dims of ``xs`` (..., n), or (..., r) per
+    leading dim (the streaming window of each dimension).
+
+    Each row is computed as :func:`kp_coefficients` computes it for the
+    whole matrix. Under capacity padding ``n_active`` (0-d tensor) is the
+    matrix size: validity and the Algorithm-2 boundary category use it, and
+    tail ``xs`` values are masked out of the window math."""
     n = xs.shape[-1]
-    j_idx, valid, psign, asign, naux = _kp_row_inputs(n, q, rows)
-    xw = torch.where(valid, xs[..., j_idx], torch.zeros((), dtype=xs.dtype,
-                                                        device=xs.device))
+    na = n if n_active is None else n_active
+    j_idx, valid, psign, asign, naux = _kp_row_inputs(na, q, rows, clip_n=n)
+    xw = torch.where(valid, _take(xs, j_idx),
+                     torch.zeros((), dtype=xs.dtype, device=xs.device))
     return _kp_build_rows(q, omega, xw, valid, psign, asign, naux)
 
 
@@ -99,21 +123,27 @@ def kp_coefficients(q: int, omega, xs) -> Banded:
     return mask_band(Banded(data, q + 1, q + 1))
 
 
-def gram_band_rows(kfun, xs, a_rows, rows, loA: int, hiA: int, hw: int):
-    """Rows of the band of Phi = A @ K restricted to ``rows``.
+def gram_band_rows(kfun, xs, a_rows, rows, loA: int, hiA: int, hw: int,
+                   n_active=None):
+    """Rows of the band of Phi = A @ K restricted to ``rows`` ((r,) shared,
+    or (..., r) per leading dim, as :func:`kp_coefficient_rows`).
 
-    ``kfun(x, y)`` broadcasts over (..., r, wPhi, wA) window points.
+    ``kfun(x, y)`` broadcasts over (..., r, wPhi, wA) window points. Under
+    capacity padding ``n_active`` bounds validity; out-of-range window
+    points are zeroed before ``kfun``, so poisoned tail slots cannot make
+    NaNs that survive the mask.
     """
     n = xs.shape[-1]
+    na = n if n_active is None else n_active
     dev = xs.device
     zero = torch.zeros((), dtype=xs.dtype, device=dev)
-    j = rows[:, None] + torch.arange(-loA, hiA + 1, device=dev)[None, :]
-    vv = (j >= 0) & (j < n)
-    xw = torch.where(vv, xs[..., j.clamp(0, n - 1)], zero)
-    jm = rows[:, None] + torch.arange(-hw, hw + 1, device=dev)[None, :]
-    vm = (jm >= 0) & (jm < n)
-    xm = torch.where(vm, xs[..., jm.clamp(0, n - 1)], zero)
-    kv = kfun(xm[..., :, :, None], xw[..., :, None, :]) * vv[:, None, :]
+    j = rows[..., None] + torch.arange(-loA, hiA + 1, device=dev)
+    vv = (j >= 0) & (j < na)
+    xw = torch.where(vv, _take(xs, j.clamp(0, n - 1)), zero)
+    jm = rows[..., None] + torch.arange(-hw, hw + 1, device=dev)
+    vm = (jm >= 0) & (jm < na)
+    xm = torch.where(vm, _take(xs, jm.clamp(0, n - 1)), zero)
+    kv = kfun(xm[..., :, :, None], xw[..., :, None, :]) * vv[..., None, :]
     data = torch.einsum("...nmt,...nt->...nm", kv, a_rows)
     return data * vm
 
@@ -142,26 +172,42 @@ def gkp_factors(q: int, omega, xs):
     return B, Psi
 
 
-def query_window_start(xs, xq):
-    """Insertion points of ``xq`` (..., m) in sorted ``xs`` (..., n)."""
+def query_window_start(xs, xq, n_active=None):
+    """Insertion points of ``xq`` (..., m) in sorted ``xs`` (..., n). Under
+    capacity padding the tail of ``xs`` may hold anything: it is read as
+    +inf, so the result is the count of active entries below ``xq`` (the
+    reference's masked count)."""
+    if n_active is not None:
+        j = torch.arange(xs.shape[-1], device=xs.device)
+        xs = torch.where(j < n_active, xs,
+                         torch.full((), float("inf"), dtype=xs.dtype,
+                                    device=xs.device))
     return torch.searchsorted(xs.contiguous(), xq.contiguous(), side="left")
 
 
-def _query_windows(q: int, omega, xs, A: Banded, xq, kfun):
+def _query_windows(q: int, omega, xs, A: Banded, xq, kfun, n_active=None):
     """Rows and values of A kfun(X, x*) in each query's KP window, for every
     dim and query: ``kfun(om, xj, xq)`` evaluates the kernel (or its
     derivative) at the window points ``xj`` (D, m, 2q+2, 2q+3), with ``om``
-    (D, 1, 1, 1) and ``xq`` (D, m, 1, 1)."""
+    (D, 1, 1, 1) and ``xq`` (D, m, 1, 1). Under capacity padding
+    (``n_active``, defaulting to ``A.n_active``) the rows are clamped into
+    the active prefix and tail points never enter the kernel."""
+    if n_active is None:
+        n_active = A.n_active
     D, n = xs.shape
+    na = n if n_active is None else n_active
     m = xq.shape[-1]
     dev = xs.device
     zero = torch.zeros((), dtype=xs.dtype, device=dev)
-    t = query_window_start(xs, xq)
+    t = query_window_start(xs, xq, n_active=n_active)
     rows = t[..., None] + torch.arange(-(q + 1), q + 1, device=dev)
-    valid = (rows >= 0) & (rows < n)
-    rows_c = rows.clamp(0, n - 1)
+    valid = (rows >= 0) & (rows < na)
+    # clamp into the active prefix: consumers gather bY / Gband at these
+    # rows and multiply by the (zeroed) values, and 0 * NaN is NaN
+    rows_c = (rows.clamp(0, n - 1) if n_active is None else torch.minimum(
+        rows.clamp(min=0), (n_active - 1).clamp(min=0)))
     j = rows_c[..., None] + torch.arange(-(q + 1), q + 2, device=dev)
-    jv = (j >= 0) & (j < n)
+    jv = (j >= 0) & (j < na)
     jc = j.clamp(0, n - 1)
     xj = torch.where(jv, torch.gather(xs, 1, jc.reshape(D, -1)).reshape(
         jc.shape), zero)
@@ -173,18 +219,20 @@ def _query_windows(q: int, omega, xs, A: Banded, xq, kfun):
     return rows_c, vals, valid
 
 
-def phi_at(q: int, omega, xs, A: Banded, xq):
+def phi_at(q: int, omega, xs, A: Banded, xq, n_active=None):
     """Sparse KP vectors phi(x*) = A k(X, x*) for every dim and query.
 
     omega (D,), xs (D, n), A data (D, n, 2q+3), xq (D, m). Returns
     (rows (D, m, 2q+2), vals (D, m, 2q+2), valid mask).
     """
     return _query_windows(q, omega, xs, A, xq,
-                          lambda om, xj, x: mk.matern(q, om, xj, x))
+                          lambda om, xj, x: mk.matern(q, om, xj, x),
+                          n_active=n_active)
 
 
-def phi_grad_at(q: int, omega, xs, A: Banded, xq):
+def phi_grad_at(q: int, omega, xs, A: Banded, xq, n_active=None):
     """d phi(x*) / d x* for every dim and query, as :func:`phi_at` lays it
     out (the same rows and validity)."""
     return _query_windows(q, omega, xs, A, xq,
-                          lambda om, xj, x: mk.matern_dx(q, om, x, xj))
+                          lambda om, xj, x: mk.matern_dx(q, om, x, xj),
+                          n_active=n_active)

@@ -18,6 +18,7 @@ that feeds the JAX package's draws replaces it.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -25,18 +26,40 @@ import torch
 __all__ = ["power_method", "hutchinson", "logdet_taylor", "rademacher_rows"]
 
 
+_M31 = 0x7FFFFFFF
+
+
+def _hash31(h: torch.Tensor) -> torch.Tensor:
+    """A 31-bit integer mix (xorshift-multiply rounds) on int64 tensors;
+    every product stays below 2^62, so it is exact on every device."""
+    for k in (0x2C1B3C6D, 0x297A2D39, 0x3B9E3779):
+        h = h ^ (h >> 16)
+        h = (h * k) & _M31
+    return h ^ (h >> 16)
+
+
 def rademacher_rows(generator: torch.Generator, n: int,
                     shape: tuple[int, ...], dtype=torch.float64,
                     device=None) -> torch.Tensor:
-    """Rademacher (+-1) draw of shape ``(n,) + shape``.
+    """Rademacher (+-1) draw of shape ``(n,) + shape`` keyed *per row*.
 
-    The reference keys each row on its index so that capacity-padded draws
-    match unpadded ones on the active prefix; the port has no capacity
-    padding, and one draw of the whole block serves.
+    One key is drawn from ``generator``; the sign of entry ``(i, c)`` is a
+    hash of (key, i, c), computed on the generator's device. Row ``i``
+    depends only on the key and ``i``, not on ``n``, so the first ``n`` rows
+    of a capacity-sized draw equal an unpadded draw of ``n`` rows: the
+    stochastic estimators of a capacity-padded GP see the same probes on
+    the active prefix as the unpadded GP (the reference's row-keyed draw).
     """
-    bits = torch.randint(0, 2, (n,) + tuple(shape), generator=generator,
-                         device=generator.device)
-    return (2 * bits - 1).to(dtype=dtype, device=device)
+    dev = generator.device
+    key = torch.randint(0, _M31, (1,), generator=generator, device=dev)
+    m = math.prod(shape)
+    i = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+    c = torch.arange(m, dtype=torch.int64, device=dev)[None, :]
+    hr = _hash31((i * 0x5BD1E995 + key) & _M31)
+    h = _hash31(hr ^ _hash31(((c + 1) * 0x27D4EB2F) & _M31))
+    bits = (h >> 30) & 1
+    return (2 * bits - 1).reshape((n,) + tuple(shape)).to(dtype=dtype,
+                                                          device=device)
 
 
 def _sum_lead(x: torch.Tensor, nd: int) -> torch.Tensor:

@@ -8,7 +8,15 @@
 // SAPhi solve of the preconditioned Taylor log-determinant and of the kmg
 // V-cycle (w = 1), and for the generalized-KP B solves of the gradients
 // (w = 2); at q = 1 it also carries every Phi solve (w = 1). Widths
-// 1 <= w <= 5 (w = 5: the generalized-KP B at q = 3).
+// 1 <= w <= 5 (w = 5: the generalized-KP B at q = 3) through the entry
+// points repro_cr_factor_f64 / repro_cr_apply_f64, and 6 <= w <= 8 through
+// repro_cr_factor_wide_f64 / repro_cr_apply_wide_f64: the windowed
+// variance-band updates of a streaming insert or evict solve their
+// Woodbury patches at half-width 2q + 2 (insert) and 2q + 1 (evict),
+// pivoted, which at q = 2 and 3 is 6, 7 and 8. The wide entry points
+// instantiate the same templates at W = 6..8; the w <= 5 instances (and
+// their registers and bits) are untouched. They only have to be right: at
+// W = 8 a block's solve holds several 8 x 8 blocks per thread and spills.
 //
 // What bounds it on the H100: not bytes (one pass over a band and its
 // right-hand sides is ~0.03 ms at the path's shapes) but the log-depth
@@ -51,6 +59,7 @@ namespace {
 
 constexpr int NT = 256;  // threads per block (a power of two: logdet tree)
 constexpr int MAX_W = 5;
+constexpr int MAX_WIDE_W = 8;
 
 template <int W, bool PIVOT>
 __global__ void __launch_bounds__(NT)
@@ -138,6 +147,20 @@ extern "C" int repro_cr_factor_f64(const double* band, double* fac,
   }
 }
 
+// The wide instantiation of repro_cr_factor_f64: 6 <= w <= 8.
+extern "C" int repro_cr_factor_wide_f64(const double* band, double* fac,
+                                        double* ld, int G, int npad, int w,
+                                        int pivot, void* stream) {
+  if (G < 1 || npad < 1 || w <= MAX_W || w > MAX_WIDE_W || npad % w)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (w) {
+    case 6: return (int)launch_factor<6>(band, fac, ld, G, npad, pivot, st);
+    case 7: return (int)launch_factor<7>(band, fac, ld, G, npad, pivot, st);
+    default: return (int)launch_factor<8>(band, fac, ld, G, npad, pivot, st);
+  }
+}
+
 // Columns per item that an apply launch with cpc = 0 takes (negative:
 // -error).
 extern "C" int repro_cr_apply_cols(int G, int B) {
@@ -172,5 +195,30 @@ extern "C" int repro_cr_apply_f64(const double* fac, double* x, int G,
     case 3: return (int)launch_apply<3>(fac, x, items, npad, B, cpc, chunks, pivot, st);
     case 4: return (int)launch_apply<4>(fac, x, items, npad, B, cpc, chunks, pivot, st);
     default: return (int)launch_apply<5>(fac, x, items, npad, B, cpc, chunks, pivot, st);
+  }
+}
+
+// The wide instantiation of repro_cr_apply_f64: 6 <= w <= 8.
+extern "C" int repro_cr_apply_wide_f64(const double* fac, double* x, int G,
+                                       int npad, int w, int B, int cpc,
+                                       int pivot, void* stream) {
+  if (G < 1 || npad < 1 || w <= MAX_W || w > MAX_WIDE_W || npad % w ||
+      B < 1 || cpc < 0)
+    return (int)cudaErrorInvalidValue;
+  if (cpc == 0) {
+    int sms = 0;
+    const int err = sm_count(&sms);
+    if (err) return err;
+    cpc = apply_cols(G, B, sms);
+  }
+  if (cpc > B) cpc = B;
+  const int chunks = (B + cpc - 1) / cpc;
+  if ((long long)G * chunks > INT_MAX) return (int)cudaErrorInvalidValue;
+  const int items = G * chunks;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (w) {
+    case 6: return (int)launch_apply<6>(fac, x, items, npad, B, cpc, chunks, pivot, st);
+    case 7: return (int)launch_apply<7>(fac, x, items, npad, B, cpc, chunks, pivot, st);
+    default: return (int)launch_apply<8>(fac, x, items, npad, B, cpc, chunks, pivot, st);
   }
 }

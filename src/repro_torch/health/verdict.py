@@ -11,7 +11,8 @@ import dataclasses
 import torch
 
 __all__ = ["OK", "STALLED", "DIVERGED", "NONFINITE", "VERDICT_NAMES",
-           "STALL_RTOL", "HealthState", "classify_solve", "verdict_name"]
+           "STALL_RTOL", "DRIFT_TOL", "RESYNC_EVERY", "HealthState",
+           "classify_solve", "verdict_name"]
 
 OK = 0  # converged (or tol-exited) with a finite, small residual
 STALLED = 1  # exited at the iteration cap with the residual still large
@@ -24,11 +25,20 @@ VERDICT_NAMES = ("OK", "STALLED", "DIVERGED", "NONFINITE")
 # exits at its iteration cap (the reference's value and rationale)
 STALL_RTOL = 1e-3
 
+# Gband drift sentinel (the reference's policy): resync the variance band
+# exactly once the accumulated truncation estimate of the windowed updates
+# (``core.gband_update._drift_estimate``) crosses DRIFT_TOL, or after
+# RESYNC_EVERY windowed mutations whatever the estimate
+DRIFT_TOL = 1e-10
+RESYNC_EVERY = 4096
+
 
 @dataclasses.dataclass(frozen=True)
 class HealthState:
-    """Per-GP health scalars: latest solve verdict, residual and RHS norms,
-    and the Gband drift accumulators (unused until streaming is ported)."""
+    """Per-GP health scalars (0-d tensors on the GP's device): the latest
+    solve's verdict, residual and RHS norms, and the Gband drift sentinel's
+    accumulated truncation estimate and mutation count since the last
+    exact resync."""
 
     verdict: torch.Tensor  # int32
     resid: torch.Tensor
@@ -48,6 +58,17 @@ class HealthState:
             self, verdict=info.verdict.to(torch.int32),
             resid=info.resid.to(self.resid.dtype),
             rhs=info.rhs.to(self.rhs.dtype))
+
+    def with_drift(self, drift_est) -> "HealthState":
+        """Accumulate one mutation's truncation estimate."""
+        return dataclasses.replace(
+            self, drift=self.drift + drift_est.to(self.drift.dtype),
+            muts=self.muts + 1)
+
+    def after_resync(self) -> "HealthState":
+        """Zero the sentinel accumulators after an exact resync."""
+        return dataclasses.replace(self, drift=torch.zeros_like(self.drift),
+                                   muts=torch.zeros_like(self.muts))
 
 
 def classify_solve(x, resid, rhs, at_cap, stall_rtol: float = STALL_RTOL):

@@ -37,14 +37,15 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the backfitting kernels' wide instantiations (half-width 4, q = 3) count
-# apart, under the name + "_w4"
+# apart, under the name + "_w4"; the block CR's (half-width 6-8, the
+# streaming Woodbury patch solves at q = 2, 3) under the name + "_wide"
 KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
            "banded_matvec", "cr_apply", "fused_jacobi_iter",
            "fused_gauss_seidel_iter", "mega_jacobi", "mega_gauss_seidel",
            "fused_pcg_iter", "kp_gram", "cr_factor", "mega_pcg_w4",
            "fused_pcg_iter_w4", "fused_jacobi_iter_w4",
            "fused_gauss_seidel_iter_w4", "mega_jacobi_w4",
-           "mega_gauss_seidel_w4")
+           "mega_gauss_seidel_w4", "cr_factor_wide", "cr_apply_wide")
 
 _c_int, _c_ll, _c_dbl, _ptr = (ctypes.c_int, ctypes.c_longlong,
                                 ctypes.c_double, ctypes.c_void_p)
@@ -74,6 +75,8 @@ _SIGNATURES = {
     "repro_cr_factor_f64": (_c_int, [_ptr] * 3 + [_c_int] * 4 + [_ptr]),
     "repro_cr_apply_cols": (_c_int, [_c_int] * 2),
     "repro_cr_apply_f64": (_c_int, [_ptr] * 2 + [_c_int] * 6 + [_ptr]),
+    "repro_cr_factor_wide_f64": (_c_int, [_ptr] * 3 + [_c_int] * 4 + [_ptr]),
+    "repro_cr_apply_wide_f64": (_c_int, [_ptr] * 2 + [_c_int] * 6 + [_ptr]),
     "repro_kp_gram_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int]
                           + [_c_dbl] * 5 + [_ptr]),
     "repro_error_string": (ctypes.c_char_p, [_c_int]),

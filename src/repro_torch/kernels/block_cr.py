@@ -41,9 +41,13 @@ from .ops import resolve_backend
 __all__ = ["cr_solve_values", "block_cr", "block_cr_plain", "block_cr_solve",
            "block_cr_logdet", "block_cr_factor", "block_cr_factor_plain",
            "block_cr_apply", "block_cr_apply_plain", "block_cr_apply_cols",
-           "cr_factor_size", "pad_band", "MAX_W"]
+           "cr_factor_size", "pad_band", "MAX_W", "MAX_WIDE_W"]
 
-MAX_W = 5  # 1 <= w <= 5 (csrc/block_cr.cu's factor and apply instances)
+MAX_W = 5  # 1 <= w <= 5: csrc/block_cr.cu's factor and apply instances
+# 6 <= w <= 8: its wide instances (the streaming Woodbury patch solves at
+# q = 2 and 3), launched and counted apart as "cr_factor_wide" /
+# "cr_apply_wide"
+MAX_WIDE_W = 8
 
 
 def _nbr(x, d):
@@ -254,8 +258,8 @@ def cr_factor_size(nb: int, w: int) -> int:
 
 
 def _check_factor_band(band, w):
-    if not 1 <= w <= MAX_W:
-        raise ValueError(f"the block-CR factor takes 1 <= w <= {MAX_W}")
+    if not 1 <= w <= MAX_WIDE_W:
+        raise ValueError(f"the block-CR factor takes 1 <= w <= {MAX_WIDE_W}")
     if band.shape[1] % w:
         raise ValueError(f"the block-CR factor takes n a multiple of w: "
                          f"n={band.shape[1]}, w={w}")
@@ -346,12 +350,13 @@ def block_cr_factor(band, w: int, pivot: bool = False, logdet: bool = False,
                       device=dev)
     ld = torch.empty((G,), dtype=torch.float64, device=dev) if logdet else None
     lib = _build.load_library()
-    err = lib.repro_cr_factor_f64(band.data_ptr(), fac.data_ptr(),
-                                  None if ld is None else ld.data_ptr(), G,
-                                  nb * w, w, int(pivot),
-                                  _build.stream_handle(dev))
-    _build.check(err, "cr_factor")
-    _build.count_launch("cr_factor")
+    name = "cr_factor" if w <= MAX_W else "cr_factor_wide"
+    err = getattr(lib, f"repro_{name}_f64")(
+        band.data_ptr(), fac.data_ptr(),
+        None if ld is None else ld.data_ptr(), G, nb * w, w, int(pivot),
+        _build.stream_handle(dev))
+    _build.check(err, name)
+    _build.count_launch(name)
     return (fac, ld) if logdet else fac
 
 
@@ -374,8 +379,8 @@ def block_cr_apply(factor, rhs, w: int, pivot: bool = False,
     the result does not depend on ``cols``."""
     if resolve_backend(backend, rhs.device) == "plain":
         return block_cr_apply_plain(factor, rhs, w, pivot=pivot)
-    if not 1 <= w <= MAX_W:
-        raise ValueError(f"the block-CR apply takes 1 <= w <= {MAX_W}")
+    if not 1 <= w <= MAX_WIDE_W:
+        raise ValueError(f"the block-CR apply takes 1 <= w <= {MAX_WIDE_W}")
     G, npad, B = rhs.shape
     if npad % w:
         raise ValueError(f"the block-CR apply takes n a multiple of w: "
@@ -388,9 +393,10 @@ def block_cr_apply(factor, rhs, w: int, pivot: bool = False,
     _build.expect(rhs, "rhs", torch.float64, (G, npad, B), dev)
     x = rhs.clone()
     lib = _build.load_library()
-    err = lib.repro_cr_apply_f64(factor.data_ptr(), x.data_ptr(), G, npad, w,
-                                 B, cols or 0, int(pivot),
-                                 _build.stream_handle(dev))
-    _build.check(err, "cr_apply")
-    _build.count_launch("cr_apply")
+    name = "cr_apply" if w <= MAX_W else "cr_apply_wide"
+    err = getattr(lib, f"repro_{name}_f64")(
+        factor.data_ptr(), x.data_ptr(), G, npad, w, B, cols or 0,
+        int(pivot), _build.stream_handle(dev))
+    _build.check(err, name)
+    _build.count_launch(name)
     return x

@@ -29,6 +29,7 @@ import math
 
 import torch
 
+from ..masking import canonical_band, canonical_perm, mask_rows
 from . import _build
 from .block_cr import block_cr_factor, cr_factor_size, cr_solve_values
 from .ops import BandFactor, resolve_backend
@@ -626,13 +627,20 @@ class FusedSweep:
     for this pivot mode and the band's padding to whole blocks is this
     stack's ``npad``; the others are made at the first launch that needs
     them.
+
+    ``n_active`` (0-d int32 tensor, optional) is the capacity-padded active
+    length: rows in ``[n_active, n)`` get the same canonical identity tail
+    as the rows in ``[n, npad)``, and states a zero tail, so the kernels see
+    one uninterrupted decoupled tail.
     """
 
     def __init__(self, phi, saphi, sort_idx, rank_idx, sigma2, *, w_p: int,
                  w_s: int, a=None, w_a: int = 0, pivot: bool = False,
-                 backend: str | None = None, factors=(None, None)):
+                 backend: str | None = None, factors=(None, None),
+                 n_active=None):
         D, n = sort_idx.shape
         self.D, self.n = D, n
+        self.n_active = n_active
         self.w_a, self.w_p, self.w_s = w_a, w_p, w_s
         self.pivot, self.backend = pivot, backend
         self.npad = _pad_len(n, (w_p, w_s))
@@ -648,7 +656,8 @@ class FusedSweep:
         self._factors = {}
         for name, w, f in zip(("phi", "saphi"), (w_p, w_s), factors):
             if (f is not None and (f.batch, f.n, f.w, f.pivot)
-                    == ((D,), n, w, pivot) and -(-n // w) * w == self.npad):
+                    == ((D,), n, w, pivot) and -(-n // w) * w == self.npad
+                    and f.n_active is n_active):
                 self._factors[name] = BandFactor(f.data, (D,), self.npad, w,
                                                  pivot)
 
@@ -656,19 +665,21 @@ class FusedSweep:
         out = torch.zeros((self.D, self.npad, 2 * w + 1), dtype=self.dtype,
                           device=self.device)
         out[:, :, w] = 1.0
-        out[:, :self.n] = data.to(self.dtype)
+        out[:, :self.n] = canonical_band(data, w, w,
+                                         self.n_active).to(self.dtype)
         return out
 
     def _pad_idx(self, idx):
         tail = torch.arange(self.n, self.npad, dtype=torch.int32,
                             device=self.device).expand(self.D, -1)
+        idx = canonical_perm(idx, self.n_active)
         return torch.cat([idx.to(torch.int32), tail], dim=1).contiguous()
 
     def pad_state(self, u):
         """(D, n, B) -> (D, npad, B) with a zero tail."""
         out = torch.zeros((self.D, self.npad) + tuple(u.shape[2:]),
                           dtype=self.dtype, device=self.device)
-        out[:, :self.n] = u.to(self.dtype)
+        out[:, :self.n] = mask_rows(u, self.n_active, axis=1).to(self.dtype)
         return out
 
     def unpad(self, u):

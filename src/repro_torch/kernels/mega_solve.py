@@ -63,7 +63,7 @@ def mega_pcg_plain(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
     (x, r, _, _), i = pcg_loop(
         lambda *st: fused_pcg_iter_plain(*ops, *st, **kw), state,
         iters=iters, tol=tol)
-    return x, r, torch.tensor(i, dtype=torch.int32, device=v.device)
+    return x, r, torch.full((), i, dtype=torch.int32, device=v.device)
 
 
 def mega_pcg_solve(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
@@ -204,7 +204,7 @@ class MegaSolve:
             (x, r, _, _), i = pcg_loop(fs.pcg_iter, fs.pcg_seed(v, x0),
                                        iters=iters, tol=tol)
             return (fs.unpad(x), fs.unpad(r),
-                    torch.tensor(i, dtype=torch.int32, device=v.device))
+                    torch.full((), i, dtype=torch.int32, device=v.device))
         return self._solve(lambda v_p, x0_p: mega_pcg_solve(
             fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v_p,
             x0_p, w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s, iters=iters, tol=tol,

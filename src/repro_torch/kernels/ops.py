@@ -29,12 +29,20 @@ whole-solve kernels ("whole") need symmetric bands of half-width at most
 the kernels' ``MAX_WIDTH`` (4, so every q), block CR and the block
 preconditioner; "off" runs the unfused host loops. ``kp_gram`` assembles the Kernel Packet
 Gram band (Algorithm 2) without forming K.
+
+Capacity padding: every op takes ``n_active`` (a 0-d int32 tensor on the
+operands' device, or None when fully active). As the reference's wrappers
+do, the band is canonicalized (identity tail) and the right-hand side
+masked (zero tail) *before* the launch, so the kernels see a decoupled
+identity tail and take no new argument.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+from ..masking import canonical_band, mask_rows
 
 __all__ = ["BACKENDS", "SOLVE_ALGS", "PRECOND_MODES", "FUSED_MODES",
            "KMG_AUTO_MIN_N", "resolve_backend", "resolve_solve_alg",
@@ -163,12 +171,16 @@ def _no_lu_pivot(pivot: bool, lo: int, hi: int):
             "which is not ported (ROADMAP Queue 1, pivoted solves)")
 
 
-def banded_matvec(band, x, lo: int, hi: int, backend: str | None = None):
+def banded_matvec(band, x, lo: int, hi: int, backend: str | None = None,
+                  n_active=None):
     """y = M x. band (..., n, lo+hi+1); x (..., n) or (..., n, k)."""
     from .banded_matvec import banded_matvec as matvec_kernel
 
     n = band.shape[-2]
     mat_form = x.ndim >= 2 and x.shape[-2] == n and x.ndim == band.ndim
+    if n_active is not None:
+        band = canonical_band(band, lo, hi, n_active)
+        x = mask_rows(x, n_active, axis=-2 if mat_form else -1)
     xb = x if mat_form else x[..., None]
     batch, (bf, xf) = _flatten_batch((band, xb), (2, 2))
     out = matvec_kernel(bf, xf, lo, hi, backend=backend)
@@ -177,7 +189,8 @@ def banded_matvec(band, x, lo: int, hi: int, backend: str | None = None):
 
 
 def banded_solve(band, rhs, lo: int, hi: int, pivot: bool = False,
-                 backend: str | None = None, alg: str | None = None):
+                 backend: str | None = None, alg: str | None = None,
+                 n_active=None):
     """Solve M x = rhs. band (..., n, w); rhs (..., n) or (..., n, k)."""
     from .banded_lu import banded_lu
     from .block_cr import block_cr_solve
@@ -187,6 +200,9 @@ def banded_solve(band, rhs, lo: int, hi: int, pivot: bool = False,
         _no_lu_pivot(pivot, lo, hi)
     n = band.shape[-2]
     vec_in = rhs.shape[-1] == n and rhs.ndim == band.ndim - 1
+    if n_active is not None:
+        band = canonical_band(band, lo, hi, n_active)
+        rhs = mask_rows(rhs, n_active, axis=-1 if vec_in else -2)
     rb = rhs[..., None] if vec_in else rhs
     batch, (bf, rf) = _flatten_batch((band, rb), (2, 2))
     if use_cr:
@@ -198,11 +214,14 @@ def banded_solve(band, rhs, lo: int, hi: int, pivot: bool = False,
 
 
 def banded_logdet(band, lo: int, hi: int, pivot: bool = False,
-                  backend: str | None = None, alg: str | None = None):
-    """log |det M|, batched over the leading dims of band."""
+                  backend: str | None = None, alg: str | None = None,
+                  n_active=None):
+    """log |det M|, batched over the leading dims of band; a canonical
+    padding tail adds exactly log|I| = 0."""
     from .banded_lu import banded_lu
     from .block_cr import block_cr_logdet
 
+    band = canonical_band(band, lo, hi, n_active)
     use_cr = resolve_solve_alg(alg, lo, hi) == "cr"
     if not use_cr:
         _no_lu_pivot(pivot, lo, hi)
@@ -219,28 +238,35 @@ class BandFactor:
     """The block-CR factor of a stack of symmetric bands (``kernels.block_cr``
     layout, of the bands identity-padded to whole w x w blocks): ``data``
     (G, cr_factor_size(nb, w)) over the flattened ``batch``, the bands' n,
-    half-width w and the pivot mode it was made for."""
+    half-width w and the pivot mode it was made for; ``n_active`` the
+    padded bands' active count (their canonical form was factored), by
+    which :func:`factor_solve` masks the right-hand side."""
 
     data: torch.Tensor
     batch: tuple
     n: int
     w: int
     pivot: bool
+    n_active: torch.Tensor | None = None
 
 
 def banded_factor(band, lo: int, hi: int, pivot: bool = False,
-                  backend: str | None = None, alg: str | None = None):
-    """The block-CR factor of band (..., n, lo+hi+1) where the solve route
-    is "cr" (lo == hi >= 1, ``alg`` permitting), else None: a diagonal band
-    divides and the LU route keeps no factor."""
+                  backend: str | None = None, alg: str | None = None,
+                  n_active=None):
+    """The block-CR factor of band (..., n, lo+hi+1) (canonicalized by
+    ``n_active``) where the solve route is "cr" (lo == hi >= 1, ``alg``
+    permitting), else None: a diagonal band divides and the LU route keeps
+    no factor."""
     from .block_cr import block_cr_factor, pad_band
 
     if resolve_solve_alg(alg, lo, hi) != "cr":
         return None
+    band = canonical_band(band, lo, hi, n_active)
     batch, (bf,) = _flatten_batch((band,), (2,))
     data = block_cr_factor(pad_band(bf, lo), lo, pivot=pivot,
                            backend=backend)
-    return BandFactor(data, tuple(batch), band.shape[-2], lo, pivot)
+    return BandFactor(data, tuple(batch), band.shape[-2], lo, pivot,
+                      n_active)
 
 
 def factor_solve(factor: BandFactor, rhs, backend: str | None = None):
@@ -252,6 +278,7 @@ def factor_solve(factor: BandFactor, rhs, backend: str | None = None):
     n = factor.n
     vec_in = rhs.ndim == len(factor.batch) + 1 and rhs.shape[-1] == n
     rb = rhs[..., None] if vec_in else rhs
+    rb = mask_rows(rb, factor.n_active, axis=-2)
     rf = rb.expand(factor.batch + rb.shape[-2:]).reshape(
         (-1,) + rb.shape[-2:]).contiguous()
     npad = -(-n // factor.w) * factor.w
@@ -262,12 +289,15 @@ def factor_solve(factor: BandFactor, rhs, backend: str | None = None):
 
 
 def band_band_matmul(a_band, b_band, a_lo: int, a_hi: int, b_lo: int,
-                     b_hi: int, backend: str | None = None):
+                     b_hi: int, backend: str | None = None, n_active=None):
     """C = A @ B in band form; returns band data (..., n, wa + wb - 1),
-    masked to in-range entries."""
+    masked to in-range entries. Canonical padded operands multiply to
+    ``blockdiag(C_active, I)``."""
     from ..core.banded import _band_mask
     from .band_matmul import band_matmul
 
+    a_band = canonical_band(a_band, a_lo, a_hi, n_active)
+    b_band = canonical_band(b_band, b_lo, b_hi, n_active)
     batch, (af, bf) = _flatten_batch((a_band, b_band), (2, 2))
     out = band_matmul(af, bf, a_lo, a_hi, b_lo, b_hi, backend=backend)
     out = out.reshape(batch + out.shape[-2:])

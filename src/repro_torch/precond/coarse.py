@@ -1,7 +1,7 @@
 """Coarse levels of the kernel-multigrid (KMG) preconditioner.
 
 Counterpart of ``repro.precond.coarse`` (Kernel Multigrid, arXiv
-2403.13300), unpadded form only (no capacity padding). Each coarse level is
+2403.13300). Each coarse level is
 a sparse-GP view of the fine additive system: a strided subset of the
 original points is the inducing set, and its prior is the smaller banded KP
 system that ``core.kernel_packets.kp_factors`` builds at the subsampled
@@ -21,6 +21,14 @@ coordinates. A :class:`CoarseLevel` carries
     no atomics, the same bits on every run;
   * ``EG``, the SPD-safe inverse Gram of the rank-D per-dimension-constant
     deflation basis under the mixed coarse operator.
+
+Capacity padding: on a padded fine system (``fine_ops.n_active``) a level
+has the static size ``nc = coarse_capacity(capacity, stride)`` and the
+active count ``nc_active = ceil(n_active / stride)`` (a 0-d tensor): the
+strided subset of an active prefix is again a prefix. Its tail coordinates
+are filled strictly increasing above the active ones, so its sort is the
+canonical layout, its factors are canonical bands, and the prolongation
+weights of fine tail rows are zero.
 """
 from __future__ import annotations
 
@@ -28,10 +36,11 @@ import dataclasses
 
 import torch
 
+from ..core import matern as mk
 from ..core.backfitting import DimOps
-from ..core.banded import add, scale
-from ..core.kernel_packets import kp_factors
-from ..masking import tree_sum
+from ..core.banded import Banded, add, scale
+from ..core.kernel_packets import gram_band_rows, kp_coefficient_rows, kp_factors
+from ..masking import mask_rows, tree_sum
 
 __all__ = ["CoarseLevel", "build_hierarchy", "coarse_capacity",
            "interp_order"]
@@ -78,12 +87,26 @@ class CoarseLevel:
         return self.ops.n
 
 
-def _coarse_sorted(Xc_t):
+def _coarse_sorted(Xc_t, nc_active=None):
     """Per-dim stable sort of the coarse subset's coordinates (D, nc), with
-    the fit's span-relative bump on exact ties."""
-    hi = Xc_t.amax(dim=1, keepdim=True)
-    lo = Xc_t.amin(dim=1, keepdim=True)
+    the fit's span-relative bump on exact ties. Under capacity padding the
+    slots ``>= nc_active`` (which may hold anything) are first overwritten
+    by a strictly increasing sequence above every active value, so the sort
+    puts the active coordinates first and keeps an identity tail."""
+    if nc_active is None:
+        hi = Xc_t.amax(dim=1, keepdim=True)
+        lo = Xc_t.amin(dim=1, keepdim=True)
+    else:
+        j = torch.arange(Xc_t.shape[1], device=Xc_t.device)
+        act = j < nc_active
+        inf = torch.full((), float("inf"), dtype=Xc_t.dtype,
+                         device=Xc_t.device)
+        hi = torch.where(act, Xc_t, -inf).amax(dim=1, keepdim=True)
+        lo = torch.where(act, Xc_t, inf).amin(dim=1, keepdim=True)
     span = hi - lo + 1.0
+    if nc_active is not None:
+        fill = hi + span * (j - nc_active + 1).to(Xc_t.dtype)
+        Xc_t = torch.where(act, Xc_t, fill)
     sort_idx = torch.argsort(Xc_t, dim=1, stable=True)
     xs_c = torch.gather(Xc_t, 1, sort_idx)
     rank_idx = torch.argsort(sort_idx, dim=1, stable=True)
@@ -94,15 +117,18 @@ def _coarse_sorted(Xc_t):
     return xs_c, sort_idx, rank_idx
 
 
-def _interp_maps(xs_f, xs_c, npts: int):
+def _interp_maps(xs_f, xs_c, npts: int, nc_active=None, n_active=None):
     """Window starts (D, n) and Lagrange weights (D, n, npts), coarse sorted
-    -> fine sorted; windows clamped inside [0, nc - npts]."""
+    -> fine sorted; windows clamped inside [0, nc_active - npts]. Under
+    capacity padding the weights of fine rows ``>= n_active`` are zero."""
     D, n = xs_f.shape
     nc = xs_c.shape[1]
     dev = xs_f.device
     j = torch.searchsorted(xs_c.contiguous(), xs_f.contiguous(),
                            right=True) - 1
-    j0 = (j - (npts // 2 - 1)).clamp(0, max(nc - npts, 0))
+    j0 = j - (npts // 2 - 1)
+    j0 = (j0.clamp(0, max(nc - npts, 0)) if nc_active is None else
+          torch.minimum(j0.clamp(min=0), (nc_active - npts).clamp(min=0)))
     win = (j0[:, :, None] + torch.arange(npts, device=dev)).clamp(0, nc - 1)
     pts = torch.gather(xs_c, 1, win.reshape(D, -1)).reshape(D, n, npts)
     # W[i, a] = prod_{b != a} (xf_i - p_b) / (p_a - p_b)
@@ -112,32 +138,43 @@ def _interp_maps(xs_f, xs_c, npts: int):
     denom = torch.where(eye, one, pd).prod(dim=-1)
     xd = xs_f[..., None] - pts
     numer = torch.where(eye, one, xd[..., None, :]).prod(dim=-1)
-    return j0, numer / denom
+    W = numer / denom
+    if n_active is not None:
+        W = torch.where((torch.arange(n, device=dev) < n_active)[:, None],
+                        W, torch.zeros((), dtype=W.dtype, device=dev))
+    return j0, W
 
 
-def _restrict_map(j0, W, nc: int):
+def _restrict_map(j0, W, nc: int, n_active=None):
     """The transposed windows: for each coarse sorted row, its (fine sorted
     row, weight) pairs in the reference scatter-add's order (slot a outer,
-    fine row i inner), padded with weight 0 to the largest count K."""
+    fine row i inner), padded with weight 0 to the largest count K. Under
+    capacity padding the fine rows ``>= n_active`` (zero weights) are left
+    out: they go to a sink row ``nc`` that is dropped, so a coarse row's
+    pairs and K are the unpadded system's. K is read back to the host (one
+    sync per level)."""
     D, n, npts = W.shape
     dev = W.device
     win = (j0[:, :, None] + torch.arange(npts, device=dev)).clamp(0, nc - 1)
     tgt = win.permute(0, 2, 1).reshape(D, npts * n)  # position a * n + i
+    if n_active is not None:
+        fine = torch.arange(n, device=dev).repeat(npts)
+        tgt = torch.where(fine < n_active, tgt, nc)
     order = torch.argsort(tgt, dim=1, stable=True)
     tgt_s = torch.gather(tgt, 1, order)
-    counts = torch.zeros((D, nc), dtype=torch.long, device=dev)
+    counts = torch.zeros((D, nc + 1), dtype=torch.long, device=dev)
     counts.scatter_add_(1, tgt, torch.ones_like(tgt))
-    K = int(counts.max())
+    K = max(int(counts[:, :nc].max()), 1)
     start = torch.cumsum(counts, dim=1) - counts
     slot = (torch.arange(npts * n, device=dev)[None, :]
-            - torch.gather(start, 1, tgt_s))
+            - torch.gather(start, 1, tgt_s)).clamp(max=K - 1)
     src_i, src_a = order % n, order // n
     d_i = torch.arange(D, device=dev)[:, None].expand_as(order)
-    r_idx = torch.zeros((D, nc, K), dtype=torch.long, device=dev)
-    r_w = torch.zeros((D, nc, K), dtype=W.dtype, device=dev)
+    r_idx = torch.zeros((D, nc + 1, K), dtype=torch.long, device=dev)
+    r_w = torch.zeros((D, nc + 1, K), dtype=W.dtype, device=dev)
     r_idx[d_i, tgt_s, slot] = src_i
     r_w[d_i, tgt_s, slot] = W[d_i, src_i, src_a]
-    return r_idx, r_w
+    return r_idx[:, :nc].contiguous(), r_w[:, :nc].contiguous()
 
 
 def _deflation_gram(level: CoarseLevel, fine_ops: DimOps):
@@ -151,7 +188,8 @@ def _deflation_gram(level: CoarseLevel, fine_ops: DimOps):
 
     D, nc = level.ops.D, level.ops.n
     dt, dev = level.W.dtype, level.W.device
-    E = torch.eye(D, dtype=dt, device=dev)[:, None, :].expand(D, nc, D)
+    E = mask_rows(torch.eye(D, dtype=dt, device=dev)[:, None, :].expand(
+        D, nc, D), level.ops.n_active, axis=1)
     EME = tree_sum(coarse_matvec(level, fine_ops, E.contiguous()), axis=1)
     EME = 0.5 * (EME + EME.T)
     lam, V = torch.linalg.eigh(EME)
@@ -160,23 +198,42 @@ def _deflation_gram(level: CoarseLevel, fine_ops: DimOps):
     return (V / lam[None, :]) @ V.T
 
 
+def _padded_factors(q: int, omega, xs_c, nc_active):
+    """Canonical KP factors (A, Phi) of the active prefix of a padded coarse
+    level: the rows of ``kp_factors``, with validity bounded by
+    ``nc_active``."""
+    rows = torch.arange(xs_c.shape[1], device=xs_c.device)
+    a = kp_coefficient_rows(q, omega, xs_c, rows, n_active=nc_active)
+    om = omega[:, None, None, None]
+    phi = gram_band_rows(lambda x, y: mk.matern(q, om, x, y), xs_c, a, rows,
+                         q + 1, q + 1, q, n_active=nc_active)
+    return (Banded(a, q + 1, q + 1, nc_active).canonical(),
+            Banded(phi, q, q, nc_active).canonical())
+
+
 def _build_level(q: int, omega, sigma2, X, xs_f, fine_ops: DimOps,
                  stride: int) -> CoarseLevel:
     """One coarse level at ``stride`` (relative to the fine level)."""
     n, D = X.shape
     nc = coarse_capacity(n, stride)
+    na_f = fine_ops.n_active
+    nc_active = None if na_f is None else (na_f + stride - 1) // stride
     # the strided original-index subset, shared across dimensions
     Ic = torch.arange(nc, device=X.device) * stride
-    xs_c, sort_idx, rank_idx = _coarse_sorted(X[Ic].T.contiguous())
-    A, Phi = kp_factors(q, omega, xs_c)
+    xs_c, sort_idx, rank_idx = _coarse_sorted(X[Ic].T.contiguous(),
+                                              nc_active)
+    if nc_active is None:
+        A, Phi = kp_factors(q, omega, xs_c)
+    else:
+        A, Phi = _padded_factors(q, omega, xs_c, nc_active)
     sigma2_b = 3.0 * sigma2 / (2.0 * stride)
     SAPhi = add(scale(A, sigma2_b), Phi)
     ops_c = DimOps(A=A, Phi=Phi, SAPhi=SAPhi, sort_idx=sort_idx,
                    rank_idx=rank_idx, sigma2=sigma2_b, pivot=fine_ops.pivot,
-                   alg=fine_ops.alg)
+                   alg=fine_ops.alg, n_active=nc_active)
     npts = interp_order(q) + 1
-    j0, W = _interp_maps(xs_f, xs_c, npts)
-    r_idx, r_w = _restrict_map(j0, W, nc)
+    j0, W = _interp_maps(xs_f, xs_c, npts, nc_active, na_f)
+    r_idx, r_w = _restrict_map(j0, W, nc, na_f)
     level = CoarseLevel(ops=ops_c, j0=j0, W=W,
                         EG=torch.eye(D, dtype=W.dtype, device=W.device),
                         r_idx=r_idx, r_w=r_w, stride=stride, npts=npts)
@@ -188,7 +245,8 @@ def build_hierarchy(q: int, omega, sigma2, X, xs_f, fine_ops: DimOps, *,
     """The coarse hierarchy of a fitted fine system: level l subsamples the
     original points at stride ``coarsen**l`` and maps directly to the fine
     grid. ``levels`` counts the fine level (2 = one coarse grid); levels
-    smaller than one interpolation window are dropped."""
+    whose static size is smaller than one interpolation window are dropped.
+    Any input may be capacity-padded (``fine_ops.n_active``)."""
     if levels < 2:
         return ()
     out = []

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..core.backfitting import DimOps, mhat_matvec
-from ..masking import tree_sum
+from ..masking import mask_rows, tree_sum
 from .coarse import CoarseLevel
 
 __all__ = ["prolong", "restrict", "coarse_matvec", "coarse_solve",
@@ -85,7 +85,8 @@ def _deflate(level: CoarseLevel, fine_ops: DimOps, x, b, pivot=False,
     r = b - coarse_matvec(level, fine_ops, x, pivot=pivot, backend=backend,
                           alg=alg)
     y = level.EG @ tree_sum(r, axis=1)  # (D, B)
-    return x + y[:, None, :]
+    return x + mask_rows(y[:, None, :].expand(x.shape), level.ops.n_active,
+                         axis=1)
 
 
 def coarse_solve(level: CoarseLevel, fine_ops: DimOps, b, *, smooth: int = 1,
@@ -97,7 +98,8 @@ def coarse_solve(level: CoarseLevel, fine_ops: DimOps, b, *, smooth: int = 1,
     D = level.ops.D
     kw = dict(pivot=pivot, backend=backend, alg=alg)
     # entry deflation at x = 0: M_c 0 = 0 exactly, so it reads b directly
-    x = (level.EG @ tree_sum(b, axis=1))[:, None, :].expand(b.shape)
+    x = mask_rows((level.EG @ tree_sum(b, axis=1))[:, None, :].expand(
+        b.shape), level.ops.n_active, axis=1)
     for _ in range(smooth):
         r = b - coarse_matvec(level, fine_ops, x, **kw)
         x = x + level.ops.block_solve(r, **kw) / D

@@ -1091,3 +1091,73 @@ def test_pcg_on_gp_card_matches_cpu(dev):
     assert g.config.fused == "on"
     assert _rel(posterior_mean(g, Xq), posterior_mean(c, Xq, device="cpu")) < 1e-7
     assert _rel(posterior_var(g, Xq), posterior_var(c, Xq, device="cpu")) < 1e-7
+
+
+def test_wide_block_cr_kernels(dev):
+    """The wide instantiations (w = 6, 7, 8: the streaming Woodbury patch
+    solves at q = 2, 3) against block_cr_plain, pivoted and not, launched
+    under their own names; w = 5 still takes the narrow kernels."""
+    rng = np.random.default_rng(23)
+    for w in (5, 6, 7, 8):
+        for n in (8, 301):
+            for pivot in (False, True):
+                bd = torch.as_tensor(band(rng, 3, n, w, w), device=dev)
+                rhs = torch.as_tensor(rng.standard_normal((3, n, 5)),
+                                      device=dev)
+                _build.reset_launch_counts()
+                x, ld = block_cr(bd, rhs, w, pivot=pivot)
+                c = _build.launch_counts()
+                xr, ldr = block_cr_plain(bd, rhs, w, pivot=pivot)
+                assert _rel(x, xr) < 1e-12 and _rel(ld, ldr) < 1e-12
+                wide = (c["cr_factor_wide"], c["cr_apply_wide"])
+                narrow = (c["cr_factor"], c["cr_apply"])
+                assert (wide, narrow) == (((1, 1), (0, 0)) if w > 5
+                                          else ((0, 0), (1, 1))), c
+
+
+def test_padded_stream_card_matches_cpu(dev):
+    """One insert and one evict of a capacity-padded GP on the card against
+    the CPU from the same carried state (the CPU fit's arrays rebuilt on
+    the card), at q = 0 and q = 2 (whose insert patch solve runs the w = 6
+    block CR)."""
+    from repro_torch import streaming as st
+    from repro_torch.core import gp_from_arrays
+
+    rng = np.random.default_rng(24)
+    n, D, cap = 300, 3, 512
+    # grid spacing 0.5 / omega: there the q = 2 windowed band agrees with
+    # the full recompute to ~1e-13 (at 0.1 / omega the Woodbury window
+    # solves are ill-conditioned and the reference's own windowed band
+    # parts from its full recompute by ~3e-6)
+    span = 0.5 * (n + 1) / 4.0
+    X = points(rng, n + 1, D, span=span)
+    Y = np.sin(6.0 * np.pi * X / span).sum(1) + 0.1 * rng.standard_normal(
+        n + 1)
+    Xq = rng.uniform(0, span, (20, D))
+    for q in (0, 2):
+        cfg = GPConfig(q=q, solver_iters=60, precond="none")
+        c = fit(cfg, X[:n], Y[:n], np.full(D, 4.0), 0.5, device="cpu",
+                capacity=cap)
+        bands = dict(A=c.ops.A, Phi=c.ops.Phi, SAPhi=c.ops.SAPhi, B=c.B,
+                     Psi=c.Psi, Gband=c.Gband, Hband=c.Hband)
+        arrays = {k: getattr(c, k).numpy() for k in
+                  ("X", "Y", "omega", "sigma", "xs", "bY", "u_sy")}
+        arrays.update(sort_idx=c.ops.sort_idx.numpy(),
+                      rank_idx=c.ops.rank_idx.numpy(),
+                      n_active=c.n_active.numpy())
+        for k, b in bands.items():
+            arrays[k], arrays[f"{k}_lo"], arrays[f"{k}_hi"] = (
+                b.data.numpy(), b.lo, b.hi)
+        g = gp_from_arrays(arrays, c.config, dev)
+        _build.reset_launch_counts()
+        g = st.evict(st.insert(g, X[n], Y[n], count=n), count=n + 1)
+        counts = _build.launch_counts()
+        c = st.evict(st.insert(c, X[n], Y[n], count=n), count=n + 1)
+        gaps = (_rel(posterior_mean(g, Xq), posterior_mean(c, Xq,
+                                                           device="cpu")),
+                _rel(posterior_var(g, Xq), posterior_var(c, Xq,
+                                                         device="cpu")),
+                _rel(g.Gband.data[:, :n], c.Gband.data[:, :n]))
+        assert max(gaps) < 1e-7, (q, gaps)
+        if q == 2:
+            assert counts["cr_factor_wide"] and counts["cr_apply_wide"]

@@ -5,12 +5,13 @@
   and a scan of their sources finds no such import.
 * Device rule: the entry points run on CUDA unless told ``device="cpu"``,
   and raise without a GPU; ``backend="cuda"`` on CPU tensors raises.
-* Configurations whose path is not ported raise ``NotImplementedError``
-  (also the streaming branch of ``bayes_opt_loop``); those ported since
-  (pcg with ``fused="on"``, kmg, q = 3 on CUDA, fused) resolve.
+* Configurations whose path is not ported raise ``NotImplementedError``;
+  those ported since (pcg with ``fused="on"``, kmg, q = 3 on CUDA, fused,
+  the streaming branch of ``bayes_opt_loop``) resolve or run.
 """
 from __future__ import annotations
 
+import dataclasses
 import pkgutil
 import re
 import subprocess
@@ -55,8 +56,10 @@ def test_every_module_imports_without_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
     assert len(_modules()) >= 21
     assert {"repro_torch.precond", "repro_torch.precond.coarse",
-            "repro_torch.precond.vcycle",
-            "repro_torch.kernels.kp_gram"} <= set(_modules())
+            "repro_torch.precond.vcycle", "repro_torch.kernels.kp_gram",
+            "repro_torch.core.gband_update", "repro_torch.streaming",
+            "repro_torch.streaming.updates",
+            "repro_torch.streaming.gp_engine"} <= set(_modules())
 
 
 def test_sources_name_no_jax_or_reference_import():
@@ -121,19 +124,22 @@ def _case(i, cfg, n, device, resolves_to=None):
     # at this size)
     _case(7, GPConfig(q=3, precond="none"), 20, "cuda",
           dict(fused="whole", precond="none")),
-    # bayes_opt_loop's streaming branch (the reference's default BOConfig)
-    _case(8, BOConfig(), 20, "cpu"),
-    _case(9, BOConfig(incremental=True, use_engine=False), 20, "cpu"),
-    _case(10, BOConfig(incremental=False, use_engine=True), 20, "cpu"),
+    # bayes_opt_loop's streaming branch (the reference's default BOConfig),
+    # ported since: it runs
+    _case(8, BOConfig(), 20, "cpu", {}),
+    _case(9, BOConfig(incremental=True, use_engine=False), 20, "cpu", {}),
+    _case(10, BOConfig(incremental=False, use_engine=True), 20, "cpu", {}),
 ])
 def test_unported_paths_raise(cfg, n, device, resolves_to):
     """The unported paths raise; the cases ported since resolve as the
-    reference resolves them."""
+    reference resolves them, or run."""
     if isinstance(cfg, BOConfig):
-        with pytest.raises(NotImplementedError, match="streaming"):
-            bayes_opt_loop(lambda x: float(np.sum(x)), np.array([[0., 1.]]),
-                           1, GPConfig(precond="none"), cfg,
-                           torch.Generator(), n_init=n, device=device)
+        gp, X, _, _ = bayes_opt_loop(
+            lambda x: float(np.sum(x)), np.array([[0., 1.]]), 1,
+            GPConfig(precond="none", solver_iters=8),
+            dataclasses.replace(cfg, ascent_steps=2, n_starts=4), torch.Generator(),
+            n_init=n, device=device)
+        assert X.shape == (n + 1, 1) and gp.num_points() == n + 1
         return
     if resolves_to is None:
         with pytest.raises(NotImplementedError):
