@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving, hyperparameter-learning, relaxation,
 default-configuration (kernel multigrid), per-iteration PCG, Bayesian
-optimisation, streaming and q = 3 paths on one NVIDIA GPU and check them.
+optimisation, streaming, q = 3 and fleet paths on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py
 
@@ -49,7 +50,7 @@ one process per source), then:
    default ``GPConfig(q=0)`` (precond "auto" -> kmg, 50 iterations) through
    ``fit`` -> mean(100) -> var(100) -> ``log_likelihood`` ->
    ``mll_gradients``, then a ``torch.profiler`` trace of one variance
-   chunk and the gradients (device time by kernel group, idle share);
+   chunk (device time by kernel group, idle share);
    ``benchmarks/multigrid.py``'s problem (n = 4096, 16384) against its
    recorded iteration counts; pcg with ``fused="on"`` (``fit``,
    ``posterior_var(32)``) and "on" == "whole" bit for bit; a tol-exit PCG
@@ -74,6 +75,17 @@ one process per source), then:
    mean(100) -> var(32) -> ``log_likelihood``, and Gauss-Seidel and
    Jacobi "whole" and "on" through var(32), "on" equal to "whole" bit for
    bit. Each path with every kernel's launch count over it;
+   The fleet (``core.fleet``, ``fleet_phase``): T = 64 tenants (Schwefel,
+   1500-2000 points each in capacity 2048, D = 10, q = 0, pcg "whole")
+   through ``fleet_fit``, ``fleet_posterior_mean`` / ``_var`` (32 queries
+   a tenant), ``fleet_acquisition_stats``, a masked ``fleet_insert`` and
+   ``fleet_evict`` (half the lanes) and a ``GPFleetEngine`` tick (two
+   capacity tiers x 8 slots), each beside the same work as 64 standalone
+   calls, with launches and host syncs required equal at T = 8; the
+   tenant-axis PCG launches against their plain versions and the single
+   launches they replace (``fleet_kernel_rows``); T = 4 at n = 30000,
+   each lane against its standalone GP, a T = 1 fleet equal to the single
+   GP, "on" == "whole", q = 3 tenants, card vs CPU (``fleet_lanes``).
 3. consistency at n = 4000, D = 10, the card against ``device="cpu"``
    (plain versions), all within 1e-7: on the quickstart's Schwefel data the
    q = 0 mean, variance and log-likelihood, pcg with ``fused="on"``, kmg,
@@ -95,7 +107,11 @@ one process per source), then:
    q = 0 and 1 (1e-4), and the dense local cache against the operator
    path (n = 512, D = 5, q = 1; 1e-8); streaming from one carried padded
    state (pcg 4 + 4 mutations, kmg 1 + 1; ``stream_consistency``). The
-   q = 3 card-vs-CPU checks run at n = 2000 (``N_Q3_CHECK``).
+   q = 3 and q = 2 card-vs-CPU checks run at n = 1000 and 2000
+   (``N_Q3_CHECK``, ``N_Q2_CHECK``).
+4. every single-GP output of ``scripts/single_bits.py`` bit for bit
+   against the digests of the tree before the fleet's tenant axis
+   (``single_bits_phase``).
 
 Prints the card's name and power limit, the elapsed time after each
 phase, one ``{"kernels": [...]}`` line, and last
@@ -122,9 +138,11 @@ import torch
 # plain gradient solves (D Q columns) inside the script's time
 D_PATH, N_PATH, B_PATH, N_Q1, N_CHECK = 10, 30000, 32, 4000, 4000
 Q_PATH, Q_CHECK = 16, 8
-# the q = 3 card-vs-CPU size: its fused checks' plain whole solves on the
-# CPU (~140 s at n = 4000) are cut to half to keep the script's time
-N_Q3_CHECK = 2000
+# the q = 3 and q = 2 card-vs-CPU sizes, cut so that the script ends
+# inside its 1200 s limit on a slow host: at q = 3 n = 2000 and at q = 2
+# n = 4000 these checks took 183.5 s and 108.7 s of a 1279 s run, whose
+# CPU side ran ~30% slower than in other runs of the same script
+N_Q3_CHECK, N_Q2_CHECK = 1000, 2000
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP64_FLOPS = 34e12  # H100 SXM FP64 outside the tensor cores (data sheet)
 L2_BYTES = 50e6  # H100 SXM L2 cache (NVIDIA data sheet)
@@ -144,7 +162,9 @@ def _import_port():
                                   posterior_mean, posterior_mean_grad,
                                   posterior_var)
     from repro_torch.core import bayesopt as bo
+    from repro_torch.core import fleet
     import repro_torch.core.additive_gp as agp
+    import repro_torch.kernels.fused_sweep as fsm
     from repro_torch.core.additive_gp import (_log_likelihood,
                                               _mll_gradients, _probe_block)
     from repro_torch.core.band_inverse import (_blocks_to_band, _to_blocks,
@@ -2096,6 +2116,529 @@ def stream_consistency(P, dev):
                g["card"].Gband.data[:, :k], g["cpu"].Gband.data[:, :k])
 
 
+# ---------------------------------------------------------------------------
+# the fleet: T GPs stacked on a leading tenant axis (core.fleet)
+# ---------------------------------------------------------------------------
+
+FLEET_T, FLEET_CAP, FLEET_M = 64, 2048, 32
+FLEET_KERNELS = {
+    "mega_pcg_fleet": ("src/repro_torch/csrc/mega_pcg.cu",
+                       "src/repro/kernels/mega_solve.py:268"),
+    "fused_pcg_iter_fleet": ("src/repro_torch/csrc/mega_pcg.cu",
+                             "src/repro/kernels/fused_sweep.py:363"),
+    "mega_pcg_fleet_w4": ("src/repro_torch/csrc/mega_pcg.cu",
+                          "src/repro/kernels/mega_solve.py:268"),
+    "fused_pcg_iter_fleet_w4": ("src/repro_torch/csrc/mega_pcg.cu",
+                                "src/repro/kernels/fused_sweep.py:363"),
+}
+
+
+def _fleet_data(P, T, counts, D, seed):
+    """Per-tenant Schwefel data (tenant t from seed + t), tenant t with
+    ``counts[t]`` points, and 32 queries each (T, m, D)."""
+    data = [P["sample_test_function"]("schwefel", int(c), D, seed=seed + t)
+            for t, c in enumerate(counts)]
+    bounds = data[0][3]
+    rq = np.random.default_rng(seed + 1000)
+    Xq = rq.uniform(bounds[:, 0], bounds[:, 1], (T, FLEET_M, D))
+    return [d[0] for d in data], [d[1] for d in data], Xq, bounds
+
+
+def _op(P, fn):
+    """One timed op: ``(out, record)``, the record its wall ms (ending in a
+    synchronise), launches by kernel, host syncs and peak device MiB."""
+    _build = P["_build"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, nsync, _ = _count_syncs(fn)
+    torch.cuda.synchronize()
+    return out, dict(ms=(time.perf_counter() - t0) * 1e3,
+                     launches={k: v for k, v in
+                               _build.launch_counts().items() if v},
+                     syncs=nsync,
+                     peak=torch.cuda.max_memory_allocated() / 2**20)
+
+
+def _fleet_ops(P, T, dev, D=D_PATH, seed=500):
+    """Every fleet op once at T tenants (counts 1500..2000 in capacity 2048,
+    a T = 64 serving fleet's shape): ``{op: record}`` and the fleet. The
+    fit is ``fleet_fit`` at n = 1500 for every tenant; the ops after it run
+    on the stack of the tenants' own fits (``stack_gps``), whose counts
+    differ."""
+    fl, st = P["fleet"], P["stream"]
+    cfg = P["GPConfig"]()
+    counts = np.linspace(1500, 2000, T).astype(int)
+    Xs, Ys, Xq, bounds = _fleet_data(P, T, counts, D, seed)
+    omega = 8.0 / (bounds[:, 1] - bounds[:, 0])
+    X0 = np.stack([x[:1500] for x in Xs])
+    Y0 = np.stack([y[:1500] for y in Ys])
+    rec = {}
+    fit0, rec["fleet_fit"] = _op(P, lambda: fl.fleet_fit(
+        cfg, X0, Y0, omega, 1.0, FLEET_CAP))
+    gps = [P["fit"](cfg, x, y, omega, 1.0, capacity=FLEET_CAP)
+           for x, y in zip(Xs, Ys)]
+    fleet = fl.stack_gps(gps)
+    Xqt = torch.as_tensor(Xq, device=dev)
+    _, rec["fleet_posterior_mean"] = _op(
+        P, lambda: fl.fleet_posterior_mean(fleet, Xqt))
+    _, rec["fleet_posterior_var"] = _op(
+        P, lambda: fl.fleet_posterior_var(fleet, Xqt))
+    best = torch.as_tensor([float(y.max()) for y in Ys], device=dev)
+    _, rec["fleet_acquisition_stats"] = _op(
+        P, lambda: fl.fleet_acquisition_stats(fleet, Xqt, 2.0, best,
+                                              kind="ei"))
+    rs = np.random.default_rng(seed + 2000)
+    xn = rs.uniform(bounds[:, 0], bounds[:, 1], (T, D))
+    yn = rs.standard_normal(T)
+    do = np.arange(T) % 2 == 0
+    grown, rec["fleet_insert"] = _op(P, lambda: st.fleet_insert(
+        fleet, xn, yn, do, counts=counts))
+    _, rec["fleet_evict"] = _op(P, lambda: st.fleet_evict(
+        grown, do, counts=counts + do))
+    # the engine: the tenants in two tiers (2048, 4096) x 8 slots, one
+    # acquisition query a slot, one tick
+    caps = [FLEET_CAP if t < T // 2 else 2 * FLEET_CAP for t in range(T)]
+    eng = st.GPFleetEngine(gps, bounds, batch_slots=8, capacity=caps)
+    for t in range(T):
+        for i in range(8):
+            eng.submit(t, Xq[t, i % FLEET_M], kind="acq")
+    done, rec["GPFleetEngine tick"] = _op(P, eng.step)
+    if len(done) != 8 * T or len(eng.groups) != 2:
+        raise RuntimeError(f"fleet engine: {len(done)} of {8 * T} retired, "
+                           f"{len(eng.groups)} tier groups")
+    return rec, dict(gps=gps, fleet=fleet, Xs=Xs, Ys=Ys, X0=X0, Y0=Y0,
+                     Xq=Xqt, best=best, xn=xn, yn=yn, do=do, counts=counts,
+                     bounds=bounds, omega=omega, cfg=cfg, caps=caps)
+
+
+def _standalone_ops(P, s):
+    """The same work as :func:`_fleet_ops`, one standalone single-GP call a
+    tenant: ``{op: record}``."""
+    st, cfg = P["stream"], s["cfg"]
+    gps, T = s["gps"], len(s["gps"])
+    rec = {}
+    _, rec["fleet_fit"] = _op(P, lambda: [
+        P["fit"](cfg, x, y, s["omega"], 1.0, capacity=FLEET_CAP)
+        for x, y in zip(s["X0"], s["Y0"])])
+    _, rec["fleet_posterior_mean"] = _op(P, lambda: [
+        P["posterior_mean"](g, s["Xq"][t]) for t, g in enumerate(gps)])
+    _, rec["fleet_posterior_var"] = _op(P, lambda: [
+        P["posterior_var"](g, s["Xq"][t]) for t, g in enumerate(gps)])
+    _, rec["fleet_acquisition_stats"] = _op(P, lambda: [
+        P["bo"].acquisition_stats(g, s["Xq"][t], 2.0, s["best"][t],
+                                  kind="ei") for t, g in enumerate(gps)])
+    sel = [t for t in range(T) if s["do"][t]]
+    grown, rec["fleet_insert"] = _op(P, lambda: [
+        st.insert(gps[t], s["xn"][t], s["yn"][t], count=int(s["counts"][t]))
+        for t in sel])
+    _, rec["fleet_evict"] = _op(P, lambda: [
+        st.evict(g, count=int(s["counts"][t]) + 1)
+        for g, t in zip(grown, sel)])
+    engs = [st.GPServeEngine(g, s["bounds"], batch_slots=8, capacity=c)
+            for g, c in zip(gps, s["caps"])]
+    for t, e in enumerate(engs):
+        for i in range(8):
+            e.submit(s["Xq"][t, i % FLEET_M].cpu().numpy(), kind="acq")
+    _, rec["GPFleetEngine tick"] = _op(P, lambda: [e.step() for e in engs])
+    for op, r in rec.items():
+        r["calls"] = len(sel) if op in ("fleet_insert", "fleet_evict") else T
+    return rec
+
+
+def _lane_gap(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def fleet_lanes(P, dev):
+    """The main path's shape, T = 4 tenants at n = 30000 (capacity 32768,
+    D = 10, q = 0, precond "none"): each lane against its standalone card
+    GP, the fit caches within 1e-12 (bit for bit so far), the mean at 100
+    and the variance at 32 queries within the card-vs-CPU bar 1e-7 (their
+    einsums run on cuBLAS batched GEMM, whose rounding follows the batch,
+    and the variance's terms cancel: ``scripts/lane_gap.py``); the
+    standalone GP's own gap with the same queries in a batch 2-4x as large
+    is printed beside; a T = 1 fleet against the single GP bit for bit;
+    pcg "on" against "whole" bit for bit; a q = 3 fleet on a jittered grid
+    (the MAXW = 4 tenant-axis kernels), its lanes' caches within 1e-6 of
+    standalone fits; the card against the plain CPU fleet at T = 4,
+    n = 500 (jittered grid) within 1e-7. Returns the launch counts."""
+    fl = P["fleet"]
+    _build = P["_build"]
+    total = dict.fromkeys(_build.KERNELS, 0)
+    T, n, cap, D = 4, N_PATH, 32768, D_PATH
+    cfg = P["GPConfig"](q=0, precond="none")
+    Xs, Ys, Xq, bounds = _fleet_data(P, T, [n] * T, D, 600)
+    omega = 8.0 / (bounds[:, 1] - bounds[:, 0])
+    rq = np.random.default_rng(601)
+    Xq100 = torch.as_tensor(rq.uniform(bounds[:, 0], bounds[:, 1],
+                                       (T, 100, D)), device=dev)
+    _build.reset_launch_counts()
+    fleet, t_fit = _sync_time(lambda: fl.fleet_fit(
+        cfg, np.stack(Xs), np.stack(Ys), omega, 1.0, cap))
+    mu, t_mu = _sync_time(lambda: fl.fleet_posterior_mean(fleet, Xq100))
+    var, t_var = _sync_time(lambda: fl.fleet_posterior_var(
+        fleet, Xq100[:, :B_PATH]))
+    c = _build.launch_counts()
+    for k, v in c.items():
+        total[k] += v
+    print(f"fleet T={T} n={n} (capacity {cap}) D={D}: fleet_fit "
+          f"{t_fit * 1e3:.1f} ms, mean(100) {t_mu * 1e3:.1f} ms, "
+          f"var({B_PATH}) {t_var * 1e3:.1f} ms; launches "
+          f"{ {k: v for k, v in c.items() if v} }", flush=True)
+    worst = 0.0
+    bitwise = {}
+    for t in range(T):
+        g = P["fit"](cfg, Xs[t], Ys[t], omega, 1.0, capacity=cap)
+        lane = fleet.tenant(t)
+        caches = [(lane.u_sy, g.u_sy), (lane.bY, g.bY),
+                  (lane.Gband.data, g.Gband.data)]
+        cgap = max(_lane_gap(a, b) for a, b in caches)
+        bitwise.setdefault("caches", []).append(
+            all(torch.equal(a, b) for a, b in caches))
+        m1 = P["posterior_mean"](g, Xq100[t])
+        v1 = P["posterior_var"](g, Xq100[t, :B_PATH])
+        # the standalone's own batching gap, printed beside: the same
+        # queries inside a batch 2, 3, 4 times as large (other cuBLAS
+        # batched-GEMM kernels in the query windows' einsums)
+        sm = max(_lane_gap(P["posterior_mean"](
+            g, Xq100[t].repeat(k, 1))[:100], m1) for k in (2, 3, 4))
+        sv = max(_lane_gap(P["posterior_var"](
+            g, Xq100[t, :B_PATH].repeat(k, 1))[:B_PATH], v1)
+            for k in (2, 3, 4))
+        gm, gv = _lane_gap(mu[t], m1), _lane_gap(var[t], v1)
+        bitwise.setdefault("mean", []).append(torch.equal(mu[t], m1))
+        bitwise.setdefault("var", []).append(torch.equal(var[t], v1))
+        print(f"fleet lane {t} vs its standalone card GP: caches max rel "
+              f"{cgap:.3e}, mean(100) {gm:.3e}, var({B_PATH}) {gv:.3e}; "
+              f"the standalone against itself in query batches 2-4x as "
+              f"large: mean {sm:.3e}, var {sv:.3e}", flush=True)
+        if not (cgap <= 1e-12 and gm <= 1e-7 and gv <= 1e-7):
+            raise RuntimeError(f"fleet lane {t} parts from its standalone GP")
+        worst = max(worst, cgap)
+        del g
+    print(f"fleet lanes bit for bit with their standalone GPs: "
+          f"{ {k: all(v) for k, v in bitwise.items()} }", flush=True)
+    # T = 1: the single GP's bits
+    one = fl.fleet_fit(cfg, np.stack(Xs[:1]), np.stack(Ys[:1]), omega, 1.0,
+                       cap)
+    g0 = P["fit"](cfg, Xs[0], Ys[0], omega, 1.0, capacity=cap)
+    same = (torch.equal(one.gp.u_sy[0], g0.u_sy)
+            and torch.equal(one.gp.Gband.data[0], g0.Gband.data)
+            and torch.equal(fl.fleet_posterior_mean(one, Xq100[:1])[0],
+                            P["posterior_mean"](g0, Xq100[0]))
+            and torch.equal(fl.fleet_posterior_var(
+                one, Xq100[:1, :B_PATH])[0],
+                P["posterior_var"](g0, Xq100[0, :B_PATH])))
+    print(f"fleet T=1 == single GP (caches, mean, var): bitwise {same}",
+          flush=True)
+    if not same:
+        raise RuntimeError("a one-tenant fleet differs from the single GP")
+    del fleet, one, g0
+    # pcg fused="on" (a seed and one carried launch an iteration) against
+    # "whole", bit for bit, at T = 4, n = 2000
+    won = []
+    for fused in ("whole", "on"):
+        _build.reset_launch_counts()
+        fo = fl.fleet_fit(dataclasses.replace(cfg, fused=fused),
+                          np.stack([x[:2000] for x in Xs]),
+                          np.stack([y[:2000] for y in Ys]), omega, 1.0, 2048)
+        won.append((fo.gp.u_sy, fl.fleet_posterior_var(fo, Xq100[:, :B_PATH])))
+        for k, v in _build.launch_counts().items():
+            total[k] += v
+    same_on = all(torch.equal(a, b) for a, b in zip(*won))
+    print(f"fleet pcg fused=on == whole (caches, var): bitwise {same_on}",
+          flush=True)
+    if not same_on:
+        raise RuntimeError("fleet: 'on' and 'whole' differ")
+    del won, fo
+    # q = 3 on a jittered grid: the MAXW = 4 tenant-axis kernel
+    rj = np.random.default_rng(602)
+    n3 = 2000
+    X3 = np.stack([_jittered(rj, n3, D, spacing=0.2)[0] for _ in range(T)])
+    span3 = 0.2 * n3 / 4.0
+    Y3 = np.sin(X3 * 6.0 * np.pi / span3).sum(-1) \
+        + 0.1 * rj.standard_normal((T, n3))
+    Xq3 = torch.as_tensor(rj.uniform(0.0, span3, (T, B_PATH, D)),
+                          device=dev)
+    cfg3 = P["GPConfig"](q=3, solver_iters=40, precond="none")
+    _build.reset_launch_counts()
+    f3 = fl.fleet_fit(cfg3, X3, Y3, np.full(D, 4.0), 1.0, n3)
+    v3 = fl.fleet_posterior_var(f3, Xq3)
+    f3on = fl.fleet_fit(dataclasses.replace(cfg3, fused="on"), X3, Y3,
+                        np.full(D, 4.0), 1.0, n3)
+    same3 = (torch.equal(f3on.gp.u_sy, f3.gp.u_sy)
+             and torch.equal(fl.fleet_posterior_var(f3on, Xq3), v3))
+    c3 = _build.launch_counts()
+    for k, v in c3.items():
+        total[k] += v
+    # each lane's caches against the single-GP solves of its own factors
+    # (bit for bit), and against a standalone fit within 1e-6 (Phi's
+    # einsum rounds by batch, scripts/lane_gap.py, and the q = 3 solves
+    # on this grid amplify it to ~1e-7; ROADMAP Queue 3)
+    gaps3, own3 = [], []
+    for t in range(T):
+        lane = fl.tenant_gp(f3.gp, t)
+        u1, b1 = P["agp"].mean_caches(cfg3, lane.ops, lane.Y)
+        gaps3.append(max(_lane_gap(f3.gp.u_sy[t], u1),
+                         _lane_gap(f3.gp.bY[t], b1)))
+        g = P["fit"](f3.config, X3[t], Y3[t], np.full(D, 4.0), 1.0,
+                     capacity=n3)
+        own3.append(_lane_gap(f3.gp.u_sy[t], g.u_sy))
+    print(f"fleet q=3 T={T} n={n3} (jittered grid): fused "
+          f"{f3.config.fused}, lanes' caches vs the single-GP solves of "
+          f"their own factors max rel {max(gaps3):.3e}, vs standalone fits "
+          f"{max(own3):.3e} (bar 1e-6); var finite "
+          f"{bool(torch.isfinite(v3).all())}; on == whole bitwise {same3}; "
+          f"launches { {k: v for k, v in c3.items() if v} }", flush=True)
+    if not (max(gaps3) <= 1e-12 and max(own3) <= 1e-6
+            and bool(torch.isfinite(v3).all())
+            and same3 and c3["mega_pcg_fleet_w4"] > 0
+            and c3["fused_pcg_iter_fleet_w4"] > 0):
+        raise RuntimeError("q = 3 fleet wrong, or its kernel not launched")
+    del f3, f3on
+    # card against the plain CPU fleet at T = 4, n = 500 (jittered grid)
+    nc = 500
+    Xc = np.stack([_jittered(rj, nc, D)[0] for _ in range(T)])
+    Yc = np.sin(Xc * 6.0 * np.pi / (0.1 * nc / 4.0)).sum(-1) \
+        + 0.1 * rj.standard_normal((T, nc))
+    Xqc = rj.uniform(0.0, 0.1 * nc / 4.0, (T, B_PATH, D))
+    cc = P["GPConfig"](q=0, precond="none")
+    fc = [fl.fleet_fit(cc, Xc, Yc, np.full(D, 4.0), 1.0, 512, device=d)
+          for d in (None, "cpu")]
+    for name, fn in (("mean", fl.fleet_posterior_mean),
+                     ("var", fl.fleet_posterior_var)):
+        _check(f"fleet T={T} n={nc} D={D} {name}", fn(fc[0], Xqc),
+               fn(fc[1], Xqc, device="cpu"))
+    return total
+
+
+def fleet_kernel_rows(P, dev, s):
+    """The PCG kernel's launches over T > 1 tenants (``csrc/mega_pcg.cu``,
+    counted as ``mega_pcg_fleet`` etc.): the whole solve at the serving
+    fleet's shape (T = 64, D = 10, npad = 2048, B = 32, 40 iterations) and
+    one carried iteration, timed against the 64 one-system launches they
+    replace; held against the plain version (tenant by tenant) on the first
+    4 tenants' operands; and the MAXW = 4 pair at q = 3 (T = 4, n = 2000,
+    jittered grid; the plain version on one and two tenants). Each lane of
+    the T = 64 launch against its one-system launch: within 1e-12 (bit for
+    bit in every run so far)."""
+    fs = P["FusedSweep"]
+    rows = []
+    stack = s["fleet"].gp
+    ops = stack.ops
+    fsw = fs(ops.Phi.data, ops.SAPhi.data, ops.sort_idx, ops.rank_idx,
+             ops.sigma2, w_p=ops.Phi.lo, w_s=ops.SAPhi.lo, a=ops.A.data,
+             w_a=ops.A.lo, factors=(ops.phi_factor, ops.saphi_factor),
+             n_active=ops.n_active)
+    rng = np.random.default_rng(77)
+    T, D, B = fsw.lead[0], fsw.D, B_PATH
+    v = fsw.pad_state(torch.as_tensor(rng.standard_normal(
+        (T, D, fsw.n, B)), device=dev))
+    zero = torch.zeros_like(v)
+    pops = (fsw.a, fsw.phi, fsw.saphi, fsw.sort_idx, fsw.rank_idx,
+            fsw.sigma2)
+    kw = dict(w_a=fsw.w_a, w_p=fsw.w_p, w_s=fsw.w_s)
+    fac = fsw.cr_factors()
+    ms, (x, r, it) = _event_ms(lambda: P["mega_pcg_solve"](
+        *pops, v, zero, iters=40, factors=fac, **kw), reps=3)
+    # the same solves as 64 one-system launches
+    lane_ops = [(tuple(o[t] for o in pops[:5]) + (pops[5][t:t + 1],))
+                for t in range(T)]
+    lane_fac = [tuple(None if f is None else P["fsm"]._lane_factor(f, t)
+                      for f in fac) for t in range(T)]
+    sms, outs = _event_ms(lambda: [P["mega_pcg_solve"](
+        *lane_ops[t], v[t], zero[t], iters=40, factors=lane_fac[t], **kw)
+        for t in range(T)], reps=1)
+    lane_bits = all(torch.equal(x[t], outs[t][0]) for t in range(T))
+    lane_gap = max(_lane_gap(x[t], outs[t][0]) for t in range(T))
+    # against the plain version (tenant by tenant) at T = 4. x within the
+    # serving path's 1e-7; the recursive residual r at the scale of v
+    # within 1e-7, or within what one-system launches leave on the
+    # same tenants (these tenants' systems, omega * spacing ~0.004, are
+    # conditioned far worse than the main path's)
+    T8 = 4
+    sl = tuple(o[:T8] for o in pops)
+    pms, (xp, rp, itp) = _event_ms(lambda: P["mega_pcg_plain"](
+        *sl, v[:T8], zero[:T8], iters=40, **kw), reps=1, warmup=0)
+    err, rel = _errs(x[:T8], xp)
+    r_err = float((r[:T8] - rp).abs().max()) / float(v.abs().max())
+    r_single = max(float((outs[t][1] - rp[t]).abs().max())
+                   for t in range(T8)) / float(v.abs().max())
+    nbytes, nops = _mega_cost(T * D, fsw.npad, B, fsw.w_a, fsw.w_p, fsw.w_s,
+                              40)
+    b_ms, b_by = _bound(nbytes, nops)
+    print(f"kernel mega_pcg_fleet T={T} D={D} npad={fsw.npad} B={B} 40 "
+          f"iters: max_abs_err={err:.3e} max_rel_err={rel:.3e} (tol 1e-7, "
+          f"T={T8} vs the plain version) r err (at |v|) {r_err:.3e} (the "
+          f"one-system launches' {r_single:.3e}); "
+          f"kernel_ms={ms:.4f} plain_ms={pms:.4f} (T={T8}) bound_ms="
+          f"{b_ms:.4f} ({b_by}); {T} one-system launches {sms:.4f} ms; "
+          f"lanes vs single launches bitwise {lane_bits} (max rel "
+          f"{lane_gap:.3e}); solve items of "
+          f"{P['fsm'].pcg_fleet_cols(T, D, B)} columns", flush=True)
+    if not (rel <= 1e-7 and r_err <= max(1e-7, r_single)
+            and lane_gap <= 1e-12
+            and bool((it == 40).all()) and bool((itp == 40).all())):
+        raise RuntimeError(f"mega_pcg_fleet: {rel:.3e}, {r_err:.3e}, "
+                           f"lanes {lane_gap:.3e}")
+    rows.append(dict(name="mega_pcg_fleet", max_abs_err=err, max_rel_err=rel,
+                     ms=ms, plain_ms=pms, bound_ms=b_ms, bound_by=b_by,
+                     single_ms=sms))
+    # one carried iteration
+    seed = P["pcg_seed"](*pops, v, zero, warm=False, factors=fac, **kw)
+    ms1, out = _event_ms(lambda: P["fused_pcg_iter"](*pops, *seed,
+                                                     factors=fac, **kw),
+                         reps=10)
+    sms1, _ = _event_ms(lambda: [P["fused_pcg_iter"](
+        *lane_ops[t], *(u[t] for u in seed), factors=lane_fac[t], **kw)
+        for t in range(T)], reps=3)
+    pms1, outp = _event_ms(lambda: P["fused_pcg_iter_plain"](
+        *sl, *(u[:T8] for u in seed), **kw), reps=1, warmup=0)
+    err1, rel1 = _errs(_flat(out[k][:T8] for k in (0, 2, 3)),
+                       _flat(outp[k] for k in (0, 2, 3)))
+    nb1, no1 = _pcg_iter_cost(T * D, fsw.npad, B, fsw.w_a, fsw.w_p,
+                              fsw.w_s)
+    b1, b1_by = _bound(nb1, no1)
+    print(f"kernel fused_pcg_iter_fleet T={T}: max_rel_err={rel1:.3e} (tol "
+          f"1e-10, T={T8}) kernel_ms={ms1:.4f} plain_ms={pms1:.4f} "
+          f"bound_ms={b1:.4f} ({b1_by}); {T} one-system launches "
+          f"{sms1:.4f} ms", flush=True)
+    if not rel1 <= 1e-10:
+        raise RuntimeError(f"fused_pcg_iter_fleet: {rel1:.3e}")
+    rows.append(dict(name="fused_pcg_iter_fleet", max_abs_err=err1,
+                     max_rel_err=rel1, ms=ms1, plain_ms=pms1, bound_ms=b1,
+                     bound_by=b1_by, single_ms=sms1))
+    del v, zero, x, r, outs, seed, out
+    # MAXW = 4: q = 3 tenants on a jittered grid (the plain whole solve on
+    # the first, its one iteration on the first two)
+    T3, n3 = 4, 2000
+    rj = np.random.default_rng(78)
+    per = [_operands(P, _jittered(rj, n3, D, spacing=0.2)[0],
+                     np.full(D, 4.0), 0.8 + 0.1 * t, 3, dev)
+           for t in range(T3)]
+    st3 = fs(*(torch.stack([getattr(f, k)[:, :n3] for f in per])
+               for k in ("phi", "saphi")),
+             *(torch.stack([getattr(f, k)[:, :n3] for f in per])
+               for k in ("sort_idx", "rank_idx")),
+             torch.stack([f.sigma2[0] for f in per]), w_p=3, w_s=4,
+             a=torch.stack([f.a[:, :n3] for f in per]), w_a=4)
+    v3 = st3.pad_state(torch.as_tensor(rj.standard_normal(
+        (T3, D, n3, B)), device=dev))
+    z3 = torch.zeros_like(v3)
+    p3 = (st3.a, st3.phi, st3.saphi, st3.sort_idx, st3.rank_idx, st3.sigma2)
+    k3 = dict(w_a=4, w_p=3, w_s=4)
+    f3 = st3.cr_factors()
+    ms3, (x3, r3, _) = _event_ms(lambda: P["mega_pcg_solve"](
+        *p3, v3, z3, iters=80, factors=f3, **k3), reps=3)
+    sms3, _ = _event_ms(lambda: [P["mega_pcg_solve"](
+        *(o[t] for o in p3[:5]), p3[5][t:t + 1], v3[t], z3[t], iters=80,
+        factors=tuple(P["fsm"]._lane_factor(f, t) for f in f3), **k3)
+        for t in range(T3)], reps=1)
+    pms3, (xp3, _, _) = _event_ms(lambda: P["mega_pcg_plain"](
+        *(o[:1] for o in p3), v3[:1], z3[:1], iters=80, **k3), reps=1,
+        warmup=0)
+    err3, rel3 = _errs(x3[:1], xp3)
+    b3, b3_by = _bound(*_mega_cost(T3 * D, st3.npad, B, 4, 3, 4, 80))
+    print(f"kernel mega_pcg_fleet_w4 q3 T={T3} n={n3} B={B} 80 iters: "
+          f"max_rel_err={rel3:.3e} (tol 1e-7, T=1) kernel_ms={ms3:.4f} "
+          f"plain_ms={pms3:.4f} (T=1) bound_ms={b3:.4f} ({b3_by}); {T3} "
+          f"one-system launches {sms3:.4f} ms", flush=True)
+    if not rel3 <= 1e-7:
+        raise RuntimeError(f"mega_pcg_fleet_w4: {rel3:.3e}")
+    rows.append(dict(name="mega_pcg_fleet_w4", max_abs_err=err3,
+                     max_rel_err=rel3, ms=ms3, plain_ms=pms3, bound_ms=b3,
+                     bound_by=b3_by, single_ms=sms3))
+    sd3 = P["pcg_seed"](*p3, v3, z3, warm=False, factors=f3, **k3)
+    ms4, o4 = _event_ms(lambda: P["fused_pcg_iter"](*p3, *sd3, factors=f3,
+                                                    **k3), reps=10)
+    sms4, _ = _event_ms(lambda: [P["fused_pcg_iter"](
+        *(o[t] for o in p3[:5]), p3[5][t:t + 1], *(u[t] for u in sd3),
+        factors=tuple(P["fsm"]._lane_factor(f, t) for f in f3), **k3)
+        for t in range(T3)], reps=3)
+    pms4, op4 = _event_ms(lambda: P["fused_pcg_iter_plain"](
+        *(o[:2] for o in p3), *(u[:2] for u in sd3), **k3), reps=1,
+        warmup=0)
+    err4, rel4 = _errs(_flat(o4[k][:2] for k in (0, 2, 3)),
+                       _flat(op4[k] for k in (0, 2, 3)))
+    b4, b4_by = _bound(*_pcg_iter_cost(T3 * D, st3.npad, B, 4, 3, 4))
+    print(f"kernel fused_pcg_iter_fleet_w4 q3 T={T3}: max_rel_err="
+          f"{rel4:.3e} (tol 1e-10, T=2) kernel_ms={ms4:.4f} plain_ms="
+          f"{pms4:.4f} (T=2) "
+          f"bound_ms={b4:.4f} ({b4_by}); {T3} one-system launches "
+          f"{sms4:.4f} ms", flush=True)
+    if not rel4 <= 1e-10:
+        raise RuntimeError(f"fused_pcg_iter_fleet_w4: {rel4:.3e}")
+    rows.append(dict(name="fused_pcg_iter_fleet_w4", max_abs_err=err4,
+                     max_rel_err=rel4, ms=ms4, plain_ms=pms4, bound_ms=b4,
+                     bound_by=b4_by, single_ms=sms4))
+    for r_ in rows:
+        r_.update(route="cuda", source=FLEET_KERNELS[r_["name"]][0],
+                  replaces=FLEET_KERNELS[r_["name"]][1], library_ms=None)
+    return rows
+
+
+def fleet_phase(P, dev):
+    """The fleet (``core.fleet``, the masked mutations, ``GPFleetEngine``):
+    every op at T = 64 serving tenants beside the same work as 64
+    standalone calls, the launches per op required equal at T = 8; the
+    main path's shape at T = 4 (:func:`fleet_lanes`); the tenant-axis
+    kernels' rows (:func:`fleet_kernel_rows`). Returns (rows, counts)."""
+    _build = P["_build"]
+    total = dict.fromkeys(_build.KERNELS, 0)
+    # T = 8 first: its launches and syncs, and the warm-up of every op
+    rec8, _ = _fleet_ops(P, 8, dev, seed=900)
+    rec64, s = _fleet_ops(P, FLEET_T, dev)
+    for r in (*rec8.values(), *rec64.values()):
+        for k, v in r["launches"].items():
+            total[k] += v
+    solo = _standalone_ops(P, s)
+    for op, r in rec64.items():
+        o = solo[op]
+        print(f"fleet T={FLEET_T} {op}: {r['ms']:.1f} ms, launches "
+              f"{r['launches']}, host syncs {r['syncs']}, peak "
+              f"{r['peak']:.1f} MiB | {o['calls']} standalone calls: "
+              f"{o['ms']:.1f} ms, launches {o['launches']}, host syncs "
+              f"{o['syncs']} | T=8: launches {rec8[op]['launches']}, syncs "
+              f"{rec8[op]['syncs']}", flush=True)
+        if (r["launches"] != rec8[op]["launches"]
+                or r["syncs"] != rec8[op]["syncs"]):
+            raise RuntimeError(f"fleet {op}: launches or syncs differ "
+                               f"between T = 8 and T = {FLEET_T}")
+    print(f"fleet launches and host syncs per op equal at T=8 and "
+          f"T={FLEET_T}: True", flush=True)
+    _stamp("fleet: serving ops at T = 64 and 8")
+    rows = fleet_kernel_rows(P, dev, s)
+    del s
+    _stamp("fleet: tenant-axis kernel rows")
+    lanes = fleet_lanes(P, dev)
+    for k, v in lanes.items():
+        total[k] += v
+    _stamp("fleet: lanes at the main path's shape, q = 3, card vs cpu")
+    return rows, total
+
+def single_bits_phase():
+    """Every single-GP output that ``scripts/single_bits.py`` records (71
+    outputs of the paths this script drives for one GP) against the
+    digests of the tree before the tenant axis
+    (``scripts/single_bits_ref.json``), bit for bit: the fleet's tenant
+    axis must leave every single-GP path where it was."""
+    import single_bits
+
+    root = Path(__file__).resolve().parent
+    ref = json.loads((root / "scripts" / "single_bits_ref.json").read_text())
+    got = single_bits.digests(str(root / "src"), quiet=True)
+    bad = sorted(k for k in ref.keys() | got.keys()
+                 if ref.get(k) != got.get(k))
+    print(f"single-GP outputs vs the tree before the tenant axis "
+          f"(scripts/single_bits_ref.json): {len(ref) - len(bad)} of "
+          f"{len(ref)} bitwise" + (f"; differ: {bad}" if bad else ""),
+          flush=True)
+    if bad:
+        raise RuntimeError(f"single-GP outputs moved: {bad}")
+
+
 def _jittered(rng, n, D, spacing=0.1):
     """(n, D) points, each column a shuffled jittered grid whose spacing is
     ``spacing`` / omega at omega = 4, and the grid's span. At q >= 1 the KP
@@ -2343,14 +2886,13 @@ def main():
                        "cr_apply", "banded_matvec"))
     if counts_d["mega_pcg"] or counts_d["fused_pcg_iter"]:
         raise RuntimeError("the kmg path ran a fused PCG kernel")
-    # where its time goes: a torch.profiler trace of one variance chunk and
-    # the gradients (scripts/path_trace.py's trace_call; device ms by kernel
-    # group, idle share = 1 - device / wall on the one stream; the script
-    # also splits fit)
+    # where its time goes: a torch.profiler trace of one variance chunk
+    # (scripts/path_trace.py's trace_call; device ms by kernel group, idle
+    # share = 1 - device / wall on the one stream; the script also traces
+    # the gradients and splits fit: that trace's ~110 k events took ~100 s
+    # to read here, cut for the time limit)
     for name, fn in ((f"posterior_var({B})",
-                      lambda: P["posterior_var"](dgp, Xq[:B])),
-                     ("mll_gradients",
-                      lambda: P["mll_gradients"](dgp, gen_d))):
+                      lambda: P["posterior_var"](dgp, Xq[:B])),):
         t = P["trace_call"](fn)
         print(f"default-path trace {name}: wall {t['wall_ms']:.1f} ms "
               f"(traced {t['traced_wall_ms']:.1f}), device "
@@ -2534,8 +3076,15 @@ def main():
     del out3
     _stamp("q = 3 path")
 
+    # --- the fleet: T GPs on a leading tenant axis (core.fleet, the masked
+    # mutations, GPFleetEngine), the tenant-axis PCG kernel ---------------
+    fleet_rows, counts_f = fleet_phase(P, dev)
+    rows += fleet_rows
+    _require_launched("fleet path", counts_f, tuple(FLEET_KERNELS))
+
     all_counts = [counts, counts_l, *relax_counts, counts_k, counts_d,
-                  counts_o, counts_t, counts_bo, counts_s, *counts_3]
+                  counts_o, counts_t, counts_bo, counts_s, *counts_3,
+                  counts_f]
     for row in rows:
         row["launches"] = sum(c[row["name"]] for c in all_counts)
 
@@ -2651,16 +3200,21 @@ def main():
             _check(f"n={N_CHECK} D={D} {solver} fused={fused} var",
                    P["posterior_var"](g, Xqr), want[1])
     _stamp("consistency: relaxation solvers")
-    # q = 2 (Matern-5/2) on the jittered grid: block_cr W = 4, rgf w = 5
+    # q = 2 (Matern-5/2) on a jittered grid: block_cr W = 4, rgf w = 5
     cfg2 = P["GPConfig"](q=2, solver="pcg", solver_iters=40, precond="none")
-    q2 = [P["fit"](cfg2, Xj, Yj, np.full(D, 4.0), 1.0, device=d)
+    r2 = np.random.default_rng(5)
+    Xj2, span2 = _jittered(r2, N_Q2_CHECK, D)
+    Yj2 = np.sin(Xj2 * 6.0 * np.pi / span2).sum(1) \
+        + 0.1 * r2.standard_normal(N_Q2_CHECK)
+    Xqj2 = r2.uniform(0.0, span2, (B, D))
+    q2 = [P["fit"](cfg2, Xj2, Yj2, np.full(D, 4.0), 1.0, device=d)
           for d in (None, "cpu")]
     pm2, pv2 = (P["_probe_block"](q2[1], gen, k) for k in (4, Q_PATH))
     for name, fn in (("mean", P["posterior_mean"]),
                      ("var", P["posterior_var"])):
-        _check(f"n={N_Q1} D={D} q=2 {name}", fn(q2[0], Xqj[:B]),
-               fn(q2[1], Xqj[:B], device="cpu"))
-    _check(f"n={N_Q1} D={D} q=2 log_likelihood",
+        _check(f"n={N_Q2_CHECK} D={D} q=2 {name}", fn(q2[0], Xqj2),
+               fn(q2[1], Xqj2, device="cpu"))
+    _check(f"n={N_Q2_CHECK} D={D} q=2 log_likelihood",
            P["_log_likelihood"](q2[0], pm2.to(dev), pv2.to(dev)),
            P["_log_likelihood"](q2[1], pm2, pv2))
     del q2
@@ -2750,6 +3304,8 @@ def main():
         raise RuntimeError(f"q = 3 gradients: backward error {be3}")
     del q3
     _stamp("consistency: q = 3")
+    single_bits_phase()
+    _stamp("single-GP outputs against the reference digests")
 
     if sorted(r["name"] for r in rows) != sorted(_build.KERNELS):
         raise RuntimeError("the kernels line must list each kernel once")

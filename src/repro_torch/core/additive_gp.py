@@ -42,7 +42,7 @@ import torch
 
 from ..health import verdict as hv
 from ..kernels import ops as _kops
-from ..masking import mask_rows
+from ..masking import lead_count, mask_rows
 from . import matern as mk
 from . import stochastic as st
 from .backfitting import (DimOps, SolveConfig, check_solve_config, fused_mode,
@@ -142,11 +142,16 @@ class AdditiveGP:
     @property
     def n(self) -> int:
         """Static row count: the capacity when ``n_active`` is set."""
-        return self.X.shape[0]
+        return self.X.shape[-2]
 
     @property
     def capacity(self) -> int:
-        return self.X.shape[0]
+        return self.X.shape[-2]
+
+    @property
+    def lead(self) -> tuple:
+        """() for one GP; (T,) for a fleet's stack (``core.fleet``)."""
+        return tuple(self.X.shape[:-2])
 
     def active(self):
         """Active observation count: an int when unpadded, the 0-d
@@ -159,7 +164,7 @@ class AdditiveGP:
 
     @property
     def D(self) -> int:
-        return self.X.shape[1]
+        return self.X.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -243,15 +248,17 @@ def mean_caches(config: GPConfig, ops: DimOps, Y, x0=None,
     cfg = config.solve_cfg()
     if iters is not None:
         cfg = dataclasses.replace(cfg, iters=iters)
-    SY = Y[None, :].expand(ops.D, ops.n)
+    SY = Y.unsqueeze(-2).expand(ops.lead + (ops.D, ops.n))
     res = solve_mhat(ops, SY, cfg, x0=x0, hier=hier, return_info=return_info)
     u_sy, info = res if return_info else (res, None)
-    bY = solve(transpose(ops.Phi), ops.to_sorted(u_sy) / ops.sigma2,
+    bY = solve(transpose(ops.Phi), ops.to_sorted(u_sy) / ops.s2(u_sy),
                pivot=config.pivot, backend=config.backend,
                alg=config.solve_alg)
     if not return_info:
         return u_sy, bY
-    bad_by = torch.where(torch.isfinite(bY).all(), hv.OK, hv.NONFINITE)
+    bad_by = torch.where(
+        torch.isfinite(bY).reshape(ops.lead + (-1,)).all(-1), hv.OK,
+        hv.NONFINITE)
     info = info._replace(
         verdict=torch.maximum(info.verdict, bad_by.to(torch.int32)))
     return u_sy, bY, info
@@ -279,20 +286,31 @@ def fit(config: GPConfig, X, Y, omega, sigma, device=None,
     sigma = _as_f64(sigma, device).reshape(())
     n, D = X.shape
     config = resolve_config(config, n, device)
+    gp = _fit_core(config, X, Y, omega, sigma)
+    return gp if capacity is None else with_capacity(gp, capacity)
+
+
+def _fit_core(config: GPConfig, X, Y, omega, sigma) -> AdditiveGP:
+    """:func:`fit`'s body on tensors where they live, with ``config``
+    resolved: X (..., n, D), Y (..., n), omega (..., D), sigma (...); a
+    leading tenant axis fits a fleet (``core.fleet.fleet_fit``), every op
+    batched over it."""
     q = config.q
-    sort_idx = torch.argsort(X.T, dim=1, stable=True)
-    xs = torch.gather(X.T, 1, sort_idx)
-    rank_idx = torch.argsort(sort_idx, dim=1, stable=True)
+    lead = tuple(X.shape[:-2])
+    XT = X.transpose(-1, -2)
+    sort_idx = torch.argsort(XT, dim=-1, stable=True)
+    xs = torch.gather(XT, -1, sort_idx)
+    rank_idx = torch.argsort(sort_idx, dim=-1, stable=True)
     # KP construction needs distinct sorted points: separate exact ties by a
     # span-relative epsilon (order preserving)
-    span = xs[:, -1:] - xs[:, :1] + 1.0
-    gaps = torch.diff(xs, dim=1)
+    span = xs[..., -1:] - xs[..., :1] + 1.0
+    gaps = torch.diff(xs, dim=-1)
     bump = torch.cumsum(torch.where(gaps <= 0, span * TIE_EPS,
-                                    torch.zeros_like(gaps)), dim=1)
-    xs = torch.cat([xs[:, :1], xs[:, 1:] + bump], dim=1)
+                                    torch.zeros_like(gaps)), dim=-1)
+    xs = torch.cat([xs[..., :1], xs[..., 1:] + bump], dim=-1)
     A, Phi = kp_factors(q, omega, xs)
     Bg, Psi = gkp_factors(q, omega, xs)
-    SAPhi = add(scale(A, sigma ** 2), Phi)
+    SAPhi = add(scale(A, lead_count(sigma ** 2, A.data.ndim)), Phi)
     ops = DimOps(A=A, Phi=Phi, SAPhi=SAPhi, sort_idx=sort_idx,
                  rank_idx=rank_idx, sigma2=sigma ** 2, pivot=config.pivot,
                  alg=config.solve_alg)
@@ -300,14 +318,14 @@ def fit(config: GPConfig, X, Y, omega, sigma, device=None,
     if config.health == "on":
         u_sy, bY, Gband, Hband, info = posterior_caches(
             config, ops, Y, hier=hier, return_info=True)
-        health = hv.HealthState.fresh(Y.dtype, device).with_solve(info)
+        health = hv.HealthState.fresh(Y.dtype, X.device,
+                                      lead).with_solve(info)
     else:
         u_sy, bY, Gband, Hband = posterior_caches(config, ops, Y, hier=hier)
         health = None
-    gp = AdditiveGP(X=X, Y=Y, omega=omega, sigma=sigma, xs=xs, ops=ops,
-                    B=Bg, Psi=Psi, bY=bY, u_sy=u_sy, Gband=Gband,
-                    Hband=Hband, config=config, health=health, hier=hier)
-    return gp if capacity is None else with_capacity(gp, capacity)
+    return AdditiveGP(X=X, Y=Y, omega=omega, sigma=sigma, xs=xs, ops=ops,
+                      B=Bg, Psi=Psi, bY=bY, u_sy=u_sy, Gband=Gband,
+                      Hband=Hband, config=config, health=health, hier=hier)
 
 
 def _pad_rows(x, capacity: int, axis: int):
@@ -326,11 +344,12 @@ def _pad_band_rows(b: Banded, capacity: int, n_active) -> Banded:
 
 
 def _pad_perm(idx, capacity: int):
-    """Pad permutations (D, n) -> (D, capacity) with identity tails."""
-    D, n = idx.shape
+    """Pad permutations (..., D, n) -> (..., D, capacity) with identity
+    tails."""
+    n = idx.shape[-1]
     tail = torch.arange(n, capacity, dtype=idx.dtype,
-                        device=idx.device).expand(D, -1)
-    return torch.cat([idx, tail], dim=1)
+                        device=idx.device).expand(idx.shape[:-1] + (-1,))
+    return torch.cat([idx, tail], dim=-1)
 
 
 def with_capacity(gp: AdditiveGP, capacity: int) -> AdditiveGP:
@@ -347,7 +366,7 @@ def with_capacity(gp: AdditiveGP, capacity: int) -> AdditiveGP:
             "shrinking is not supported; evict instead)")
     if capacity == gp.n and gp.n_active is not None:
         return gp
-    na = (torch.full((), gp.n, dtype=torch.int32, device=gp.device)
+    na = (torch.full(gp.lead, gp.n, dtype=torch.int32, device=gp.device)
           if gp.n_active is None else gp.n_active)
     ops = gp.ops
     ops_p = DimOps(A=_pad_band_rows(ops.A, capacity, na),
@@ -359,17 +378,18 @@ def with_capacity(gp: AdditiveGP, capacity: int) -> AdditiveGP:
                    n_active=na)
     # xs tail values are never read through an active mask; keep them
     # finite and increasing above the active range
-    span = gp.xs[:, -1:] - gp.xs[:, :1] + 1.0
+    span = gp.xs[..., -1:] - gp.xs[..., :1] + 1.0
     steps = torch.arange(1, capacity - gp.n + 1, dtype=gp.xs.dtype,
                          device=gp.device)
-    xs_p = torch.cat([gp.xs, gp.xs[:, -1:] + span * steps[None, :]], dim=1)
-    X_p = _pad_rows(gp.X, capacity, 0)
+    xs_p = torch.cat([gp.xs, gp.xs[..., -1:] + span * steps], dim=-1)
+    X_p = _pad_rows(gp.X, capacity, -2)
     return AdditiveGP(
-        X=X_p, Y=_pad_rows(gp.Y, capacity, 0), omega=gp.omega,
+        X=X_p, Y=_pad_rows(gp.Y, capacity, -1), omega=gp.omega,
         sigma=gp.sigma, xs=xs_p, ops=ops_p,
         B=_pad_band_rows(gp.B, capacity, na),
         Psi=_pad_band_rows(gp.Psi, capacity, na),
-        bY=_pad_rows(gp.bY, capacity, 1), u_sy=_pad_rows(gp.u_sy, capacity, 1),
+        bY=_pad_rows(gp.bY, capacity, -1),
+        u_sy=_pad_rows(gp.u_sy, capacity, -1),
         Gband=_pad_band_rows(gp.Gband, capacity, na), config=gp.config,
         Hband=(None if gp.Hband is None
                else _pad_band_rows(gp.Hband, capacity, na)),
@@ -392,27 +412,36 @@ def _phi_windows(gp: AdditiveGP, Xq, grad: bool = False):
     q = gp.config.q
     A = Banded(gp.ops.A.data, q + 1, q + 1)
     return (phi_grad_at if grad else phi_at)(q, gp.omega, gp.xs, A,
-                                             Xq.T.contiguous(),
+                                             Xq.transpose(-1, -2)
+                                             .contiguous(),
                                              n_active=gp.n_active)
+
+
+def _window_gather(u, rows):
+    """u (..., D, n) at each query's window rows (..., D, m, W)."""
+    return torch.gather(u, -1, rows.reshape(rows.shape[:-2] + (-1,))
+                        ).reshape(rows.shape)
 
 
 def posterior_mean(gp: AdditiveGP, Xq, device=None):
     """mu(x*) for Xq (m, D) — Eq. (12); O(log n) per query."""
     Xq = _query(gp, Xq, device)
     rows, vals, _ = _phi_windows(gp, Xq)  # (D, m, W)
-    D, m, W = rows.shape
-    bwin = torch.gather(gp.bY, 1, rows.reshape(D, -1)).reshape(D, m, W)
-    return (vals * bwin).sum(dim=(0, 2))
+    return (vals * _window_gather(gp.bY, rows)).sum(dim=(-3, -1))
 
 
 def _g_entries(gp: AdditiveGP, rows):
-    """The variance band G_d over each query's window rows: (D, m, W, W)."""
-    D, _, W = rows.shape
+    """The variance band G_d over each query's window rows: (D, m, W, W)
+    (a fleet's leading tenant axis folded into the dimensions' gather)."""
+    W = rows.shape[-1]
     dev = rows.device
     ar = torch.arange(W, device=dev)
     off = ar[None, :] - ar[:, None]  # b - a
-    return gp.Gband.data[torch.arange(D, device=dev)[:, None, None, None],
-                         rows[:, :, :, None], gp.Gband.lo + off[None, None]]
+    data = gp.Gband.data.reshape((-1,) + gp.Gband.data.shape[-2:])
+    r = rows.reshape((-1,) + rows.shape[-2:])
+    out = data[torch.arange(r.shape[0], device=dev)[:, None, None, None],
+               r[:, :, :, None], gp.Gband.lo + off[None, None]]
+    return out.reshape(rows.shape + (W,))
 
 
 def _var_chunks(gp: AdditiveGP, rows, vals):
@@ -425,22 +454,27 @@ def _var_chunks(gp: AdditiveGP, rows, vals):
     alive. phi is scattered into dense columns by index_put_ with
     accumulation: rows that repeat at the clipped window ends carry zero
     values."""
-    D, m, W = rows.shape
+    lead = rows.shape[:-3]
+    D, m, W = rows.shape[-3:]
+    G = lead.numel() * D  # a fleet's tenants x dimensions
     n = gp.n
     dev = rows.device
     mc = min(m, _VAR_CHUNK)
     nchunk = -(-m // mc)
     pad = nchunk * mc - m
-    rows_p = torch.cat([rows, rows.new_zeros((D, pad, W))], dim=1)
-    vals_p = torch.cat([vals, vals.new_zeros((D, pad, W))], dim=1)
-    d_idx = torch.arange(D, device=dev)[:, None, None].expand(D, mc, W)
-    m_idx = torch.arange(mc, device=dev)[None, :, None].expand(D, mc, W)
+    rows_p = torch.cat([rows, rows.new_zeros(lead + (D, pad, W))], dim=-2)
+    vals_p = torch.cat([vals, vals.new_zeros(lead + (D, pad, W))], dim=-2)
+    d_idx = torch.arange(G, device=dev)[:, None, None].expand(G, mc, W)
+    m_idx = torch.arange(mc, device=dev)[None, :, None].expand(G, mc, W)
     cfg = gp.config.solve_cfg()
     for c in range(nchunk):
-        rc = rows_p[:, c * mc:(c + 1) * mc]
-        vc = vals_p[:, c * mc:(c + 1) * mc]
-        phi_cols = torch.zeros((D, n, mc), dtype=vals.dtype, device=dev)
-        phi_cols.index_put_((d_idx, rc, m_idx), vc, accumulate=True)
+        rc = rows_p[..., c * mc:(c + 1) * mc, :]
+        vc = vals_p[..., c * mc:(c + 1) * mc, :]
+        phi_cols = torch.zeros(lead + (D, n, mc), dtype=vals.dtype,
+                               device=dev)
+        phi_cols.view(G, n, mc).index_put_(
+            (d_idx, rc.reshape(G, mc, W), m_idx), vc.reshape(G, mc, W),
+            accumulate=True)
         w_sorted = gp.ops.phi_solve(phi_cols, pivot=gp.config.pivot,
                                     backend=gp.config.backend,
                                     alg=gp.config.solve_alg)
@@ -451,17 +485,33 @@ def _var_chunks(gp: AdditiveGP, rows, vals):
 def posterior_var(gp: AdditiveGP, Xq, device=None):
     """s(x*) for Xq (m, D) — Eq. (13)."""
     Xq = _query(gp, Xq, device)
-    m = Xq.shape[0]
+    m = Xq.shape[-2]
     rows, vals, _ = _phi_windows(gp, Xq)  # (D, m, W)
     # term 2: sum_d phi_d^T G_d phi_d — local window quadratic
-    term2 = torch.einsum("dma,dmab,dmb->m", vals, _g_entries(gp, rows), vals)
+    term2 = torch.einsum(_ein(gp, "dma,dmab,dmb->m"), vals,
+                         _g_entries(gp, rows), vals)
     # term 3: w^T Mhat^{-1} w, w_d = P^T Phi_d^{-1} phi_d (a chunk's w and
     # z are let go before the next chunk's solve)
     term3 = []
     for _, w, z in _var_chunks(gp, rows, vals):
-        term3.append((w * z).sum(dim=(0, 1)))
+        term3.append((w * z).sum(dim=(-3, -2)))
         del w, z
-    return prior_var(gp, Xq.dtype) - term2 + torch.cat(term3)[:m]
+    return (_per_query(prior_var(gp, Xq.dtype)) - term2
+            + torch.cat(term3, dim=-1)[..., :m])
+
+
+def _ein(gp: AdditiveGP, eq: str) -> str:
+    """An einsum over a GP's (D, m, ...) windows, with the fleet's leading
+    tenant axis where the GP is a stack."""
+    if not gp.lead:
+        return eq
+    return ",".join("..." + t for t in eq.split("->")[0].split(",")) + \
+        "->..." + eq.split("->")[1]
+
+
+def _per_query(v):
+    """A per-GP scalar (0-d, or (T,) on a fleet) against (..., m) rows."""
+    return v if v.ndim == 0 else v[..., None]
 
 
 def posterior_mean_grad(gp: AdditiveGP, Xq, device=None):
@@ -469,15 +519,15 @@ def posterior_mean_grad(gp: AdditiveGP, Xq, device=None):
     windows; the query follows :func:`posterior_mean`'s device rule."""
     Xq = _query(gp, Xq, device)
     rows, dvals, _ = _phi_windows(gp, Xq, grad=True)  # (D, m, W)
-    D, m, W = rows.shape
-    bwin = torch.gather(gp.bY, 1, rows.reshape(D, -1)).reshape(D, m, W)
-    return (dvals * bwin).sum(dim=2).T
+    return (dvals * _window_gather(gp.bY, rows)).sum(dim=-1).transpose(-1,
+                                                                      -2)
 
 
 def prior_var(gp: AdditiveGP, dtype=torch.float64):
-    """Prior variance sum_d k_d(x*, x*) from the kernel itself."""
+    """Prior variance sum_d k_d(x*, x*) from the kernel itself (per tenant
+    on a fleet)."""
     zero = torch.zeros((), dtype=dtype, device=gp.device)
-    return mk.matern(gp.config.q, gp.omega, zero, zero).sum().to(dtype)
+    return mk.matern(gp.config.q, gp.omega, zero, zero).sum(-1).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,14 @@ preconditions with the kernel-multigrid V-cycle over the coarse hierarchy
 recursively updated ``r``, and the relaxation sweeps carry
 ``k_d = Khat_d^{-1} x_d``, from which ``v - k - (sum_d x_d)/sigma^2`` is
 the exit residual elementwise (an explicit matvec only for iters == 0).
+
+Tenant stacks (a fleet, ``core.fleet``): a ``DimOps`` whose tensors carry a
+leading T axis (bands (T, D, n, w), permutations (T, D, n), ``sigma2`` and
+``n_active`` (T,)) solves T independent systems; states are (T, D, n[, B]),
+the cross-dimension sums and inner products stay within a tenant, and
+``SolveInfo`` holds (T,) tensors. Such a solve runs pcg in the fused modes
+("whole": one launch of the tenant-axis kernel for the whole fleet; "on");
+the relaxation solvers and "off" raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -31,7 +39,7 @@ from typing import NamedTuple
 import torch
 
 from ..health.verdict import classify_solve
-from ..masking import canonical_perm, mask_rows, tree_sum
+from ..masking import canonical_perm, lead_count, mask_rows, tree_sum
 from .banded import Banded, matvec, solve
 
 __all__ = ["SolveConfig", "SolveInfo", "DimOps", "solve_mhat", "mhat_matvec"]
@@ -113,19 +121,30 @@ class DimOps:
 
     @property
     def D(self) -> int:
-        return self.sort_idx.shape[0]
+        return self.sort_idx.shape[-2]
 
     @property
     def n(self) -> int:
-        return self.sort_idx.shape[1]
+        return self.sort_idx.shape[-1]
+
+    @property
+    def lead(self) -> tuple:
+        """() for one system, (T,) for a tenant stack."""
+        return tuple(self.sort_idx.shape[:-2])
+
+    def s2(self, x):
+        """sigma2 shaped to broadcast over a state ``x`` (per tenant on a
+        stack)."""
+        return lead_count(self.sigma2, x.ndim)
 
     def _permute(self, u, idx):
         """Gather along the point axis with the canonical permutation; the
         tail is zeroed again, so poisoned pad slots cannot leak."""
+        k = len(self.lead)
         idx = canonical_perm(idx, self.n_active)
-        idx = idx[..., None] if u.ndim == 3 else idx
-        return mask_rows(torch.gather(u, 1, idx.expand(u.shape)),
-                         self.n_active, axis=1)
+        idx = idx[..., None] if u.ndim == k + 3 else idx
+        return mask_rows(torch.gather(u, k + 1, idx.expand(u.shape)),
+                         self.n_active, axis=k + 1)
 
     def to_sorted(self, u):
         """(D, n[, B]) original order -> sorted order per dim."""
@@ -162,22 +181,24 @@ class DimOps:
                     alg: str | None = None):
         """(Khat^{-1} + sigma^{-2} I)^{-1} r = sigma^2 P^T SAPhi^{-1} Phi P r."""
         y = matvec(self.Phi, self.to_sorted(r), backend=backend)
-        w = self.sigma2 * self._solve(self.SAPhi, self.saphi_factor, y,
-                                      pivot, backend, alg)
+        w = self.s2(y) * self._solve(self.SAPhi, self.saphi_factor, y,
+                                     pivot, backend, alg)
         return self.from_sorted(w)
 
 
 def mhat_matvec(ops: DimOps, u, pivot: bool = False,
                 backend: str | None = None, alg: str | None = None):
     """Mhat u = Khat^{-1} u + sigma^{-2} S S^T u; u: (D, n, B)."""
-    ssT = tree_sum(u, axis=0)[None]
+    k = len(ops.lead)
+    ssT = tree_sum(u, axis=k).unsqueeze(k)
     return ops.khat_inv_mv(u, pivot=pivot, backend=backend,
-                           alg=alg) + ssT / ops.sigma2
+                           alg=alg) + ssT / ops.s2(u)
 
 
-def _det_dot(a, b):
-    """Per-column inner products over the (D, n) axes, fixed association."""
-    return tree_sum(tree_sum(a * b, axis=1), axis=0)
+def _det_dot(a, b, k: int = 0):
+    """Per-column inner products over the (D, n) axes (after ``k`` leading
+    tenant axes), fixed association."""
+    return tree_sum(tree_sum(a * b, axis=k + 1), axis=k)
 
 
 def check_solve_config(cfg: SolveConfig) -> None:
@@ -211,6 +232,11 @@ def fused_mode(cfg: SolveConfig, a, phi, saphi) -> str:
                                precond=cfg.precond)
 
 
+def _resolved_fused(ops: DimOps, cfg: SolveConfig) -> str:
+    return fused_mode(cfg, *((b.lo, b.hi) for b in (ops.A, ops.Phi,
+                                                     ops.SAPhi)))
+
+
 def _maybe_fused(ops: DimOps, v, cfg: SolveConfig):
     """Resolve ``cfg.fused`` for this solve: ``(mode, FusedSweep|None)``,
     mode "whole" | "on" | "off" (the FusedSweep is None when off). The
@@ -220,8 +246,7 @@ def _maybe_fused(ops: DimOps, v, cfg: SolveConfig):
     from ..kernels.fused_sweep import FusedSweep
 
     need_a = cfg.method == "pcg"
-    mode = fused_mode(cfg, *((b.lo, b.hi) for b in (ops.A, ops.Phi,
-                                                     ops.SAPhi)))
+    mode = _resolved_fused(ops, cfg)
     if mode == "off":
         return "off", None
     return mode, FusedSweep(
@@ -238,14 +263,15 @@ def _kinv0(ops: DimOps, x0, cfg: SolveConfig):
     x0s = ops.to_sorted(x0)
     w = ops.phi_solve(matvec(ops.SAPhi, x0s, backend=cfg.backend),
                       pivot=cfg.pivot, backend=cfg.backend, alg=cfg.alg)
-    return (ops.from_sorted(w) - x0) / ops.sigma2
+    return (ops.from_sorted(w) - x0) / ops.s2(x0)
 
 
 def _resid_from_k(ops: DimOps, v, out, k):
     """Exit-residual norm from the carried Khat_d^{-1} x_d stack:
     r = v - k - (sum_d x_d) / sigma^2, elementwise only."""
-    r = v - k - tree_sum(out, axis=0)[None] / ops.sigma2
-    return torch.sqrt(tree_sum(_det_dot(r, r), axis=0))
+    nb = len(ops.lead)
+    r = v - k - tree_sum(out, axis=nb).unsqueeze(nb) / ops.s2(out)
+    return torch.sqrt(tree_sum(_det_dot(r, r, nb), axis=-1))
 
 
 def _gauss_seidel(ops: DimOps, v, cfg: SolveConfig, x0=None,
@@ -366,6 +392,11 @@ def _jacobi(ops: DimOps, v, cfg: SolveConfig, x0=None,
     return vt, _resid_from_k(ops, v, vt, k)
 
 
+def _norm(r, k: int = 0):
+    """L2 norm of a state over its (D, n, B) axes, per tenant."""
+    return torch.sqrt(tree_sum(_det_dot(r, r, k), axis=-1))
+
+
 def _pcg(ops: DimOps, v, cfg: SolveConfig, x0=None, hier=None):
     """Preconditioned CG on Mhat x = v; returns ``(x, iters_used, resid)``.
 
@@ -386,15 +417,15 @@ def _pcg(ops: DimOps, v, cfg: SolveConfig, x0=None, hier=None):
 
         x, r, iters_used = MegaSolve(fs).pcg(v, x0, iters=cfg.iters,
                                              tol=cfg.tol)
-        return x, iters_used, torch.sqrt(tree_sum(_det_dot(r, r), axis=0))
+        return x, iters_used, _norm(r, len(ops.lead))
     if mode == "on":
         from ..kernels.fused_sweep import pcg_loop
 
         (x, r, _, _), i = pcg_loop(fs.pcg_iter, fs.pcg_seed(v, x0),
                                    iters=cfg.iters, tol=cfg.tol)
         x, r = fs.unpad(x), fs.unpad(r)
-        return (x, torch.full((), i, dtype=torch.int32, device=v.device),
-                torch.sqrt(tree_sum(_det_dot(r, r), axis=0)))
+        return (x, torch.as_tensor(i, dtype=torch.int32, device=v.device),
+                _norm(r, len(ops.lead)))
     if cfg.precond == "kmg":
         if hier is None:
             raise ValueError(
@@ -454,7 +485,14 @@ def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
         precond = ("none" if hier is None or cfg.method != "pcg" else
                    _kops.resolve_precond("auto", q=ops.Phi.lo, n=ops.n))
         cfg = dataclasses.replace(cfg, precond=precond)
-    vec_in = v.ndim == 2
+    k = len(ops.lead)
+    if k and (cfg.method != "pcg" or _resolved_fused(ops, cfg) == "off"):
+        raise NotImplementedError(
+            f"a tenant stack solves with pcg in the fused modes; got "
+            f"method={cfg.method!r}, fused={cfg.fused!r}, precond="
+            f"{cfg.precond!r} (ROADMAP Queue 1: the fleet's relaxation "
+            "kernels, kmg and fused='off')")
+    vec_in = v.ndim == k + 2
     if vec_in:
         v = v[..., None]
         x0 = None if x0 is None else x0[..., None]
@@ -462,10 +500,10 @@ def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
     # under capacity padding the state tails are zeroed up front: every
     # iterate stays exactly zero past the active prefix, so the inner
     # products and residual norms run over the prefix only
-    v = mask_rows(v.to(dtype), ops.n_active, axis=1)
+    v = mask_rows(v.to(dtype), ops.n_active, axis=k + 1)
     x0 = None if x0 is None else mask_rows(x0.to(dtype), ops.n_active,
-                                           axis=1)
-    iters_used = torch.full((), cfg.iters, dtype=torch.int32,
+                                           axis=k + 1)
+    iters_used = torch.full(ops.lead, cfg.iters, dtype=torch.int32,
                             device=v.device)
     if cfg.method == "gauss_seidel":
         out, resid = _gauss_seidel(ops, v, cfg, x0, want_resid=return_info)
@@ -481,11 +519,12 @@ def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
         # sweeps otherwise carry their own residual): one explicit matvec
         r = v - mhat_matvec(ops, out, pivot=cfg.pivot, backend=cfg.backend,
                             alg=cfg.alg)
-        resid = torch.sqrt(tree_sum(_det_dot(r, r), axis=0))
-    rhs_norm = torch.sqrt(tree_sum(_det_dot(v, v), axis=0))
+        resid = _norm(r, k)
+    rhs_norm = _norm(v, k)
     verdict = classify_solve(out, resid, rhs_norm,
                              at_cap=iters_used >= cfg.iters)
-    n_active = (torch.full((), ops.n, dtype=torch.int32, device=v.device)
+    n_active = (torch.full(ops.lead, ops.n, dtype=torch.int32,
+                           device=v.device)
                 if ops.n_active is None else ops.n_active.to(torch.int32))
     return result, SolveInfo(iters=iters_used, n_active=n_active, resid=resid,
                              rhs=rhs_norm, verdict=verdict)

@@ -34,9 +34,10 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .additive_gp import (AdditiveGP, GPConfig, _as_f64, _g_entries,
-                          _phi_windows, _query, _var_chunks, fit,
-                          fit_hyperparams, prior_var, resolve_device)
+from .additive_gp import (AdditiveGP, GPConfig, _as_f64, _ein, _g_entries,
+                          _per_query, _phi_windows, _query, _var_chunks,
+                          _window_gather, fit, fit_hyperparams, prior_var,
+                          resolve_device)
 from ..masking import mask_rows
 from .backfitting import solve_mhat
 from .banded import solve, transpose
@@ -74,37 +75,40 @@ def uniform_rows(generator: torch.Generator, shape: tuple[int, ...],
 
 def _acq_core(gp: AdditiveGP, Xq, beta, best_y, kind: str):
     """Shared acquisition math: (value, grad, mean, variance) for Xq (m, D)
-    on the GP's device."""
-    m = Xq.shape[0]
+    on the GP's device; on a fleet's stack Xq (T, m, D), ``beta`` and
+    ``best_y`` broadcasting against (T, m)."""
+    m = Xq.shape[-2]
     rows, vals, _ = _phi_windows(gp, Xq)  # (D, m, W)
     _, dvals, _ = _phi_windows(gp, Xq, grad=True)  # same rows
-    D, _, W = rows.shape
 
     # mean + mean gradient (sparse gathers on bY)
-    bwin = torch.gather(gp.bY, 1, rows.reshape(D, -1)).reshape(D, m, W)
-    mu = (vals * bwin).sum(dim=(0, 2))
-    dmu = (dvals * bwin).sum(dim=2).T  # (m, D)
+    bwin = _window_gather(gp.bY, rows)
+    mu = (vals * bwin).sum(dim=(-3, -1))
+    dmu = (dvals * bwin).sum(dim=-1).transpose(-1, -2)  # (m, D)
 
     # variance pieces: the band term, and w^T Mhat^{-1} w with, for the
     # gradient, y = Phi^{-T} P z gathered over each query's window
-    g_phi = torch.einsum("dmab,dmb->dma", _g_entries(gp, rows), vals)
-    term2 = torch.einsum("dma,dma->m", vals, g_phi)
+    g_phi = torch.einsum(_ein(gp, "dmab,dmb->dma"), _g_entries(gp, rows),
+                         vals)
+    term2 = torch.einsum(_ein(gp, "dma,dma->m"), vals, g_phi)
     c = gp.config
     term3, ywin = [], []
     for rc, w, z in _var_chunks(gp, rows, vals):
-        term3.append((w * z).sum(dim=(0, 1)))
+        term3.append((w * z).sum(dim=(-3, -2)))
         y_s = solve(transpose(gp.ops.Phi), gp.ops.to_sorted(z),
                     pivot=c.pivot, backend=c.backend, alg=c.solve_alg)
         # ywin[d, j, a] = y_s[d, rc[d, j, a], j]
-        ywin.append(torch.gather(y_s, 1, rc.permute(0, 2, 1))
-                    .permute(0, 2, 1))
+        ywin.append(torch.gather(y_s, -2, rc.transpose(-1, -2))
+                    .transpose(-1, -2))
         del w, z, y_s
-    term3 = torch.cat(term3)[:m]
-    ywin = torch.cat(ywin, dim=1)[:, :m]
-    var = torch.clamp(prior_var(gp, Xq.dtype) - term2 + term3, min=1e-12)
+    term3 = torch.cat(term3, dim=-1)[..., :m]
+    ywin = torch.cat(ywin, dim=-2)[..., :m, :]
+    var = torch.clamp(_per_query(prior_var(gp, Xq.dtype)) - term2 + term3,
+                      min=1e-12)
     # dvar/dx_d = -2 dphi^T (G phi) + 2 dphi^T Phi^{-T} z
-    dvar = (-2.0 * torch.einsum("dma,dma->dm", dvals, g_phi)
-            + 2.0 * torch.einsum("dma,dma->dm", dvals, ywin)).T  # (m, D)
+    dvar = (-2.0 * torch.einsum(_ein(gp, "dma,dma->dm"), dvals, g_phi)
+            + 2.0 * torch.einsum(_ein(gp, "dma,dma->dm"), dvals, ywin)
+            ).transpose(-1, -2)  # (m, D)
     val, grad = _acquire(kind, mu, dmu, var, dvar, beta, best_y)
     return val, grad, mu, var
 
@@ -143,8 +147,9 @@ def acquisition_stats(gp: AdditiveGP, Xq, beta, best_y, kind: str = "ucb",
 
 
 def ascent_step(X, grad, lo, hi, step_len):
-    """One normalized projected-gradient ascent update."""
-    gn = torch.linalg.norm(grad, dim=1, keepdim=True)
+    """One normalized projected-gradient ascent update (X, grad (..., m,
+    D))."""
+    gn = torch.linalg.norm(grad, dim=-1, keepdim=True)
     return torch.clamp(X + step_len * grad / torch.clamp(gn, min=1e-12),
                        min=lo, max=hi)
 

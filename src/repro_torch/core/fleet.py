@@ -1,0 +1,254 @@
+"""Multi-tenant posterior fleet: T independent GPs served as one stack.
+
+Counterpart of ``repro.core.fleet``. A :class:`GPFleet` stacks ``T``
+capacity-padded :class:`AdditiveGP` s along a leading *tenant* axis: every
+tensor gains a ``(T, ...)`` axis (``n_active`` becomes the ``(T,)``
+per-tenant active count, ``sigma`` ``(T,)``), while the ``GPConfig``, D and
+the capacity are shared. The core ops take that axis as a batch:
+
+  * plain-torch glue (sorting, the KP window SVDs, splices, gathers,
+    masks) runs over ``(T, D, ...)`` tensors at once, with every reduction
+    inside a tenant;
+  * the banded kernels fold the tenants into their batch (``T x D`` bands
+    in one launch: ``banded_lu``, ``band_matmul``, ``rgf_blocks``, the
+    block-CR factor and apply);
+  * the backfitting solve is one launch for the whole fleet:
+    ``csrc/mega_pcg.cu`` over the tenant axis (the single GP's kernel,
+    counted as ``mega_pcg_fleet`` when T > 1), with per-tenant sigma^2,
+    cross-dimension totals, inner products and (tol > 0) exits.
+
+So the launches and host syncs of a fleet op do not grow with T. Each
+tenant's result equals the same call on its unstacked GP: bit for bit on
+the CPU (the plain versions run tenant by tenant), and on the card to the
+rounding of batched library calls (``PERF.md``). A one-tenant stack
+makes the single GP's launches, with its bits.
+
+Fleets run the pcg solver in the fused modes ("whole", the "auto" choice,
+or "on"): ``solver="jacobi"``/``"gauss_seidel"``, ``precond="kmg"`` (the
+"auto" choice at q = 0 and n >= 4096: pass ``precond="none"`` there) and
+``fused="off"`` raise ``NotImplementedError`` (``ROADMAP.md`` Queue 1).
+
+The per-tenant mutations (``fleet_insert``, ``fleet_evict``,
+``fleet_resync``) live in ``repro_torch.streaming.updates`` and the
+tiered multi-tenant server in ``repro_torch.streaming.fleet_engine``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..health.verdict import HealthState
+from ..kernels.ops import BandFactor
+from ..masking import lead_count
+from .additive_gp import (AdditiveGP, GPConfig, _as_f64, _fit_core,
+                          posterior_mean, posterior_var, resolve_config,
+                          resolve_device, with_capacity)
+from .backfitting import DimOps
+from .banded import Banded
+from .bayesopt import acquisition_stats
+
+__all__ = ["GPFleet", "stack_gps", "fleet_fit", "fleet_posterior_mean",
+           "fleet_posterior_var", "fleet_acquisition_stats", "tenant_gp",
+           "set_tenant_gp", "select_tenants", "replicate_gp",
+           "check_fleet_config", "tree_map"]
+
+
+def tree_map(fn, *objs):
+    """``fn`` over the tensors of one or more GPs of one structure (the
+    same fields set), rebuilding the GP: ``AdditiveGP``, its ``DimOps`` (its
+    block-CR factors mapped over their (tenant, dimension) batch, no new
+    factor made), ``Banded``, ``HealthState``, tensors; configs, widths and
+    flags pass through from the first."""
+    o = objs[0]
+    if o is None:
+        return None
+    if torch.is_tensor(o):
+        return fn(*objs)
+    if isinstance(o, BandFactor):
+        data = fn(*(f.data.reshape(f.batch + f.data.shape[-1:])
+                    for f in objs))
+        return BandFactor(data.reshape((-1,) + data.shape[-1:]),
+                          tuple(data.shape[:-1]), o.n, o.w, o.pivot,
+                          tree_map(fn, *(f.n_active for f in objs)))
+    if isinstance(o, DimOps):
+        new = object.__new__(DimOps)
+        for f in dataclasses.fields(DimOps):
+            object.__setattr__(new, f.name, tree_map(
+                fn, *(getattr(x, f.name) for x in objs)))
+        # a factor made for the DimOps' own count keeps that one object, as
+        # DimOps makes it (FusedSweep takes a factor whose count it is)
+        for name in ("phi_factor", "saphi_factor"):
+            f_old, f_new = getattr(o, name), getattr(new, name)
+            if f_old is not None and f_old.n_active is o.n_active:
+                object.__setattr__(new, name, dataclasses.replace(
+                    f_new, n_active=new.n_active))
+        return new
+    if isinstance(o, (AdditiveGP, Banded, HealthState)):
+        return dataclasses.replace(o, **{
+            f.name: tree_map(fn, *(getattr(x, f.name) for x in objs))
+            for f in dataclasses.fields(o) if f.init})
+    if isinstance(o, tuple):
+        raise NotImplementedError(
+            "a fleet carries no kmg hierarchy (precond='kmg' fleets are not "
+            "ported)")
+    return o
+
+
+def check_fleet_config(config: GPConfig) -> None:
+    """Raise ``NotImplementedError`` for a resolved config a fleet cannot
+    run: the relaxation solvers, kmg and the unfused loops."""
+    if config.solver != "pcg":
+        raise NotImplementedError(
+            f"fleets run solver='pcg'; solver={config.solver!r} needs the "
+            "relaxation kernels' tenant axis (ROADMAP Queue 1, the fleet)")
+    if config.precond == "kmg":
+        raise NotImplementedError(
+            "fleets run precond='none' (the kmg hierarchy's restriction "
+            "width is data dependent and does not stack over tenants; "
+            "ROADMAP Queue 1). At q = 0 and n >= 4096 'auto' resolves to "
+            "kmg: pass precond='none'")
+    if config.fused == "off":
+        raise NotImplementedError(
+            "fleets run fused 'whole' or 'on'; fused='off' (the unfused "
+            "host loops) has no tenant axis (ROADMAP Queue 1)")
+
+
+@dataclasses.dataclass(frozen=True)
+class GPFleet:
+    """Stacked fleet: an ``AdditiveGP`` whose every tensor carries a leading
+    ``(T,)`` tenant axis (``n_active``: the ``(T,)`` per-tenant counts)."""
+
+    gp: AdditiveGP
+
+    @property
+    def T(self) -> int:
+        return self.gp.X.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.gp.X.shape[1]
+
+    @property
+    def D(self) -> int:
+        return self.gp.X.shape[2]
+
+    @property
+    def config(self) -> GPConfig:
+        return self.gp.config
+
+    def counts(self) -> np.ndarray:
+        """Per-tenant active observation counts (one device read)."""
+        return self.gp.n_active.cpu().numpy()
+
+    def tenant(self, i: int) -> AdditiveGP:
+        """Tenant ``i`` as a standalone capacity-padded GP."""
+        return tenant_gp(self.gp, i)
+
+
+def tenant_gp(stack: AdditiveGP, lane: int) -> AdditiveGP:
+    """One tenant's GP out of a stacked fleet (views of the stack)."""
+    return tree_map(lambda a: a[lane], stack)
+
+
+def set_tenant_gp(stack: AdditiveGP, gp: AdditiveGP,
+                  lane: int) -> AdditiveGP:
+    """A copy of the stack with ``gp`` (of the stack's capacity) written
+    into lane ``lane``."""
+    def put(a, b):
+        out = a.clone()
+        out[lane] = b
+        return out
+
+    return tree_map(put, stack, gp)
+
+
+def replicate_gp(gp: AdditiveGP, T: int) -> AdditiveGP:
+    """One capacity-padded GP broadcast into a ``T``-lane stack."""
+    if gp.n_active is None:
+        gp = with_capacity(gp, gp.n)
+    return tree_map(lambda a: a[None].expand((T,) + a.shape).contiguous(),
+                    gp)
+
+
+def select_tenants(do, new_stack: AdditiveGP, old_stack: AdditiveGP):
+    """Per-lane select: lane t takes ``new`` where ``do[t]``. A
+    ``torch.where`` (a select, not arithmetic), so nothing computed in a
+    discarded lane, NaN included, reaches a kept one."""
+    do = torch.as_tensor(do, dtype=torch.bool,
+                         device=old_stack.device)
+    return tree_map(lambda a, b: torch.where(lead_count(do, a.ndim), a, b),
+                    new_stack, old_stack)
+
+
+def stack_gps(gps, capacity: int | None = None) -> GPFleet:
+    """Stack fitted GPs into one fleet. All tenants share D, the device
+    and the (resolved) ``GPConfig``; they are re-homed to a common capacity
+    first (the largest, or ``capacity``): pure padding, so each tenant's
+    stacked state equals its standalone state bit for bit on the active
+    prefix."""
+    gps = list(gps)
+    if not gps:
+        raise ValueError("stack_gps needs at least one GP")
+    cap = max(g.n for g in gps)
+    if capacity is not None:
+        if capacity < cap:
+            raise ValueError(
+                f"capacity {capacity} < largest tenant allocation {cap}")
+        cap = capacity
+    cfg0 = gps[0].config
+    for g in gps:
+        if g.config != cfg0:
+            raise ValueError("all fleet tenants must share one GPConfig; "
+                             f"got {g.config} vs {cfg0}")
+        if g.D != gps[0].D or g.device != gps[0].device:
+            raise ValueError("all fleet tenants must share D and device")
+    check_fleet_config(cfg0)
+    padded = [with_capacity(g, cap) for g in gps]
+    return GPFleet(gp=tree_map(lambda *ts: torch.stack(ts), *padded))
+
+
+def fleet_fit(config: GPConfig, X, Y, omega, sigma, capacity: int,
+              device=None) -> GPFleet:
+    """Fit ``T`` tenants at once: X (T, n, D), Y (T, n), omega (T, D) (or
+    (D,), broadcast), sigma (T,) or a scalar. Each tenant's fit equals
+    ``fit(config, X[t], Y[t], omega[t], sigma[t], capacity=capacity)``;
+    the config is resolved once, as ``fit`` resolves it. Runs on CUDA
+    unless ``device`` says otherwise (``fit``'s device rule)."""
+    device = resolve_device(device)
+    X = _as_f64(X, device)
+    T, n, D = X.shape
+    if capacity < n:
+        raise ValueError(f"capacity {capacity} < n {n}")
+    config = resolve_config(config, n, device)
+    check_fleet_config(config)
+    Y = _as_f64(Y, device).reshape(T, n)
+    omega = _as_f64(omega, device).expand(T, D).contiguous()
+    sigma = _as_f64(sigma, device).reshape(-1).expand(T).contiguous()
+    return GPFleet(gp=with_capacity(_fit_core(config, X, Y, omega, sigma),
+                                    int(capacity)))
+
+
+def fleet_posterior_mean(fleet: GPFleet, Xq, device=None):
+    """Per-tenant posterior means: Xq (T, m, D) -> (T, m)."""
+    return posterior_mean(fleet.gp, Xq, device=device)
+
+
+def fleet_posterior_var(fleet: GPFleet, Xq, device=None):
+    """Per-tenant posterior variances: Xq (T, m, D) -> (T, m)."""
+    return posterior_var(fleet.gp, Xq, device=device)
+
+
+def fleet_acquisition_stats(fleet: GPFleet, Xq, beta, best_y,
+                            kind: str = "ucb", device=None):
+    """Per-tenant ``(value, grad, mean, variance)``: Xq (T, m, D); ``beta``
+    and ``best_y`` scalars, (T,) per tenant, or (T, m) per query."""
+    dev = fleet.gp.device
+
+    def per(v):
+        v = torch.as_tensor(v, dtype=torch.float64, device=dev)
+        return v[..., None] if v.ndim == 1 else v
+
+    return acquisition_stats(fleet.gp, Xq, per(beta), per(best_y), kind=kind,
+                             device=device)

@@ -208,8 +208,8 @@ def _woodbury(Hsolve, hs: int, delta, hd: int, p, q: int, sign: float,
 
 def _drift_estimate(corr, ps, k_new, gscale):
     """The correction's magnitude on the outermost ``DRIFT_EDGE`` patch rows
-    relative to ``min(its peak, gscale)`` per dimension, counted on a side
-    only where the patch truncates there: exactly zero when the patch
+    relative to ``min(its peak, gscale)``, per dimension (D,), counted on a
+    side only where the patch truncates there: exactly zero when the patch
     covers the active system. A correction that has not decayed by the
     patch edge means the no-decay regime where the truncation fails."""
     P = corr.shape[1]
@@ -223,7 +223,7 @@ def _drift_estimate(corr, ps, k_new, gscale):
     peak = absc.amax(dim=(1, 2))
     scale = torch.clamp(torch.minimum(peak, gscale),
                         min=torch.finfo(corr.dtype).tiny)
-    return (edge / scale).amax()
+    return edge / scale
 
 
 def _add_patch_band(Gdata, corr, ps):
@@ -237,14 +237,25 @@ def _add_patch_band(Gdata, corr, ps):
     return out
 
 
+def _per_tenant_max(x, tenants: int | None):
+    """max over all of ``x``, or (``tenants``) over each tenant's
+    dimensions (leading axis T D): (T,)."""
+    if tenants is None:
+        return x.amax()
+    return x.reshape(tenants, -1).amax(-1)
+
+
 def gband_insert(Hband_old: Banded, A: Banded, Phi: Banded,
                  Gband_old: Banded, p, k_new, q: int, *,
-                 backend: str | None = None):
+                 backend: str | None = None, tenants: int | None = None):
     """Windowed ``(Gband, Hband, drift)`` after inserting at sorted
     positions ``p`` (D,): ``Hband_old``/``Gband_old`` the cached pre-insert
     canonical bands (D, C, 2h+1), ``A``/``Phi`` the post-insert factors,
     ``k_new`` the new active count (0-d tensor). ``drift`` is this
-    mutation's :func:`_drift_estimate`."""
+    mutation's :func:`_drift_estimate`, the largest over the dimensions.
+    A fleet passes its tenants' dimensions flattened (T D leading rows,
+    ``k_new`` and the bands' counts per dimension) and ``tenants`` = T:
+    the scales and the drift are then per tenant, drift (T,)."""
     h = A.lo + Phi.lo  # 2q + 1
     Hs = _splice_band(Hband_old.canonical().data, h, p, hout=h + 1)
     Hnew = _new_hband(A, Phi, k_new, backend)
@@ -252,14 +263,24 @@ def gband_insert(Hband_old: Banded, A: Banded, Phi: Banded,
     X, V, _, ps = _woodbury(Hs, h + 1, delta, h + 1, p, q, -1.0, backend)
     Gs = _splice_band(Gband_old.canonical().data, h, p)
     corr = _low_rank_band(X, V, h)
-    drift = _drift_estimate(corr, ps, k_new, Gs.abs().amax())
+    drift = _per_tenant_max(_drift_estimate(
+        corr, ps, k_new, _per_dim_scale(Gs, tenants)), tenants)
     Gnew = canonical_band(_add_patch_band(Gs, -corr, ps), h, h, k_new)
     return Banded(Gnew, h, h, k_new), Banded(Hnew, h, h, k_new), drift
 
 
+def _per_dim_scale(G, tenants: int | None):
+    """The band's largest magnitude: over all of it, or per tenant and
+    repeated over its dimensions (T D,)."""
+    if tenants is None:
+        return G.abs().amax()
+    return _per_tenant_max(G.abs(), tenants).repeat_interleave(
+        G.shape[0] // tenants)
+
+
 def gband_evict(Hband_old: Banded, A: Banded, Phi: Banded,
                 Gband_old: Banded, p, k_new, q: int, *,
-                backend: str | None = None):
+                backend: str | None = None, tenants: int | None = None):
     """Windowed ``(Gband, Hband, drift)`` after evicting sorted positions
     ``p`` (D,); arguments as :func:`gband_insert` (``A``/``Phi`` the
     post-evict factors), the solves against the cached ``Hband_old``."""
@@ -273,7 +294,8 @@ def gband_evict(Hband_old: Banded, A: Banded, Phi: Banded,
     X, V, Yt, pstart = _woodbury(Hold, h, delta, h + 1, p, q, 1.0, backend)
     Gold = Gband_old.canonical().data
     corr = _low_rank_band(X, V, h)
-    drift = _drift_estimate(corr, pstart, k_new, Gold.abs().amax())
+    drift = _per_tenant_max(_drift_estimate(
+        corr, pstart, k_new, _per_dim_scale(Gold, tenants)), tenants)
     Gs = _add_patch_band(Gold, corr, pstart)
 
     # the 2h entries at offsets +-(h+1) that deleting row/column p shifts

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..masking import lead_count
 from . import matern as mk
 from .banded import Banded, mask_band
 
@@ -27,11 +28,12 @@ __all__ = ["kp_coefficient_rows", "kp_coefficients", "gram_band_rows",
 def _kp_row_inputs(n, q: int, rows: torch.Tensor, clip_n: int | None = None):
     """Window indices, validity, signs and auxiliary-equation counts for
     ``rows`` (..., r). ``n`` is the matrix size, a python int or (capacity
-    padding) a 0-d tensor that only enters comparisons; ``clip_n`` the
-    static allocation the gather indices are clipped to (default n)."""
+    padding) a tensor that only enters comparisons: 0-d, or counts that
+    broadcast against ``rows`` (a fleet's per-dimension counts); ``clip_n``
+    the static allocation the gather indices are clipped to (default n)."""
     t = torch.arange(-(q + 1), q + 2, device=rows.device)
     j = rows[..., None] + t
-    valid = (j >= 0) & (j < n)
+    valid = (j >= 0) & (j < _per_window(n))
     j_idx = j.clamp(0, (n if clip_n is None else clip_n) - 1)
     is_left = rows <= q
     is_right = rows >= n - q - 1
@@ -41,6 +43,12 @@ def _kp_row_inputs(n, q: int, rows: torch.Tensor, clip_n: int | None = None):
                        torch.where(is_right, n - 1 - rows,
                                    torch.full_like(rows, q + 1)))
     return j_idx, valid, psign, -psign, naux.clamp(max=q + 1)
+
+
+def _per_window(n):
+    """A count that broadcasts against rows (..., r), shaped for their
+    windows (..., r, w)."""
+    return n[..., None] if torch.is_tensor(n) and n.ndim else n
 
 
 def _kp_build_rows(q: int, omega, xrow, vrow, psign, asign, naux):
@@ -138,10 +146,10 @@ def gram_band_rows(kfun, xs, a_rows, rows, loA: int, hiA: int, hw: int,
     dev = xs.device
     zero = torch.zeros((), dtype=xs.dtype, device=dev)
     j = rows[..., None] + torch.arange(-loA, hiA + 1, device=dev)
-    vv = (j >= 0) & (j < na)
+    vv = (j >= 0) & (j < _per_window(na))
     xw = torch.where(vv, _take(xs, j.clamp(0, n - 1)), zero)
     jm = rows[..., None] + torch.arange(-hw, hw + 1, device=dev)
-    vm = (jm >= 0) & (jm < na)
+    vm = (jm >= 0) & (jm < _per_window(na))
     xm = torch.where(vm, _take(xs, jm.clamp(0, n - 1)), zero)
     kv = kfun(xm[..., :, :, None], xw[..., :, None, :]) * vv[..., None, :]
     data = torch.einsum("...nmt,...nt->...nm", kv, a_rows)
@@ -179,7 +187,7 @@ def query_window_start(xs, xq, n_active=None):
     reference's masked count)."""
     if n_active is not None:
         j = torch.arange(xs.shape[-1], device=xs.device)
-        xs = torch.where(j < n_active, xs,
+        xs = torch.where(j < lead_count(n_active, xs.ndim), xs,
                          torch.full((), float("inf"), dtype=xs.dtype,
                                     device=xs.device))
     return torch.searchsorted(xs.contiguous(), xq.contiguous(), side="left")
@@ -189,32 +197,36 @@ def _query_windows(q: int, omega, xs, A: Banded, xq, kfun, n_active=None):
     """Rows and values of A kfun(X, x*) in each query's KP window, for every
     dim and query: ``kfun(om, xj, xq)`` evaluates the kernel (or its
     derivative) at the window points ``xj`` (D, m, 2q+2, 2q+3), with ``om``
-    (D, 1, 1, 1) and ``xq`` (D, m, 1, 1). Under capacity padding
+    (D, 1, 1, 1) and ``xq`` (D, m, 1, 1); a fleet adds a leading tenant
+    axis to every input (``n_active`` (T,)). Under capacity padding
     (``n_active``, defaulting to ``A.n_active``) the rows are clamped into
     the active prefix and tail points never enter the kernel."""
     if n_active is None:
         n_active = A.n_active
-    D, n = xs.shape
-    na = n if n_active is None else n_active
+    n = xs.shape[-1]
+    lead = xs.shape[:-1]  # (..., D)
     m = xq.shape[-1]
     dev = xs.device
     zero = torch.zeros((), dtype=xs.dtype, device=dev)
     t = query_window_start(xs, xq, n_active=n_active)
     rows = t[..., None] + torch.arange(-(q + 1), q + 1, device=dev)
+    na = n if n_active is None else lead_count(n_active, rows.ndim)
     valid = (rows >= 0) & (rows < na)
     # clamp into the active prefix: consumers gather bY / Gband at these
     # rows and multiply by the (zeroed) values, and 0 * NaN is NaN
     rows_c = (rows.clamp(0, n - 1) if n_active is None else torch.minimum(
-        rows.clamp(min=0), (n_active - 1).clamp(min=0)))
+        rows.clamp(min=0), (na - 1).clamp(min=0)))
     j = rows_c[..., None] + torch.arange(-(q + 1), q + 2, device=dev)
-    jv = (j >= 0) & (j < na)
+    jv = (j >= 0) & (j < (na if n_active is None else na[..., None]))
     jc = j.clamp(0, n - 1)
-    xj = torch.where(jv, torch.gather(xs, 1, jc.reshape(D, -1)).reshape(
-        jc.shape), zero)
-    kv = kfun(omega[:, None, None, None], xj, xq[..., None, None]) * jv
+    xj = torch.where(jv, torch.gather(xs, -1, jc.reshape(lead + (-1,)))
+                     .reshape(jc.shape), zero)
+    kv = kfun(omega[..., None, None, None], xj, xq[..., None, None]) * jv
     wA = A.data.shape[-1]
-    arows = torch.gather(A.data, 1, rows_c.reshape(D, -1, 1).expand(-1, -1, wA))
-    avals = torch.where(valid[..., None], arows.reshape(D, m, -1, wA), zero)
+    arows = torch.gather(A.data, -2, rows_c.reshape(lead + (-1, 1)).expand(
+        lead + (m * rows_c.shape[-1], wA)))
+    avals = torch.where(valid[..., None], arows.reshape(lead + (m, -1, wA)),
+                        zero)
     vals = torch.einsum("...rs,...rs->...r", avals, kv) * valid
     return rows_c, vals, valid
 

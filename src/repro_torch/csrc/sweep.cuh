@@ -133,6 +133,24 @@ __device__ __forceinline__ void sum_dims(const SweepDims& S, const Map& m,
   }
 }
 
+// dst[t,i,b] = sum_d src[t,d,i,b], d = 0..Dt-1 in order, for every tenant
+// t of a stack of T tenants of Dt dimensions each (S.D = T Dt): sum_dims
+// within each tenant, tenant by tenant (T = 1 is sum_dims)
+__device__ __forceinline__ void sum_dims_tenants(const SweepDims& S,
+                                                 const Map& m, double* dst,
+                                                 const double* src, int T,
+                                                 int Dt) {
+  if (!m.on) return;
+  const int B = S.B;
+  for (int t = 0; t < T; ++t)
+    for (long long i = m.r0; i < S.npad; i += m.rs) {
+      double acc = 0.0;
+      for (int d = 0; d < Dt; ++d)
+        acc += src[(((long long)t * Dt + d) * S.npad + i) * B + m.b];
+      dst[((long long)t * S.npad + i) * B + m.b] = acc;
+    }
+}
+
 // t <- t / band over the rows of the dimensions [d0, d1): the solve with a
 // diagonal band (w = 0); U rows at a time (for_rows)
 template <int U = 1>

@@ -47,9 +47,10 @@ class HealthState:
     muts: torch.Tensor  # int32
 
     @staticmethod
-    def fresh(dtype=torch.float64, device=None) -> "HealthState":
-        z = torch.zeros((), dtype=dtype, device=device)
-        zi = torch.zeros((), dtype=torch.int32, device=device)
+    def fresh(dtype=torch.float64, device=None, lead=()) -> "HealthState":
+        """Zeroed state; ``lead`` (T,) for a fleet's per-tenant scalars."""
+        z = torch.zeros(lead, dtype=dtype, device=device)
+        zi = torch.zeros(lead, dtype=torch.int32, device=device)
         return HealthState(verdict=zi, resid=z, rhs=z, drift=z, muts=zi)
 
     def with_solve(self, info) -> "HealthState":
@@ -72,14 +73,17 @@ class HealthState:
 
 
 def classify_solve(x, resid, rhs, at_cap, stall_rtol: float = STALL_RTOL):
-    """Classify one solve into an int32 verdict code (tensor scalar).
+    """Classify one solve into an int32 verdict code (tensor scalar), or a
+    stack of solves (a fleet's (T,) ``resid``/``rhs``/``at_cap`` over the
+    leading axis of ``x``) into one code each.
 
     Severity order NONFINITE > DIVERGED > STALLED > OK; a zero RHS is OK.
     """
     resid = torch.as_tensor(resid)
     rhs = torch.as_tensor(rhs, dtype=resid.dtype, device=resid.device)
     at_cap = torch.as_tensor(at_cap, device=resid.device)
-    finite = torch.isfinite(resid) & torch.isfinite(x).all()
+    finite = torch.isfinite(resid) & torch.isfinite(x).reshape(
+        resid.shape + (-1,)).all(-1)
     tiny = torch.finfo(resid.dtype).tiny
     rel = resid / torch.clamp(rhs, min=tiny)
     code = torch.where(

@@ -38,14 +38,18 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # the backfitting kernels' wide instantiations (half-width 4, q = 3) count
 # apart, under the name + "_w4"; the block CR's (half-width 6-8, the
-# streaming Woodbury patch solves at q = 2, 3) under the name + "_wide"
+# streaming Woodbury patch solves at q = 2, 3) under the name + "_wide";
+# the PCG kernel's launches over a fleet's T > 1 systems under the name +
+# "_fleet" (+ "_w4")
 KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
            "banded_matvec", "cr_apply", "fused_jacobi_iter",
            "fused_gauss_seidel_iter", "mega_jacobi", "mega_gauss_seidel",
            "fused_pcg_iter", "kp_gram", "cr_factor", "mega_pcg_w4",
            "fused_pcg_iter_w4", "fused_jacobi_iter_w4",
            "fused_gauss_seidel_iter_w4", "mega_jacobi_w4",
-           "mega_gauss_seidel_w4", "cr_factor_wide", "cr_apply_wide")
+           "mega_gauss_seidel_w4", "cr_factor_wide", "cr_apply_wide",
+           "mega_pcg_fleet", "fused_pcg_iter_fleet", "mega_pcg_fleet_w4",
+           "fused_pcg_iter_fleet_w4")
 
 _c_int, _c_ll, _c_dbl, _ptr = (ctypes.c_int, ctypes.c_longlong,
                                 ctypes.c_double, ctypes.c_void_p)
@@ -57,9 +61,9 @@ _SIGNATURES = {
                                        _c_int, _c_int, _c_int, _c_int, _ptr]),
     "repro_rgf_workspace": (_c_ll, [_c_int] * 3),
     "repro_rgf_blocks_f64": (_c_int, [_ptr] * 7 + [_c_int] * 3 + [_ptr]),
-    "repro_mega_pcg_workspace": (_c_ll, [_c_int] * 5),
-    "repro_mega_pcg_cols": (_c_int, [_c_int] * 4),
-    "repro_mega_pcg_f64": (_c_int, [_ptr] * 16 + [_c_int] * 8
+    "repro_mega_pcg_workspace": (_c_ll, [_c_int] * 6),
+    "repro_mega_pcg_cols": (_c_int, [_c_int] * 5),
+    "repro_mega_pcg_f64": (_c_int, [_ptr] * 16 + [_c_int] * 9
                            + [_c_dbl, _c_int, _c_int, _ptr]),
     "repro_jacobi_workspace": (_c_ll, [_c_int] * 3),
     "repro_jacobi_grid": (_c_int, [_c_int] * 2),

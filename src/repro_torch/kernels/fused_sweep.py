@@ -45,6 +45,8 @@ __all__ = ["FusedSweep", "_pad_len", "_mv", "_gather", "_solve_sym",
            "jacobi_cols", "jacobi_grid"]
 
 MAX_B = 256  # RHS columns per launch (csrc/sweep.cuh SWEEP_NT)
+# tenants x columns of one PCG launch (csrc/mega_pcg.cu MAX_TB)
+MAX_TB = 4096
 # w_a, w_p, w_s <= 4: each kernel has two instantiations (csrc/sweep.cuh
 # apply_cols' MAXW), one for bands up to half-width 3 (q <= 2) and one for
 # 4 (q = 3's A and SAPhi), whose launches count under the name + "_w4"
@@ -202,12 +204,32 @@ def _mhat_dim(a, phi, sort_idx, rank_idx, s2, u, *, w_a, w_p,
     return _gather(wv, rank_idx) + u.sum(dim=0) / s2
 
 
+def by_tenant(fn, ops, states, sigma2):
+    """``fn(*ops_t, sigma2_t, *states_t)`` for each tenant t of a stack
+    (operands and states with a leading T axis, ``sigma2`` (T,)), the
+    outputs stacked over t: the plain versions' tenant axis."""
+    T = states[0].shape[0]
+    outs = [fn(*(None if o is None else o[t] for o in ops),
+               sigma2[t:t + 1],
+               *(None if u is None else u[t] for u in states))
+            for t in range(T)]
+    if not isinstance(outs[0], tuple):
+        return torch.stack(outs)
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
 def pcg_seed_plain(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
                    w_a: int, w_p: int, w_s: int, warm: bool,
                    pivot: bool = False):
     """The PCG seed on padded operands: ``(x, r, p, rz)`` with x = x0,
     r = v - Mhat x0 (v when cold: Mhat 0 = 0), p = z = M_pre^{-1} r and
-    rz = <r, z> of shape (1, B)."""
+    rz = <r, z> of shape (1, B). A tenant stack (a leading T axis on every
+    operand, ``sigma2`` (T,)) is seeded tenant by tenant."""
+    if v.ndim == 4:
+        return by_tenant(
+            lambda *o: pcg_seed_plain(*o, w_a=w_a, w_p=w_p, w_s=w_s,
+                                      warm=warm, pivot=pivot),
+            (a, phi, saphi, sort_idx, rank_idx), (v, x0), sigma2)
     s2 = sigma2.reshape(())
     r = (v - _mhat_dim(a, phi, sort_idx, rank_idx, s2, x0, w_a=w_a, w_p=w_p,
                        pivot=pivot) if warm else v.clone())
@@ -220,7 +242,13 @@ def fused_pcg_iter_plain(a, phi, saphi, sort_idx, rank_idx, sigma2, x, r, p,
                          rz, *, w_a: int, w_p: int, w_s: int,
                          pivot: bool = False):
     """One PCG iteration on Mhat with the block preconditioner, on padded
-    operands; ``rz`` (1, B) the carried <r, z>. Returns ``(x, r, p, rz)``."""
+    operands; ``rz`` (1, B) the carried <r, z>. Returns ``(x, r, p, rz)``.
+    A tenant stack (as :func:`pcg_seed_plain`) iterates tenant by tenant."""
+    if x.ndim == 4:
+        return by_tenant(
+            lambda *o: fused_pcg_iter_plain(*o, w_a=w_a, w_p=w_p, w_s=w_s,
+                                            pivot=pivot),
+            (a, phi, saphi, sort_idx, rank_idx), (x, r, p, rz), sigma2)
     s2 = sigma2.reshape(())
     ap = _mhat_dim(a, phi, sort_idx, rank_idx, s2, p, w_a=w_a, w_p=w_p,
                    pivot=pivot)
@@ -241,7 +269,12 @@ def pcg_loop(iterate, state, *, iters: int, tol: float):
     fewer than ``iters`` iterations ran and (``tol == 0`` or some column
     has |rz| > tol^2 |rz_0|): the whole-solve kernel's exit, checked on the
     host (one read of rz per iteration when ``tol > 0``). Returns
-    ``(state, iterations run)``."""
+    ``(state, iterations run)``. On a tenant stack (``rz`` (T, 1, B)) each
+    tenant exits on its own columns, as the tenant-axis kernel does: an
+    exited tenant keeps its state (a select after each iteration) and the
+    count is (T,) int32."""
+    if state[3].ndim == 3:
+        return _pcg_loop_tenants(iterate, state, iters=iters, tol=tol)
     thresh = tol * tol * torch.abs(state[3])
     i = 0
     while i < iters and (tol <= 0
@@ -249,6 +282,28 @@ def pcg_loop(iterate, state, *, iters: int, tol: float):
         state = iterate(*state)
         i += 1
     return state, i
+
+
+def _pcg_loop_tenants(iterate, state, *, iters: int, tol: float):
+    T = state[3].shape[0]
+    dev = state[3].device
+    thresh = tol * tol * torch.abs(state[3])
+    its = torch.zeros(T, dtype=torch.int32)
+    act = torch.ones(T, dtype=torch.bool)
+    for _ in range(iters):
+        if tol > 0:
+            act = (torch.abs(state[3]) > thresh).reshape(T, -1).any(1).cpu()
+            if not bool(act.any()):
+                break
+        new = iterate(*state)
+        if bool(act.all()):
+            state = new
+        else:
+            keep = act.to(dev)
+            state = tuple(torch.where(keep.reshape((T,) + (1,) * (u.ndim - 1)),
+                                      n, u) for n, u in zip(new, state))
+        its += act.to(torch.int32)
+    return state, its.to(dev)
 
 
 def sweep_backward_error(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, new,
@@ -283,7 +338,11 @@ def sweep_backward_error(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, new,
 
 def _check_operands(phi, saphi, sort_idx, rank_idx, sigma2, states, w_p,
                     w_s):
-    D, npad, B = states[0].shape
+    """(lead, D, npad, B, device): ``lead`` is () for one system and (T,)
+    for a stack of T tenants (every operand with that leading axis,
+    ``sigma2`` then (T,))."""
+    lead = tuple(states[0].shape[:-3])
+    D, npad, B = states[0].shape[-3:]
     if not 1 <= B <= MAX_B:
         raise ValueError(f"the sweep kernels take 1 <= B <= {MAX_B} columns")
     if not (0 <= w_p <= MAX_WIDTH and 1 <= w_s <= MAX_WIDTH):
@@ -293,14 +352,14 @@ def _check_operands(phi, saphi, sort_idx, rank_idx, sigma2, states, w_p,
         if w > 0 and npad % w:
             raise ValueError(f"npad={npad} is not a multiple of width {w}")
     dev, f64 = states[0].device, torch.float64
-    _build.expect(phi, "phi", f64, (D, npad, 2 * w_p + 1), dev)
-    _build.expect(saphi, "saphi", f64, (D, npad, 2 * w_s + 1), dev)
-    _build.expect(sort_idx, "sort_idx", torch.int32, (D, npad), dev)
-    _build.expect(rank_idx, "rank_idx", torch.int32, (D, npad), dev)
-    _build.expect(sigma2, "sigma2", f64, (1,), dev)
+    _build.expect(phi, "phi", f64, lead + (D, npad, 2 * w_p + 1), dev)
+    _build.expect(saphi, "saphi", f64, lead + (D, npad, 2 * w_s + 1), dev)
+    _build.expect(sort_idx, "sort_idx", torch.int32, lead + (D, npad), dev)
+    _build.expect(rank_idx, "rank_idx", torch.int32, lead + (D, npad), dev)
+    _build.expect(sigma2, "sigma2", f64, lead or (1,), dev)
     for i, t in enumerate(states):
-        _build.expect(t, f"state {i}", f64, (D, npad, B), dev)
-    return D, npad, B, dev
+        _build.expect(t, f"state {i}", f64, lead + (D, npad, B), dev)
+    return lead, D, npad, B, dev
 
 
 def _launch_jacobi(name, phi, saphi, sort_idx, rank_idx, sigma2, v, x_in,
@@ -312,8 +371,9 @@ def _launch_jacobi(name, phi, saphi, sort_idx, rank_idx, sigma2, v, x_in,
     each made here where it is read, one ``cr_factor`` launch each).
     ``cols`` the columns per solve item (None: :func:`jacobi_cols`)."""
     states = (v, x_in) if k_in is None else (v, x_in, k_in)
-    D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
-                                      sigma2, states, w_p, w_s)
+    _no_tenants("the Jacobi kernel", states[0])
+    _, D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
+                                         sigma2, states, w_p, w_s)
     need_p = w_p > 0 and kmode == K_WARM
     if factors is None:
         factors = pcg_factors(phi, saphi, w_p=w_p if need_p else 0, w_s=w_s,
@@ -341,18 +401,28 @@ def _launch_jacobi(name, phi, saphi, sort_idx, rank_idx, sigma2, v, x_in,
     return x, k
 
 
+def _no_tenants(what, state):
+    """The relaxation kernels take one system a launch: a tenant stack
+    (a leading T axis) raises."""
+    if state.ndim != 3:
+        raise NotImplementedError(
+            f"{what} has no tenant axis: fleets run solver='pcg' (ROADMAP "
+            "Queue 1, the relaxation kernels' tenant axis)")
+
+
 def _check_cols(cols):
     if cols is not None and cols < 1:
         raise ValueError(f"cols must be >= 1, got {cols}")
 
 
 def sweep_factor(band, w: int, pivot: bool = False) -> BandFactor:
-    """The block-CR factor of a padded band stack (D, npad, 2w+1) as the
-    sweep kernels take it (``factors=``): one ``block_cr_factor`` launch,
-    with the pivot mode it was made in."""
-    D, npad, _ = band.shape
-    return BandFactor(block_cr_factor(band, w, pivot=pivot), (D,), npad, w,
-                      pivot)
+    """The block-CR factor of a padded band stack (..., D, npad, 2w+1) as
+    the sweep kernels take it (``factors=``): one ``block_cr_factor`` launch
+    over every band of the stack, with the pivot mode it was made in."""
+    npad = band.shape[-2]
+    return BandFactor(block_cr_factor(band.reshape((-1,) + band.shape[-2:]),
+                                      w, pivot=pivot),
+                      tuple(band.shape[:-2]), npad, w, pivot)
 
 
 def _check_factors(factors, pivot: bool):
@@ -371,8 +441,9 @@ def _check_factors(factors, pivot: bool):
 
 
 def _factor_data(fac, name, w, D, npad, dev):
-    """The data of a :func:`sweep_factor` of a (D, npad) band of
-    half-width ``w``, checked for a launch."""
+    """The data of a :func:`sweep_factor` of D (every tenant's dimensions,
+    flattened) bands (npad rows) of half-width ``w``, checked for a
+    launch."""
     if fac is None:
         raise ValueError(f"the launch solves with {name}: its factor is "
                          "needed, got None")
@@ -391,8 +462,9 @@ def _launch_gauss_seidel(name, phi, saphi, sort_idx, rank_idx, sigma2, v,
     None). ``factors`` is SAPhi's :func:`sweep_factor` in this pivot mode
     (None: made here, one ``cr_factor`` launch); ``cols`` the columns per
     solve item (None: :func:`gauss_seidel_cols`)."""
-    D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
-                                      sigma2, (v, x_in), w_p, w_s)
+    _no_tenants("the Gauss-Seidel kernel", v)
+    _, D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
+                                         sigma2, (v, x_in), w_p, w_s)
     if factors is None:
         factors = sweep_factor(saphi, w_s, pivot=pivot)
     fac = _factor_data(factors, "SAPhi", w_s, D, npad, dev)
@@ -420,6 +492,14 @@ def _query(fn, what, *args):
     return out
 
 
+def pcg_fleet_cols(T: int, D: int, B: int, pivot: bool = False,
+                   maxw: int = NARROW_WIDTH) -> int:
+    """:func:`pcg_solve_cols` of a launch over T tenants: auto_cols over the
+    T D dimensions' items."""
+    return _query(_build.load_library().repro_mega_pcg_cols,
+                  "mega_pcg column query", T, D, B, int(pivot), maxw)
+
+
 def pcg_solve_cols(D: int, B: int, pivot: bool = False,
                    maxw: int = NARROW_WIDTH) -> int:
     """Columns per (dimension, column chunk) item of the PCG kernel's
@@ -429,8 +509,7 @@ def pcg_solve_cols(D: int, B: int, pivot: bool = False,
     (``csrc/mega_pcg.cu``; the widths are measured in PERF.md). ``maxw``,
     here and in the queries below: the launch's widest band, which picks
     its instantiation."""
-    return _query(_build.load_library().repro_mega_pcg_cols,
-                  "mega_pcg column query", D, B, int(pivot), maxw)
+    return pcg_fleet_cols(1, D, B, pivot, maxw)
 
 
 def gauss_seidel_grid(pivot: bool = False, maxw: int = NARROW_WIDTH) -> int:
@@ -479,45 +558,62 @@ def _launch_pcg(name, a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
     or PCG_WARM) or a carry launch from ``carry = (x, r, p, rz)``, for up
     to ``iters`` iterations; returns ``(x, r, p, rz, iterations run)``.
     ``factors`` are :func:`pcg_factors` of the bands (None: made here);
-    ``cols`` the columns per solve item (None: :func:`pcg_solve_cols`)."""
+    ``cols`` the columns per solve item (None: :func:`pcg_solve_cols`).
+    A stack of T tenants (every operand with a leading T axis, ``sigma2``
+    (T,), ``rz`` (T, 1, B)) is one launch of the same kernel, the count
+    (T,); with T > 1 it counts as ``name + "_fleet"``."""
     states = (v, x0) if carry is None else carry[:3]
-    D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
-                                      sigma2, states, w_p, w_s)
+    lead, D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
+                                            sigma2, states, w_p, w_s)
+    T = lead[0] if lead else 1
+    if T * B > MAX_TB:
+        raise ValueError(f"a PCG launch takes T * B <= {MAX_TB}; got "
+                         f"T = {T}, B = {B}")
     if not 0 <= w_a <= MAX_WIDTH:
         raise ValueError(f"the PCG kernel takes w_a <= {MAX_WIDTH}")
     f64 = torch.float64
-    _build.expect(a, "a", f64, (D, npad, 2 * w_a + 1), dev)
+    _build.expect(a, "a", f64, lead + (D, npad, 2 * w_a + 1), dev)
     if carry is None:
         x, r, p = (torch.empty_like(v) for _ in range(3))
-        rz = torch.empty((1, B), dtype=f64, device=dev)
+        rz = torch.empty(lead + (1, B), dtype=f64, device=dev)
     else:
-        _build.expect(carry[3], "rz", f64, (1, B), dev)
+        _build.expect(carry[3], "rz", f64, lead + (1, B), dev)
         x, r, p, rz = (t.clone() for t in carry)
     if factors is None:
         factors = pcg_factors(phi, saphi, w_p=w_p, w_s=w_s, pivot=pivot)
-    fac_p, fac_s = (_factor_data(fac, nm, w, D, npad, dev) if w else None
+    fac_p, fac_s = (_factor_data(fac, nm, w, T * D, npad, dev) if w else None
                     for w, fac, nm in ((w_p, factors[0], "Phi"),
                                        (w_s, factors[1], "SAPhi")))
     _check_cols(cols)
     lib = _build.load_library()
-    nwork = lib.repro_mega_pcg_workspace(D, npad, B, int(pivot),
+    nwork = lib.repro_mega_pcg_workspace(T, D, npad, B, int(pivot),
                                          _maxw(w_a, w_p, w_s))
     if nwork < 0:
         _build.check(int(-nwork), f"{name} workspace query")
     work = torch.empty((nwork,), dtype=f64, device=dev)
-    it = torch.empty((1,), dtype=torch.int32, device=dev)
+    it = torch.empty((T,), dtype=torch.int32, device=dev)
     err = lib.repro_mega_pcg_f64(
         a.data_ptr(), phi.data_ptr(), saphi.data_ptr(),
         None if fac_p is None else fac_p.data_ptr(), fac_s.data_ptr(),
         sort_idx.data_ptr(), rank_idx.data_ptr(), sigma2.data_ptr(),
         None if v is None else v.data_ptr(),
         None if x0 is None else x0.data_ptr(), x.data_ptr(), r.data_ptr(),
-        p.data_ptr(), rz.data_ptr(), it.data_ptr(), work.data_ptr(), D, npad,
-        B, w_a, w_p, w_s, iters, cols or 0, float(tol), mode, int(pivot),
-        _build.stream_handle(dev))
+        p.data_ptr(), rz.data_ptr(), it.data_ptr(), work.data_ptr(), T, D,
+        npad, B, w_a, w_p, w_s, iters, cols or 0, float(tol), mode,
+        int(pivot), _build.stream_handle(dev))
     _build.check(err, name)
-    _build.count_launch(_counted(name, w_a, w_p, w_s))
-    return x, r, p, rz, it[0]
+    _build.count_launch(_counted(name if T == 1 else name + "_fleet", w_a,
+                                 w_p, w_s))
+    return x, r, p, rz, (it if lead else it[0])
+
+
+def _lane_factor(f, t: int):
+    """Tenant ``t``'s part of a :func:`sweep_factor` of a tenant stack."""
+    if f is None:
+        return None
+    D = f.batch[-1]
+    return BandFactor(f.data[t * D:(t + 1) * D], f.batch[1:], f.n, f.w,
+                      f.pivot)
 
 
 def fused_pcg_iter(a, phi, saphi, sort_idx, rank_idx, sigma2, x, r, p, rz, *,
@@ -632,13 +728,18 @@ class FusedSweep:
     length: rows in ``[n_active, n)`` get the same canonical identity tail
     as the rows in ``[n, npad)``, and states a zero tail, so the kernels see
     one uninterrupted decoupled tail.
+
+    A tenant stack has a leading T axis on every band, permutation and
+    state, ``sigma2`` and ``n_active`` (T,): the PCG launches then take all
+    tenants at once (``csrc/mega_pcg.cu``).
     """
 
     def __init__(self, phi, saphi, sort_idx, rank_idx, sigma2, *, w_p: int,
                  w_s: int, a=None, w_a: int = 0, pivot: bool = False,
                  backend: str | None = None, factors=(None, None),
                  n_active=None):
-        D, n = sort_idx.shape
+        D, n = sort_idx.shape[-2:]
+        self.lead = tuple(sort_idx.shape[:-2])
         self.D, self.n = D, n
         self.n_active = n_active
         self.w_a, self.w_p, self.w_s = w_a, w_p, w_s
@@ -652,58 +753,74 @@ class FusedSweep:
         self.sort_idx = self._pad_idx(sort_idx)
         self.rank_idx = self._pad_idx(rank_idx)
         self.sigma2 = torch.as_tensor(sigma2, dtype=self.dtype,
-                                      device=self.device).reshape(1)
+                                      device=self.device).reshape(
+                                          self.lead or (1,))
         self._factors = {}
+        batch = self.lead + (D,)
         for name, w, f in zip(("phi", "saphi"), (w_p, w_s), factors):
             if (f is not None and (f.batch, f.n, f.w, f.pivot)
-                    == ((D,), n, w, pivot) and -(-n // w) * w == self.npad
+                    == (batch, n, w, pivot) and -(-n // w) * w == self.npad
                     and f.n_active is n_active):
-                self._factors[name] = BandFactor(f.data, (D,), self.npad, w,
+                self._factors[name] = BandFactor(f.data, batch, self.npad, w,
                                                  pivot)
 
     def _pad_band(self, data, w):
-        out = torch.zeros((self.D, self.npad, 2 * w + 1), dtype=self.dtype,
-                          device=self.device)
-        out[:, :, w] = 1.0
-        out[:, :self.n] = canonical_band(data, w, w,
-                                         self.n_active).to(self.dtype)
+        out = torch.zeros(self.lead + (self.D, self.npad, 2 * w + 1),
+                          dtype=self.dtype, device=self.device)
+        out[..., w] = 1.0
+        out[..., :self.n, :] = canonical_band(data, w, w,
+                                              self.n_active).to(self.dtype)
         return out
 
     def _pad_idx(self, idx):
         tail = torch.arange(self.n, self.npad, dtype=torch.int32,
-                            device=self.device).expand(self.D, -1)
+                            device=self.device).expand(
+                                self.lead + (self.D, -1))
         idx = canonical_perm(idx, self.n_active)
-        return torch.cat([idx.to(torch.int32), tail], dim=1).contiguous()
+        return torch.cat([idx.to(torch.int32), tail], dim=-1).contiguous()
 
     def pad_state(self, u):
-        """(D, n, B) -> (D, npad, B) with a zero tail."""
-        out = torch.zeros((self.D, self.npad) + tuple(u.shape[2:]),
+        """(..., D, n, B) -> (..., D, npad, B) with a zero tail."""
+        k = len(self.lead)
+        out = torch.zeros(self.lead + (self.D, self.npad)
+                          + tuple(u.shape[k + 2:]),
                           dtype=self.dtype, device=self.device)
-        out[:, :self.n] = mask_rows(u, self.n_active, axis=1).to(self.dtype)
+        out[..., :self.n, :] = mask_rows(u, self.n_active,
+                                         axis=k + 1).to(self.dtype)
         return out
 
     def unpad(self, u):
-        return u[:, :self.n]
+        return u[..., :self.n, :]
 
     def _ops(self):
         return (self.phi, self.saphi, self.sort_idx, self.rank_idx,
                 self.sigma2)
 
+    def max_cols(self, limit: int | None = None) -> int:
+        """Columns a launch takes: ``limit`` (default the kernels'
+        ``MAX_B``), and on a tenant stack at most ``MAX_TB`` (tenant,
+        column) pairs."""
+        limit = MAX_B if limit is None else limit
+        if not self.lead:
+            return limit
+        return max(1, min(limit, MAX_TB // self.lead[0]))
+
     def by_columns(self, fn, *states, step: int | None = None):
         """``fn(*states)`` over column chunks of at most ``step`` (default
-        the kernels' limit ``MAX_B``), joined along the columns; a 0-d
-        output (an iteration count) is taken from the first chunk. The
-        columns of a sweep and of a relaxation or fixed-count PCG solve are
-        independent, so the result is that of one call."""
+        the kernels' limit :meth:`max_cols`), joined along the columns; an
+        iteration count (0-d, or (T,) on a tenant stack) is taken from the
+        first chunk. The columns of a sweep and of a relaxation or
+        fixed-count PCG solve are independent, so the result is that of
+        one call."""
         B = states[0].shape[-1]
-        step = MAX_B if step is None else step
+        step = self.max_cols() if step is None else step
         if B <= step:
             return fn(*states)
         outs = [fn(*(None if s is None else s[..., c:c + step].contiguous()
                      for s in states)) for c in range(0, B, step)]
         if not isinstance(outs[0], tuple):
             return torch.cat(outs, dim=-1)
-        return tuple(torch.cat(p, dim=-1) if p[0].dim() else p[0]
+        return tuple(torch.cat(p, dim=-1) if p[0].dim() >= 2 else p[0]
                      for p in zip(*outs))
 
     def jacobi_iter(self, v, vt, alpha: float, k=None, warm: bool = False):

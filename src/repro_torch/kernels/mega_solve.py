@@ -37,7 +37,7 @@ from __future__ import annotations
 import torch
 
 from .fused_sweep import (K_WARM, K_ZERO, MAX_B, MAX_WIDTH, PCG_COLD,
-                          PCG_WARM, FusedSweep, _check_factors,
+                          PCG_WARM, FusedSweep, _check_factors, by_tenant,
                           _khat_inv_dim, _launch_gauss_seidel, _launch_jacobi, _launch_pcg,
                           fused_gauss_seidel_iter_plain,
                           fused_jacobi_iter_plain, fused_pcg_iter_plain,
@@ -56,8 +56,15 @@ def mega_pcg_plain(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
     """Plain PyTorch whole PCG solve on padded operands: the plain seed and
     a loop of the plain iteration (:func:`pcg_loop`), as the kernel runs
     them. Returns ``(x, r, iters_used)``; ``iters_used`` an int32 0-d
-    tensor."""
+    tensor. A tenant stack (a leading T axis on every operand, ``sigma2``
+    (T,)) is solved tenant by tenant, each with its own exit; then
+    ``iters_used`` is (T,)."""
     kw = dict(w_a=w_a, w_p=w_p, w_s=w_s, pivot=pivot)
+    if v.ndim == 4:
+        return by_tenant(
+            lambda *o: mega_pcg_plain(*o, iters=iters, tol=tol, warm=warm,
+                                      **kw),
+            (a, phi, saphi, sort_idx, rank_idx), (v, x0), sigma2)
     ops = (a, phi, saphi, sort_idx, rank_idx, sigma2)
     state = pcg_seed_plain(*ops, v, x0, warm=warm, **kw)
     (x, r, _, _), i = pcg_loop(
@@ -74,8 +81,11 @@ def mega_pcg_solve(a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
     """Whole PCG solve on padded operands; returns ``(x, r, iters_used)``.
 
     Bands (D, npad, 2w+1) float64, permutations (D, npad) int32,
-    ``sigma2`` a 1-element float64 tensor, states (D, npad, B) float64.
-    CUDA tensors launch ``csrc/mega_pcg.cu`` (one cooperative launch),
+    ``sigma2`` a 1-element float64 tensor, states (D, npad, B) float64;
+    or a stack of T tenants: each of these with a leading T axis,
+    ``sigma2`` (T,), and then ``iters_used`` (T,) (each tenant exits on its
+    own columns). CUDA tensors launch ``csrc/mega_pcg.cu`` (one cooperative
+    launch; a tenant stack of T > 1 its tenant-axis kernel),
     solving from ``factors`` (``fused_sweep.pcg_factors`` of the bands;
     None: made for this call; another pivot mode raises) in items of
     ``cols`` columns (None: ``fused_sweep.pcg_solve_cols``).
@@ -191,7 +201,7 @@ class MegaSolve:
             v_p = fs.pad_state(v_c)
             x0_p = (torch.zeros_like(v_p) if x0_c is None
                     else fs.pad_state(x0_c))
-            return tuple(fs.unpad(o) if o.dim() else o
+            return tuple(fs.unpad(o) if o.dim() >= 3 else o
                          for o in solve(v_p, x0_p))
 
         return fs.by_columns(one, v, x0, step=step)
@@ -200,17 +210,17 @@ class MegaSolve:
         fs = self.fs
         if fs.a is None:
             raise ValueError("PCG needs the A factor stack")
-        if tol > 0 and v.shape[-1] > MAX_B:
+        if tol > 0 and v.shape[-1] > fs.max_cols(MAX_B):
             (x, r, _, _), i = pcg_loop(fs.pcg_iter, fs.pcg_seed(v, x0),
                                        iters=iters, tol=tol)
             return (fs.unpad(x), fs.unpad(r),
-                    torch.full((), i, dtype=torch.int32, device=v.device))
+                    torch.as_tensor(i, dtype=torch.int32, device=v.device))
         return self._solve(lambda v_p, x0_p: mega_pcg_solve(
             fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v_p,
             x0_p, w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s, iters=iters, tol=tol,
             warm=x0 is not None, pivot=fs.pivot, backend=fs.backend,
             factors=fs.cr_factors()),
-            v, x0, MAX_B)
+            v, x0, fs.max_cols(MAX_B))
 
     def jacobi(self, v, x0, *, alpha: float, iters: int):
         """Whole damped-Jacobi solve from ``FusedSweep.cr_factors`` (Phi's

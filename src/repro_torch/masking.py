@@ -6,12 +6,25 @@ padding that every helper here turns into decoupled identity rows (bands),
 zeros (states) or self-maps (permutations), so the padded system is exactly
 ``blockdiag(M_active, I)``. ``n_active=None`` means fully active and every
 helper is the identity.
+
+``n_active`` is a 0-d count, or a stack of counts (a fleet's (T,)) over
+the leading axes of the tensor it masks: it broadcasts over the axes that
+follow (``lead_count``).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["canonical_band", "mask_rows", "canonical_perm", "tree_sum"]
+__all__ = ["canonical_band", "mask_rows", "canonical_perm", "tree_sum",
+           "lead_count"]
+
+
+def lead_count(n_active, ndim: int):
+    """``n_active`` shaped to broadcast over a tensor of ``ndim`` axes whose
+    leading axes it indexes (a 0-d count, or an int, as it is)."""
+    if not torch.is_tensor(n_active) or n_active.ndim == 0:
+        return n_active
+    return n_active.reshape(n_active.shape + (1,) * (ndim - n_active.ndim))
 
 
 def canonical_band(band: torch.Tensor, lo: int, hi: int, n_active):
@@ -19,9 +32,10 @@ def canonical_band(band: torch.Tensor, lo: int, hi: int, n_active):
     if n_active is None:
         return band
     n = band.shape[-2]
+    na = lead_count(n_active, band.ndim)
     i = torch.arange(n, device=band.device)[:, None]
     j = i + torch.arange(-lo, hi + 1, device=band.device)[None, :]
-    active = (i < n_active) & (j >= 0) & (j < n_active)
+    active = (i < na) & (j >= 0) & (j < na)
     ident = torch.zeros((n, lo + hi + 1), dtype=band.dtype, device=band.device)
     ident[:, lo] = 1.0
     return torch.where(active, band, ident)
@@ -34,7 +48,8 @@ def mask_rows(x: torch.Tensor, n_active, axis: int = -2):
     ax = axis % x.ndim
     shape = [1] * x.ndim
     shape[ax] = x.shape[ax]
-    keep = torch.arange(x.shape[ax], device=x.device).reshape(shape) < n_active
+    keep = (torch.arange(x.shape[ax], device=x.device).reshape(shape)
+            < lead_count(n_active, x.ndim))
     return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -43,7 +58,7 @@ def canonical_perm(idx: torch.Tensor, n_active):
     if n_active is None:
         return idx
     j = torch.arange(idx.shape[-1], dtype=idx.dtype, device=idx.device)
-    return torch.where(j < n_active, idx, j)
+    return torch.where(j < lead_count(n_active, idx.ndim), idx, j)
 
 
 def tree_sum(x: torch.Tensor, axis: int) -> torch.Tensor:

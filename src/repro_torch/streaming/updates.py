@@ -1,7 +1,7 @@
 """Incremental posterior updates: the paper's Sec. 6 streaming formulas.
 
-Counterpart of ``repro.streaming.updates`` for one GP (the fleet functions
-are not ported). A capacity-padded :class:`AdditiveGP`
+Counterpart of ``repro.streaming.updates``. A capacity-padded
+:class:`AdditiveGP`
 (``core.additive_gp.fit(..., capacity=)`` / ``with_capacity``) is mutated
 at its fixed capacity, where it lives:
 
@@ -19,6 +19,12 @@ at its fixed capacity, where it lives:
     the full recompute (``"full"``); :func:`maybe_resync` /
     :func:`resync_gband` recompute it exactly when the drift sentinel asks.
 
+The fleet's masked rounds (:func:`fleet_insert`, :func:`fleet_evict`,
+:func:`fleet_resync`) run the same bodies over a ``GPFleet``'s stack: the
+per-dimension splices and windows over its tenants' dimensions at once,
+each at its tenant's count and sorted position, the warm solve as one
+tenant-axis launch, then a per-lane select.
+
 With ``count=`` (the host-known active count) a mutation reads nothing back
 from the device; without it the capacity guard reads ``n_active`` and the
 drift sentinel runs first (one fetch). A full or unpadded GP is first
@@ -33,6 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..core import matern as mk
@@ -42,13 +49,15 @@ from ..core.backfitting import DimOps, solve_mhat
 from ..core.band_inverse import variance_band
 from ..core.banded import Banded, add, scale, solve, transpose
 from ..core.bayesopt import LocalAcqCache
+from ..core.fleet import select_tenants, tree_map
 from ..core.gband_update import gband_evict, gband_insert
 from ..core.kernel_packets import gram_band_rows, kp_coefficient_rows
 from ..health import verdict as hv
-from ..masking import canonical_band, mask_rows
+from ..masking import canonical_band, lead_count, mask_rows
 
 __all__ = ["insert", "evict", "with_capacity", "refresh_local_cache",
-           "maybe_resync", "resync_gband"]
+           "maybe_resync", "resync_gband", "fleet_insert", "fleet_evict",
+           "fleet_resync"]
 
 
 def _splice_vec(v, p, val):
@@ -92,25 +101,28 @@ def _rebuild_windows(q: int, omega, xs, a, phi, b, psi, p, hi, k1):
     d = torch.arange(D, device=dev)[:, None]
     om = omega[:, None, None, None]
 
+    # the counts against (D, r) rows: one, or a fleet's per dimension
+    k1r = k1[..., None]
+
     def rows(r):
         idx = p[:, None] - r + torch.arange(2 * r + 1, device=dev)
-        return torch.minimum(idx.clamp(min=0), hi)
+        return torch.minimum(idx.clamp(min=0), hi[..., None])
 
     rows_a = rows(2 * q + 4)
-    a_rows = kp_coefficient_rows(q, omega, xs, rows_a, n_active=k1)
+    a_rows = kp_coefficient_rows(q, omega, xs, rows_a, n_active=k1r)
     a = a.clone()
     a[d, rows_a] = a_rows
     phi_rows = gram_band_rows(lambda x, y: mk.matern(q, om, x, y), xs,
-                              a_rows, rows_a, q + 1, q + 1, q, n_active=k1)
+                              a_rows, rows_a, q + 1, q + 1, q, n_active=k1r)
     phi = phi.clone()
     phi[d, rows_a] = phi_rows
     rows_b = rows(2 * q + 6)
-    b_rows = kp_coefficient_rows(q + 1, omega, xs, rows_b, n_active=k1)
+    b_rows = kp_coefficient_rows(q + 1, omega, xs, rows_b, n_active=k1r)
     b = b.clone()
     b[d, rows_b] = b_rows
     psi_rows = gram_band_rows(lambda x, y: mk.matern_domega(q, om, x, y), xs,
                               b_rows, rows_b, q + 2, q + 2, q + 1,
-                              n_active=k1)
+                              n_active=k1r)
     psi = psi.clone()
     psi[d, rows_b] = psi_rows
     # canonical identity tails: the stored factors equal what a padded
@@ -124,14 +136,17 @@ def _rebuild_windows(q: int, omega, xs, a, phi, b, psi, p, hi, k1):
 def _insert_dims(q: int, k, omega, xs, sort_idx, rank_idx, a, phi, b, psi,
                  x_val):
     """Every dimension's spliced order, permutations and band windows for
-    an insert at the active count ``k`` (0-d tensor); all tensors keep
-    their capacity. ``x_val`` (D,) the new point."""
+    an insert at the active count ``k`` (0-d tensor, or (D,) per dimension:
+    a fleet's tenants' dimensions flattened); all tensors keep their
+    capacity. ``x_val`` (D,) the new point."""
     C = xs.shape[1]
     dev = xs.device
     j = torch.arange(C, device=dev)
-    active = j < k
+    kc = k[..., None]
+    active = j < kc
     first = xs[:, :1]
-    span = (xs.index_select(1, (k - 1).reshape(1)) - first + 1.0)[:, 0]
+    last = torch.gather(xs, 1, (kc - 1).long().expand(xs.shape[0], 1))
+    span = (last - first + 1.0)[:, 0]
     # p = #active coords <= x: the capacity-safe searchsorted(side="right"),
     # matching fit's stable sort; an exact tie is separated like fit's
     # TIE_EPS bump, capped at half the gap to the right neighbour
@@ -147,10 +162,10 @@ def _insert_dims(q: int, k, omega, xs, sort_idx, rank_idx, a, phi, b, psi,
     # permutations in closed form, canonical identity tails past k + 1
     sort_new = _splice_vec(sort_idx, p, k.to(sort_idx.dtype).expand(
         sort_idx.shape[0]))
-    sort_new = torch.where(j <= k, sort_new, j.to(sort_idx.dtype))
+    sort_new = torch.where(j <= kc, sort_new, j.to(sort_idx.dtype))
     rank_new = torch.where(
-        j < k, rank_idx + (rank_idx >= p[:, None]).to(rank_idx.dtype),
-        torch.where(j == k, p[:, None].to(rank_idx.dtype),
+        j < kc, rank_idx + (rank_idx >= p[:, None]).to(rank_idx.dtype),
+        torch.where(j == kc, p[:, None].to(rank_idx.dtype),
                     j.to(rank_idx.dtype)))
     a, phi, b, psi = _rebuild_windows(
         q, omega, xs_new, _expand_rows(a, p), _expand_rows(phi, p),
@@ -166,12 +181,13 @@ def _evict_dims(q: int, k, omega, xs, sort_idx, rank_idx, a, phi, b, psi,
     C = xs.shape[1]
     j = torch.arange(C, device=xs.device)
     k1 = k - 1
+    k1c = k1[..., None]
     xs_new = _delete_vec(xs, p)
-    sort_new = torch.where(j < k1, _delete_vec(sort_idx, p) - 1,
+    sort_new = torch.where(j < k1c, _delete_vec(sort_idx, p) - 1,
                            j.to(sort_idx.dtype))
     rank_shift = _delete_vec(rank_idx, torch.zeros_like(p))
     rank_new = torch.where(
-        j < k1, rank_shift - (rank_shift > p[:, None]).to(rank_idx.dtype),
+        j < k1c, rank_shift - (rank_shift > p[:, None]).to(rank_idx.dtype),
         j.to(rank_idx.dtype))
     a, phi, b, psi = _rebuild_windows(
         q, omega, xs_new, _delete_rows(a, p), _delete_rows(phi, p),
@@ -180,18 +196,47 @@ def _evict_dims(q: int, k, omega, xs, sort_idx, rank_idx, a, phi, b, psi,
     return xs_new, sort_new, rank_new, a, phi, b, psi
 
 
+def _dims(u, lead: tuple):
+    """(T, D, ...) -> (T D, ...): a fleet's tenants' dimensions as one
+    axis of the per-dimension helpers (the identity for one GP)."""
+    return u.reshape((-1,) + u.shape[len(lead) + 1:]) if lead else u
+
+
+def _dim_counts(k, lead: tuple, D: int):
+    """A count per dimension of :func:`_dims`: the 0-d count of one GP, or
+    each tenant's count repeated over its D dimensions."""
+    return k.repeat_interleave(D) if lead else k
+
+
+def _flat_band(b: Banded, lead: tuple) -> Banded:
+    """A stacked band with the tenant and dimension axes as one, its counts
+    per dimension."""
+    if not lead:
+        return b
+    return Banded(_dims(b.data, lead), b.lo, b.hi,
+                  _dim_counts(b.n_active, lead, b.data.shape[-3]))
+
+
 def _mutated_gband(gp: AdditiveGP, ops: DimOps, p, k1, evicting: bool):
     """Post-mutation ``(Gband, Hband, drift)``: the windowed Woodbury update
     with ``gband="windowed"`` and a cached ``Hband``, else the full
-    recompute (``drift`` exactly zero)."""
+    recompute (``drift`` exactly zero). On a fleet ``p`` is per flattened
+    dimension and ``drift`` (T,)."""
     config = gp.config
+    lead = gp.lead
     if config.gband != "full" and gp.Hband is not None:
         fn = gband_evict if evicting else gband_insert
-        return fn(gp.Hband, ops.A, ops.Phi, gp.Gband, p, k1, config.q,
-                  backend=config.backend)
+        G, H, drift = fn(*(_flat_band(b, lead) for b in (
+            gp.Hband, ops.A, ops.Phi, gp.Gband)), p,
+            _dim_counts(k1, lead, gp.D), config.q, backend=config.backend,
+            tenants=lead[0] if lead else None)
+        if lead:
+            G, H = (Banded(b.data.reshape(lead + (gp.D,) + b.data.shape[-2:]),
+                           b.lo, b.hi, k1) for b in (G, H))
+        return G, H, drift
     Gband, Hband = variance_band(ops.A, ops.Phi, backend=config.backend,
                                  return_h=True)
-    return Gband, Hband, torch.zeros((), dtype=Gband.data.dtype,
+    return Gband, Hband, torch.zeros(lead, dtype=Gband.data.dtype,
                                      device=Gband.data.device)
 
 
@@ -201,7 +246,7 @@ def _mutated_health(gp: AdditiveGP, info, drift):
     if gp.config.health != "on":
         return None
     base = (gp.health if gp.health is not None
-            else hv.HealthState.fresh(gp.Y.dtype, gp.device))
+            else hv.HealthState.fresh(gp.Y.dtype, gp.device, gp.lead))
     return base.with_solve(info).with_drift(drift)
 
 
@@ -212,7 +257,7 @@ def _rebuilt(gp: AdditiveGP, xs, sort_idx, rank_idx, a, phi, b, psi, k1, X,
     q = config.q
     A = Banded(a, q + 1, q + 1, k1)
     Phi = Banded(phi, q, q, k1)
-    SAPhi = add(scale(A, gp.sigma ** 2), Phi)
+    SAPhi = add(scale(A, lead_count(gp.sigma ** 2, a.ndim)), Phi)
     ops = DimOps(A=A, Phi=Phi, SAPhi=SAPhi, sort_idx=sort_idx,
                  rank_idx=rank_idx, sigma2=gp.sigma ** 2, pivot=config.pivot,
                  alg=config.solve_alg, n_active=k1)
@@ -234,36 +279,59 @@ def _rebuilt(gp: AdditiveGP, xs, sort_idx, rank_idx, a, phi, b, psi, k1, X,
                       n_active=k1)
 
 
+def _per_dim_call(fn, gp: AdditiveGP, k, *args):
+    """``fn(q, k, omega, xs, sort_idx, rank_idx, a, phi, b, psi, *args)``
+    over the GP's dimensions (a fleet's flattened, ``k`` per dimension),
+    its tensor outputs unflattened to the GP's layout (the last, ``p``,
+    left per flattened dimension)."""
+    lead, D = gp.lead, gp.D
+    out = fn(gp.config.q, _dim_counts(k, lead, D),
+             *(_dims(u, lead) for u in (
+                 gp.omega, gp.xs, gp.ops.sort_idx, gp.ops.rank_idx,
+                 gp.ops.A.data, gp.ops.Phi.data, gp.B.data, gp.Psi.data)),
+             *args)
+    return tuple(u.reshape(lead + (D,) + u.shape[1:]) if lead else u
+                 for u in out[:7]) + out[7:]
+
+
 def _insert_core(gp: AdditiveGP, x_new, y_new, iters: int) -> AdditiveGP:
+    """One insert (or, on a fleet's stack, one per tenant: x_new (T, D),
+    y_new (T,))."""
     k = gp.n_active
-    xs, sort_idx, rank_idx, a, phi, b, psi, p = _insert_dims(
-        gp.config.q, k, gp.omega, gp.xs, gp.ops.sort_idx, gp.ops.rank_idx,
-        gp.ops.A.data, gp.ops.Phi.data, gp.B.data, gp.Psi.data, x_new)
-    slot = k.reshape(1).long()
+    lead = gp.lead
+    xs, sort_idx, rank_idx, a, phi, b, psi, p = _per_dim_call(
+        _insert_dims, gp, k, _dims(x_new, lead))
+    slot = k.long().reshape(lead + (1,))
     # the new observation's original index is k: one slot write
-    X = gp.X.index_copy(0, slot, x_new[None])
-    Y = mask_rows(gp.Y, k, axis=0).index_copy(0, slot, y_new.reshape(1))
+    X = gp.X.scatter(-2, slot[..., None].expand(lead + (1, gp.D)),
+                     x_new[..., None, :])
+    Y = mask_rows(gp.Y, k, axis=-1).scatter(-1, slot,
+                                            y_new.reshape(lead + (1,)))
     # warm start: the pre-insert solution with slot k seeded from its
     # sorted left neighbour
     us = gp.ops.to_sorted(gp.u_sy)
-    est = torch.gather(us, 1, (p - 1).clamp(0, gp.n - 1)[:, None])
-    x0 = mask_rows(gp.u_sy, k, axis=1).index_copy(1, slot, est)
+    est = torch.gather(us, -1, (p - 1).clamp(0, gp.n - 1).reshape(
+        lead + (gp.D, 1)))
+    x0 = mask_rows(gp.u_sy, k, axis=-1).scatter(
+        -1, slot[..., None].expand(lead + (gp.D, 1)), est)
     return _rebuilt(gp, xs, sort_idx, rank_idx, a, phi, b, psi, k + 1, X, Y,
                     x0, iters, p, evicting=False)
 
 
 def _evict_core(gp: AdditiveGP, iters: int) -> AdditiveGP:
+    """Drop the oldest observation (of each tenant on a fleet's stack)."""
     k = gp.n_active
-    p = gp.ops.rank_idx[:, 0]  # sorted position of the oldest point
-    xs, sort_idx, rank_idx, a, phi, b, psi = _evict_dims(
-        gp.config.q, k, gp.omega, gp.xs, gp.ops.sort_idx, gp.ops.rank_idx,
-        gp.ops.A.data, gp.ops.Phi.data, gp.B.data, gp.Psi.data, p)
+    lead = gp.lead
+    p = _dims(gp.ops.rank_idx, lead)[:, 0]  # sorted position of the oldest
+    xs, sort_idx, rank_idx, a, phi, b, psi = _per_dim_call(
+        _evict_dims, gp, k, p)
     k1 = k - 1
     # original order shifts down by one everywhere (index 0 evicted)
-    X = torch.cat([gp.X[1:], gp.X[-1:]])
-    Y = mask_rows(torch.cat([gp.Y[1:], gp.Y[-1:]]), k1, axis=0)
-    x0 = mask_rows(torch.cat([gp.u_sy[:, 1:], gp.u_sy[:, -1:]], dim=1), k1,
-                   axis=1)
+    X = torch.cat([gp.X[..., 1:, :], gp.X[..., -1:, :]], dim=-2)
+    Y = mask_rows(torch.cat([gp.Y[..., 1:], gp.Y[..., -1:]], dim=-1), k1,
+                  axis=-1)
+    x0 = mask_rows(torch.cat([gp.u_sy[..., 1:], gp.u_sy[..., -1:]], dim=-1),
+                   k1, axis=-1)
     return _rebuilt(gp, xs, sort_idx, rank_idx, a, phi, b, psi, k1, X, Y, x0,
                     iters, p, evicting=True)
 
@@ -336,6 +404,93 @@ def maybe_resync(gp: AdditiveGP, *, drift_tol: float = hv.DRIFT_TOL,
     if drift > drift_tol or muts >= every:
         return resync_gband(gp), True
     return gp, False
+
+
+def _lanes(fleet, do):
+    """The host mask of a masked fleet round (default: every lane) and its
+    device copy."""
+    do_h = (np.ones(fleet.T, bool) if do is None
+            else np.asarray(do, bool).reshape(fleet.T))
+    return do_h, torch.as_tensor(do_h, device=fleet.gp.device)
+
+
+def _fill_unselected(gp: AdditiveGP, do, do_h) -> AdditiveGP:
+    """The stack a masked round computes on: unselected lanes hold a copy
+    of the first selected lane, a state the round is valid on (an
+    unselected lane may be full, or hold one point); the round's select
+    discards what they compute."""
+    s = int(np.argmax(do_h))
+    return select_tenants(do, gp, tree_map(
+        lambda a: a[s:s + 1].expand(a.shape), gp))
+
+
+def _guard_counts(fleet, counts):
+    """The per-tenant counts a masked round runs at: the host-known
+    ``counts`` (no device read), or one read of the stack's."""
+    return np.asarray(fleet.counts() if counts is None else counts,
+                      np.int64).reshape(fleet.T)
+
+
+def fleet_insert(fleet, x_new, y_new, do=None, *, iters: int | None = None,
+                 counts=None):
+    """Insert one observation into each selected tenant of a
+    :class:`~repro_torch.core.fleet.GPFleet`, every lane in one batched
+    body (the launches of one insert, whatever T).
+
+    ``x_new`` (T, D), ``y_new`` (T,); ``do`` (T,) bool selects the tenants
+    that mutate (default: all). A selected lane must have free capacity
+    (re-home the tenant to a doubled tier first, as the fleet engine does):
+    a full selected lane raises ``ValueError``. ``counts`` gives the
+    host-known per-tenant counts and skips the guard's device read. Each
+    selected tenant's new state equals ``insert`` on its unstacked GP;
+    unselected lanes come back bit for bit (a select, so whatever their
+    discarded computation made cannot reach them). The drift sentinel is
+    not run here (the engine runs it per lane after the round)."""
+    gp = fleet.gp
+    iters = _default_iters(gp, iters)
+    do_h, do = _lanes(fleet, do)
+    counts_h = _guard_counts(fleet, counts)
+    full = np.nonzero(do_h & (counts_h >= fleet.capacity))[0]
+    if full.size:
+        raise ValueError(
+            f"fleet_insert into full tenant lanes {full.tolist()} at capacity "
+            f"{fleet.capacity}; re-home those tenants to a larger tier first")
+    if not do_h.any():
+        return fleet
+    x_new = torch.as_tensor(np.asarray(x_new, np.float64)).to(
+        gp.device).reshape(fleet.T, fleet.D)
+    y_new = torch.as_tensor(np.asarray(y_new, np.float64)).to(
+        gp.device).reshape(fleet.T)
+    new = _insert_core(_fill_unselected(gp, do, do_h), x_new, y_new, iters)
+    return type(fleet)(gp=select_tenants(do, new, gp))
+
+
+def fleet_evict(fleet, do=None, *, iters: int | None = None, counts=None):
+    """Drop the oldest observation of each selected tenant, every lane in
+    one batched body; a selected lane must keep one observation (a
+    one-point selected lane raises ``ValueError``). ``do``, ``counts`` as
+    :func:`fleet_insert`."""
+    gp = fleet.gp
+    iters = _default_iters(gp, iters)
+    do_h, do = _lanes(fleet, do)
+    counts_h = _guard_counts(fleet, counts)
+    low = np.nonzero(do_h & (counts_h <= 1))[0]
+    if low.size:
+        raise ValueError(
+            f"fleet_evict from tenant lanes {low.tolist()} holding a single "
+            "observation")
+    if not do_h.any():
+        return fleet
+    new = _evict_core(_fill_unselected(gp, do, do_h), iters)
+    return type(fleet)(gp=select_tenants(do, new, gp))
+
+
+def fleet_resync(fleet, do=None):
+    """Exact variance-band recompute (:func:`resync_gband`) of the selected
+    lanes, in one batched body; unselected lanes come back bit for bit."""
+    _, do = _lanes(fleet, do)
+    return type(fleet)(gp=select_tenants(do, resync_gband(fleet.gp),
+                                         fleet.gp))
 
 
 def refresh_local_cache(gp: AdditiveGP, cache: LocalAcqCache, *,

@@ -51,7 +51,8 @@ from repro_torch.kernels.mega_solve import (MegaSolve, mega_gauss_seidel_plain,
                                             mega_pcg_solve)
 from repro_torch.kernels.rgf import (rgf_blocks, rgf_blocks_cr_plain,
                                      rgf_blocks_plain, rgf_tile_rows)
-from torch_port_inputs import (band, dim_ops, padded_operands, points,
+from torch_port_inputs import (band, dim_ops, fleet_operands,
+                               padded_operands, points,
                                solve_operands)
 
 pytestmark = pytest.mark.cuda
@@ -1161,3 +1162,94 @@ def test_padded_stream_card_matches_cpu(dev):
         assert max(gaps) < 1e-7, (q, gaps)
         if q == 2:
             assert counts["cr_factor_wide"] and counts["cr_apply_wide"]
+
+
+def test_fleet_pcg_kernel(dev):
+    """The PCG kernel's tenant axis (``csrc/mega_pcg.cu`` over T systems),
+    as loops in one test: T = 1 and 3 tenants, q = 0, 1 (the MAXW 3
+    instantiation) and q = 3 (MAXW 4), B = 1 and 4, cold and warm. The
+    whole solve (tol 0 and a tol exit, each tenant exiting on its own
+    columns) and the seed plus one carried iteration against the plain
+    versions (tenant by tenant): x within 1e-7 and the recursive residual r
+    within 1e-6 of |v| (the PCG iterations amplify the two summation orders
+    by the systems' conditioning, as in ``chip_smoke.py``'s mega_pcg rows),
+    the seed and one iteration within 1e-9. With the tol exit a tenant's
+    count may differ from the plain version's by one (the iteration whose
+    rz lands on the threshold), and its x is then held to the plain solve
+    run to the kernel's own count. Every lane against its own one-system
+    launch within 1e-12 and the tol exit's count exactly. T > 1 launches
+    count as ``mega_pcg_fleet`` (and "_w4"), T = 1 as ``mega_pcg``. Every
+    failing comparison is reported at once."""
+    rng = np.random.default_rng(23)
+    bad = []
+
+    def check(case, what, val, bar):
+        if not val <= bar:
+            bad.append((case, what, val, bar))
+
+    for T in (1, 3):
+        for q in (0, 1, 3):
+            n = 37 if q == 3 else 131
+            iters = 12 if q == 3 else 25
+            for B in (1, 4):
+                fs, v, x0, opss = fleet_operands(rng, T, n, 3, q, dev, B)
+                v_p = fs.pad_state(torch.as_tensor(v).to(dev))
+                x0_p = fs.pad_state(torch.as_tensor(x0).to(dev))
+                scale = float(v_p.abs().max())
+                for warm in (False, True):
+                    case = (T, q, B, warm)
+                    x0w = x0_p if warm else torch.zeros_like(v_p)
+                    args = (fs.a, fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx,
+                            fs.sigma2, v_p, x0w)
+                    kw = dict(w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s,
+                              iters=iters, warm=warm)
+                    _build.reset_launch_counts()
+                    x, r, it = mega_pcg_solve(*args, **kw)
+                    name = ("mega_pcg" + ("_fleet" if T > 1 else "")
+                            + ("_w4" if q == 3 else ""))
+                    check(case, "launches " + name,
+                          abs(_build.launch_counts()[name] - 1), 0)
+                    xr, rr, itr = mega_pcg_plain(*args, **kw)
+                    check(case, "iterations", int(
+                        (it.cpu() != iters).sum() + (itr.cpu() != iters).sum()),
+                        0)
+                    check(case, "x vs plain", _rel(x, xr), 1e-7)
+                    check(case, "r vs plain at |v|",
+                          float((r - rr).abs().max()) / scale, 1e-6)
+                    # a tol exit: each tenant stops on its own columns, as
+                    # its own launch does (the iteration a rz crosses the
+                    # threshold can move by one against the plain version's
+                    # summation order when it lands on the threshold)
+                    xt, _, itt = mega_pcg_solve(*args, tol=1e-6, **kw)
+                    xr, _, itr = mega_pcg_plain(*args, tol=1e-6, **kw)
+                    check(case, "tol-exit iterations vs plain",
+                          int((itt.cpu() - itr.cpu()).abs().max()), 1)
+                    for t in range(T):
+                        want = xr[t]
+                        if int(itt[t]) != int(itr[t]):
+                            want = mega_pcg_plain(*args, **dict(
+                                kw, iters=int(itt[t])))[0][t]
+                        check(case, f"tol-exit lane {t} x vs plain",
+                              _rel(xt[t], want), 1e-7)
+                    for t in range(T):
+                        fs1, _, _ = padded_operands(opss[t], dev, B, rng)
+                        one = (fs1.a, fs1.phi, fs1.saphi, fs1.sort_idx,
+                               fs1.rank_idx, fs1.sigma2, v_p[t], x0w[t])
+                        x1, r1, _ = mega_pcg_solve(*one, **kw)
+                        check(case, f"lane {t} vs single",
+                              max(_rel(x[t], x1), _rel(r[t], r1)), 1e-12)
+                        x1, _, it1 = mega_pcg_solve(*one, tol=1e-6, **kw)
+                        check(case, f"tol-exit lane {t} vs single",
+                              _rel(xt[t], x1) + abs(int(itt[t]) - int(it1)),
+                              1e-12)
+                    # the seed and one carried iteration
+                    fk = dict(w_a=fs.w_a, w_p=fs.w_p, w_s=fs.w_s)
+                    st = pcg_seed(*args, warm=warm, **fk)
+                    sr = pcg_seed_plain(*args, warm=warm, **fk)
+                    check(case, "seed", max(_rel(a_, b_)
+                                            for a_, b_ in zip(st, sr)), 1e-9)
+                    st1 = fused_pcg_iter(*args[:6], *st, **fk)
+                    sr1 = fused_pcg_iter_plain(*args[:6], *st, **fk)
+                    check(case, "one iteration", max(
+                        _rel(a_, b_) for a_, b_ in zip(st1, sr1)), 1e-9)
+    assert not bad, bad

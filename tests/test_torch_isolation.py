@@ -54,16 +54,20 @@ def test_every_module_imports_without_jax():
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
-    assert len(_modules()) >= 21
+    assert len(_modules()) >= 23
     assert {"repro_torch.precond", "repro_torch.precond.coarse",
             "repro_torch.precond.vcycle", "repro_torch.kernels.kp_gram",
             "repro_torch.core.gband_update", "repro_torch.streaming",
             "repro_torch.streaming.updates",
-            "repro_torch.streaming.gp_engine"} <= set(_modules())
+            "repro_torch.streaming.gp_engine", "repro_torch.core.fleet",
+            "repro_torch.streaming.fleet_engine"} <= set(_modules())
 
 
 def test_sources_name_no_jax_or_reference_import():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "scripts" / "single_bits.py",
+        ROOT / "scripts" / "fleet_profile.py",
+        ROOT / "scripts" / "lane_gap.py"]
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
 
@@ -71,6 +75,16 @@ def test_sources_name_no_jax_or_reference_import():
 def _tiny():
     rng = np.random.default_rng(0)
     return rng.uniform(0, 1, (20, 2)), rng.standard_normal(20), np.ones(2)
+
+
+def test_fleet_fit_without_device_needs_a_gpu(monkeypatch):
+    from repro_torch.core.fleet import fleet_fit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X, Y, om = _tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fleet_fit(GPConfig(precond="none"), np.stack([X, X]),
+                  np.stack([Y, Y]), om, 1.0, 32)
 
 
 def test_fit_without_device_needs_a_gpu(monkeypatch):

@@ -67,6 +67,26 @@ def padded_operands(ops, device, B, rng):
     return fs, v, x0
 
 
+def fleet_operands(rng, T, n, D, q, device, B):
+    """A tenant stack of T ``solve_operands`` systems (sigma 0.7 ... 0.9),
+    as the port's padded ``FusedSweep`` (leading T axis), plus (T, D, n, B)
+    right-hand sides and warm starts and the per-tenant operand dicts."""
+    from repro_torch.kernels.fused_sweep import FusedSweep
+
+    dev = torch.device(device)
+    opss = [solve_operands(rng, n, D, q, sigma=0.7 + 0.2 * t / max(T - 1, 1))
+            for t in range(T)]
+    st = lambda k: torch.as_tensor(np.stack([o[k] for o in opss])).to(dev)
+    o = opss[0]
+    fs = FusedSweep(st("Phi"), st("SAPhi"), st("sort_idx"), st("rank_idx"),
+                    torch.tensor([x["sigma2"] for x in opss],
+                                 dtype=torch.float64, device=dev),
+                    w_p=o["w_p"], w_s=o["w_s"], a=st("A"), w_a=o["w_a"])
+    v = rng.standard_normal((T, D, n, B))
+    x0 = 0.1 * rng.standard_normal((T, D, n, B))
+    return fs, v, x0, opss
+
+
 def dim_ops(ops, device):
     """The port's ``DimOps`` of ``solve_operands`` on ``device``."""
     from repro_torch.core.backfitting import DimOps
@@ -82,4 +102,5 @@ def dim_ops(ops, device):
 
 
 __all__ = ["OMEGA", "band", "points", "solve_operands", "padded_operands",
+           "fleet_operands",
            "dim_ops"]
