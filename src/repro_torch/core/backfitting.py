@@ -27,9 +27,11 @@ Tenant stacks (a fleet, ``core.fleet``): a ``DimOps`` whose tensors carry a
 leading T axis (bands (T, D, n, w), permutations (T, D, n), ``sigma2`` and
 ``n_active`` (T,)) solves T independent systems; states are (T, D, n[, B]),
 the cross-dimension sums and inner products stay within a tenant, and
-``SolveInfo`` holds (T,) tensors. Such a solve runs pcg in the fused modes
-("whole": one launch of the tenant-axis kernel for the whole fleet; "on");
-the relaxation solvers and "off" raise ``NotImplementedError``.
+``SolveInfo`` holds (T,) tensors. Every solver, fused mode and
+preconditioner takes it: "whole" and "on" launch the tenant-axis kernels
+once for the whole fleet, "off" runs the host loops over the stack (the
+banded kernels fold the tenants into their batch), and a tol-exit pcg
+stops each tenant on its own columns (an exited tenant keeps its state).
 """
 from __future__ import annotations
 
@@ -274,6 +276,14 @@ def _resid_from_k(ops: DimOps, v, out, k):
     return torch.sqrt(tree_sum(_det_dot(r, r, nb), axis=-1))
 
 
+def _rows(u, idx, na, axis: int):
+    """``u`` gathered along ``axis`` at the canonical permutation ``idx``
+    (over the leading axes of ``u`` before ``axis``), tail zeroed."""
+    idx = canonical_perm(idx, na)
+    idx = idx.reshape(idx.shape + (1,) * (u.ndim - idx.ndim)).expand(u.shape)
+    return mask_rows(torch.gather(u, axis, idx), na, axis=axis)
+
+
 def _gauss_seidel(ops: DimOps, v, cfg: SolveConfig, x0=None,
                   want_resid: bool = False):
     """Algorithm 4: block Gauss-Seidel sweeps, sequential over dimensions.
@@ -305,29 +315,32 @@ def _gauss_seidel(ops: DimOps, v, cfg: SolveConfig, x0=None,
     kw = dict(pivot=cfg.pivot, backend=cfg.backend, alg=cfg.alg)
 
     na = ops.n_active
+    k = len(ops.lead)
 
     def solve_one_dim(d, r_d):
-        # one dimension's block solve, r_d: (n, B)
-        saphi = Banded(ops.SAPhi.data[d], ops.SAPhi.lo, ops.SAPhi.hi, na)
-        phi = Banded(ops.Phi.data[d], ops.Phi.lo, ops.Phi.hi, na)
-        rs = mask_rows(r_d[canonical_perm(ops.sort_idx[d], na)], na, axis=0)
-        w = ops.sigma2 * solve(saphi, matvec(phi, rs, backend=cfg.backend),
-                               **kw)
-        return mask_rows(w[canonical_perm(ops.rank_idx[d], na)], na, axis=0)
+        # dimension d's block solve (of every tenant), r_d: (..., n, B)
+        saphi = Banded(ops.SAPhi.data[..., d, :, :], ops.SAPhi.lo,
+                       ops.SAPhi.hi, na)
+        phi = Banded(ops.Phi.data[..., d, :, :], ops.Phi.lo, ops.Phi.hi, na)
+        rs = _rows(r_d, ops.sort_idx[..., d, :], na, k)
+        w = ops.s2(r_d) * solve(saphi, matvec(phi, rs, backend=cfg.backend),
+                                **kw)
+        return _rows(w, ops.rank_idx[..., d, :], na, k)
 
     def sweep(vt, instrument=False):
-        total = tree_sum(vt, axis=0)
+        total = tree_sum(vt, axis=k)
         vt = vt.clone()
+        s2 = ops.s2(total)
         ks = []
         for d in range(ops.D):
-            r_d = v[d] - (total - vt[d]) / ops.sigma2
+            r_d = v[..., d, :, :] - (total - vt[..., d, :, :]) / s2
             new_d = solve_one_dim(d, r_d)
-            total = total - vt[d] + new_d
-            vt[d] = new_d
+            total = total - vt[..., d, :, :] + new_d
+            vt[..., d, :, :] = new_d
             if instrument:
                 # exact by the block solve: Khat_d^{-1} new_d = r_d - new_d/s^2
-                ks.append(r_d - new_d / ops.sigma2)
-        return (vt, torch.stack(ks)) if instrument else vt
+                ks.append(r_d - new_d / s2)
+        return (vt, torch.stack(ks, dim=k)) if instrument else vt
 
     for _ in range(cfg.iters - 1 if want_resid else cfg.iters):
         vt = sweep(vt)
@@ -374,9 +387,12 @@ def _jacobi(ops: DimOps, v, cfg: SolveConfig, x0=None,
         out = fs.unpad(u)
         return out, _resid_from_k(ops, v, out, fs.unpad(k))
 
+    nb = len(ops.lead)
+    s2 = ops.s2(v)
+
     def sweep(vt):
-        total = tree_sum(vt, axis=0)[None]
-        r = v - (total - vt) / ops.sigma2
+        total = tree_sum(vt, axis=nb).unsqueeze(nb)
+        r = v - (total - vt) / s2
         new = ops.block_solve(r, pivot=cfg.pivot, backend=cfg.backend,
                               alg=cfg.alg)
         return (1.0 - alpha) * vt + alpha * new, r, new
@@ -388,7 +404,7 @@ def _jacobi(ops: DimOps, v, cfg: SolveConfig, x0=None,
     k = torch.zeros_like(v) if x0 is None else _kinv0(ops, x0, cfg)
     for _ in range(cfg.iters):
         vt, r, new = sweep(vt)
-        k = (1.0 - alpha) * k + alpha * (r - new / ops.sigma2)
+        k = (1.0 - alpha) * k + alpha * (r - new / s2)
     return vt, _resid_from_k(ops, v, vt, k)
 
 
@@ -407,7 +423,10 @@ def _pcg(ops: DimOps, v, cfg: SolveConfig, x0=None, hier=None):
     ``cfg.tol > 0`` the loop exits once every column has
     ``|rz_k| <= tol^2 |rz_0|``; the magnitudes matter, since the V-cycle is
     symmetric but can be indefinite on part of the spectrum, so rz may pass
-    through negative values on the way down.
+    through negative values on the way down. On a tenant stack each tenant
+    exits on its own columns (``fused_sweep.pcg_loop``: an exited tenant
+    keeps its state, its count its own; one host read a step for the whole
+    stack), and ``iters_used`` is (T,).
     """
     kw = dict(pivot=cfg.pivot, backend=cfg.backend, alg=cfg.alg)
     # kmg resolves to "off" (an explicit "on"/"whole" raises there)
@@ -439,32 +458,37 @@ def _pcg(ops: DimOps, v, cfg: SolveConfig, x0=None, hier=None):
         def pre(u):
             return ops.block_solve(u, **kw)
 
+    from ..kernels.fused_sweep import pcg_loop
+
     def amv(u):
         return mhat_matvec(ops, u, **kw)
+
+    nb = len(ops.lead)
+    # per-column scalars broadcast over the (D, n) axes of each tenant
+    sc = ops.lead + (1, 1, v.shape[-1]) if nb else (v.shape[-1],)
+
+    def dot(a, b):
+        return _det_dot(a, b, nb).reshape(sc)
+
+    def iterate(x, r, p, rz):
+        ap = amv(p)
+        denom = dot(p, ap)
+        alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = pre(r)
+        rz_new = dot(r, z)
+        beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
+        return x, r, z + beta * p, rz_new
 
     x = torch.zeros_like(v) if x0 is None else x0
     # amv(0) == 0 exactly: a cold start skips it
     r = v if x0 is None else v - amv(x0)
     z = pre(r)
-    p = z
-    rz = _det_dot(r, z)
-    thresh = cfg.tol ** 2 * torch.abs(rz)
-    i = 0
-    while i < cfg.iters and (cfg.tol <= 0
-                             or bool((torch.abs(rz) > thresh).any())):
-        ap = amv(p)
-        denom = _det_dot(p, ap)
-        alpha = rz / torch.where(denom == 0, torch.ones_like(denom), denom)
-        x = x + alpha * p
-        r = r - alpha * ap
-        z = pre(r)
-        rz_new = _det_dot(r, z)
-        beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
-        p = z + beta * p
-        rz = rz_new
-        i += 1
-    resid = torch.sqrt(tree_sum(_det_dot(r, r), axis=0))
-    return x, torch.full((), i, dtype=torch.int32, device=v.device), resid
+    (x, r, _, _), i = pcg_loop(iterate, (x, r, z, dot(r, z)),
+                               iters=cfg.iters, tol=cfg.tol)
+    return (x, torch.as_tensor(i, dtype=torch.int32, device=v.device),
+            _norm(r, nb))
 
 
 def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
@@ -486,12 +510,6 @@ def solve_mhat(ops: DimOps, v, cfg: SolveConfig = SolveConfig(), x0=None,
                    _kops.resolve_precond("auto", q=ops.Phi.lo, n=ops.n))
         cfg = dataclasses.replace(cfg, precond=precond)
     k = len(ops.lead)
-    if k and (cfg.method != "pcg" or _resolved_fused(ops, cfg) == "off"):
-        raise NotImplementedError(
-            f"a tenant stack solves with pcg in the fused modes; got "
-            f"method={cfg.method!r}, fused={cfg.fused!r}, precond="
-            f"{cfg.precond!r} (ROADMAP Queue 1: the fleet's relaxation "
-            "kernels, kmg and fused='off')")
     vec_in = v.ndim == k + 2
     if vec_in:
         v = v[..., None]

@@ -75,12 +75,11 @@ def fleet_from_arrays(arrays: dict[str, np.ndarray], config: GPConfig,
                       device):
     """A ``GPFleet`` from a fleet's stacked arrays (:func:`gp_from_arrays`'
     keys, each with a leading tenant axis; ``n_active`` (T,) required)."""
-    from .fleet import GPFleet, check_fleet_config
+    from .fleet import GPFleet
 
     if arrays.get("n_active") is None:
         raise ValueError("a fleet's arrays carry n_active (T,)")
     gp = gp_from_arrays(arrays, config, device)
-    check_fleet_config(gp.config)
     if gp.config.health == "on":
         # zeroed per-tenant scalars, the state a mutation of a health-less
         # GP starts from, so masked rounds have a state to keep

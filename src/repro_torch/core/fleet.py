@@ -12,21 +12,21 @@ the capacity are shared. The core ops take that axis as a batch:
   * the banded kernels fold the tenants into their batch (``T x D`` bands
     in one launch: ``banded_lu``, ``band_matmul``, ``rgf_blocks``, the
     block-CR factor and apply);
-  * the backfitting solve is one launch for the whole fleet:
-    ``csrc/mega_pcg.cu`` over the tenant axis (the single GP's kernel,
-    counted as ``mega_pcg_fleet`` when T > 1), with per-tenant sigma^2,
-    cross-dimension totals, inner products and (tol > 0) exits.
+  * a fused backfitting solve ("whole" or "on") is one launch for the
+    whole fleet: ``csrc/mega_pcg.cu``, ``jacobi.cu`` or ``gauss_seidel.cu``
+    over the tenant axis (the single GP's kernel, counted as
+    ``mega_pcg_fleet``, ``mega_jacobi_fleet``, ... when T > 1), with
+    per-tenant sigma^2, cross-dimension totals, inner products and
+    (tol > 0) exits; an unfused one ("off", and kmg, the "auto" choice at
+    q = 0 and n >= 4096) is the host loop over the stack, the kmg
+    hierarchy built once for the fleet (``precond.coarse``).
 
 So the launches and host syncs of a fleet op do not grow with T. Each
 tenant's result equals the same call on its unstacked GP: bit for bit on
 the CPU (the plain versions run tenant by tenant), and on the card to the
 rounding of batched library calls (``PERF.md``). A one-tenant stack
-makes the single GP's launches, with its bits.
-
-Fleets run the pcg solver in the fused modes ("whole", the "auto" choice,
-or "on"): ``solver="jacobi"``/``"gauss_seidel"``, ``precond="kmg"`` (the
-"auto" choice at q = 0 and n >= 4096: pass ``precond="none"`` there) and
-``fused="off"`` raise ``NotImplementedError`` (``ROADMAP.md`` Queue 1).
+makes the single GP's launches, with its bits. Fleets take every solver,
+fused mode and preconditioner that a single GP takes.
 
 The per-tenant mutations (``fleet_insert``, ``fleet_evict``,
 ``fleet_resync``) live in ``repro_torch.streaming.updates`` and the
@@ -42,6 +42,7 @@ import torch
 from ..health.verdict import HealthState
 from ..kernels.ops import BandFactor
 from ..masking import lead_count
+from ..precond.coarse import CoarseLevel, pad_restriction
 from .additive_gp import (AdditiveGP, GPConfig, _as_f64, _fit_core,
                           posterior_mean, posterior_var, resolve_config,
                           resolve_device, with_capacity)
@@ -51,16 +52,17 @@ from .bayesopt import acquisition_stats
 
 __all__ = ["GPFleet", "stack_gps", "fleet_fit", "fleet_posterior_mean",
            "fleet_posterior_var", "fleet_acquisition_stats", "tenant_gp",
-           "set_tenant_gp", "select_tenants", "replicate_gp",
-           "check_fleet_config", "tree_map"]
+           "set_tenant_gp", "select_tenants", "replicate_gp", "tree_map"]
 
 
 def tree_map(fn, *objs):
     """``fn`` over the tensors of one or more GPs of one structure (the
     same fields set), rebuilding the GP: ``AdditiveGP``, its ``DimOps`` (its
     block-CR factors mapped over their (tenant, dimension) batch, no new
-    factor made), ``Banded``, ``HealthState``, tensors; configs, widths and
-    flags pass through from the first."""
+    factor made), its kmg hierarchy (a tuple of ``CoarseLevel``, whose
+    restriction maps are first widened to their common width,
+    ``pad_restriction``), ``Banded``, ``HealthState``, tensors; configs,
+    widths and flags pass through from the first."""
     o = objs[0]
     if o is None:
         return None
@@ -85,34 +87,17 @@ def tree_map(fn, *objs):
                 object.__setattr__(new, name, dataclasses.replace(
                     f_new, n_active=new.n_active))
         return new
-    if isinstance(o, (AdditiveGP, Banded, HealthState)):
+    if isinstance(o, CoarseLevel):
+        K = max(x.r_idx.shape[-1] for x in objs)
+        objs = [pad_restriction(x, K) for x in objs]
+        o = objs[0]
+    if isinstance(o, (AdditiveGP, Banded, HealthState, CoarseLevel)):
         return dataclasses.replace(o, **{
             f.name: tree_map(fn, *(getattr(x, f.name) for x in objs))
             for f in dataclasses.fields(o) if f.init})
     if isinstance(o, tuple):
-        raise NotImplementedError(
-            "a fleet carries no kmg hierarchy (precond='kmg' fleets are not "
-            "ported)")
+        return tuple(tree_map(fn, *parts) for parts in zip(*objs))
     return o
-
-
-def check_fleet_config(config: GPConfig) -> None:
-    """Raise ``NotImplementedError`` for a resolved config a fleet cannot
-    run: the relaxation solvers, kmg and the unfused loops."""
-    if config.solver != "pcg":
-        raise NotImplementedError(
-            f"fleets run solver='pcg'; solver={config.solver!r} needs the "
-            "relaxation kernels' tenant axis (ROADMAP Queue 1, the fleet)")
-    if config.precond == "kmg":
-        raise NotImplementedError(
-            "fleets run precond='none' (the kmg hierarchy's restriction "
-            "width is data dependent and does not stack over tenants; "
-            "ROADMAP Queue 1). At q = 0 and n >= 4096 'auto' resolves to "
-            "kmg: pass precond='none'")
-    if config.fused == "off":
-        raise NotImplementedError(
-            "fleets run fused 'whole' or 'on'; fused='off' (the unfused "
-            "host loops) has no tenant axis (ROADMAP Queue 1)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,7 +189,6 @@ def stack_gps(gps, capacity: int | None = None) -> GPFleet:
                              f"got {g.config} vs {cfg0}")
         if g.D != gps[0].D or g.device != gps[0].device:
             raise ValueError("all fleet tenants must share D and device")
-    check_fleet_config(cfg0)
     padded = [with_capacity(g, cap) for g in gps]
     return GPFleet(gp=tree_map(lambda *ts: torch.stack(ts), *padded))
 
@@ -222,7 +206,6 @@ def fleet_fit(config: GPConfig, X, Y, omega, sigma, capacity: int,
     if capacity < n:
         raise ValueError(f"capacity {capacity} < n {n}")
     config = resolve_config(config, n, device)
-    check_fleet_config(config)
     Y = _as_f64(Y, device).reshape(T, n)
     omega = _as_f64(omega, device).expand(T, D).contiguous()
     sigma = _as_f64(sigma, device).reshape(-1).expand(T).contiguous()

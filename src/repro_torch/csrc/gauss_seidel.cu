@@ -54,6 +54,17 @@
 //     stored only where the final sweep's k reads it.
 //   * MAXW is the widest band: 3 (q <= 2), or 4 for q = 3's SAPhi, a
 //     second instantiation so that the first keeps its machine code.
+//   * The tenant axis: T independent systems of Dt dimensions each (a
+//     fleet of GPs sharing one shape) in one launch, as mega_pcg.cu takes
+//     them: bands, factors, permutations and states stacked over
+//     (t Dt + d), sigma2 per tenant. The dimensions stay in sequence inside
+//     a tenant, and the tenants step through them together: step d solves
+//     dimension d of every tenant, its (tenant, column chunk) items spread
+//     over the grid (sweep.cuh apply_cols with a dimension step of Dt), so
+//     a fleet launch has T B columns to spread where one system has B. The
+//     elementwise phases walk each tenant's rows in turn with a single
+//     system's expressions, so a tenant's bits are those of its own
+//     launch. One system is the stack of T = 1.
 #include <cooperative_groups.h>
 
 #include "sweep.cuh"
@@ -70,28 +81,29 @@ constexpr int NT = repro::SWEEP_NT;
 constexpr int MAX_BLOCKS_PER_SM = 2;
 constexpr int ILP = repro::ROW_ILP;  // rows a thread takes at a time
 
+// the launch's operands; SweepDims::D is T Dt (every tenant's dimensions)
 struct Args : repro::SweepDims {
   const double* phi;
   const double* saphi;
-  const double* sigma2;
+  const double* sigma2;  // (T)
   const double* v;
   const double* x_in;
   double* x;
   double* k;  // nullptr: k not kept
   double* r;
   double* t1;
-  double* tp;
+  double* tp;  // the running total per (tenant, row, column)
   const double* fac_s;  // SAPhi's block-CR factor per dimension
   int w_p, w_s, iters, cpc;
+  int T, Dt;
 };
 
 template <bool PIVOT, int MAXW>
 __global__ void __launch_bounds__(NT) gs_kernel(Args A) {
   cg::grid_group grid = cg::this_grid();
   const Map m = make_map(A.B);
-  const int B = A.B, D = A.D;
+  const int B = A.B, D = A.D, T = A.T, Dt = A.Dt;
   const long long npad = A.npad, per = npad * B;
-  const double s2 = *A.sigma2;
   // this thread's column of t1, which holds each dimension in column
   // chunks of cpc (sweep.cuh chunk_col): (d, i, m.b) at d per + tc + i tn
   int tn = 1;
@@ -119,47 +131,57 @@ __global__ void __launch_bounds__(NT) gs_kernel(Args A) {
     const bool keep_r = !fuse || (A.k && last);
     const double* u = it == 0 ? A.x_in : A.x;
     if (it > 0) grid.sync();
-    // total over the dimensions and r_0 (the first sweep also copies x_in);
-    // fused, also t1_0
-    if (m.on) {
+    // each tenant's total over its dimensions and r_0 (the first sweep also
+    // copies x_in); fused, also t1_0
+    for (int t = 0; t < T && m.on; ++t) {
+      const double s2 = A.sigma2[t];
+      const long long b0 = (long long)t * Dt * npad;  // tenant's first row
       for (long long i = m.r0; i < npad; i += m.rs) {
-        const long long j = fuse ? A.sort[i] : i;
+        const long long j = fuse ? A.sort[b0 + i] : i;
         double tot = 0.0;
-        for (int d = 0; d < D; ++d) {
-          const long long e = ((long long)d * npad + j) * B + m.b;
+        for (int d = 0; d < Dt; ++d) {
+          const long long e = (b0 + (long long)d * npad + j) * B + m.b;
           tot += u[e];
           if (it == 0) A.x[e] = u[e];
         }
-        const long long e0 = j * B + m.b;
-        A.tp[e0] = tot;
+        const long long e0 = (b0 + j) * B + m.b;
+        A.tp[t * per + j * B + m.b] = tot;
         const double r0 = A.v[e0] - (tot - u[e0]) / s2;
         if (keep_r) A.r[e0] = r0;
         if (fuse) {
           double a = 0.0;
-          a += A.phi[i] * r0;
-          A.t1[tc + i * tn] = a;
+          a += A.phi[b0 + i] * r0;
+          A.t1[t * Dt * per + tc + i * tn] = a;
         }
       }
     }
-    for (int d = 0; d < D; ++d) {
-      const long long base = (long long)d * npad;
+    for (int d = 0; d < Dt; ++d) {
       if (!fuse) {
         grid.sync();
-        repro::gather_mv_to<ILP>(A, m, A.r, A.phi, A.w_p, d, d + 1,
-                                 [&](long long row, double a) {
-                                   A.t1[d * per + tc + (row - base) * tn] = a;
-                                 });
+        for (int t = 0; t < T; ++t) {
+          const int dg = t * Dt + d;
+          const long long base = (long long)dg * npad;
+          repro::gather_mv_to<ILP>(
+              A, m, A.r, A.phi, A.w_p, dg, dg + 1,
+              [&](long long row, double a) {
+                A.t1[dg * per + tc + (row - base) * tn] = a;
+              });
+        }
       }
       grid.sync();
+      // dimension d of every tenant
       repro::apply_cols<PIVOT, true, MAXW>(A, m, A.t1, A.saphi, A.fac_s,
-                                           A.w_s, d, d + 1, A.cpc);
+                                           A.w_s, d, D, A.cpc, Dt);
       grid.sync();
       // the update of dimension d and r of dimension d + 1 (fused, also
-      // t1_{d+1}), ILP rows at a time (sweep.cuh for_rows: the loads, then
-      // each row's arithmetic as a plain loop has it); a row's stores touch
-      // no row another row loads
-      if (m.on) {
-        const bool more = d + 1 < D, keep_k = A.k && last;
+      // t1_{d+1}), tenant by tenant, ILP rows at a time (sweep.cuh
+      // for_rows: the loads, then each row's arithmetic as a plain loop has
+      // it); a row's stores touch no row another row loads
+      for (int t = 0; t < T && m.on; ++t) {
+        const double s2 = A.sigma2[t];
+        const int dg = t * Dt + d;
+        const long long base = (long long)dg * npad;
+        const bool more = d + 1 < Dt, keep_k = A.k && last;
         const bool gather = fuse && more;
         const long long next = base + npad;
         double tv[ILP], tp[ILP], xd[ILP], rd[ILP], v1[ILP], x1[ILP], ph[ILP];
@@ -170,8 +192,8 @@ __global__ void __launch_bounds__(NT) gs_kernel(Args A) {
               const long long j = gather ? A.sort[next + i] : i;
               const long long e = (base + j) * B + m.b;
               jj[u] = j;
-              tv[u] = A.t1[d * per + tc + A.rank[base + j] * tn];
-              tp[u] = A.tp[j * B + m.b];
+              tv[u] = A.t1[dg * per + tc + A.rank[base + j] * tn];
+              tp[u] = A.tp[t * per + j * B + m.b];
               xd[u] = A.x[e];
               if (keep_k) rd[u] = A.r[e];
               if (more) {
@@ -184,7 +206,7 @@ __global__ void __launch_bounds__(NT) gs_kernel(Args A) {
               const long long e = (base + jj[u]) * B + m.b;
               const double nw = s2 * tv[u];
               const double tot = tp[u] - xd[u] + nw;
-              A.tp[jj[u] * B + m.b] = tot;
+              A.tp[t * per + jj[u] * B + m.b] = tot;
               if (keep_k) A.k[e] = rd[u] - nw / s2;
               A.x[e] = nw;
               if (more) {
@@ -193,7 +215,7 @@ __global__ void __launch_bounds__(NT) gs_kernel(Args A) {
                 if (gather) {
                   double a = 0.0;
                   a += ph[u] * r1;
-                  A.t1[(d + 1) * per + tc + i * tn] = a;
+                  A.t1[(dg + 1) * per + tc + i * tn] = a;
                 }
               }
             });
@@ -218,13 +240,16 @@ int grid_size(int pivot, bool wide, int* grid) {
 
 }  // namespace
 
-// float64 workspace entries of one launch: r, t1 and the total
-extern "C" long long repro_gauss_seidel_workspace(int D, int npad, int B) {
-  return 2LL * D * npad * B + (long long)npad * B;
+// float64 workspace entries of a launch over T systems of D dimensions: r,
+// t1 and the per-tenant running total
+extern "C" long long repro_gauss_seidel_workspace(int T, int D, int npad,
+                                                  int B) {
+  return 2LL * T * D * npad * B + (long long)T * npad * B;
 }
 
 // Blocks of the cooperative grid (negative: -error) of the instantiation
-// for the widest band maxw.
+// for the widest band maxw; the same for every T, so a tenant's items and
+// rows are walked as in its own launch.
 extern "C" int repro_gauss_seidel_grid(int pivot, int maxw) {
   int grid = 0;
   const int err = grid_size(pivot, maxw > 3, &grid);
@@ -232,28 +257,31 @@ extern "C" int repro_gauss_seidel_grid(int pivot, int maxw) {
 }
 
 // Columns per solve item that a launch with cpc = 0 takes (negative:
-// -error): sweep.cuh auto_cols for the one active dimension.
-extern "C" int repro_gauss_seidel_cols(int B, int pivot, int maxw) {
+// -error): sweep.cuh auto_cols for the active dimension of T tenants.
+extern "C" int repro_gauss_seidel_cols(int T, int B, int pivot, int maxw) {
   int grid = 0;
   const int err = grid_size(pivot, maxw > 3, &grid);
-  return err ? -err : repro::auto_cols(1, B, grid);
+  return err ? -err : repro::auto_cols(T, B, grid);
 }
 
-// x_in (D, npad, B) the start; x the output; k (nullable) receives the
-// final sweep's Khat^{-1} x (zeros when iters == 0); `iters` sweeps. fac_s
-// holds SAPhi's D block-CR factors (block_cr.cu repro_cr_factor_f64 of
-// saphi, in the launch's pivot mode); cpc is the number of columns each
-// solve item takes (0: chosen by auto_cols). Bands of half-width up to 4;
-// a launch with one of 4 runs the wide instantiation.
+// T systems of D dimensions each: bands, factors, permutations and states
+// stacked over (t D + d), sigma2 (T); T B <= MAX_TB. x_in (T, D, npad, B)
+// the start; x the output; k (nullable) receives the final sweep's
+// Khat^{-1} x (zeros when iters == 0); `iters` sweeps. fac_s holds SAPhi's
+// T D block-CR factors (block_cr.cu repro_cr_factor_f64 of saphi, in the
+// launch's pivot mode); cpc is the number of columns each solve item takes
+// (0: chosen by auto_cols). Bands of half-width up to 4; a launch with one
+// of 4 runs the wide instantiation.
 extern "C" int repro_gauss_seidel_f64(const double* phi, const double* saphi,
                                       const double* fac_s, const int* sort,
                                       const int* rank, const double* sigma2,
                                       const double* v, const double* x_in,
                                       double* x, double* k, double* work,
-                                      int D, int npad, int B, int w_p,
+                                      int T, int D, int npad, int B, int w_p,
                                       int w_s, int iters, int cpc, int pivot,
                                       void* stream) {
-  if (D < 1 || npad < 1 || B < 1 || B > NT || w_p < 0 || w_s < 1 ||
+  if (T < 1 || D < 1 || npad < 1 || B < 1 || B > NT ||
+      (long long)T * B > repro::MAX_TB || w_p < 0 || w_s < 1 ||
       w_p > 4 || w_s > 4 || iters < 0 || cpc < 0 || !fac_s)
     return (int)cudaErrorInvalidValue;
   if ((w_p > 0 && npad % w_p) || npad % w_s) return (int)cudaErrorInvalidValue;
@@ -261,16 +289,17 @@ extern "C" int repro_gauss_seidel_f64(const double* phi, const double* saphi,
   int grid = 0;
   const int err = grid_size(pivot, wide, &grid);
   if (err) return err;
-  const long long N = (long long)D * npad * B;
+  const long long N = (long long)T * D * npad * B;
   Args A;
-  A.sort = sort; A.rank = rank; A.D = D; A.npad = npad; A.B = B;
+  A.sort = sort; A.rank = rank; A.D = T * D; A.npad = npad; A.B = B;
+  A.T = T; A.Dt = D;
   A.phi = phi; A.saphi = saphi; A.fac_s = fac_s; A.sigma2 = sigma2;
   A.v = v; A.x_in = x_in; A.x = x; A.k = k;
   A.r = work;
   A.t1 = A.r + N;
   A.tp = A.t1 + N;
   A.w_p = w_p; A.w_s = w_s; A.iters = iters;
-  A.cpc = cpc == 0 ? repro::auto_cols(1, B, grid) : (cpc < B ? cpc : B);
+  A.cpc = cpc == 0 ? repro::auto_cols(T, B, grid) : (cpc < B ? cpc : B);
   void* params[] = {&A};
   return with_kernel(pivot, wide, [&](auto k) {
     REPRO_RETURN_IF_ERR(cudaLaunchCooperativeKernel(

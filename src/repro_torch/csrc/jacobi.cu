@@ -59,6 +59,16 @@
 //     one-sweep launch makes no copy pass.
 //   * MAXW is the widest band: 3 (q <= 2), or 4 for q = 3's SAPhi, a
 //     second instantiation so that the first keeps its machine code.
+//   * The tenant axis: T independent systems of Dt dimensions each (a
+//     fleet of GPs sharing one shape) in one launch, as mega_pcg.cu takes
+//     them. Bands, factors, permutations and states are stacked over
+//     (t Dt + d), so the gathered matvecs and the SAPhi solves are those of
+//     one launch over T Dt dimensions, their (tenant, dimension, chunk)
+//     items spread over the same grid; sigma2 is per tenant, alpha
+//     fleet-wide, and the elementwise phase walks each tenant's rows in
+//     turn, its total over that tenant's dimensions in d order. A tenant's
+//     arithmetic is that of its own launch, so its bits are. One system is
+//     the stack of T = 1.
 #include <cooperative_groups.h>
 
 #include "sweep.cuh"
@@ -78,12 +88,13 @@ constexpr int DG = 5;  // dimensions of a row whose loads go out together
 // how k starts: none kept, from k_in, zero, or Khat^{-1} x_in (warm)
 enum KMode { K_NONE = 0, K_IN = 1, K_ZERO = 2, K_WARM = 3 };
 
+// the launch's operands; SweepDims::D is T Dt (every tenant's dimensions)
 struct Args : repro::SweepDims {
   const double* phi;
   const double* saphi;
   const double* fac_p;  // Phi's block-CR factor per dimension (warm, w_p > 0)
   const double* fac_s;  // SAPhi's block-CR factor per dimension
-  const double* sigma2;
+  const double* sigma2;  // (T)
   const double* v;
   const double* x_in;
   const double* k_in;
@@ -91,18 +102,18 @@ struct Args : repro::SweepDims {
   double* k;
   double* r;   // r per element (w_p >= 1)
   double* t1;  // the solve operand, in column chunks of cpc
-  double* tp;  // the sweep's total per (row, column) (w_p = 0, k kept)
+  double* tp;  // the sweep's total per (tenant, row, column) (w_p = 0, k kept)
   double alpha;
   int w_p, w_s, iters, kmode, cpc;
+  int T, Dt;
 };
 
 template <bool PIVOT, int MAXW>
 __global__ void __launch_bounds__(NT) jacobi_kernel(Args A) {
   cg::grid_group grid = cg::this_grid();
   const Map m = make_map(A.B);
-  const int B = A.B, D = A.D;
+  const int B = A.B, D = A.D, T = A.T, Dt = A.Dt;
   const long long npad = A.npad, per = npad * B;
-  const double s2 = *A.sigma2;
   const double al = A.alpha;
   const bool fuse = A.w_p == 0;
   const bool keep_k = A.kmode != K_NONE;
@@ -114,19 +125,22 @@ __global__ void __launch_bounds__(NT) jacobi_kernel(Args A) {
     A.t1[d * per + tc + (row - d * npad) * tn] = a;
   };
 
-  // the next sweep's right-hand side of state row j, from its total and
-  // the state u: r stored (w_p >= 1), or its Phi product 0 + phi r written
-  // to t1 at sorted row rank_d[j] (w_p = 0, as gather_mv forms it)
-  const auto next_rhs = [&](long long j, double tot, const double* u) {
+  // the next sweep's right-hand side of tenant t's state row j, from its
+  // total and the state u: r stored (w_p >= 1), or its Phi product
+  // 0 + phi r written to t1 at sorted row rank_d[j] (w_p = 0, as gather_mv
+  // forms it)
+  const auto next_rhs = [&](int t, long long j, double tot, const double* u) {
+    const double s2 = A.sigma2[t];
+    const int db = t * Dt;
     const long long e0 = j * B + m.b;
-    if (fuse && keep_k) A.tp[e0] = tot;
-    for (int d0 = 0; d0 < D; d0 += DG) {
+    if (fuse && keep_k) A.tp[t * per + e0] = tot;
+    for (int d0 = 0; d0 < Dt; d0 += DG) {
       double vv[DG], uv[DG], ph[DG];
       long long ri[DG];
 #pragma unroll
       for (int q = 0; q < DG; ++q) {
-        const int d = d0 + q;
-        if (d < D) {
+        const int d = db + d0 + q;
+        if (d0 + q < Dt) {
           vv[q] = A.v[d * per + e0];
           uv[q] = u[d * per + e0];
           if (fuse) ri[q] = A.rank[d * npad + j];
@@ -135,12 +149,12 @@ __global__ void __launch_bounds__(NT) jacobi_kernel(Args A) {
       if (fuse) {
 #pragma unroll
         for (int q = 0; q < DG; ++q)
-          if (d0 + q < D) ph[q] = A.phi[(d0 + q) * npad + ri[q]];
+          if (d0 + q < Dt) ph[q] = A.phi[(db + d0 + q) * npad + ri[q]];
       }
 #pragma unroll
       for (int q = 0; q < DG; ++q) {
-        const int d = d0 + q;
-        if (d < D) {
+        const int d = db + d0 + q;
+        if (d0 + q < Dt) {
           const double r = vv[q] - (tot - uv[q]) / s2;
           if (fuse) {
             double a = 0.0;
@@ -166,13 +180,15 @@ __global__ void __launch_bounds__(NT) jacobi_kernel(Args A) {
       grid.sync();
     }
   }
-  // start: the total of x_in per row and the first sweep's right-hand side;
-  // k0 at a warm start; with no sweep, x = x_in and k as kmode says
-  if (m.on) {
+  // start: the total of x_in per (tenant, row) and the first sweep's
+  // right-hand side; k0 at a warm start; with no sweep, x = x_in and k as
+  // kmode says
+  for (int t = 0; t < T && m.on; ++t) {
+    const double s2 = A.sigma2[t];
     for (long long j = m.r0; j < npad; j += m.rs) {
       const long long e0 = j * B + m.b;
       double tot = 0.0;
-      for (int d = 0; d < D; ++d) {
+      for (int d = t * Dt; d < (t + 1) * Dt; ++d) {
         const long long e = d * per + e0;
         const double xv = A.x_in[e];
         tot += xv;
@@ -188,7 +204,7 @@ __global__ void __launch_bounds__(NT) jacobi_kernel(Args A) {
           if (A.kmode == K_ZERO) A.k[e] = 0.0;
         }
       }
-      if (A.iters > 0) next_rhs(j, tot, A.x_in);
+      if (A.iters > 0) next_rhs(t, j, tot, A.x_in);
     }
   }
 
@@ -207,50 +223,54 @@ __global__ void __launch_bounds__(NT) jacobi_kernel(Args A) {
     repro::apply_cols<PIVOT, true, MAXW>(A, m, A.t1, A.saphi, A.fac_s,
                                          A.w_s, 0, D, A.cpc);
     grid.sync();
-    if (!m.on) continue;
-    for (long long j = m.r0; j < npad; j += m.rs) {
-      const long long e0 = j * B + m.b;
-      const double to = fuse && keep_k ? A.tp[e0] : 0.0;
-      double tot = 0.0;
-      for (int d0 = 0; d0 < D; d0 += DG) {
-        double xo[DG], ko[DG], rv[DG], tv[DG];
-        long long ri[DG];
+    for (int t = 0; t < T && m.on; ++t) {
+      const double s2 = A.sigma2[t];
+      const int db = t * Dt;
+      for (long long j = m.r0; j < npad; j += m.rs) {
+        const long long e0 = j * B + m.b;
+        const double to = fuse && keep_k ? A.tp[t * per + e0] : 0.0;
+        double tot = 0.0;
+        for (int d0 = 0; d0 < Dt; d0 += DG) {
+          double xo[DG], ko[DG], rv[DG], tv[DG];
+          long long ri[DG];
 #pragma unroll
-        for (int q = 0; q < DG; ++q) {
-          const int d = d0 + q;
-          if (d < D) {
-            const long long e = d * per + e0;
-            ri[q] = A.rank[d * npad + j];
-            xo[q] = xs[e];
-            if (keep_k) {
-              ko[q] = ks ? ks[e] : 0.0;
-              rv[q] = fuse ? A.v[e] : A.r[e];
+          for (int q = 0; q < DG; ++q) {
+            const int d = db + d0 + q;
+            if (d0 + q < Dt) {
+              const long long e = d * per + e0;
+              ri[q] = A.rank[d * npad + j];
+              xo[q] = xs[e];
+              if (keep_k) {
+                ko[q] = ks ? ks[e] : 0.0;
+                rv[q] = fuse ? A.v[e] : A.r[e];
+              }
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < DG; ++q)
+            if (d0 + q < Dt)
+              tv[q] = A.t1[(db + d0 + q) * per + tc + ri[q] * tn];
+#pragma unroll
+          for (int q = 0; q < DG; ++q) {
+            const int d = db + d0 + q;
+            if (d0 + q < Dt) {
+              const long long e = d * per + e0;
+              const double nw = s2 * tv[q];
+              // each update's one multiply-add is written out (x folds
+              // alpha new, k folds (1 - alpha) k), so its bits do not rest
+              // on the compiler's choice
+              const double xn = __fma_rn(al, nw, __dmul_rn(1.0 - al, xo[q]));
+              A.x[e] = xn;
+              if (keep_k) {
+                const double r = fuse ? rv[q] - (to - xo[q]) / s2 : rv[q];
+                A.k[e] = __fma_rn(1.0 - al, ko[q], __dmul_rn(al, r - nw / s2));
+              }
+              tot += xn;
             }
           }
         }
-#pragma unroll
-        for (int q = 0; q < DG; ++q)
-          if (d0 + q < D) tv[q] = A.t1[(d0 + q) * per + tc + ri[q] * tn];
-#pragma unroll
-        for (int q = 0; q < DG; ++q) {
-          const int d = d0 + q;
-          if (d < D) {
-            const long long e = d * per + e0;
-            const double nw = s2 * tv[q];
-            // each update's one multiply-add is written out (x folds
-            // alpha new, k folds (1 - alpha) k), so its bits do not rest
-            // on the compiler's choice
-            const double xn = __fma_rn(al, nw, __dmul_rn(1.0 - al, xo[q]));
-            A.x[e] = xn;
-            if (keep_k) {
-              const double r = fuse ? rv[q] - (to - xo[q]) / s2 : rv[q];
-              A.k[e] = __fma_rn(1.0 - al, ko[q], __dmul_rn(al, r - nw / s2));
-            }
-            tot += xn;
-          }
-        }
+        if (more) next_rhs(t, j, tot, A.x);
       }
-      if (more) next_rhs(j, tot, A.x);
     }
   }
 }
@@ -272,13 +292,15 @@ int grid_size(int pivot, bool wide, int* grid) {
 
 }  // namespace
 
-// float64 workspace entries of one launch: r, t1 and the total
-extern "C" long long repro_jacobi_workspace(int D, int npad, int B) {
-  return 2LL * D * npad * B + (long long)npad * B;
+// float64 workspace entries of a launch over T systems of D dimensions: r,
+// t1 and the per-tenant total
+extern "C" long long repro_jacobi_workspace(int T, int D, int npad, int B) {
+  return 2LL * T * D * npad * B + (long long)T * npad * B;
 }
 
 // Blocks of the cooperative grid (negative: -error) of the instantiation
-// for the widest band maxw.
+// for the widest band maxw; the same for every T, so a tenant's items and
+// rows are walked as in its own launch.
 extern "C" int repro_jacobi_grid(int pivot, int maxw) {
   int grid = 0;
   const int err = grid_size(pivot, maxw > 3, &grid);
@@ -286,30 +308,33 @@ extern "C" int repro_jacobi_grid(int pivot, int maxw) {
 }
 
 // Columns per solve item that a launch with cpc = 0 takes (negative:
-// -error): sweep.cuh auto_cols over the D dimensions' items.
-extern "C" int repro_jacobi_cols(int D, int B, int pivot, int maxw) {
+// -error): sweep.cuh auto_cols over the T D dimensions' items.
+extern "C" int repro_jacobi_cols(int T, int D, int B, int pivot, int maxw) {
   int grid = 0;
   const int err = grid_size(pivot, maxw > 3, &grid);
-  return err ? -err : repro::auto_cols(D, B, grid);
+  return err ? -err : repro::auto_cols(T * D, B, grid);
 }
 
-// x_in (D, npad, B) the start; k_in the carried k (kmode 1); x, k the
-// outputs (k unused at kmode 0); `iters` sweeps; alpha the damping. fac_s
-// holds SAPhi's D block-CR factors, fac_p (read only by a warm start at
-// w_p >= 1) Phi's (block_cr.cu repro_cr_factor_f64, in the launch's pivot
-// mode); cpc is the number of columns each solve item takes (0: chosen by
-// auto_cols). Bands of half-width up to 4; a launch with one of 4 runs the
-// wide instantiation.
+// T systems of D dimensions each: bands, factors, permutations and states
+// stacked over (t D + d), sigma2 (T); T B <= MAX_TB. x_in (T, D, npad, B)
+// the start; k_in the carried k (kmode 1); x, k the outputs (k unused at
+// kmode 0); `iters` sweeps; alpha the damping. fac_s holds SAPhi's T D
+// block-CR factors, fac_p (read only by a warm start at w_p >= 1) Phi's
+// (block_cr.cu repro_cr_factor_f64, in the launch's pivot mode); cpc is the
+// number of columns each solve item takes (0: chosen by auto_cols). Bands
+// of half-width up to 4; a launch with one of 4 runs the wide
+// instantiation.
 extern "C" int repro_jacobi_f64(const double* phi, const double* saphi,
                                 const double* fac_p, const double* fac_s,
                                 const int* sort, const int* rank,
                                 const double* sigma2, const double* v,
                                 const double* x_in, const double* k_in,
-                                double* x, double* k, double* work, int D,
-                                int npad, int B, int w_p, int w_s, int iters,
-                                int cpc, double alpha, int kmode, int pivot,
-                                void* stream) {
-  if (D < 1 || npad < 1 || B < 1 || B > NT || w_p < 0 || w_s < 1 ||
+                                double* x, double* k, double* work, int T,
+                                int D, int npad, int B, int w_p, int w_s,
+                                int iters, int cpc, double alpha, int kmode,
+                                int pivot, void* stream) {
+  if (T < 1 || D < 1 || npad < 1 || B < 1 || B > NT ||
+      (long long)T * B > repro::MAX_TB || w_p < 0 || w_s < 1 ||
       w_p > 4 || w_s > 4 || iters < 0 || cpc < 0 || kmode < K_NONE ||
       kmode > K_WARM || !fac_s || (kmode == K_WARM && w_p > 0 && !fac_p))
     return (int)cudaErrorInvalidValue;
@@ -318,9 +343,10 @@ extern "C" int repro_jacobi_f64(const double* phi, const double* saphi,
   int grid = 0;
   const int err = grid_size(pivot, wide, &grid);
   if (err) return err;
-  const long long N = (long long)D * npad * B;
+  const long long N = (long long)T * D * npad * B;
   Args A;
-  A.sort = sort; A.rank = rank; A.D = D; A.npad = npad; A.B = B;
+  A.sort = sort; A.rank = rank; A.D = T * D; A.npad = npad; A.B = B;
+  A.T = T; A.Dt = D;
   A.phi = phi; A.saphi = saphi; A.fac_p = fac_p; A.fac_s = fac_s;
   A.sigma2 = sigma2; A.v = v; A.x_in = x_in; A.k_in = k_in; A.x = x;
   A.k = k;
@@ -329,7 +355,7 @@ extern "C" int repro_jacobi_f64(const double* phi, const double* saphi,
   A.tp = A.t1 + N;
   A.alpha = alpha;
   A.w_p = w_p; A.w_s = w_s; A.iters = iters; A.kmode = kmode;
-  A.cpc = cpc == 0 ? repro::auto_cols(D, B, grid) : (cpc < B ? cpc : B);
+  A.cpc = cpc == 0 ? repro::auto_cols(T * D, B, grid) : (cpc < B ? cpc : B);
   void* params[] = {&A};
   return with_kernel(pivot, wide, [&](auto k) {
     REPRO_RETURN_IF_ERR(cudaLaunchCooperativeKernel(

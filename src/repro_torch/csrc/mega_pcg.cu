@@ -93,7 +93,7 @@ using repro::Map;
 // shared memory (4 T B doubles, at most MAX_TB (tenant, column) pairs).
 // One system is the stack of T = 1.
 
-constexpr int MAX_TB = 4096;  // tenants x columns of one launch
+constexpr int MAX_TB = repro::MAX_TB;  // tenants x columns of one launch
 
 // the launch's operands; SweepDims::D is T Dt (every tenant's dimensions)
 struct Args : repro::SweepDims {

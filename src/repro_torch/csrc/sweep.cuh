@@ -21,6 +21,8 @@
 namespace repro {
 
 constexpr int SWEEP_NT = 256;  // threads per block of every solve kernel
+// (tenant, column) pairs of one launch over a stack of T systems
+constexpr int MAX_TB = 4096;
 
 // What every phase reads: the permutations and the stack's shape.
 struct SweepDims {
@@ -193,23 +195,30 @@ __device__ __forceinline__ long long chunk_col(int b, int npad, int B,
 // it takes w >= 1 only (the division reads t row-major). MAXW is the
 // widest band the instantiation solves: 3 (every band up to q = 2) or 4
 // (q = 3's A and SAPhi). Each has its own switch, so the narrow kernels'
-// machine code holds no w = 4 case.
+// machine code holds no w = 4 case. dstep > 1 solves the dimensions d0,
+// d0 + dstep, ... below d1 only (one dimension of each tenant of a stack
+// whose tenants have dstep dimensions each).
 template <bool PIVOT, bool CHUNKED = false, int MAXW = 3>
 __device__ void apply_cols(const SweepDims& S, const Map& m, double* t,
                            const double* band, const double* fac, int w,
-                           int d0, int d1, int cpc) {
+                           int d0, int d1, int cpc, int dstep = 1) {
   static_assert(MAXW == 3 || MAXW == 4, "MAXW is 3 or 4");
   const int B = S.B;
   if (w == 0) {
-    div_rows<ROW_ILP>(S, m, t, band, d0, d1);
+    if (dstep == 1) {
+      div_rows<ROW_ILP>(S, m, t, band, d0, d1);
+    } else {
+      for (int d = d0; d < d1; d += dstep)
+        div_rows<ROW_ILP>(S, m, t, band, d, d + 1);
+    }
     return;
   }
   const int chunks = (B + cpc - 1) / cpc;
+  const int nd = (d1 - d0 + dstep - 1) / dstep;
   const long long per = (long long)S.npad * B;
   const long long fper = cr_factor_size(S.npad / w, w);
-  for (int item = blockIdx.x; item < (d1 - d0) * chunks;
-       item += gridDim.x) {
-    const int d = d0 + item / chunks;
+  for (int item = blockIdx.x; item < nd * chunks; item += gridDim.x) {
+    const int d = d0 + (item / chunks) * dstep;
     const int c0 = (item % chunks) * cpc;
     const int nc = B - c0 < cpc ? B - c0 : cpc;
     const double* fd = fac + d * fper;

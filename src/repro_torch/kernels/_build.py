@@ -39,8 +39,8 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # the backfitting kernels' wide instantiations (half-width 4, q = 3) count
 # apart, under the name + "_w4"; the block CR's (half-width 6-8, the
 # streaming Woodbury patch solves at q = 2, 3) under the name + "_wide";
-# the PCG kernel's launches over a fleet's T > 1 systems under the name +
-# "_fleet" (+ "_w4")
+# the backfitting kernels' launches over a fleet's T > 1 systems under the
+# name + "_fleet" (+ "_w4")
 KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
            "banded_matvec", "cr_apply", "fused_jacobi_iter",
            "fused_gauss_seidel_iter", "mega_jacobi", "mega_gauss_seidel",
@@ -49,7 +49,11 @@ KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
            "fused_gauss_seidel_iter_w4", "mega_jacobi_w4",
            "mega_gauss_seidel_w4", "cr_factor_wide", "cr_apply_wide",
            "mega_pcg_fleet", "fused_pcg_iter_fleet", "mega_pcg_fleet_w4",
-           "fused_pcg_iter_fleet_w4")
+           "fused_pcg_iter_fleet_w4", "mega_jacobi_fleet",
+           "fused_jacobi_iter_fleet", "mega_jacobi_fleet_w4",
+           "fused_jacobi_iter_fleet_w4", "mega_gauss_seidel_fleet",
+           "fused_gauss_seidel_iter_fleet", "mega_gauss_seidel_fleet_w4",
+           "fused_gauss_seidel_iter_fleet_w4")
 
 _c_int, _c_ll, _c_dbl, _ptr = (ctypes.c_int, ctypes.c_longlong,
                                 ctypes.c_double, ctypes.c_void_p)
@@ -65,15 +69,15 @@ _SIGNATURES = {
     "repro_mega_pcg_cols": (_c_int, [_c_int] * 5),
     "repro_mega_pcg_f64": (_c_int, [_ptr] * 16 + [_c_int] * 9
                            + [_c_dbl, _c_int, _c_int, _ptr]),
-    "repro_jacobi_workspace": (_c_ll, [_c_int] * 3),
+    "repro_jacobi_workspace": (_c_ll, [_c_int] * 4),
     "repro_jacobi_grid": (_c_int, [_c_int] * 2),
-    "repro_jacobi_cols": (_c_int, [_c_int] * 4),
-    "repro_jacobi_f64": (_c_int, [_ptr] * 13 + [_c_int] * 7
+    "repro_jacobi_cols": (_c_int, [_c_int] * 5),
+    "repro_jacobi_f64": (_c_int, [_ptr] * 13 + [_c_int] * 8
                          + [_c_dbl, _c_int, _c_int, _ptr]),
-    "repro_gauss_seidel_workspace": (_c_ll, [_c_int] * 3),
+    "repro_gauss_seidel_workspace": (_c_ll, [_c_int] * 4),
     "repro_gauss_seidel_grid": (_c_int, [_c_int] * 2),
-    "repro_gauss_seidel_cols": (_c_int, [_c_int] * 3),
-    "repro_gauss_seidel_f64": (_c_int, [_ptr] * 11 + [_c_int] * 8 + [_ptr]),
+    "repro_gauss_seidel_cols": (_c_int, [_c_int] * 4),
+    "repro_gauss_seidel_f64": (_c_int, [_ptr] * 11 + [_c_int] * 9 + [_ptr]),
     "repro_banded_matvec_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int,
                                          _c_int, _c_int, _c_int, _ptr]),
     "repro_cr_factor_f64": (_c_int, [_ptr] * 3 + [_c_int] * 4 + [_ptr]),

@@ -42,10 +42,11 @@ __all__ = ["FusedSweep", "_pad_len", "_mv", "_gather", "_solve_sym",
            "pcg_seed_plain", "pcg_loop", "sweep_backward_error", "MAX_B",
            "MAX_WIDTH", "NARROW_WIDTH", "sweep_factor", "pcg_factors",
            "pcg_solve_cols", "gauss_seidel_cols", "gauss_seidel_grid",
-           "jacobi_cols", "jacobi_grid"]
+           "jacobi_cols", "jacobi_grid", "pcg_fleet_cols",
+           "jacobi_fleet_cols", "gauss_seidel_fleet_cols"]
 
 MAX_B = 256  # RHS columns per launch (csrc/sweep.cuh SWEEP_NT)
-# tenants x columns of one PCG launch (csrc/mega_pcg.cu MAX_TB)
+# tenants x columns of one launch over a tenant stack (csrc/sweep.cuh MAX_TB)
 MAX_TB = 4096
 # w_a, w_p, w_s <= 4: each kernel has two instantiations (csrc/sweep.cuh
 # apply_cols' MAXW), one for bands up to half-width 3 (q <= 2) and one for
@@ -151,8 +152,16 @@ def fused_jacobi_iter_plain(phi, saphi, sort_idx, rank_idx, sigma2, v, vt,
 
     With ``k`` (or ``warm``, which first sets k = Khat^{-1} vt, the whole
     solve's warm start) the sweep also carries the damped
-    ``Khat_d^{-1} x_d`` stack and returns ``(out, k_out)``.
+    ``Khat_d^{-1} x_d`` stack and returns ``(out, k_out)``. A tenant stack
+    (a leading T axis on every operand, ``sigma2`` (T,)) sweeps tenant by
+    tenant (:func:`by_tenant`).
     """
+    if v.ndim == 4:
+        return by_tenant(
+            lambda *o: fused_jacobi_iter_plain(*o, w_p=w_p, w_s=w_s,
+                                               alpha=alpha, pivot=pivot,
+                                               warm=warm),
+            (phi, saphi, sort_idx, rank_idx), (v, vt, k), sigma2)
     s2 = sigma2.reshape(())
     if warm:
         k = _khat_inv_dim(saphi, phi, sort_idx, rank_idx, s2, vt, w_p=w_p,
@@ -172,7 +181,13 @@ def fused_gauss_seidel_iter_plain(phi, saphi, sort_idx, rank_idx, sigma2, v,
                                   pivot: bool = False,
                                   want_resid: bool = False):
     """One Gauss-Seidel sweep, dims in sequence, on padded operands; with
-    ``want_resid`` also the per-dim ``k_d = Khat_d^{-1} x_d``: (out, k)."""
+    ``want_resid`` also the per-dim ``k_d = Khat_d^{-1} x_d``: (out, k). A
+    tenant stack sweeps tenant by tenant (:func:`by_tenant`)."""
+    if v.ndim == 4:
+        return by_tenant(
+            lambda *o: fused_gauss_seidel_iter_plain(
+                *o, w_p=w_p, w_s=w_s, pivot=pivot, want_resid=want_resid),
+            (phi, saphi, sort_idx, rank_idx), (v, vt), sigma2)
     s2 = sigma2.reshape(())
     out = vt.clone()
     k = torch.zeros_like(vt) if want_resid else None
@@ -269,11 +284,11 @@ def pcg_loop(iterate, state, *, iters: int, tol: float):
     fewer than ``iters`` iterations ran and (``tol == 0`` or some column
     has |rz| > tol^2 |rz_0|): the whole-solve kernel's exit, checked on the
     host (one read of rz per iteration when ``tol > 0``). Returns
-    ``(state, iterations run)``. On a tenant stack (``rz`` (T, 1, B)) each
-    tenant exits on its own columns, as the tenant-axis kernel does: an
-    exited tenant keeps its state (a select after each iteration) and the
-    count is (T,) int32."""
-    if state[3].ndim == 3:
+    ``(state, iterations run)``. On a tenant stack (x (T, D, n, B), ``rz``
+    with a leading T axis) each tenant exits on its own columns, as the
+    tenant-axis kernel does: an exited tenant keeps its state (a select
+    after each iteration) and the count is (T,) int32."""
+    if state[0].ndim == 4:
         return _pcg_loop_tenants(iterate, state, iters=iters, tol=tol)
     thresh = tol * tol * torch.abs(state[3])
     i = 0
@@ -362,6 +377,21 @@ def _check_operands(phi, saphi, sort_idx, rank_idx, sigma2, states, w_p,
     return lead, D, npad, B, dev
 
 
+def _tenants(lead, B):
+    """T of a launch over operands with leading axes ``lead`` (() or (T,)),
+    checked against the kernels' (tenant, column) limit."""
+    T = lead[0] if lead else 1
+    if T * B > MAX_TB:
+        raise ValueError(f"a launch takes T * B <= {MAX_TB}; got T = {T}, "
+                         f"B = {B}")
+    return T
+
+
+def _fleet_name(name, T, *widths):
+    """The launch-count name of a launch over T tenants and these widths."""
+    return _counted(name if T == 1 else name + "_fleet", *widths)
+
+
 def _launch_jacobi(name, phi, saphi, sort_idx, rank_idx, sigma2, v, x_in,
                    k_in, *, w_p, w_s, alpha, iters, kmode, pivot,
                    factors=None, cols=None):
@@ -369,21 +399,24 @@ def _launch_jacobi(name, phi, saphi, sort_idx, rank_idx, sigma2, v, x_in,
     ``factors`` are ``(Phi's or None, SAPhi's)`` :func:`sweep_factor` in
     this pivot mode; Phi's is read only by a warm start at w_p >= 1 (None:
     each made here where it is read, one ``cr_factor`` launch each).
-    ``cols`` the columns per solve item (None: :func:`jacobi_cols`)."""
+    ``cols`` the columns per solve item (None: :func:`jacobi_cols`). A
+    stack of T tenants (every operand with a leading T axis, ``sigma2``
+    (T,)) is one launch of the same kernel; with T > 1 it counts as
+    ``name + "_fleet"``."""
     states = (v, x_in) if k_in is None else (v, x_in, k_in)
-    _no_tenants("the Jacobi kernel", states[0])
-    _, D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
-                                         sigma2, states, w_p, w_s)
+    lead, D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
+                                            sigma2, states, w_p, w_s)
+    T = _tenants(lead, B)
     need_p = w_p > 0 and kmode == K_WARM
     if factors is None:
         factors = pcg_factors(phi, saphi, w_p=w_p if need_p else 0, w_s=w_s,
                               pivot=pivot)
-    fac_p = _factor_data(factors[0], "Phi", w_p, D, npad, dev) if need_p \
-        else None
-    fac_s = _factor_data(factors[1], "SAPhi", w_s, D, npad, dev)
+    fac_p = (_factor_data(factors[0], "Phi", w_p, T * D, npad, dev)
+             if need_p else None)
+    fac_s = _factor_data(factors[1], "SAPhi", w_s, T * D, npad, dev)
     _check_cols(cols)
     lib = _build.load_library()
-    work = torch.empty((lib.repro_jacobi_workspace(D, npad, B),),
+    work = torch.empty((lib.repro_jacobi_workspace(T, D, npad, B),),
                        dtype=torch.float64, device=dev)
     x = torch.empty_like(v)
     k = None if kmode == K_NONE else torch.empty_like(v)
@@ -393,21 +426,12 @@ def _launch_jacobi(name, phi, saphi, sort_idx, rank_idx, sigma2, v, x_in,
         sort_idx.data_ptr(), rank_idx.data_ptr(), sigma2.data_ptr(),
         v.data_ptr(), x_in.data_ptr(),
         None if k_in is None else k_in.data_ptr(), x.data_ptr(),
-        None if k is None else k.data_ptr(), work.data_ptr(), D, npad, B,
-        w_p, w_s, iters, cols or 0, float(alpha), kmode, int(pivot),
+        None if k is None else k.data_ptr(), work.data_ptr(), T, D, npad,
+        B, w_p, w_s, iters, cols or 0, float(alpha), kmode, int(pivot),
         _build.stream_handle(dev))
     _build.check(err, name)
-    _build.count_launch(_counted(name, w_p, w_s))
+    _build.count_launch(_fleet_name(name, T, w_p, w_s))
     return x, k
-
-
-def _no_tenants(what, state):
-    """The relaxation kernels take one system a launch: a tenant stack
-    (a leading T axis) raises."""
-    if state.ndim != 3:
-        raise NotImplementedError(
-            f"{what} has no tenant axis: fleets run solver='pcg' (ROADMAP "
-            "Queue 1, the relaxation kernels' tenant axis)")
 
 
 def _check_cols(cols):
@@ -461,16 +485,17 @@ def _launch_gauss_seidel(name, phi, saphi, sort_idx, rank_idx, sigma2, v,
     """``csrc/gauss_seidel.cu`` for ``iters`` sweeps; returns (x, k or
     None). ``factors`` is SAPhi's :func:`sweep_factor` in this pivot mode
     (None: made here, one ``cr_factor`` launch); ``cols`` the columns per
-    solve item (None: :func:`gauss_seidel_cols`)."""
-    _no_tenants("the Gauss-Seidel kernel", v)
-    _, D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
-                                         sigma2, (v, x_in), w_p, w_s)
+    solve item (None: :func:`gauss_seidel_cols`). A tenant stack is one
+    launch, as :func:`_launch_jacobi`'s."""
+    lead, D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
+                                            sigma2, (v, x_in), w_p, w_s)
+    T = _tenants(lead, B)
     if factors is None:
         factors = sweep_factor(saphi, w_s, pivot=pivot)
-    fac = _factor_data(factors, "SAPhi", w_s, D, npad, dev)
+    fac = _factor_data(factors, "SAPhi", w_s, T * D, npad, dev)
     _check_cols(cols)
     lib = _build.load_library()
-    work = torch.empty((lib.repro_gauss_seidel_workspace(D, npad, B),),
+    work = torch.empty((lib.repro_gauss_seidel_workspace(T, D, npad, B),),
                        dtype=torch.float64, device=dev)
     x = torch.empty_like(v)
     k = torch.empty_like(v) if want_k else None
@@ -478,10 +503,10 @@ def _launch_gauss_seidel(name, phi, saphi, sort_idx, rank_idx, sigma2, v,
         phi.data_ptr(), saphi.data_ptr(), fac.data_ptr(),
         sort_idx.data_ptr(), rank_idx.data_ptr(), sigma2.data_ptr(),
         v.data_ptr(), x_in.data_ptr(), x.data_ptr(),
-        None if k is None else k.data_ptr(), work.data_ptr(), D, npad, B,
+        None if k is None else k.data_ptr(), work.data_ptr(), T, D, npad, B,
         w_p, w_s, iters, cols or 0, int(pivot), _build.stream_handle(dev))
     _build.check(err, name)
-    _build.count_launch(_counted(name, w_p, w_s))
+    _build.count_launch(_fleet_name(name, T, w_p, w_s))
     return x, k
 
 
@@ -519,13 +544,20 @@ def gauss_seidel_grid(pivot: bool = False, maxw: int = NARROW_WIDTH) -> int:
                   "gauss_seidel grid query", int(pivot), maxw)
 
 
+def gauss_seidel_fleet_cols(T: int, B: int, pivot: bool = False,
+                            maxw: int = NARROW_WIDTH) -> int:
+    """:func:`gauss_seidel_cols` of a launch over T tenants: auto_cols over
+    the active dimension of every tenant."""
+    return _query(_build.load_library().repro_gauss_seidel_cols,
+                  "gauss_seidel column query", T, B, int(pivot), maxw)
+
+
 def gauss_seidel_cols(B: int, pivot: bool = False,
                       maxw: int = NARROW_WIDTH) -> int:
     """The Gauss-Seidel kernel's items' columns when the launch leaves
     ``cols`` open: auto_cols (as :func:`pcg_solve_cols`) with D = 1, one
     dimension a step, over its grid (``csrc/gauss_seidel.cu``)."""
-    return _query(_build.load_library().repro_gauss_seidel_cols,
-                  "gauss_seidel column query", B, int(pivot), maxw)
+    return gauss_seidel_fleet_cols(1, B, pivot, maxw)
 
 
 def jacobi_grid(pivot: bool = False, maxw: int = NARROW_WIDTH) -> int:
@@ -535,13 +567,20 @@ def jacobi_grid(pivot: bool = False, maxw: int = NARROW_WIDTH) -> int:
                   "jacobi grid query", int(pivot), maxw)
 
 
+def jacobi_fleet_cols(T: int, D: int, B: int, pivot: bool = False,
+                      maxw: int = NARROW_WIDTH) -> int:
+    """:func:`jacobi_cols` of a launch over T tenants: auto_cols over the
+    T D dimensions' items."""
+    return _query(_build.load_library().repro_jacobi_cols,
+                  "jacobi column query", T, D, B, int(pivot), maxw)
+
+
 def jacobi_cols(D: int, B: int, pivot: bool = False,
                 maxw: int = NARROW_WIDTH) -> int:
     """The Jacobi kernel's items' columns when the launch leaves ``cols``
     open: auto_cols (as :func:`pcg_solve_cols`) over the D dimensions'
     items and its grid (``csrc/jacobi.cu``)."""
-    return _query(_build.load_library().repro_jacobi_cols,
-                  "jacobi column query", D, B, int(pivot), maxw)
+    return jacobi_fleet_cols(1, D, B, pivot, maxw)
 
 
 def pcg_factors(phi, saphi, *, w_p: int, w_s: int, pivot: bool = False):
@@ -565,10 +604,7 @@ def _launch_pcg(name, a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
     states = (v, x0) if carry is None else carry[:3]
     lead, D, npad, B, dev = _check_operands(phi, saphi, sort_idx, rank_idx,
                                             sigma2, states, w_p, w_s)
-    T = lead[0] if lead else 1
-    if T * B > MAX_TB:
-        raise ValueError(f"a PCG launch takes T * B <= {MAX_TB}; got "
-                         f"T = {T}, B = {B}")
+    T = _tenants(lead, B)
     if not 0 <= w_a <= MAX_WIDTH:
         raise ValueError(f"the PCG kernel takes w_a <= {MAX_WIDTH}")
     f64 = torch.float64
@@ -602,8 +638,7 @@ def _launch_pcg(name, a, phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
         npad, B, w_a, w_p, w_s, iters, cols or 0, float(tol), mode,
         int(pivot), _build.stream_handle(dev))
     _build.check(err, name)
-    _build.count_launch(_counted(name if T == 1 else name + "_fleet", w_a,
-                                 w_p, w_s))
+    _build.count_launch(_fleet_name(name, T, w_a, w_p, w_s))
     return x, r, p, rz, (it if lead else it[0])
 
 
@@ -660,7 +695,8 @@ def fused_jacobi_iter(phi, saphi, sort_idx, rank_idx, sigma2, v, vt, k=None,
                       cols: int | None = None):
     """One damped block-Jacobi sweep on padded operands: bands
     (D, npad, 2w+1) float64, permutations (D, npad) int32, ``sigma2`` a
-    1-element float64 tensor, states (D, npad, B) float64. Returns ``out``,
+    1-element float64 tensor, states (D, npad, B) float64; or a stack of T
+    tenants (each with a leading T axis, ``sigma2`` (T,)). Returns ``out``,
     or ``(out, k_out)`` when ``k`` is given or ``warm`` (k = Khat^{-1} vt
     first). CUDA tensors launch ``csrc/jacobi.cu`` for one sweep, solving
     from ``factors`` (``(Phi's or None, SAPhi's)`` :func:`sweep_factor`,
@@ -730,8 +766,9 @@ class FusedSweep:
     one uninterrupted decoupled tail.
 
     A tenant stack has a leading T axis on every band, permutation and
-    state, ``sigma2`` and ``n_active`` (T,): the PCG launches then take all
-    tenants at once (``csrc/mega_pcg.cu``).
+    state, ``sigma2`` and ``n_active`` (T,): every launch then takes all
+    tenants at once (``csrc/mega_pcg.cu``, ``jacobi.cu``,
+    ``gauss_seidel.cu``), in column chunks of at most :meth:`max_cols`.
     """
 
     def __init__(self, phi, saphi, sort_idx, rank_idx, sigma2, *, w_p: int,

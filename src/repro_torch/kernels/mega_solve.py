@@ -106,8 +106,14 @@ def mega_jacobi_plain(phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
                       w_p: int, w_s: int, alpha: float, iters: int,
                       pivot: bool = False, warm: bool = False):
     """Plain whole damped-Jacobi solve on padded operands: ``iters`` plain
-    sweeps carrying k from ``Khat^{-1} x0`` (warm) or zero; ``(x, k)``."""
+    sweeps carrying k from ``Khat^{-1} x0`` (warm) or zero; ``(x, k)``. A
+    tenant stack is solved tenant by tenant."""
     kw = dict(w_p=w_p, w_s=w_s, pivot=pivot)
+    if v.ndim == 4:
+        return by_tenant(
+            lambda *o: mega_jacobi_plain(*o, alpha=alpha, iters=iters,
+                                         warm=warm, **kw),
+            (phi, saphi, sort_idx, rank_idx), (v, x0), sigma2)
     k = (_khat_inv_dim(saphi, phi, sort_idx, rank_idx, sigma2.reshape(()), x0,
                        **kw) if warm else torch.zeros_like(v))
     x = x0
@@ -123,8 +129,9 @@ def mega_jacobi_solve(phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
                       backend: str | None = None, factors=None,
                       cols: int | None = None):
     """Whole damped-Jacobi solve on padded operands (as
-    :func:`mega_pcg_solve`); returns ``(x, k)``. CUDA tensors launch
-    ``csrc/jacobi.cu`` once for all ``iters`` sweeps, solving from
+    :func:`mega_pcg_solve`, a tenant stack included); returns ``(x, k)``.
+    CUDA tensors launch ``csrc/jacobi.cu`` once for all ``iters`` sweeps
+    (a tenant stack of T > 1 counted ``mega_jacobi_fleet``), solving from
     ``factors`` (``(Phi's or None, SAPhi's)`` ``fused_sweep.sweep_factor``,
     Phi's read only when ``warm`` at w_p >= 1; None: made for this call;
     another pivot mode raises) in items of ``cols`` columns (None:
@@ -144,7 +151,13 @@ def mega_gauss_seidel_plain(phi, saphi, sort_idx, rank_idx, sigma2, v, x0, *,
                             w_p: int, w_s: int, iters: int,
                             pivot: bool = False):
     """Plain whole Gauss-Seidel solve on padded operands: ``iters`` plain
-    sweeps; ``(x, k)`` with k from the final sweep (zero if none)."""
+    sweeps; ``(x, k)`` with k from the final sweep (zero if none). A tenant
+    stack is solved tenant by tenant."""
+    if v.ndim == 4:
+        return by_tenant(
+            lambda *o: mega_gauss_seidel_plain(*o, w_p=w_p, w_s=w_s,
+                                               iters=iters, pivot=pivot),
+            (phi, saphi, sort_idx, rank_idx), (v, x0), sigma2)
     x, k = x0, torch.zeros_like(v)
     for _ in range(iters):
         x, k = fused_gauss_seidel_iter_plain(
@@ -157,9 +170,11 @@ def mega_gauss_seidel_solve(phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
                             *, w_p: int, w_s: int, iters: int,
                             pivot: bool = False, backend: str | None = None,
                             factors=None, cols: int | None = None):
-    """Whole Gauss-Seidel solve on padded operands; returns
-    ``(x, k)``. CUDA tensors launch ``csrc/gauss_seidel.cu`` once for all
-    ``iters`` sweeps, solving from ``factors`` (SAPhi's
+    """Whole Gauss-Seidel solve on padded operands (a tenant stack
+    included); returns ``(x, k)``. CUDA tensors launch
+    ``csrc/gauss_seidel.cu`` once for all ``iters`` sweeps (a tenant stack
+    of T > 1 counted ``mega_gauss_seidel_fleet``), solving from
+    ``factors`` (SAPhi's
     ``fused_sweep.sweep_factor``; None: made for this call; another pivot
     mode raises) in items of ``cols`` columns (None:
     ``fused_sweep.gauss_seidel_cols``)."""
@@ -176,7 +191,8 @@ def mega_gauss_seidel_solve(phi, saphi, sort_idx, rank_idx, sigma2, v, x0,
 
 class MegaSolve:
     """Whole-solve dispatch over a :class:`FusedSweep`'s padded operands;
-    states in and out are unpadded (D, n, B).
+    states in and out are unpadded (D, n, B), or (T, D, n, B) on a tenant
+    stack (column chunks of at most ``FusedSweep.max_cols``).
 
     A solve of more than ``MAX_B`` columns (the kernels' limit) runs as
     column chunks of at most ``MAX_B``: the columns of a relaxation solve
@@ -232,7 +248,8 @@ class MegaSolve:
         return self._solve(lambda v_p, x0_p: mega_jacobi_solve(
             fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v_p, x0_p,
             w_p=fs.w_p, w_s=fs.w_s, alpha=alpha, iters=iters, pivot=fs.pivot,
-            warm=warm, backend=fs.backend, factors=fac), v, x0, MAX_B)
+            warm=warm, backend=fs.backend, factors=fac), v, x0,
+            fs.max_cols(MAX_B))
 
     def gauss_seidel(self, v, x0, *, iters: int):
         """Whole Gauss-Seidel solve from ``FusedSweep.saphi_factor`` (one
@@ -242,4 +259,4 @@ class MegaSolve:
         return self._solve(lambda v_p, x0_p: mega_gauss_seidel_solve(
             fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2, v_p, x0_p,
             w_p=fs.w_p, w_s=fs.w_s, iters=iters, pivot=fs.pivot,
-            backend=fs.backend, factors=fac), v, x0, MAX_B)
+            backend=fs.backend, factors=fac), v, x0, fs.max_cols(MAX_B))

@@ -29,6 +29,14 @@ strided subset of an active prefix is again a prefix. Its tail coordinates
 are filled strictly increasing above the active ones, so its sort is the
 canonical layout, its factors are canonical bands, and the prolongation
 weights of fine tail rows are zero.
+
+Tenant stacks (a fleet, ``core.fleet``): every input may carry a leading T
+axis (X (T, n, D), ``n_active`` (T,)), and the levels are built once for
+the whole stack, every tensor of a level with that axis and ``nc_active``
+(T,). The restriction maps share one width K, the largest over every
+tenant and dimension (one host read a level for the fleet); a lane's
+extra slots are zero-weight terms after its own (:func:`pad_restriction`),
+which leave its restriction's bits as they are.
 """
 from __future__ import annotations
 
@@ -40,10 +48,10 @@ from ..core import matern as mk
 from ..core.backfitting import DimOps
 from ..core.banded import Banded, add, scale
 from ..core.kernel_packets import gram_band_rows, kp_coefficient_rows, kp_factors
-from ..masking import mask_rows, tree_sum
+from ..masking import lead_count, mask_rows, tree_sum
 
 __all__ = ["CoarseLevel", "build_hierarchy", "coarse_capacity",
-           "interp_order"]
+           "interp_order", "pad_restriction", "tenant_mm"]
 
 # span-relative tie separation of coarse sorted coordinates (the fit's)
 _TIE_EPS = 1e-9
@@ -71,6 +79,8 @@ class CoarseLevel:
     r_w:    (D, nc, K) their weights (0 in the padding).
     stride: subsampling stride relative to the fine level.
     npts:   interpolation window size (interp_order(q) + 1).
+
+    On a tenant stack each tensor has a leading T axis.
     """
 
     ops: DimOps
@@ -87,50 +97,81 @@ class CoarseLevel:
         return self.ops.n
 
 
+def pad_restriction(level: CoarseLevel, K: int) -> CoarseLevel:
+    """``level`` with its restriction map widened to ``K`` slots: the new
+    slots (row 0, weight 0) come after every row's own, so
+    ``vcycle.restrict`` adds ``+ 0 * g`` after the row's terms and its
+    values keep their bits (a sum started at +0 never holds -0)."""
+    pad = K - level.r_idx.shape[-1]
+    if pad <= 0:
+        return level
+    return dataclasses.replace(
+        level, r_idx=torch.cat([level.r_idx, level.r_idx.new_zeros(
+            level.r_idx.shape[:-1] + (pad,))], dim=-1),
+        r_w=torch.cat([level.r_w, level.r_w.new_zeros(
+            level.r_w.shape[:-1] + (pad,))], dim=-1))
+
+
+def tenant_mm(a, b):
+    """``a @ b`` over a tenant stack's leading axis. On CUDA one batched
+    matmul; on the CPU tenant by tenant, since a batched CPU matmul rounds
+    otherwise than the 2-D one, and so each lane keeps its standalone GP's
+    bits there. One system is the 2-D product."""
+    if a.ndim == 2 or a.is_cuda:
+        return a @ b
+    return torch.stack([x @ y for x, y in zip(a, b)])
+
+
 def _coarse_sorted(Xc_t, nc_active=None):
-    """Per-dim stable sort of the coarse subset's coordinates (D, nc), with
-    the fit's span-relative bump on exact ties. Under capacity padding the
-    slots ``>= nc_active`` (which may hold anything) are first overwritten
-    by a strictly increasing sequence above every active value, so the sort
-    puts the active coordinates first and keeps an identity tail."""
+    """Per-dim stable sort of the coarse subset's coordinates (..., D, nc),
+    with the fit's span-relative bump on exact ties. Under capacity padding
+    the slots ``>= nc_active`` (which may hold anything) are first
+    overwritten by a strictly increasing sequence above every active value,
+    so the sort puts the active coordinates first and keeps an identity
+    tail."""
     if nc_active is None:
-        hi = Xc_t.amax(dim=1, keepdim=True)
-        lo = Xc_t.amin(dim=1, keepdim=True)
+        hi = Xc_t.amax(dim=-1, keepdim=True)
+        lo = Xc_t.amin(dim=-1, keepdim=True)
     else:
-        j = torch.arange(Xc_t.shape[1], device=Xc_t.device)
-        act = j < nc_active
+        nca = lead_count(nc_active, Xc_t.ndim)
+        j = torch.arange(Xc_t.shape[-1], device=Xc_t.device)
+        act = j < nca
         inf = torch.full((), float("inf"), dtype=Xc_t.dtype,
                          device=Xc_t.device)
-        hi = torch.where(act, Xc_t, -inf).amax(dim=1, keepdim=True)
-        lo = torch.where(act, Xc_t, inf).amin(dim=1, keepdim=True)
+        hi = torch.where(act, Xc_t, -inf).amax(dim=-1, keepdim=True)
+        lo = torch.where(act, Xc_t, inf).amin(dim=-1, keepdim=True)
     span = hi - lo + 1.0
     if nc_active is not None:
-        fill = hi + span * (j - nc_active + 1).to(Xc_t.dtype)
+        fill = hi + span * (j - nca + 1).to(Xc_t.dtype)
         Xc_t = torch.where(act, Xc_t, fill)
-    sort_idx = torch.argsort(Xc_t, dim=1, stable=True)
-    xs_c = torch.gather(Xc_t, 1, sort_idx)
-    rank_idx = torch.argsort(sort_idx, dim=1, stable=True)
-    gaps = torch.diff(xs_c, dim=1)
+    sort_idx = torch.argsort(Xc_t, dim=-1, stable=True)
+    xs_c = torch.gather(Xc_t, -1, sort_idx)
+    rank_idx = torch.argsort(sort_idx, dim=-1, stable=True)
+    gaps = torch.diff(xs_c, dim=-1)
     bump = torch.cumsum(torch.where(gaps <= 0, span * _TIE_EPS,
-                                    torch.zeros_like(gaps)), dim=1)
-    xs_c = torch.cat([xs_c[:, :1], xs_c[:, 1:] + bump], dim=1)
+                                    torch.zeros_like(gaps)), dim=-1)
+    xs_c = torch.cat([xs_c[..., :1], xs_c[..., 1:] + bump], dim=-1)
     return xs_c, sort_idx, rank_idx
 
 
 def _interp_maps(xs_f, xs_c, npts: int, nc_active=None, n_active=None):
-    """Window starts (D, n) and Lagrange weights (D, n, npts), coarse sorted
-    -> fine sorted; windows clamped inside [0, nc_active - npts]. Under
-    capacity padding the weights of fine rows ``>= n_active`` are zero."""
-    D, n = xs_f.shape
-    nc = xs_c.shape[1]
+    """Window starts (..., D, n) and Lagrange weights (..., D, n, npts),
+    coarse sorted -> fine sorted; windows clamped inside
+    [0, nc_active - npts]. Under capacity padding the weights of fine rows
+    ``>= n_active`` are zero."""
+    lead = tuple(xs_f.shape[:-2])
+    D, n = xs_f.shape[-2:]
+    nc = xs_c.shape[-1]
     dev = xs_f.device
     j = torch.searchsorted(xs_c.contiguous(), xs_f.contiguous(),
                            right=True) - 1
     j0 = j - (npts // 2 - 1)
     j0 = (j0.clamp(0, max(nc - npts, 0)) if nc_active is None else
-          torch.minimum(j0.clamp(min=0), (nc_active - npts).clamp(min=0)))
-    win = (j0[:, :, None] + torch.arange(npts, device=dev)).clamp(0, nc - 1)
-    pts = torch.gather(xs_c, 1, win.reshape(D, -1)).reshape(D, n, npts)
+          torch.minimum(j0.clamp(min=0),
+                        (lead_count(nc_active, j0.ndim) - npts).clamp(min=0)))
+    win = (j0[..., None] + torch.arange(npts, device=dev)).clamp(0, nc - 1)
+    pts = torch.gather(xs_c, -1, win.reshape(lead + (D, -1))).reshape(
+        lead + (D, n, npts))
     # W[i, a] = prod_{b != a} (xf_i - p_b) / (p_a - p_b)
     eye = torch.eye(npts, dtype=torch.bool, device=dev)
     one = torch.ones((), dtype=xs_f.dtype, device=dev)
@@ -140,7 +181,8 @@ def _interp_maps(xs_f, xs_c, npts: int, nc_active=None, n_active=None):
     numer = torch.where(eye, one, xd[..., None, :]).prod(dim=-1)
     W = numer / denom
     if n_active is not None:
-        W = torch.where((torch.arange(n, device=dev) < n_active)[:, None],
+        W = torch.where(torch.arange(n, device=dev)[:, None]
+                        < lead_count(n_active, W.ndim),
                         W, torch.zeros((), dtype=W.dtype, device=dev))
     return j0, W
 
@@ -152,29 +194,37 @@ def _restrict_map(j0, W, nc: int, n_active=None):
     capacity padding the fine rows ``>= n_active`` (zero weights) are left
     out: they go to a sink row ``nc`` that is dropped, so a coarse row's
     pairs and K are the unpadded system's. K is read back to the host (one
-    sync per level)."""
-    D, n, npts = W.shape
+    sync per level). A tenant stack's (T, D) windows are mapped as T D
+    dimensions, K the largest over all of them."""
+    lead = tuple(W.shape[:-3])
+    D, n, npts = W.shape[-3:]
+    G = D * int(torch.Size(lead).numel())
+    j0, W = j0.reshape(G, n), W.reshape(G, n, npts)
     dev = W.device
     win = (j0[:, :, None] + torch.arange(npts, device=dev)).clamp(0, nc - 1)
-    tgt = win.permute(0, 2, 1).reshape(D, npts * n)  # position a * n + i
+    tgt = win.permute(0, 2, 1).reshape(G, npts * n)  # position a * n + i
     if n_active is not None:
         fine = torch.arange(n, device=dev).repeat(npts)
-        tgt = torch.where(fine < n_active, tgt, nc)
+        na = (lead_count(n_active, len(lead) + 1).expand(lead + (D,))
+              .reshape(G, 1) if lead else n_active)
+        tgt = torch.where(fine < na, tgt, nc)
     order = torch.argsort(tgt, dim=1, stable=True)
     tgt_s = torch.gather(tgt, 1, order)
-    counts = torch.zeros((D, nc + 1), dtype=torch.long, device=dev)
+    counts = torch.zeros((G, nc + 1), dtype=torch.long, device=dev)
     counts.scatter_add_(1, tgt, torch.ones_like(tgt))
     K = max(int(counts[:, :nc].max()), 1)
     start = torch.cumsum(counts, dim=1) - counts
     slot = (torch.arange(npts * n, device=dev)[None, :]
             - torch.gather(start, 1, tgt_s)).clamp(max=K - 1)
     src_i, src_a = order % n, order // n
-    d_i = torch.arange(D, device=dev)[:, None].expand_as(order)
-    r_idx = torch.zeros((D, nc + 1, K), dtype=torch.long, device=dev)
-    r_w = torch.zeros((D, nc + 1, K), dtype=W.dtype, device=dev)
+    d_i = torch.arange(G, device=dev)[:, None].expand_as(order)
+    r_idx = torch.zeros((G, nc + 1, K), dtype=torch.long, device=dev)
+    r_w = torch.zeros((G, nc + 1, K), dtype=W.dtype, device=dev)
     r_idx[d_i, tgt_s, slot] = src_i
     r_w[d_i, tgt_s, slot] = W[d_i, src_i, src_a]
-    return r_idx[:, :nc].contiguous(), r_w[:, :nc].contiguous()
+    shape = lead + (D, nc, K)
+    return (r_idx[:, :nc].reshape(shape).contiguous(),
+            r_w[:, :nc].reshape(shape).contiguous())
 
 
 def _deflation_gram(level: CoarseLevel, fine_ops: DimOps):
@@ -186,27 +236,29 @@ def _deflation_gram(level: CoarseLevel, fine_ops: DimOps):
     deflation stays a bounded SPD correction."""
     from .vcycle import coarse_matvec  # vcycle imports this module
 
+    lead = level.ops.lead
     D, nc = level.ops.D, level.ops.n
     dt, dev = level.W.dtype, level.W.device
     E = mask_rows(torch.eye(D, dtype=dt, device=dev)[:, None, :].expand(
-        D, nc, D), level.ops.n_active, axis=1)
-    EME = tree_sum(coarse_matvec(level, fine_ops, E.contiguous()), axis=1)
-    EME = 0.5 * (EME + EME.T)
+        lead + (D, nc, D)), level.ops.n_active, axis=-2)
+    EME = tree_sum(coarse_matvec(level, fine_ops, E.contiguous()), axis=-2)
+    EME = 0.5 * (EME + EME.mT)
     lam, V = torch.linalg.eigh(EME)
-    floor = torch.clamp(lam[-1], min=1.0) * 1e-8
+    floor = torch.clamp(lam[..., -1:], min=1.0) * 1e-8
     lam = torch.maximum(lam, floor)
-    return (V / lam[None, :]) @ V.T
+    return tenant_mm(V / lam[..., None, :], V.mT)
 
 
 def _padded_factors(q: int, omega, xs_c, nc_active):
     """Canonical KP factors (A, Phi) of the active prefix of a padded coarse
     level: the rows of ``kp_factors``, with validity bounded by
-    ``nc_active``."""
-    rows = torch.arange(xs_c.shape[1], device=xs_c.device)
-    a = kp_coefficient_rows(q, omega, xs_c, rows, n_active=nc_active)
-    om = omega[:, None, None, None]
+    ``nc_active`` (per tenant on a stack)."""
+    rows = torch.arange(xs_c.shape[-1], device=xs_c.device)
+    na = lead_count(nc_active, xs_c.ndim)
+    a = kp_coefficient_rows(q, omega, xs_c, rows, n_active=na)
+    om = omega[..., None, None, None]
     phi = gram_band_rows(lambda x, y: mk.matern(q, om, x, y), xs_c, a, rows,
-                         q + 1, q + 1, q, n_active=nc_active)
+                         q + 1, q + 1, q, n_active=na)
     return (Banded(a, q + 1, q + 1, nc_active).canonical(),
             Banded(phi, q, q, nc_active).canonical())
 
@@ -214,20 +266,21 @@ def _padded_factors(q: int, omega, xs_c, nc_active):
 def _build_level(q: int, omega, sigma2, X, xs_f, fine_ops: DimOps,
                  stride: int) -> CoarseLevel:
     """One coarse level at ``stride`` (relative to the fine level)."""
-    n, D = X.shape
+    lead = tuple(X.shape[:-2])
+    n, D = X.shape[-2:]
     nc = coarse_capacity(n, stride)
     na_f = fine_ops.n_active
     nc_active = None if na_f is None else (na_f + stride - 1) // stride
     # the strided original-index subset, shared across dimensions
     Ic = torch.arange(nc, device=X.device) * stride
-    xs_c, sort_idx, rank_idx = _coarse_sorted(X[Ic].T.contiguous(),
-                                              nc_active)
+    xs_c, sort_idx, rank_idx = _coarse_sorted(
+        X[..., Ic, :].transpose(-1, -2).contiguous(), nc_active)
     if nc_active is None:
         A, Phi = kp_factors(q, omega, xs_c)
     else:
         A, Phi = _padded_factors(q, omega, xs_c, nc_active)
     sigma2_b = 3.0 * sigma2 / (2.0 * stride)
-    SAPhi = add(scale(A, sigma2_b), Phi)
+    SAPhi = add(scale(A, lead_count(sigma2_b, A.data.ndim)), Phi)
     ops_c = DimOps(A=A, Phi=Phi, SAPhi=SAPhi, sort_idx=sort_idx,
                    rank_idx=rank_idx, sigma2=sigma2_b, pivot=fine_ops.pivot,
                    alg=fine_ops.alg, n_active=nc_active)
@@ -235,7 +288,8 @@ def _build_level(q: int, omega, sigma2, X, xs_f, fine_ops: DimOps,
     j0, W = _interp_maps(xs_f, xs_c, npts, nc_active, na_f)
     r_idx, r_w = _restrict_map(j0, W, nc, na_f)
     level = CoarseLevel(ops=ops_c, j0=j0, W=W,
-                        EG=torch.eye(D, dtype=W.dtype, device=W.device),
+                        EG=torch.eye(D, dtype=W.dtype,
+                                     device=W.device).expand(lead + (D, D)),
                         r_idx=r_idx, r_w=r_w, stride=stride, npts=npts)
     return dataclasses.replace(level, EG=_deflation_gram(level, fine_ops))
 
@@ -246,14 +300,15 @@ def build_hierarchy(q: int, omega, sigma2, X, xs_f, fine_ops: DimOps, *,
     original points at stride ``coarsen**l`` and maps directly to the fine
     grid. ``levels`` counts the fine level (2 = one coarse grid); levels
     whose static size is smaller than one interpolation window are dropped.
-    Any input may be capacity-padded (``fine_ops.n_active``)."""
+    Any input may be capacity-padded (``fine_ops.n_active``), and carry a
+    tenant stack's leading axis (the fleet's levels, built once)."""
     if levels < 2:
         return ()
     out = []
     npts = interp_order(q) + 1
     for lvl in range(1, levels):
         stride = coarsen ** lvl
-        if coarse_capacity(X.shape[0], stride) < max(npts, 2 * q + 4):
+        if coarse_capacity(X.shape[-2], stride) < max(npts, 2 * q + 4):
             break
         out.append(_build_level(q, omega, sigma2, X, xs_f, fine_ops,
                                 stride))

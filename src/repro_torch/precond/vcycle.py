@@ -18,7 +18,9 @@ of :mod:`coarse`:
     ``a = damping`` (default 1/D).
 
 The banded solves and matvecs go through ``kernels.ops`` (block CR, the LU
-kernel at w = 0, the banded matvec): hand kernels on CUDA tensors.
+kernel at w = 0, the banded matvec): hand kernels on CUDA tensors. Every
+function takes a tenant stack's leading axis (``core.fleet``): sums over the
+dimensions, the sigma^2 divide and the deflation stay within a tenant.
 """
 from __future__ import annotations
 
@@ -26,46 +28,51 @@ import torch
 
 from ..core.backfitting import DimOps, mhat_matvec
 from ..masking import mask_rows, tree_sum
-from .coarse import CoarseLevel
+from .coarse import CoarseLevel, tenant_mm
 
 __all__ = ["prolong", "restrict", "coarse_matvec", "coarse_solve",
            "kmg_preconditioner"]
 
 
 def _window_idx(level: CoarseLevel):
-    """(D, n, npts) clipped window indices into coarse sorted order (the
-    ones the restriction map was built from)."""
-    idx = level.j0[:, :, None] + torch.arange(level.npts,
-                                              device=level.j0.device)
+    """(..., D, n, npts) clipped window indices into coarse sorted order
+    (the ones the restriction map was built from)."""
+    idx = level.j0[..., None] + torch.arange(level.npts,
+                                             device=level.j0.device)
     return idx.clamp(0, level.nc - 1)
 
 
 def prolong(level: CoarseLevel, fine_ops: DimOps, u):
-    """Interpolate coarse state (D, nc, B) to the fine grid (D, n, B)."""
+    """Interpolate coarse state (..., D, nc, B) to the fine grid
+    (..., D, n, B)."""
     us = level.ops.to_sorted(u)
-    D, _, B = us.shape
+    lead = tuple(us.shape[:-3])
+    D, _, B = us.shape[-3:]
     idx = _window_idx(level)
-    n = idx.shape[1]
-    g = torch.gather(us, 1, idx.reshape(D, -1, 1).expand(D, n * level.npts,
-                                                         B))
-    g = g.reshape(D, n, level.npts, B)
-    vals = level.W[:, :, 0, None] * g[:, :, 0]
+    n = idx.shape[-2]
+    g = torch.gather(us, -2, idx.reshape(lead + (D, -1, 1)).expand(
+        lead + (D, n * level.npts, B)))
+    g = g.reshape(lead + (D, n, level.npts, B))
+    vals = level.W[..., 0, None] * g[..., 0, :]
     for a in range(1, level.npts):
-        vals = vals + level.W[:, :, a, None] * g[:, :, a]
+        vals = vals + level.W[..., a, None] * g[..., a, :]
     return fine_ops.from_sorted(vals)
 
 
 def restrict(level: CoarseLevel, fine_ops: DimOps, r):
-    """Adjoint of :func:`prolong`: fine (D, n, B) -> coarse (D, nc, B),
-    each coarse row summing its fine rows' weighted values in the
-    reference scatter-add's order (``CoarseLevel.r_idx``)."""
+    """Adjoint of :func:`prolong`: fine (..., D, n, B) -> coarse
+    (..., D, nc, B), each coarse row summing its fine rows' weighted values
+    in the reference scatter-add's order (``CoarseLevel.r_idx``), then the
+    zero-weight padding slots."""
     rs = fine_ops.to_sorted(r)
-    D, _, B = rs.shape
-    out = torch.zeros((D, level.nc, B), dtype=rs.dtype, device=rs.device)
+    lead = tuple(rs.shape[:-3])
+    D, _, B = rs.shape[-3:]
+    out = torch.zeros(lead + (D, level.nc, B), dtype=rs.dtype,
+                      device=rs.device)
     for k in range(level.r_idx.shape[-1]):
-        g = torch.gather(rs, 1, level.r_idx[:, :, k, None].expand(
-            D, level.nc, B))
-        out = out + level.r_w[:, :, k, None] * g
+        g = torch.gather(rs, -2, level.r_idx[..., k, None].expand(
+            lead + (D, level.nc, B)))
+        out = out + level.r_w[..., k, None] * g
     return level.ops.from_sorted(out)
 
 
@@ -73,10 +80,20 @@ def coarse_matvec(level: CoarseLevel, fine_ops: DimOps, u,
                   pivot: bool = False, backend: str | None = None,
                   alg: str | None = None):
     """``M_c u = Khat_c^{-1} u + sigma^{-2} R broadcast(sum_d (P u)_d)``."""
+    k = len(level.ops.lead)
     Pu = prolong(level, fine_ops, u)
-    s = tree_sum(Pu, axis=0)[None].expand(Pu.shape)
+    s = tree_sum(Pu, axis=k).unsqueeze(k).expand(Pu.shape)
     prior = level.ops.khat_inv_mv(u, pivot=pivot, backend=backend, alg=alg)
-    return prior + restrict(level, fine_ops, s) / fine_ops.sigma2
+    return prior + restrict(level, fine_ops, s) / fine_ops.s2(s)
+
+
+def _deflation(level: CoarseLevel, r, shape):
+    """E (E^T M_c E)^{-1} E^T r broadcast to ``shape``: ``level.EG``
+    applied to the per-dimension sums of r, tail rows zero."""
+    k = len(level.ops.lead)
+    y = tenant_mm(level.EG, tree_sum(r, axis=k + 1))  # (..., D, B)
+    return mask_rows(y[..., :, None, :].expand(shape), level.ops.n_active,
+                     axis=k + 1)
 
 
 def _deflate(level: CoarseLevel, fine_ops: DimOps, x, b, pivot=False,
@@ -84,9 +101,7 @@ def _deflate(level: CoarseLevel, fine_ops: DimOps, x, b, pivot=False,
     """x += E (E^T M_c E)^{-1} E^T (b - M_c x), with ``level.EG``."""
     r = b - coarse_matvec(level, fine_ops, x, pivot=pivot, backend=backend,
                           alg=alg)
-    y = level.EG @ tree_sum(r, axis=1)  # (D, B)
-    return x + mask_rows(y[:, None, :].expand(x.shape), level.ops.n_active,
-                         axis=1)
+    return x + _deflation(level, r, x.shape)
 
 
 def coarse_solve(level: CoarseLevel, fine_ops: DimOps, b, *, smooth: int = 1,
@@ -98,8 +113,7 @@ def coarse_solve(level: CoarseLevel, fine_ops: DimOps, b, *, smooth: int = 1,
     D = level.ops.D
     kw = dict(pivot=pivot, backend=backend, alg=alg)
     # entry deflation at x = 0: M_c 0 = 0 exactly, so it reads b directly
-    x = mask_rows((level.EG @ tree_sum(b, axis=1))[:, None, :].expand(
-        b.shape), level.ops.n_active, axis=1)
+    x = _deflation(level, b, b.shape)
     for _ in range(smooth):
         r = b - coarse_matvec(level, fine_ops, x, **kw)
         x = x + level.ops.block_solve(r, **kw) / D

@@ -21,6 +21,8 @@ tenant, and the mixed query stream is routed to ``(tenant, slot)`` pairs:
     round per group, however many tenants mutate.
   * **sliding windows**: a tenant's ``window``: a staged insert first
     drains drop-oldest evictions (one a tick) until the tenant is below it.
+  * **configurations**: the tenants' shared ``GPConfig`` may be any the
+    fleet takes (every solver, fused mode and preconditioner).
   * **tier re-homing**: a tenant whose insert would overflow its tier moves
     alone into the doubled tier's group (created on demand, lanes growing
     by powers of two).
@@ -43,8 +45,7 @@ import torch
 
 from ..core.additive_gp import AdditiveGP, with_capacity
 from ..core.bayesopt import acquisition_stats, ascent_step
-from ..core.fleet import (GPFleet, check_fleet_config, set_tenant_gp,
-                          tenant_gp, tree_map)
+from ..core.fleet import GPFleet, set_tenant_gp, tenant_gp, tree_map
 from ..health import verdict as hv
 from .gp_engine import PosteriorHealthError, Query, _next_tier
 from .updates import fleet_evict, fleet_insert, fleet_resync
@@ -134,7 +135,6 @@ class GPFleetEngine:
             if g.config != cfg0 or g.D != D0:
                 raise ValueError("all fleet tenants must share one GPConfig "
                                  "and input dimension")
-        check_fleet_config(cfg0)
         T = len(gps)
         caps = _as_per_tenant(capacity, T, "capacity")
         wins = _as_per_tenant(window, T, "window")

@@ -1253,3 +1253,94 @@ def test_fleet_pcg_kernel(dev):
                     check(case, "one iteration", max(
                         _rel(a_, b_) for a_, b_ in zip(st1, sr1)), 1e-9)
     assert not bad, bad
+
+
+def test_fleet_relaxation_kernels(dev):
+    """The relaxation kernels' tenant axis (``csrc/jacobi.cu``,
+    ``csrc/gauss_seidel.cu`` over T systems), as loops in one test: T = 1
+    and 3 tenants, q = 0, 1 (the MAXW 3 instantiation) and q = 3 (MAXW 4),
+    B = 1 and 5. One sweep (Jacobi with k carried and warm, Gauss-Seidel
+    with k) and the whole solve (12 sweeps, cold and warm) against the
+    plain versions (tenant by tenant) at ``_tol(q)``; every lane equal bit
+    for bit to its own one-system launch; T > 1 launches counted as
+    ``*_fleet`` (and "_w4"), T = 1 as the single names. Every failing
+    comparison is reported at once."""
+    rng = np.random.default_rng(29)
+    bad = []
+
+    def check(case, what, ok):
+        if not ok:
+            bad.append((case, what))
+
+    for T in (1, 3):
+        for q in (0, 1, 3):
+            n = 37 if q == 3 else 131
+            for B in (1, 5):
+                fs, v, x0, opss = fleet_operands(rng, T, n, 3, q, dev, B)
+                v_p = fs.pad_state(torch.as_tensor(v).to(dev))
+                x0_p = fs.pad_state(torch.as_tensor(x0).to(dev))
+                k_p = 0.1 * x0_p
+                ops = (fs.phi, fs.saphi, fs.sort_idx, fs.rank_idx, fs.sigma2)
+                kw = dict(w_p=fs.w_p, w_s=fs.w_s)
+                tol = 1e-10 if q >= 2 else 1e-12
+                singles = [padded_operands(opss[t], dev, B, rng)[0]
+                           for t in range(T)]
+                one = [(f.phi, f.saphi, f.sort_idx, f.rank_idx, f.sigma2)
+                       for f in singles]
+                calls = {
+                    "fused_jacobi_iter": (
+                        lambda o, s: fused_jacobi_iter(
+                            *o, v_p[s], x0_p[s], k_p[s], alpha=0.4, **kw),
+                        lambda o, s: fused_jacobi_iter_plain(
+                            *o, v_p[s], x0_p[s], k_p[s], alpha=0.4, **kw)),
+                    "fused_jacobi_iter warm": (
+                        lambda o, s: fused_jacobi_iter(
+                            *o, v_p[s], x0_p[s], alpha=0.4, warm=True, **kw),
+                        lambda o, s: fused_jacobi_iter_plain(
+                            *o, v_p[s], x0_p[s], alpha=0.4, warm=True, **kw)),
+                    "fused_gauss_seidel_iter": (
+                        lambda o, s: fused_gauss_seidel_iter(
+                            *o, v_p[s], x0_p[s], want_resid=True, **kw),
+                        lambda o, s: fused_gauss_seidel_iter_plain(
+                            *o, v_p[s], x0_p[s], want_resid=True, **kw)),
+                    "mega_jacobi": (
+                        lambda o, s: mega_jacobi_solve(
+                            *o, v_p[s], x0_p[s], alpha=1 / 3, warm=True,
+                            iters=12, **kw),
+                        lambda o, s: mega_jacobi_plain(
+                            *o, v_p[s], x0_p[s], alpha=1 / 3, warm=True,
+                            iters=12, **kw)),
+                    "mega_jacobi cold": (
+                        lambda o, s: mega_jacobi_solve(
+                            *o, v_p[s], torch.zeros_like(v_p[s]),
+                            alpha=1 / 3, iters=12, **kw),
+                        lambda o, s: mega_jacobi_plain(
+                            *o, v_p[s], torch.zeros_like(v_p[s]),
+                            alpha=1 / 3, iters=12, **kw)),
+                    "mega_gauss_seidel": (
+                        lambda o, s: mega_gauss_seidel_solve(
+                            *o, v_p[s], x0_p[s], iters=12, **kw),
+                        lambda o, s: mega_gauss_seidel_plain(
+                            *o, v_p[s], x0_p[s], iters=12, **kw)),
+                }
+                every = slice(None)
+                for name, (kern, plain) in calls.items():
+                    case = (T, q, B, name)
+                    _build.reset_launch_counts()
+                    got = kern(ops, every)
+                    counted = (name.split()[0] + ("_fleet" if T > 1 else "")
+                               + ("_w4" if q == 3 else ""))
+                    check(case, "launches " + counted,
+                          _build.launch_counts()[counted] == 1)
+                    got = got if isinstance(got, tuple) else (got,)
+                    want = plain(ops, every)
+                    want = want if isinstance(want, tuple) else (want,)
+                    check(case, "vs plain", max(
+                        _rel(a, b) for a, b in zip(got, want)) < tol)
+                    for t in range(T):
+                        lane = kern(one[t], t)
+                        lane = lane if isinstance(lane, tuple) else (lane,)
+                        check(case, f"lane {t} bitwise", all(
+                            torch.equal(a[t], b) for a, b in zip(got, lane)))
+    assert not bad, bad
+

@@ -15,8 +15,8 @@ mutations of ``repro_torch.streaming.updates``) on the CPU.
   GP; every lane is the same at T = 1, 2, 4, 8 (fit, queries, insert,
   evict); a masked round leaves its excluded lanes as they were.
 * The errors: a full selected lane on insert, a one-point selected lane on
-  evict, and ``NotImplementedError`` for kmg, fused "off" and the
-  relaxation solvers.
+  evict; kmg, fused "off" and the relaxation solvers fit and stack (the
+  fleet's other solvers are held in ``test_torch_fleet_solvers.py``).
 * The plain tenant-axis PCG (``mega_pcg_plain``, ``pcg_seed_plain`` +
   ``fused_pcg_iter_plain`` on a (T, D, npad, B) stack) against the JAX
   package's Pallas kernels under ``jax.vmap`` in interpret mode.
@@ -269,16 +269,22 @@ def test_fleet_errors(port_fleet):
     counts[1] = 1
     with pytest.raises(ValueError, match="single observation"):
         fleet_evict(port_fleet, counts=counts)
+    # kmg, fused "off" and the relaxation solvers, which raised before
+    # the fleet took them, now fit and stack, each lane its standalone GP
     X, Y = _data(2)
-    for bad in (GPConfig(q=0, precond="kmg"), GPConfig(q=1, fused="off"),
+    for cfg in (GPConfig(q=0, precond="kmg"), GPConfig(q=1, fused="off"),
                 GPConfig(q=1, solver="jacobi"),
                 GPConfig(q=1, solver="gauss_seidel")):
-        with pytest.raises(NotImplementedError):
-            fl.fleet_fit(bad, X, Y, np.full(D, OMEGA), SIGMA, CAP, device="cpu")
-    g = fit(GPConfig(q=1, fused="off"), X[0], Y[0], np.full(D, OMEGA), SIGMA,
-            device="cpu")
-    with pytest.raises(NotImplementedError):
-        fl.stack_gps([g, g])
+        f = fl.fleet_fit(cfg, X, Y, np.full(D, OMEGA), SIGMA, CAP,
+                         device="cpu")
+        gs = [fit(cfg, X[t], Y[t], np.full(D, OMEGA), SIGMA, device="cpu")
+              for t in range(2)]
+        stacked = fl.stack_gps(gs, capacity=CAP)
+        for t in range(2):
+            want = fit(cfg, X[t], Y[t], np.full(D, OMEGA), SIGMA,
+                       device="cpu", capacity=CAP)
+            assert not _lanes_equal(f.tenant(t), want), (cfg, t)
+            assert not _lanes_equal(stacked.tenant(t), want), (cfg, t)
 
 
 def test_tenant_axis_plain_pcg_matches_vmapped_pallas():

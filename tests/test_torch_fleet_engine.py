@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import GPConfig, fit
+from repro_torch.core import GPConfig, fit, with_capacity
 from repro_torch.core import fleet as fl
 from repro_torch.streaming import GPFleetEngine, GPServeEngine
 from torch_port_inputs import OMEGA, points
@@ -98,10 +98,13 @@ def test_fleet_engine_refuses_unported_settings():
     gps = _gps()
     with pytest.raises(NotImplementedError):
         GPFleetEngine(gps, BOUNDS, checkpointer=object())
+    # a relaxation solver, refused before the fleet took it, now serves:
+    # the engine's lanes and a one-tenant stack are the GP, bit for bit
     X = points(np.random.default_rng(3), 8, D)
     g = fit(GPConfig(q=1, solver="jacobi"), X, np.cos(X).sum(-1),
             np.full(D, OMEGA), 0.25, device="cpu")
-    with pytest.raises(NotImplementedError):
-        GPFleetEngine([g, g], BOUNDS)
-    with pytest.raises(NotImplementedError):
-        fl.stack_gps([g])
+    eng = GPFleetEngine([g, g], BOUNDS)
+    want = with_capacity(g, eng.capacities()[0])
+    for t in range(2):
+        assert torch.equal(eng.tenant_gp(t).u_sy, want.u_sy)
+    assert torch.equal(fl.stack_gps([g]).tenant(0).u_sy, g.u_sy)
