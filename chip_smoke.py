@@ -96,6 +96,14 @@ one process per source), then:
    kernels' rows at T = 64 (npad 2048), T = 4 (n = 30000) and q = 3, each
    lane bit for bit against its one-system launch; card vs CPU at T = 4,
    n = 500 for Jacobi, Gauss-Seidel, "off" and kmg.
+   The health ladder (``health_phase``): faults injected into the pcg
+   "whole" GP and a default ``GPConfig()`` (kmg) GP at n = 30000 and
+   repaired by ``health.ladder.repair``, each trail held to the rungs the
+   CPU tests pin for the same config and each rung timed; the repaired
+   queries within 1e-10 of the healthy GP or a clean card fit; a
+   ``GPServeEngine``'s fence repair and query quarantine; a
+   ``GPFleetEngine`` quarantine of one of the T = 64 tenants, the others
+   bit for bit; a checkpoint round trip of the kmg GP.
 3. consistency at n = 4000, D = 10, the card against ``device="cpu"``
    (plain versions), all within 1e-7. The CPU side runs in
    ``REF_WORKERS`` spawned worker processes started at the top of
@@ -141,6 +149,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -191,6 +200,10 @@ def _import_port():
     from repro_torch.core.banded import Banded, add, scale, transpose
     from repro_torch.core.kernel_packets import gkp_factors, kp_factors
     from repro_torch.data import sample_test_function
+    from repro_torch import health
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import flatten
+    from repro_torch.health import ladder
     from repro_torch.health.verdict import DRIFT_TOL, verdict_name
     from repro_torch.kernels import _build
     from repro_torch.kernels.band_matmul import band_matmul, band_matmul_plain
@@ -2048,7 +2061,8 @@ def engine_phase(P, gp, X, Y, Xn, Yn, bounds, Xq, total):
           f"{sorted(set(pinned))}, of the late query {late.result['version']}"
           f"; late mean vs posterior_mean |diff| "
           f"{abs(late.result['mean'] - want):.3e}; drift-sentinel resyncs at "
-          f"the fence {eng.resyncs}; launches {c}", flush=True)
+          f"the fence {eng.health_stats()['resyncs']}; launches {c}",
+          flush=True)
     if not (eng.capacity == STREAM_CAP and set(pinned) == {0}
             and late.result["version"] == 1 and eng.num_points == n + 1
             and abs(late.result["mean"] - want) <= 1e-10 * max(1.0,
@@ -2659,12 +2673,18 @@ def fleet_phase(P, dev):
     every op at T = 64 serving tenants beside the same work as 64
     standalone calls, the launches per op required equal at T = 8; the
     main path's shape at T = 4 (:func:`fleet_lanes`); the tenant-axis
-    kernels' rows (:func:`fleet_kernel_rows`). Returns (rows, counts)."""
+    kernels' rows (:func:`fleet_kernel_rows`). Returns (rows, counts, the
+    T = 64 tenants with their bounds, capacities, queries and the engine
+    tick's host syncs)."""
     _build = P["_build"]
     total = dict.fromkeys(_build.KERNELS, 0)
     # T = 8 first: its launches and syncs, and the warm-up of every op
     rec8, _ = _fleet_ops(P, 8, dev, seed=900)
     rec64, s = _fleet_ops(P, FLEET_T, dev)
+    # the tenants and the tick's syncs, for health_phase's fleet engine
+    small = dict(gps=s["gps"], Xs=s["Xs"], bounds=s["bounds"],
+                 caps=s["caps"], Xq=s["Xq"].cpu().numpy(),
+                 tick_syncs=rec64["GPFleetEngine tick"]["syncs"])
     for r in (*rec8.values(), *rec64.values()):
         for k, v in r["launches"].items():
             total[k] += v
@@ -2691,7 +2711,7 @@ def fleet_phase(P, dev):
     for k, v in lanes.items():
         total[k] += v
     _stamp("fleet: lanes at the main path's shape, q = 3, card vs cpu")
-    return rows, total
+    return rows, total, small
 
 # ---------------------------------------------------------------------------
 # the fleet's other solvers: the relaxation kernels' tenant axis, fused="off"
@@ -3191,6 +3211,256 @@ def _operands_stack(P, dev, T=4, seed=600):
         *(torch.stack([getattr(f, k)[:, :N_PATH] for f in per])
           for k in ("phi", "saphi", "sort_idx", "rank_idx")),
         torch.stack([f.sigma2[0] for f in per]), w_p=0, w_s=1)
+
+
+# ---------------------------------------------------------------------------
+# the health ladder: injected faults repaired on the card, the engines'
+# repair and quarantine, a checkpoint round trip
+# ---------------------------------------------------------------------------
+
+# the kernels the phase's repairs (the ladder's re-solves, resyncs and
+# refits) must launch
+HEALTH_KERNELS = ("mega_pcg", "cr_factor", "cr_apply", "banded_lu",
+                  "banded_matvec", "rgf_blocks", "band_matmul")
+# every rung that applies to a pcg "whole" GP on the card, in order
+PCG_WHOLE_RUNGS = ["warm_to_cold", "unfused", "gband_resync", "refit_clean"]
+
+
+@contextlib.contextmanager
+def _timed_rungs(P, times):
+    """Record each ladder rung's wall ms (ending in a synchronise) in
+    ``times`` as (rung, ms), by wrapping ``health.ladder._apply`` for the
+    duration."""
+    ladder = P["ladder"]
+    apply = ladder._apply
+
+    def timed(rung, gp):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = apply(rung, gp)
+        torch.cuda.synchronize()
+        times.append((rung, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    ladder._apply = timed
+    try:
+        yield
+    finally:
+        ladder._apply = apply
+
+
+def _queries(P, gp, Xq, m_var):
+    return (P["posterior_mean"](gp, Xq), P["posterior_var"](gp, Xq[:m_var]))
+
+
+def _repair_case(P, tag, bad, want_verdicts, want_rungs, total):
+    """Repair ``bad`` on the card; check the detection verdict and the
+    trail; add the repair's launches to ``total``. Returns the GP."""
+    _build, ladder = P["_build"], P["ladder"]
+    verdict = ladder.probe_gp(bad)
+    times = []
+    _build.reset_launch_counts()
+    with _timed_rungs(P, times):
+        (fixed, events), t = _sync_time(lambda: ladder.repair(bad, op=tag))
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    for k, v in counts.items():
+        total[k] += v
+    rungs = [e.rung for e in events]
+    print(f"health {tag}: detected {P['verdict_name'](verdict)}; trail "
+          + "; ".join(f"{e} {ms:.1f} ms" for e, (_, ms) in zip(events, times))
+          + f"; repair {t * 1e3:.1f} ms; launches {counts}", flush=True)
+    if not (P["verdict_name"](verdict) in want_verdicts and rungs == want_rungs
+            and events[-1].fixed and ladder.probe_gp(fixed) == 0
+            and fixed.config == bad.config):
+        raise RuntimeError(f"health {tag}: detected "
+                           f"{P['verdict_name'](verdict)}, trail {rungs}; "
+                           f"expected {want_verdicts}, {want_rungs}")
+    return fixed
+
+
+def _same_queries(tag, got, want, tol=1e-10):
+    gaps = [_errs(a, b)[1] for a, b in zip(got, want)]
+    bits = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"health {tag}: mean / var max rel {gaps[0]:.3e} / {gaps[1]:.3e} "
+          f"(tol {tol:.0e}), bit for bit {bits}", flush=True)
+    if not max(gaps) <= tol:
+        raise RuntimeError(f"health {tag}: repaired queries off by {gaps}")
+
+
+def health_phase(P, dev, gp, X, Y, omega, sigma, Xq, bounds, small):
+    """The health ladder at the main path's width (Schwefel n = 30000,
+    D = 10, q = 0, health on), on the pcg "whole" GP ``gp`` (40
+    iterations) and on a default ``GPConfig()`` GP (kmg, unfused):
+    ``iteration_cap(iters=1)`` (both, STALLED, repaired by warm_to_cold,
+    mean(100) and var(100) within 1e-10 of the healthy GP);
+    ``corrupt_hierarchy`` (kmg: warm_to_cold then precond_off, the next
+    preconditioned solve OK); ``nan_active_row`` (pcg: NONFINITE, through
+    every rung to refit_clean, within 1e-10 of a clean card fit of the
+    surviving rows at the same capacity); ``near_singular_band`` (pcg:
+    every rung that applies, to refit_clean; each rung re-solves on the
+    card). Each rung's wall ms, the repairs' launches
+    by kernel (``HEALTH_KERNELS`` required). ``GPServeEngine`` on the pcg
+    GP: a NaN insert repaired at the fence, a poisoned posterior's query
+    held and served after the repair. ``GPFleetEngine`` over ``small``
+    (fleet_phase's T = 64 tenants) with one poisoned lane: one quarantine,
+    the 63 other lanes' tensors, counts and versions as before; a healthy
+    tick's host syncs equal fleet_phase's, a healthy mutation round's
+    counted. A checkpoint round trip of the kmg GP (mean(100) and var(32)
+    bit for bit), save and restore timed. Returns the repairs' counts."""
+    t_phase = time.perf_counter()
+    h, st, _build = P["health"], P["stream"], P["_build"]
+    total = dict.fromkeys(_build.KERNELS, 0)
+    torch.cuda.reset_peak_memory_stats()
+    Xq_t = torch.as_tensor(Xq, device=dev)
+    kmg = P["fit"](P["GPConfig"](), X, Y, omega, sigma)
+    if (kmg.config.precond, kmg.config.fused, gp.config.fused) != (
+            "kmg", "off", "whole"):
+        raise RuntimeError("health: the two GPs' configs are not kmg/off and "
+                           "pcg whole")
+    healthy = {"pcg": _queries(P, gp, Xq_t, 100),
+               "kmg": _queries(P, kmg, Xq_t, 100)}
+    # iteration_cap: warm_to_cold on both GPs
+    for tag, g in (("pcg", gp), ("kmg", kmg)):
+        fixed = _repair_case(P, f"iteration_cap(1) {tag}",
+                             h.iteration_cap(g, iters=1), ("STALLED",),
+                             ["warm_to_cold"], total)
+        _same_queries(f"iteration_cap {tag} vs healthy",
+                      _queries(P, fixed, Xq_t, 100), healthy[tag])
+        del fixed
+    # corrupt_hierarchy (kmg): warm_to_cold, then precond_off
+    bad = h.iteration_cap(h.corrupt_hierarchy(kmg),
+                          iters=kmg.config.solver_iters)
+    fixed = _repair_case(P, "corrupt_hierarchy kmg", bad, ("STALLED",),
+                         ["warm_to_cold", "precond_off"], total)
+    again = P["verdict_name"](h.iteration_cap(
+        fixed, iters=kmg.config.solver_iters).health.verdict)
+    print(f"health corrupt_hierarchy kmg: the next preconditioned solve "
+          f"{again}", flush=True)
+    if again != "OK":
+        raise RuntimeError("health: the rebuilt hierarchy's solve is not OK")
+    del bad, fixed
+    # nan_active_row (pcg): every rung, then a clean refit
+    row = 3
+    fixed = _repair_case(P, "nan_active_row pcg", h.nan_active_row(gp,
+                                                                   row=row),
+                         ("NONFINITE",), PCG_WHOLE_RUNGS, total)
+    keep = np.arange(len(Y)) != row
+    clean = P["fit"](gp.config, X[keep], Y[keep], omega, sigma,
+                     capacity=gp.n)
+    if fixed.num_points() != len(Y) - 1 or fixed.n != gp.n:
+        raise RuntimeError("health: refit_clean kept the NaN row")
+    _same_queries("nan_active_row pcg vs a clean card fit",
+                  _queries(P, fixed, Xq_t, 100), _queries(P, clean, Xq_t,
+                                                         100))
+    del fixed, clean
+    # near_singular_band (pcg): every rung that applies
+    fixed = _repair_case(
+        P, "near_singular_band pcg",
+        h.iteration_cap(h.near_singular_band(gp, row=1, dim=0),
+                        iters=gp.config.solver_iters),
+        ("STALLED", "DIVERGED", "NONFINITE"), PCG_WHOLE_RUNGS, total)
+    _same_queries("near_singular_band pcg vs healthy",
+                  _queries(P, fixed, Xq_t, 100), healthy["pcg"])
+    del fixed, healthy
+    _require_launched("health repairs", total, HEALTH_KERNELS)
+    _stamp("health: injected faults at n = 30000")
+
+    # the serving engine on the pcg GP
+    _build.reset_launch_counts()
+    eng = st.GPServeEngine(gp, bounds, batch_slots=8)
+    eng.insert(X[0] * 0.999, float("nan"))
+    q = eng.submit(Xq[0], "mean")
+    _, t_fence = _sync_time(eng.run_until_done)
+    # the drift sentinel's resync (op "sentinel") may come first: at this n
+    # the windowed band's truncation estimate crosses DRIFT_TOL (ROADMAP
+    # Queue 3 item 7)
+    fence = [e.rung for e in eng.health_stats()["events"]
+             if e.op == "mutation"]
+    sentinel = [e.rung for e in eng.health_stats()["events"]
+                if e.op == "sentinel"]
+    eng.set_posterior(h.nan_active_row(eng.gp, row=row))
+    q_bad = eng.submit(X[row], "mean")
+    q_ok = eng.submit(Xq[1], "var")
+    _, t_query = _sync_time(eng.run_until_done)
+    stats = eng.health_stats()
+    query = [e.rung for e in stats["events"] if e.op == "query"]
+    for k, v in _build.launch_counts().items():
+        total[k] += v
+    print(f"health engine: NaN insert repaired at the fence in "
+          f"{t_fence * 1e3:.1f} ms (sentinel {sentinel}, trail {fence}); "
+          f"query quarantine {t_query * 1e3:.1f} ms (trail {query}); "
+          f"repairs {stats['repairs']}; points {eng.num_points}; version "
+          f"{eng.version}", flush=True)
+    if not (fence == query == PCG_WHOLE_RUNGS and stats["repairs"] == 2
+            and eng.num_points == len(Y) - 1
+            and all(x.done and np.isfinite(x.result["mean"])
+                    and np.isfinite(x.result["var"]) for x in (q, q_bad,
+                                                               q_ok))):
+        raise RuntimeError("health: the engine's repairs")
+    del eng
+
+    # the fleet engine on fleet_phase's T = 64 tenants, one lane poisoned
+    gps = list(small["gps"])
+    poisoned = 5
+    gps[poisoned] = h.nan_active_row(gps[poisoned], row=row)
+    fe = st.GPFleetEngine(gps, small["bounds"], batch_slots=8,
+                          capacity=small["caps"],
+                          insert_iters=gps[0].config.solver_iters)
+    before = {t: [x.clone() for x in P["flatten"](fe.tenant_gp(t))[0]]
+              for t in range(len(gps)) if t != poisoned}
+    for t in range(len(gps)):  # each at its own row ``row``'s point
+        fe.submit(t, small["Xs"][t][row], kind="mean")
+    _build.reset_launch_counts()
+    done, t_q = _sync_time(fe.run_until_done)
+    for k, v in _build.launch_counts().items():
+        total[k] += v
+    stats = fe.health_stats()
+    others = all(all(torch.equal(a, b) for a, b in zip(
+        P["flatten"](fe.tenant_gp(t))[0], v)) for t, v in before.items())
+    counts, versions = fe.counts(), fe.versions()
+    kept = all(counts[t] == gps[t].num_points() and versions[t] == 0
+               for t in before)
+    # healthy ticks and a healthy mutation round
+    for t in range(len(gps)):
+        fe.submit(t, small["Xq"][t, 1], kind="acq")
+    _, tick_syncs, _ = _count_syncs(fe.step)
+    fe.insert(0, small["Xq"][0, 2], 0.5)
+    _, round_syncs, sites = _count_syncs(fe.step)
+    print(f"health fleet engine T={len(gps)}: quarantine of tenant "
+          f"{poisoned} in {t_q * 1e3:.1f} ms ({stats['quarantines']} "
+          f"quarantine, trail {[e.rung for e in stats['events']]}), "
+          f"{len(done)} queries retired; the other lanes' tensors bit for "
+          f"bit {others}, counts and versions kept {kept}; a healthy tick "
+          f"{tick_syncs} host syncs (fleet_phase's tick "
+          f"{small['tick_syncs']}); a healthy insert round {round_syncs} "
+          f"syncs ({sites})", flush=True)
+    if not (stats["quarantines"] == 1 and stats["repairs"] == 1 and others
+            and kept and len(done) == len(gps)
+            and all(np.isfinite(x.result["mean"]) for x in done)
+            and tick_syncs == small["tick_syncs"]
+            and fe.health_stats()["repairs"] == 1):  # none in healthy rounds
+        raise RuntimeError("health: the fleet engine's quarantine")
+    del fe, gps, before
+
+    # a checkpoint round trip of the kmg GP
+    with tempfile.TemporaryDirectory() as d:
+        ck = P["Checkpointer"](d, keep=1)
+        _, t_save = _sync_time(lambda: ck.save(0, kmg, blocking=True))
+        (restored, step), t_load = _sync_time(lambda: ck.restore(kmg))
+        size = sum(f.stat().st_size for f in Path(d).rglob("*")
+                   if f.is_file())
+    got, want = (_queries(P, g, Xq_t, B_PATH) for g in (restored, kmg))
+    bits = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"health checkpoint kmg GP: save {t_save * 1e3:.1f} ms, restore "
+          f"{t_load * 1e3:.1f} ms, {size / 2**20:.1f} MiB on disk; mean(100) "
+          f"and var({B_PATH}) bit for bit {bits}", flush=True)
+    if not (bits and step == 0):
+        raise RuntimeError("health: the checkpoint round trip")
+    print(f"health phase: {time.perf_counter() - t_phase:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; repair "
+          f"launches {({k: v for k, v in total.items() if v})}", flush=True)
+    _stamp("health: engines and checkpoint")
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -4075,7 +4345,7 @@ def _card_main(P, refs):
 
     # --- the fleet: T GPs on a leading tenant axis (core.fleet, the masked
     # mutations, GPFleetEngine), the tenant-axis PCG kernel ---------------
-    fleet_rows, counts_f = fleet_phase(P, dev)
+    fleet_rows, counts_f, small = fleet_phase(P, dev)
     rows += fleet_rows
     _require_launched("fleet path", counts_f, tuple(FLEET_KERNELS))
     # --- the fleet's other solvers: the relaxation kernels' tenant axis,
@@ -4084,10 +4354,15 @@ def _card_main(P, refs):
     rows += solver_rows
     _require_launched("fleet solvers path", counts_fs,
                       tuple(FLEET_RELAX_KERNELS))
+    # --- the health ladder: injected faults repaired on the card, the
+    # engines' repair and quarantine, a checkpoint round trip --------------
+    counts_h = health_phase(P, dev, gp, X, Y, omega, sigma, Xq, bounds,
+                            small)
+    del small
 
     all_counts = [counts, counts_l, *relax_counts, counts_k, counts_d,
                   counts_o, counts_t, counts_bo, counts_s, *counts_3,
-                  counts_f, counts_fs]
+                  counts_f, counts_fs, counts_h]
     for row in rows:
         row["launches"] = sum(c[row["name"]] for c in all_counts)
 

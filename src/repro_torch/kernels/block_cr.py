@@ -50,31 +50,18 @@ MAX_W = 5  # 1 <= w <= 5: csrc/block_cr.cu's factor and apply instances
 MAX_WIDE_W = 8
 
 
-def _nbr(x, d):
-    """x[:, i+d] along the block axis (dim 1) with zero fill."""
-    if d == 0:
-        return x
-    n = x.shape[1]
-    out = torch.zeros_like(x)
-    k = max(n - abs(d), 0)
-    if d > 0:
-        out[:, :k] = x[:, n - k:]
-    else:
-        out[:, n - k:] = x[:, :k]
-    return out
-
-
-def _small_solve(M, R, pivot: bool = False):
+def _small_solve(M, R, pivot: bool = False, logdet: bool = True):
     """Gaussian elimination of (..., w, w) against (..., w, m), optionally
     with partial pivoting inside each block (the first row of largest
     magnitude in column t moves to row t, for t < w - 1).
 
-    Returns (X, log|det M| per block). A zero pivot is replaced by 1, as in
-    the reference's ``_small_solve``.
+    Returns (X, log|det M| per block; None without ``logdet``, which leaves
+    X's bits as they are). A zero pivot is replaced by 1, as in the
+    reference's ``_small_solve``.
     """
     w = M.shape[-1]
     A = torch.cat([M, R], dim=-1)
-    ld = M.new_zeros(M.shape[:-2])
+    ld = M.new_zeros(M.shape[:-2]) if logdet else None
     rows = torch.arange(w, device=M.device)
     for t in range(w):
         if pivot and t < w - 1:
@@ -86,7 +73,8 @@ def _small_solve(M, R, pivot: bool = False):
                               torch.where(rows == p[..., None], t, rows))
             A = torch.gather(A, -2, src[..., None].expand(A.shape))
         piv = A[..., t, t]
-        ld = ld + torch.log(torch.abs(piv))
+        if logdet:
+            ld = ld + torch.log(torch.abs(piv))
         safe = torch.where(piv == 0, torch.ones_like(piv), piv)
         f = torch.where(rows > t, A[..., :, t] / safe[..., None],
                         torch.zeros((), dtype=A.dtype, device=A.device))
@@ -100,6 +88,21 @@ def _small_solve(M, R, pivot: bool = False):
         X[..., t, :] = acc / torch.where(piv == 0, torch.ones_like(piv),
                                          piv)[..., None]
     return X, ld
+
+
+def _pair_rows(X, first: int, step: int, rows: int):
+    """``rows`` rows of X's block axis (dim 1), from ``first`` every
+    ``step``, zero where that runs past either end: the neighbours a
+    reduction level pairs with its rows (the even rows 0, 2s, ... with
+    rows -s and +s from them, the odd rows s, 3s, ... with theirs)."""
+    if first < 0:
+        return torch.cat([torch.zeros_like(X[:, :1]),
+                          _pair_rows(X, first + step, step, rows - 1)], dim=1)
+    part = X[:, first::step][:, :rows]
+    if part.shape[1] < rows:
+        part = torch.cat([part, torch.zeros_like(
+            X[:, :rows - part.shape[1]])], dim=1)
+    return part
 
 
 def _band_to_blocks(data, w, nb):
@@ -133,34 +136,57 @@ def cr_solve_values(data, rhs, *, w: int, nb: int, steps: int,
     """
     G, _, B = rhs.shape
     Ab, Bb, Cb = _band_to_blocks(data, w, nb)
-    R = rhs.reshape(G, nb, w, B)
-    idx = torch.arange(nb, device=data.device)
+    R = rhs.reshape(G, nb, w, B).clone()
     eye = torch.eye(w, dtype=data.dtype, device=data.device).expand(G, nb, w, w)
     for k in range(steps):
         s = 1 << k
-        even = ((idx % s) == 0) & (((idx // s) % 2) == 0)
-        Binv, _ = _small_solve(Bb, eye, pivot)
-        alpha = -_bmm(Ab, _nbr(Binv, -s))
-        beta = -_bmm(Cb, _nbr(Binv, s))
-        m = even[None, :, None, None]
-        Bb = torch.where(m, Bb + _bmm(alpha, _nbr(Cb, -s))
-                         + _bmm(beta, _nbr(Ab, s)), Bb)
-        R = torch.where(m, R + _bmm(alpha, _nbr(R, -s))
-                        + _bmm(beta, _nbr(R, s)), R)
-        Ab = torch.where(m, _bmm(alpha, _nbr(Ab, -s)), Ab)
-        Cb = torch.where(m, _bmm(beta, _nbr(Cb, s)), Cb)
+        alpha, beta = _eliminate(Ab, Bb, Cb, eye, pivot, s)
+        ev = slice(0, None, 2 * s)
+        ne = alpha.shape[1]
+        R[:, ev] = (R[:, ev] + _bmm(alpha, _pair_rows(R, -s, 2 * s, ne))
+                    + _bmm(beta, _pair_rows(R, s, 2 * s, ne)))
     X0, ld_all = _small_solve(Bb, R, pivot)
     ld = ld_all.sum(dim=1)
     if not solve:
         return rhs.new_zeros((G, nb * w, B)), ld
-    x = torch.where(idx[None, :, None, None] == 0, X0, torch.zeros_like(X0))
+    x = torch.zeros_like(X0)
+    x[:, 0] = X0[:, 0]
+    _back_substitute(x, R, Ab, Bb, Cb, pivot, steps)
+    return x.reshape(G, nb * w, B), ld
+
+
+def _eliminate(Ab, Bb, Cb, eye, pivot, s: int):
+    """One reduction level (s = 2^k) of the block elimination, in place:
+    the even rows 0, 2s, ... eliminate their odd neighbours s, 3s, ...;
+    returns the level's (alpha, beta) at the even rows. Only the rows a
+    level reads and writes are computed (each block's arithmetic is the
+    same as over the whole axis, so are its bits)."""
+    ev, od = slice(0, None, 2 * s), slice(s, None, 2 * s)
+    binv, _ = _small_solve(Bb[:, od], eye[:, od], pivot, logdet=False)
+    ne = Ab[:, ev].shape[1]
+    # binv holds the odd rows only: even row j's neighbours are its rows
+    # j - 1 and j
+    alpha = -_bmm(Ab[:, ev], _pair_rows(binv, -1, 1, ne))
+    beta = -_bmm(Cb[:, ev], _pair_rows(binv, 0, 1, ne))
+    b_new = (Bb[:, ev] + _bmm(alpha, _pair_rows(Cb, -s, 2 * s, ne))
+             + _bmm(beta, _pair_rows(Ab, s, 2 * s, ne)))
+    a_new = _bmm(alpha, _pair_rows(Ab, -s, 2 * s, ne))
+    c_new = _bmm(beta, _pair_rows(Cb, s, 2 * s, ne))
+    Bb[:, ev], Ab[:, ev], Cb[:, ev] = b_new, a_new, c_new
+    return alpha, beta
+
+
+def _back_substitute(x, R, Ab, Bb, Cb, pivot, steps: int):
+    """The levels' back substitution, in place on ``x`` (row 0 set): each
+    level's odd rows from their even neighbours, coarsest level first."""
+    nb = x.shape[1]
     for k in range(steps - 1, -1, -1):
         s = 1 << k
-        odd = ((idx % s) == 0) & (((idx // s) % 2) == 1)
-        rhs_k = R - _bmm(Ab, _nbr(x, -s)) - _bmm(Cb, _nbr(x, s))
-        Xk, _ = _small_solve(Bb, rhs_k, pivot)
-        x = torch.where(odd[None, :, None, None], Xk, x)
-    return x.reshape(G, nb * w, B), ld
+        od = slice(s, None, 2 * s)
+        no = len(range(s, nb, 2 * s))
+        rhs_k = (R[:, od] - _bmm(Ab[:, od], _pair_rows(x, 0, 2 * s, no))
+                 - _bmm(Cb[:, od], _pair_rows(x, 2 * s, 2 * s, no)))
+        x[:, od], _ = _small_solve(Bb[:, od], rhs_k, pivot, logdet=False)
 
 
 def pad_band(band, w):
@@ -276,23 +302,13 @@ def block_cr_factor_plain(band, w: int, pivot: bool = False,
     logdet)``."""
     G, nb = _check_factor_band(band, w)
     Ab, Bb, Cb = _band_to_blocks(band, w, nb)
-    idx = torch.arange(nb, device=band.device)
     eye = torch.eye(w, dtype=band.dtype, device=band.device).expand(
         G, nb, w, w)
     als, bes = [], []
     for k in range(_levels(nb)):
-        s = 1 << k
-        even = ((idx % s) == 0) & (((idx // s) % 2) == 0)
-        Binv, _ = _small_solve(Bb, eye, pivot)
-        alpha = -_bmm(Ab, _nbr(Binv, -s))
-        beta = -_bmm(Cb, _nbr(Binv, s))
-        m = even[None, :, None, None]
-        Bb = torch.where(m, Bb + _bmm(alpha, _nbr(Cb, -s))
-                         + _bmm(beta, _nbr(Ab, s)), Bb)
-        Ab = torch.where(m, _bmm(alpha, _nbr(Ab, -s)), Ab)
-        Cb = torch.where(m, _bmm(beta, _nbr(Cb, s)), Cb)
-        als.append(alpha[:, ::2 * s])
-        bes.append(beta[:, ::2 * s])
+        alpha, beta = _eliminate(Ab, Bb, Cb, eye, pivot, 1 << k)
+        als.append(alpha)
+        bes.append(beta)
     fac = torch.cat([t.reshape(G, -1) for t in (Ab, Bb, Cb, *als, *bes)],
                     dim=1)
     if not logdet:
@@ -313,25 +329,17 @@ def block_cr_apply_plain(factor, rhs, w: int, pivot: bool = False):
     parts = torch.split(factor, [c * w * w for c in sizes], dim=1)
     Ab, Bb, Cb = (t.reshape(G, nb, w, w) for t in parts[:3])
     als, bes = parts[3:3 + len(ne)], parts[3 + len(ne):]
-    R = rhs.reshape(G, nb, w, B)
-    idx = torch.arange(nb, device=rhs.device)
+    R = rhs.reshape(G, nb, w, B).clone()
     for k in range(len(ne)):
         s = 1 << k
-        even = ((idx % s) == 0) & (((idx // s) % 2) == 0)
-        alpha, beta = (torch.zeros_like(Ab) for _ in range(2))
-        alpha[:, ::2 * s] = als[k].reshape(G, ne[k], w, w)
-        beta[:, ::2 * s] = bes[k].reshape(G, ne[k], w, w)
-        R = torch.where(even[None, :, None, None],
-                        R + _bmm(alpha, _nbr(R, -s)) + _bmm(beta, _nbr(R, s)),
-                        R)
-    X0, _ = _small_solve(Bb, R, pivot)
-    x = torch.where(idx[None, :, None, None] == 0, X0, torch.zeros_like(X0))
-    for k in range(len(ne) - 1, -1, -1):
-        s = 1 << k
-        odd = ((idx % s) == 0) & (((idx // s) % 2) == 1)
-        rhs_k = R - _bmm(Ab, _nbr(x, -s)) - _bmm(Cb, _nbr(x, s))
-        Xk, _ = _small_solve(Bb, rhs_k, pivot)
-        x = torch.where(odd[None, :, None, None], Xk, x)
+        ev = slice(0, None, 2 * s)
+        R[:, ev] = (R[:, ev] + _bmm(als[k].reshape(G, ne[k], w, w),
+                                    _pair_rows(R, -s, 2 * s, ne[k]))
+                    + _bmm(bes[k].reshape(G, ne[k], w, w),
+                           _pair_rows(R, s, 2 * s, ne[k])))
+    x = torch.zeros_like(R)
+    x[:, :1], _ = _small_solve(Bb[:, :1], R[:, :1], pivot, logdet=False)
+    _back_substitute(x, R, Ab, Bb, Cb, pivot, len(ne))
     return x.reshape(G, n, B)
 
 

@@ -29,11 +29,13 @@ tenant, and the mixed query stream is routed to ``(tenant, slot)`` pairs:
 
 Health (GPs fitted with ``health="on"``): after each mutation round one
 read of the group's per-lane verdicts and drift counters; lanes whose
-drift crosses ``DRIFT_TOL`` get one masked ``fleet_resync``. The
-reference's quarantine repair (the health ladder) is not ported: a non-OK
-lane verdict, or a nonfinite query result, raises
-:class:`~repro_torch.streaming.PosteriorHealthError`; ``checkpointer=``
-raises ``NotImplementedError``.
+drift crosses ``DRIFT_TOL`` get one masked ``fleet_resync``, and a lane
+with a non-OK verdict is quarantined: its GP is taken out, repaired by the
+degradation ladder (``health.ladder.repair``; then the pre-round lane
+snapshot, then the last-good checkpoint) and seated again, while every
+other lane keeps its tensors, count and version. A lane whose query result
+is nonfinite is quarantined the same way, its slots held and served again
+on the next tick. A healthy round costs the one read.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ from ..core.additive_gp import AdditiveGP, with_capacity
 from ..core.bayesopt import acquisition_stats, ascent_step
 from ..core.fleet import GPFleet, set_tenant_gp, tenant_gp, tree_map
 from ..health import verdict as hv
-from .gp_engine import PosteriorHealthError, Query, _next_tier
+from .gp_engine import Query, _next_tier
 from .updates import fleet_evict, fleet_insert, fleet_resync
 
 __all__ = ["GPFleetEngine"]
@@ -122,11 +124,7 @@ class GPFleetEngine:
     def __init__(self, gps, bounds, batch_slots: int = 8, kind: str = "ucb",
                  beta: float = 2.0, lr: float = 0.05,
                  insert_iters: int | None = None, capacity=None, window=None,
-                 checkpointer=None):
-        if checkpointer is not None:
-            raise NotImplementedError(
-                "GPFleetEngine(checkpointer=) needs the reference's "
-                "checkpointer and ladder repair, which are not ported")
+                 checkpointer=None, checkpoint_every: int = 64):
         gps = list(gps)
         if not gps:
             raise ValueError("GPFleetEngine needs at least one tenant GP")
@@ -147,7 +145,15 @@ class GPFleetEngine:
         self.lr = lr
         self.insert_iters = insert_iters
         self._next_rid = 0
+        # health (health="on" tenants): post-round quarantine and ladder
+        # repair, the per-lane drift sentinel, a last-good checkpoint
+        self._ckpt = checkpointer
+        self._ckpt_every = max(1, int(checkpoint_every))
+        self._ckpt_step = 0
+        self._repairs = 0
         self._resyncs = 0
+        self._quarantines = 0
+        self._health_events: list = []
         self.tenants: list[_Tenant] = []
         by_tier: dict[int, list[tuple[int, AdditiveGP]]] = {}
         for tid, (gp, cap, win) in enumerate(zip(gps, caps, wins)):
@@ -203,19 +209,24 @@ class GPFleetEngine:
         t = self.tenants[tenant]
         return tenant_gp(t.group.stack, t.lane)
 
-    def health_stats(self) -> dict:
-        """Health counters: the drift sentinel's lane resyncs (the ladder's
-        repairs and quarantines are not ported)."""
-        return {"resyncs": self._resyncs}
-
     def _fresh_best_y(self, t: _Tenant) -> float:
         return float(t.group.stack.Y[t.lane, :t.count].max())
 
-    def _group_health(self, grp: _TierGroup, lanes: list) -> None:
-        """After a mutation round: one read of the group's per-lane
-        verdicts and drift counters, one masked resync of the lanes whose
-        drift crossed the sentinel's threshold, and a named error for a
-        non-OK lane."""
+    # -- health --------------------------------------------------------------
+
+    def health_stats(self) -> dict:
+        """Counters and the :class:`~repro_torch.health.HealthEvent` trail
+        of every quarantine repair and sentinel resync so far."""
+        return {"repairs": self._repairs, "resyncs": self._resyncs,
+                "quarantines": self._quarantines,
+                "events": list(self._health_events)}
+
+    def _group_health(self, grp: _TierGroup, prev: AdditiveGP,
+                      lanes: list) -> None:
+        """After a mutation round: one read of the group's per-lane verdicts
+        and drift counters, one masked resync of the lanes whose drift
+        crossed the sentinel's threshold, and a quarantine repair of each
+        non-OK lane (``prev``: the stack before the round)."""
         h = grp.stack.health
         if h is None:
             return
@@ -225,18 +236,65 @@ class GPFleetEngine:
         resync = [l for l in lanes if drifts[l] > hv.DRIFT_TOL
                   or muts[l] >= hv.RESYNC_EVERY]
         if resync:
+            from ..health.ladder import HealthEvent
+
             do = np.zeros(grp.lanes, bool)
             do[resync] = True
             grp.stack = fleet_resync(GPFleet(gp=grp.stack), do).gp
             self._resyncs += len(resync)
+            for l in resync:
+                self._health_events.append(HealthEvent(
+                    op=f"tenant{grp.tenants[l]}:sentinel",
+                    rung="gband_resync", before=int(verdicts[l]),
+                    after=int(verdicts[l]),
+                    detail=f"drift={float(drifts[l]):.3e} after "
+                           f"{int(muts[l])} windowed mutation(s)"))
         bad = [l for l in lanes if int(verdicts[l]) != hv.OK]
-        if bad:
-            raise PosteriorHealthError(
-                "the mutation's solve verdicts are "
-                + ", ".join(f"tenant {grp.tenants[l]}: "
-                            f"{hv.verdict_name(int(verdicts[l]))}"
-                            for l in bad)
-                + "; the ladder repair is not ported")
+        for l in bad:
+            self._quarantine_repair(grp, l, prev)
+        if not bad and self._ckpt is not None:
+            self._ckpt_step += 1
+            if self._ckpt_step % self._ckpt_every == 0:
+                self._ckpt.save(self._ckpt_step, grp.stack)
+
+    def _quarantine_repair(self, grp: _TierGroup, lane: int,
+                           prev: AdditiveGP | None = None) -> bool:
+        """Quarantine one bad lane: take its GP out, ladder-repair it and
+        seat it again; when the ladder is exhausted, the pre-round lane
+        snapshot (``prev``), then the last-good checkpoint. Returns whether
+        the lane's posterior changed (False: the fault was not in the
+        posterior, e.g. a NaN query point)."""
+        from ..health.ladder import HealthEvent, probe_gp, repair
+
+        tid = grp.tenants[lane]
+        t = self.tenants[tid]
+        gp_fix, events = repair(tenant_gp(grp.stack, lane), op=f"tenant{tid}")
+        if not events:
+            return False
+        self._quarantines += 1
+        if probe_gp(gp_fix) != hv.OK:
+            if prev is not None:
+                gp_fix = tenant_gp(prev, lane)
+                events.append(HealthEvent(
+                    op=f"tenant{tid}", rung="snapshot_restore",
+                    before=events[-1].after, after=probe_gp(gp_fix),
+                    detail="pre-round lane snapshot"))
+            if (probe_gp(gp_fix) != hv.OK and self._ckpt is not None
+                    and self._ckpt.latest_step() is not None):
+                stack, step = self._ckpt.restore(grp.stack)
+                if stack is not None:
+                    gp_fix = tenant_gp(stack, lane)
+                    events.append(HealthEvent(
+                        op=f"tenant{tid}", rung="checkpoint_restore",
+                        before=events[-1].after, after=probe_gp(gp_fix),
+                        detail=f"last-good checkpoint step {step}"))
+        grp.stack = set_tenant_gp(grp.stack, gp_fix, lane)
+        self._health_events += events
+        self._repairs += 1
+        t.count = gp_fix.num_points()
+        t.version += 1
+        t.best_y = self._fresh_best_y(t)
+        return True
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -287,20 +345,24 @@ class GPFleetEngine:
                 self.lr * (hi - lo), self.kind).cpu().numpy()
             val, mu, var = out[..., 0], out[..., 1], out[..., 2]
             grad, Xn = out[..., 3:3 + D], out[..., 3 + D:]
+            # query-path detection (health-on fleets): a lane with a
+            # nonfinite result is quarantined (its slots held, its GP
+            # repaired and seated again, its queries served next tick)
+            # while every other tenant retires as usual; with health off,
+            # NaNs retire as they are
+            held: set[int] = set()
             if grp.stack.health is not None:
                 for l in serving:
                     t = self.tenants[grp.tenants[l]]
-                    bad = [i for i, s in enumerate(t.slots) if s is not None
-                           and not (np.isfinite(val[l, i])
-                                    and np.isfinite(mu[l, i])
-                                    and np.isfinite(var[l, i])
-                                    and np.all(np.isfinite(grad[l, i])))]
-                    if bad:
-                        raise PosteriorHealthError(
-                            f"nonfinite query results for tenant {t.tid} in "
-                            f"slots {bad} at version {t.version}; the ladder "
-                            "repair is not ported")
+                    ok = all(np.isfinite(val[l, i]) and np.isfinite(mu[l, i])
+                             and np.isfinite(var[l, i])
+                             and np.all(np.isfinite(grad[l, i]))
+                             for i, s in enumerate(t.slots) if s is not None)
+                    if not ok and self._quarantine_repair(grp, l):
+                        held.add(l)
             for l in serving:
+                if l in held:
+                    continue
                 t = self.tenants[grp.tenants[l]]
                 for i, q in enumerate(t.slots):
                     if q is None:
@@ -404,6 +466,10 @@ class GPFleetEngine:
             if not ready_here:
                 continue
             fleet = GPFleet(gp=grp.stack)
+            # the pre-round stack is the quarantine's in-memory last-good
+            # snapshot: no op of the round writes a stack tensor in place
+            # (the masked rounds build new tensors), so it stays as it is
+            prev = grp.stack
             mutated: set[int] = set()
             counts = np.zeros(grp.lanes, int)
             for t in members:
@@ -451,7 +517,7 @@ class GPFleetEngine:
                     mutated.add(t.lane)
             grp.stack = fleet.gp
             if mutated:
-                self._group_health(grp, sorted(mutated))
+                self._group_health(grp, prev, sorted(mutated))
         for t in ready:
             if not t.staged:  # the fence lifts: refresh the incumbent
                 t.best_y = self._fresh_best_y(t)

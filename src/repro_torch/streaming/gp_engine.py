@@ -20,12 +20,14 @@ doubled allocation. With ``window=W`` the engine slides: each insert past
 ``W`` points is preceded by drop-oldest evictions, which pins memory at the
 ``W`` tier.
 
-Health (a GP fitted with ``health="on"``): at the fence the drift sentinel
-resyncs the variance band when the windowed updates' truncation estimate
-crosses ``DRIFT_TOL``. The reference's ladder repair (``health.ladder``)
-is not ported: a non-OK solve verdict at the fence, or a nonfinite query
-result, raises :class:`PosteriorHealthError` instead. ``checkpointer=``
-raises ``NotImplementedError``.
+Health (a GP fitted with ``health="on"``): at the fence one read of the
+carried health scalars; the drift sentinel resyncs the variance band when
+the windowed updates' truncation estimate crosses ``DRIFT_TOL``, a non-OK
+solve verdict walks the degradation ladder (``health.ladder.repair``), and
+an optional :class:`~repro_torch.checkpoint.Checkpointer` keeps a
+last-good snapshot every ``checkpoint_every`` versions, restored when the
+ladder is exhausted. A nonfinite query result holds its slot, repairs the
+posterior and serves the slot again on the next tick.
 """
 from __future__ import annotations
 
@@ -43,14 +45,7 @@ from .updates import evict as stream_evict
 from .updates import insert as stream_insert
 from .updates import resync_gband
 
-__all__ = ["GPServeEngine", "Query", "PosteriorHealthError",
-           "propose_via_engine"]
-
-
-class PosteriorHealthError(RuntimeError):
-    """A health-on posterior went bad (a non-OK solve verdict after a
-    mutation, or a nonfinite query result); the ladder repair that would
-    handle it is not ported."""
+__all__ = ["GPServeEngine", "Query", "propose_via_engine"]
 
 
 def _next_tier(m: int) -> int:
@@ -88,11 +83,7 @@ class GPServeEngine:
                  kind: str = "ucb", beta: float = 2.0, lr: float = 0.05,
                  insert_iters: int | None = None,
                  capacity: int | None = None, window: int | None = None,
-                 checkpointer=None):
-        if checkpointer is not None:
-            raise NotImplementedError(
-                "GPServeEngine(checkpointer=) needs the reference's "
-                "checkpointer and ladder repair, which are not ported")
+                 checkpointer=None, checkpoint_every: int = 64):
         n_points = gp.num_points()
         if window is not None and window < 2:
             raise ValueError(f"window must be >= 2; got {window}")
@@ -117,7 +108,13 @@ class GPServeEngine:
         self._besty = np.zeros(batch_slots, np.float64)
         self._next_rid = 0
         self._count = n_points
+        # health (health="on" GPs): the fence's sentinel and ladder repair,
+        # the query tick's hold-and-repair, a last-good checkpoint
+        self._ckpt = checkpointer
+        self._ckpt_every = max(1, int(checkpoint_every))
+        self._repairs = 0
         self._resyncs = 0
+        self._health_events: list = []
         self.best_y = self._active_best()
 
     def _active_best(self) -> float:
@@ -132,28 +129,65 @@ class GPServeEngine:
     def capacity(self) -> int:
         return self.gp.n
 
-    @property
-    def resyncs(self) -> int:
-        """Sentinel resyncs of the variance band made at the fence."""
-        return self._resyncs
+    # -- health --------------------------------------------------------------
+
+    def health_stats(self) -> dict:
+        """Counters and the :class:`~repro_torch.health.HealthEvent` trail
+        of every ladder escalation and sentinel resync so far."""
+        return {"repairs": self._repairs, "resyncs": self._resyncs,
+                "events": list(self._health_events)}
 
     def _post_mutation_health(self) -> None:
-        """Fence-time health pass: one fetch of the carried scalars; the
-        drift sentinel's resync, and a named error on a non-OK verdict."""
+        """Fence-time health pass: one read of the carried scalars, then the
+        sentinel's resync and/or a ladder repair. A healthy fence costs the
+        read (and, every ``checkpoint_every`` versions, a save)."""
         h = self.gp.health
         if h is None:
             return
         verdict, drift, muts = torch.stack(
             [h.verdict.to(h.drift.dtype), h.drift,
              h.muts.to(h.drift.dtype)]).tolist()
+        verdict, muts = int(verdict), int(muts)
         if drift > hv.DRIFT_TOL or muts >= hv.RESYNC_EVERY:
+            from ..health.ladder import HealthEvent
+
             self.gp = resync_gband(self.gp)
             self._resyncs += 1
-        if int(verdict) != hv.OK:
-            raise PosteriorHealthError(
-                f"the mutation's solve verdict is "
-                f"{hv.verdict_name(int(verdict))} at version {self.version}; "
-                "the ladder repair is not ported")
+            self._health_events.append(HealthEvent(
+                op="sentinel", rung="gband_resync", before=verdict,
+                after=verdict,
+                detail=f"drift={drift:.3e} after {muts} windowed "
+                       "mutation(s)"))
+        if verdict != hv.OK:
+            self._repair("mutation")
+        elif (self._ckpt is not None
+              and self.version % self._ckpt_every == 0):
+            self._ckpt.save(self.version, self.gp)
+
+    def _repair(self, op: str) -> bool:
+        """Ladder-repair the posterior, the last-good checkpoint as the
+        backstop. Returns whether the posterior changed."""
+        from ..health.ladder import HealthEvent, probe_gp, repair
+
+        gp, events = repair(self.gp, op=op)
+        if not events:
+            return False
+        if (probe_gp(gp) != hv.OK and self._ckpt is not None
+                and self._ckpt.latest_step() is not None):
+            restored, step = self._ckpt.restore(self.gp)
+            if restored is not None:
+                gp = restored
+                events.append(HealthEvent(
+                    op=op, rung="checkpoint_restore", before=events[-1].after,
+                    after=probe_gp(gp),
+                    detail=f"last-good checkpoint step {step}"))
+        self._health_events += events
+        self._repairs += 1
+        self.gp = gp
+        self._count = gp.num_points()
+        self.version += 1
+        self.best_y = self._active_best()
+        return True
 
     # -- request lifecycle --------------------------------------------------
 
@@ -191,17 +225,24 @@ class GPServeEngine:
         Xn = ascent_step(X, grad, lo, hi, self.lr * (hi - lo))
         val, grad, mu, var, Xn = (t.cpu().numpy()
                                   for t in (val, grad, mu, var, Xn))
+        # query-path detection (health-on posteriors): a nonfinite result
+        # means a corrupt artifact reached serving. The affected slots are
+        # held (no retire, no ascent step), the posterior is repaired, and
+        # they are served again next tick. If the ladder finds nothing wrong
+        # the NaN is the query's own and it retires as it is, as every
+        # result of a health-off engine does.
+        held: set[int] = set()
         if self.gp.health is not None:
             bad = [i for i in active
                    if not (np.isfinite(val[i]) and np.isfinite(mu[i])
                            and np.isfinite(var[i])
                            and np.all(np.isfinite(grad[i])))]
-            if bad:
-                raise PosteriorHealthError(
-                    f"nonfinite query results in slots {bad} at version "
-                    f"{self.version}; the ladder repair is not ported")
+            if bad and self._repair("query"):
+                held = set(bad)
         finished = []
         for i in active:
+            if i in held:
+                continue
             q = self.slots[i]
             if q.kind == "ascend" and q.steps > 0:
                 self._xs[i] = Xn[i]

@@ -38,6 +38,7 @@ from repro.core.kernel_packets import phi_grad_at as jax_phi_grad_at
 from repro.core.matern import matern_dx as jax_matern_dx
 from repro_torch.core import (GPConfig, gp_from_arrays, posterior_mean,
                               posterior_mean_grad, posterior_var)
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import bayesopt as bo
 from repro_torch.core.banded import Banded
 from repro_torch.core.kernel_packets import phi_grad_at
@@ -251,10 +252,11 @@ def test_bayes_opt_loop_matches_jax(monkeypatch):
     assert hist["best"][-1] >= hist["best"][0]
 
 
-def test_streaming_branch_raises():
+def test_streaming_branch_raises(tmp_path):
     """The streaming branch (the reference's default) runs since it was
-    ported, in each of its three forms; what it still lacks raises: the
-    serving engine's checkpointer."""
+    ported, in each of its three forms, and the serving engine takes a
+    checkpointer, as the reference's does: a healthy fence saves the
+    posterior every ``checkpoint_every`` versions."""
     bounds = np.array([[-2.0, 2.0]])
     for cfg in (bo.BOConfig(), bo.BOConfig(incremental=False),
                 bo.BOConfig(use_engine=False)):
@@ -263,8 +265,13 @@ def test_streaming_branch_raises():
             dataclasses.replace(cfg, ascent_steps=2, n_starts=4),
             torch.Generator(), n_init=8, device="cpu")
         assert X.shape == (9, 1) and np.isfinite(hist["y"]).all()
-    with pytest.raises(NotImplementedError, match="checkpointer"):
-        GPServeEngine(gp, bounds, checkpointer=object())
+    ck = Checkpointer(str(tmp_path))
+    eng = GPServeEngine(gp, bounds, checkpointer=ck, checkpoint_every=1)
+    eng.insert(np.array([0.5]), _objective(np.array([0.5])))
+    eng.run_until_done()
+    ck.wait()
+    assert eng.health_stats()["repairs"] == 0 and ck.latest_step() == 1
+    assert torch.equal(ck.restore(eng.gp)[0].u_sy, eng.gp.u_sy)
 
 
 @pytest.fixture(scope="module")

@@ -1344,3 +1344,45 @@ def test_fleet_relaxation_kernels(dev):
                             torch.equal(a[t], b) for a, b in zip(got, lane)))
     assert not bad, bad
 
+
+
+def test_health_ladder_card_matches_cpu(dev, tmp_path):
+    """The health ladder on the card against the same repairs on the CPU
+    (pcg "whole", n = 500, capacity 512), every fault a case of the loop:
+    the same detection verdict, the same trail rung for rung (every rung
+    re-solves on the card; none moves the GP to the CPU), the repaired mean
+    and variance within 1e-7 of the CPU's. A checkpoint of the card GP
+    restores to the card, bit for bit."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.health import (iteration_cap, ladder, nan_active_row,
+                                    near_singular_band, probe_gp, repair)
+
+    rng = np.random.default_rng(31)
+    X, Y, Xq = _gp_data(rng, 500, 3)
+    cfg = GPConfig(q=0, solver_iters=40, precond="none")
+    g = fit(cfg, X, Y, np.full(3, 2.0), 0.5, capacity=512)
+    c = fit(cfg, X, Y, np.full(3, 2.0), 0.5, device="cpu", capacity=512)
+    assert g.config.fused == c.config.fused == "whole"
+    faults = {"iteration_cap": lambda gp: iteration_cap(gp, iters=1),
+              "nan_active_row": lambda gp: nan_active_row(gp, row=3),
+              "near_singular_band": lambda gp: iteration_cap(
+                  near_singular_band(gp, row=1), iters=40)}
+    for name, inject in faults.items():
+        bg, bc = inject(g), inject(c)
+        # a near-singular row's verdict is rounding-determined (any non-OK)
+        assert probe_gp(bg) != 0 and probe_gp(bc) != 0, name
+        assert name == "near_singular_band" or probe_gp(bg) == probe_gp(bc)
+        (fg, eg), (fc, ec) = repair(bg), repair(bc)
+        assert [e.rung for e in eg] == [e.rung for e in ec], name
+        assert probe_gp(fg) == probe_gp(fc) == 0, name
+        assert fg.device.type == "cuda" and fg.num_points() == fc.num_points()
+        assert _rel(posterior_mean(fg, Xq), posterior_mean(
+            fc, Xq, device="cpu")) < 1e-7, name
+        assert _rel(posterior_var(fg, Xq), posterior_var(
+            fc, Xq, device="cpu")) < 1e-7, name
+    assert not ladder._applies("backend_jax", g)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(0, g, blocking=True)
+    r, _ = ck.restore(g)
+    assert r.u_sy.device.type == "cuda"
+    assert torch.equal(posterior_var(r, Xq), posterior_var(g, Xq))

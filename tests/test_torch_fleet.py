@@ -47,7 +47,8 @@ from repro_torch.kernels.mega_solve import mega_pcg_plain
 from repro_torch.streaming import (evict, fleet_evict, fleet_insert,
                                    fleet_resync, insert, resync_gband)
 from torch_port_inputs import OMEGA, fleet_operands, points
-from torch_port_jax_ref import _jax_arrays, _rel, fresh_jax_caches  # noqa: F401
+from torch_port_jax_ref import (_jax_arrays, _rel,  # noqa: F401
+                                fresh_jax_caches, shared_ref)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(2)
@@ -92,9 +93,14 @@ KEYS = ("u_sy", "bY", "Gband", "A", "Phi")
 
 
 @pytest.fixture(scope="module")
-def jax_side():
+def jax_side(shared_ref):
     """The JAX package's fleet (fit, queries, the masked insert then evict)
-    and standalone fits, as numpy."""
+    and standalone fits, as numpy, computed once per run
+    (``shared_ref``)."""
+    return shared_ref(("test_torch_fleet", "jax_side"), _jax_side)
+
+
+def _jax_side():
     X, Y = _data(T)
     Xq, xn, yn = _queries(T)
     om, sg = np.full((T, D), OMEGA), np.full(T, SIGMA)

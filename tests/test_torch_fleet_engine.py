@@ -6,14 +6,15 @@ fenced per tenant) through one fleet engine over three tenants, with a
 sliding window on one and a capacity tier that two of them outgrow, equals
 the same stream through three standalone port engines bit for bit:
 results, versions, counts and capacity tiers, and every tenant's final
-posterior. ``checkpointer=`` and configs a fleet cannot run raise.
+posterior. The engine takes a checkpointer, and configs a fleet once
+refused serve.
 """
 from __future__ import annotations
 
 import numpy as np
-import pytest
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import GPConfig, fit, with_capacity
 from repro_torch.core import fleet as fl
 from repro_torch.streaming import GPFleetEngine, GPServeEngine
@@ -91,13 +92,23 @@ def test_fleet_engine_matches_per_tenant_engines():
         for a, b in ((g.u_sy, s.u_sy), (g.bY, s.bY), (g.X, s.X),
                      (g.Gband.data, s.Gband.data), (g.n_active, s.n_active)):
             assert torch.equal(a, b), t
-    assert fe.health_stats() == {"resyncs": 0}
+    assert fe.health_stats() == {"repairs": 0, "resyncs": 0,
+                                 "quarantines": 0, "events": []}
 
 
-def test_fleet_engine_refuses_unported_settings():
+def test_fleet_engine_refuses_unported_settings(tmp_path):
     gps = _gps()
-    with pytest.raises(NotImplementedError):
-        GPFleetEngine(gps, BOUNDS, checkpointer=object())
+    # checkpointer=, refused before the health ladder was ported, keeps the
+    # group's stack after every checkpoint_every healthy rounds
+    ck = Checkpointer(str(tmp_path))
+    fe = GPFleetEngine(gps, BOUNDS, capacity=CAP, insert_iters=ITERS,
+                       checkpointer=ck, checkpoint_every=1)
+    fe.insert(0, np.full(D, 1.5), 0.5)
+    fe.run_until_done()
+    ck.wait()
+    assert fe.health_stats()["repairs"] == 0 and ck.latest_step() == 1
+    stack = fe.groups[CAP].stack
+    assert torch.equal(ck.restore(stack)[0].u_sy, stack.u_sy)
     # a relaxation solver, refused before the fleet took it, now serves:
     # the engine's lanes and a one-tenant stack are the GP, bit for bit
     X = points(np.random.default_rng(3), 8, D)

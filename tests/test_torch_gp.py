@@ -19,7 +19,7 @@ import torch
 
 from torch_port_jax_ref import (check_fit, check_queries,  # noqa: F401
                                 check_queries_on_jax_factors, fit_cache,
-                                fresh_jax_caches)
+                                fresh_jax_caches, shared_ref)
 
 torch.set_num_threads(2)
 
@@ -27,8 +27,8 @@ CASES = [(37, 0), (128, 0), (37, 0, True)]
 
 
 @pytest.fixture(scope="module")
-def fitted():
-    return fit_cache()
+def fitted(shared_ref):
+    return fit_cache(shared_ref)
 
 
 @pytest.mark.parametrize("case", CASES)

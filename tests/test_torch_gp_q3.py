@@ -33,7 +33,7 @@ from repro_torch.core.additive_gp import mean_caches
 from torch_port_jax_ref import (ITERS, SIGMA, _data, _jax_arrays,  # noqa: F401
                                 _rel, check_fit, check_queries,
                                 check_queries_on_jax_factors, fit_cache,
-                                fresh_jax_caches)
+                                fresh_jax_caches, shared_ref)
 
 torch.set_num_threads(2)
 
@@ -41,8 +41,8 @@ CASES = [(37, 3, False, "pcg", "jax")]
 
 
 @pytest.fixture(scope="module")
-def fitted():
-    return fit_cache()
+def fitted(shared_ref):
+    return fit_cache(shared_ref)
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -60,7 +60,9 @@ def test_every_module_imports_without_jax():
             "repro_torch.core.gband_update", "repro_torch.streaming",
             "repro_torch.streaming.updates",
             "repro_torch.streaming.gp_engine", "repro_torch.core.fleet",
-            "repro_torch.streaming.fleet_engine"} <= set(_modules())
+            "repro_torch.streaming.fleet_engine",
+            "repro_torch.health.ladder", "repro_torch.health.inject",
+            "repro_torch.checkpoint.checkpointer"} <= set(_modules())
 
 
 def test_sources_name_no_jax_or_reference_import():

@@ -33,7 +33,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.fused_sweep import (_dot, fused_pcg_iter_plain,
                                              pcg_seed_plain)
 from torch_port_inputs import dim_ops, padded_operands, solve_operands
-from torch_port_jax_ref import fresh_jax_caches  # noqa: F401 (autouse)
+from torch_port_jax_ref import (fresh_jax_caches,  # noqa: F401 (autouse)
+                                shared_ref)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(2)
@@ -95,20 +96,24 @@ def _jax_ops(ops):
 CASES = [(False, 0.0), (False, 1e-9), (True, 1e-9)]  # (warm, tol)
 
 
-@pytest.fixture(scope="module")
-def jax_on():
-    """The JAX package's fused="on" pcg solves of each case, with info."""
+def _jax_on(warm, tol):
+    """The JAX package's fused="on" pcg solve of one case, with info."""
     ops, v, x0 = _system()
-    out = {}
-    for warm, tol in CASES:
-        cfg = JaxSolveConfig(method="pcg", iters=40, tol=tol, fused="on",
-                             backend="pallas")
-        x, info = jax_solve_mhat(_jax_ops(ops), jnp.asarray(v), cfg,
-                                 x0=jnp.asarray(x0) if warm else None,
-                                 return_info=True)
-        out[(warm, tol)] = (np.asarray(x), int(info.iters),
-                            float(info.resid), int(info.verdict))
-    return out
+    cfg = JaxSolveConfig(method="pcg", iters=40, tol=tol, fused="on",
+                         backend="pallas")
+    x, info = jax_solve_mhat(_jax_ops(ops), jnp.asarray(v), cfg,
+                             x0=jnp.asarray(x0) if warm else None,
+                             return_info=True)
+    return (np.asarray(x), int(info.iters), float(info.resid),
+            int(info.verdict))
+
+
+@pytest.fixture(scope="module")
+def jax_on(shared_ref):
+    """``get(warm, tol)``: :func:`_jax_on`, computed once per run and only
+    for the case a test asks for."""
+    return lambda warm, tol: shared_ref(("test_torch_pcg_iter", warm, tol),
+                                        lambda: _jax_on(warm, tol))
 
 
 @pytest.mark.parametrize("warm,tol", CASES)
@@ -119,7 +124,7 @@ def test_on_solve_matches_jax(jax_on, warm, tol):
                                      fused="on"),
                          x0=torch.as_tensor(x0) if warm else None,
                          return_info=True)
-    xj, iters, resid, verdict = jax_on[(warm, tol)]
+    xj, iters, resid, verdict = jax_on(warm, tol)
     assert _rel(x.numpy(), xj) < 1e-9
     assert abs(float(info.resid) - resid) <= 1e-9 * float(info.rhs)
     assert int(info.iters) == iters and int(info.verdict) == verdict

@@ -51,7 +51,7 @@ from repro_torch.kernels.mega_solve import (mega_gauss_seidel_plain,
 from torch_port_inputs import dim_ops, padded_operands, solve_operands
 from torch_port_jax_ref import (check_fit, check_queries,  # noqa: F401
                                 check_queries_on_jax_factors, fit_cache,
-                                fresh_jax_caches)
+                                fresh_jax_caches, shared_ref)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(2)
@@ -82,30 +82,33 @@ def _operands(q):
     return t, j
 
 
-def _kernel_ref():
-    """Every Pallas kernel result the kernel tests compare with, per q. The
-    JAX sweeps' x output does not depend on whether k is carried, so the
-    k-carrying calls also serve the port's sweeps without k."""
-    out = {}
-    for q in (0, 1):
-        t, j = _operands(q)
-        kw = dict(t["kw"], interpret=True)
-        ops, v, x0, k = j["ops"], j["v"], j["x0"], j["k"]
-        out[q] = dict(
+def _kernel_ref(q, part):
+    """The Pallas kernel results one kernel test compares with, as numpy:
+    ``part`` "sweep" (the one-sweep kernels) or "whole" (the whole-solve
+    kernels) at q. The JAX sweeps' x output does not depend on whether k is
+    carried, so the k-carrying calls also serve the port's sweeps without
+    k."""
+    t, j = _operands(q)
+    kw = dict(t["kw"], interpret=True)
+    ops, v, x0, k = j["ops"], j["v"], j["x0"], j["k"]
+    if part == "sweep":
+        out = dict(
             jac_k=fused_jacobi_iter_pallas(*ops, v, x0, k, alpha=ALPHA,
                                            want_resid=True, **kw),
             # one warm sweep: k0 = Khat^{-1} x0, then the sweep
             jac_warm=mega_jacobi_solve_pallas(*ops, v, x0, alpha=ALPHA,
                                               iters=1, warm=True, **kw),
             gs_k=fused_gauss_seidel_iter_pallas(*ops, v, x0, want_resid=True,
-                                                **kw),
+                                                **kw))
+    else:
+        out = dict(
             mjac=mega_jacobi_solve_pallas(*ops, v, jnp.zeros_like(v),
                                           alpha=ALPHA, iters=ITERS, **kw),
             mjac_warm=mega_jacobi_solve_pallas(*ops, v, x0, alpha=ALPHA,
                                                iters=ITERS, warm=True, **kw),
             mgs=mega_gauss_seidel_solve_pallas(*ops, v, x0, iters=ITERS,
                                                **kw))
-    return out
+    return jax.tree_util.tree_map(np.asarray, out)
 
 
 def _check(got, want, tol=1e-12):
@@ -120,7 +123,7 @@ def _check(got, want, tol=1e-12):
 def test_sweep_plain_matches_pallas(jax_ref, q):
     t, _ = _operands(q)
     ops, v, x0, k, kw = t["ops"], t["v"], t["x0"], t["k"], t["kw"]
-    ref = jax_ref["kernels"][q]
+    ref = jax_ref("kernels", q, "sweep")
     _check(fused_jacobi_iter_plain(*ops, v, x0, alpha=ALPHA, **kw),
            ref["jac_k"][0])
     _check(fused_jacobi_iter_plain(*ops, v, x0, k, alpha=ALPHA, **kw),
@@ -136,7 +139,7 @@ def test_sweep_plain_matches_pallas(jax_ref, q):
 def test_whole_plain_matches_pallas(jax_ref, q):
     t, _ = _operands(q)
     ops, v, x0, kw = t["ops"], t["v"], t["x0"], t["kw"]
-    ref = jax_ref["kernels"][q]
+    ref = jax_ref("kernels", q, "whole")
     _check(mega_jacobi_plain(*ops, v, torch.zeros_like(v), alpha=ALPHA,
                              iters=ITERS, **kw), ref["mjac"])
     _check(mega_jacobi_plain(*ops, v, x0, alpha=ALPHA, iters=ITERS,
@@ -177,30 +180,31 @@ def _cfg_kw(method, fused, warm):
                 tol=1e-9 if method == "pcg" and warm else 0.0)
 
 
-def _solve_ref():
-    """The JAX ``solve_mhat`` of each mode, cold and warm, with its info."""
+def _solve_ref(method, fused, warm):
+    """The JAX ``solve_mhat`` of one mode, cold or warm, with its info."""
     ops, v, x0 = _system()
-    jops = _jax_ops(ops)
-    out = {}
-    for method, fused in MODES:
-        for warm in (False, True) if fused != "on" else (False,):
-            cfg = JaxSolveConfig(
-                backend="jax" if fused == "off" else "pallas",
-                **_cfg_kw(method, fused, warm))
-            x, info = jax_solve_mhat(jops, jnp.asarray(v), cfg,
-                                     x0=jnp.asarray(x0) if warm else None,
-                                     return_info=True)
-            out[(method, fused, warm)] = (np.asarray(x), int(info.iters),
-                                          float(info.resid),
-                                          int(info.verdict))
-    return out
+    cfg = JaxSolveConfig(backend="jax" if fused == "off" else "pallas",
+                         **_cfg_kw(method, fused, warm))
+    x, info = jax_solve_mhat(_jax_ops(ops), jnp.asarray(v), cfg,
+                             x0=jnp.asarray(x0) if warm else None,
+                             return_info=True)
+    return (np.asarray(x), int(info.iters), float(info.resid),
+            int(info.verdict))
 
 
 @pytest.fixture(scope="module")
-def jax_ref():
-    """The JAX side of the kernel and solve tests, computed once for the
-    module (interpret-mode compiles dominate this file's time)."""
-    return dict(kernels=_kernel_ref(), solves=_solve_ref())
+def jax_ref(shared_ref):
+    """``get("kernels", q, part)`` or ``get("solves", method, fused,
+    warm)``: the JAX side of one kernel or solve test, computed once per
+    run and only where a test asks for it (interpret-mode compiles
+    dominate this file's time)."""
+    fns = {"kernels": _kernel_ref, "solves": _solve_ref}
+
+    def get(kind, *key):
+        return shared_ref(("test_torch_relax", kind) + key,
+                          lambda: fns[kind](*key))
+
+    return get
 
 
 @pytest.mark.parametrize("method,fused", MODES)
@@ -214,7 +218,7 @@ def test_solve_mhat_matches_jax(jax_ref, method, fused, warm):
                          x0=torch.as_tensor(x0) if warm else None,
                          return_info=True)
     key = (method, "whole" if fused == "on" and warm else fused, warm)
-    xj, iters, resid, verdict = jax_ref["solves"][key]
+    xj, iters, resid, verdict = jax_ref("solves", *key)
     tol = 1e-9 if method == "pcg" else 1e-10
     assert _rel(x.numpy(), xj) < tol
     assert abs(float(info.resid) - resid) <= tol * float(info.rhs)
@@ -364,8 +368,8 @@ GP_CASES = [(37, 0, False, "gauss_seidel", "jax"),
 
 
 @pytest.fixture(scope="module")
-def fitted():
-    return fit_cache()
+def fitted(shared_ref):
+    return fit_cache(shared_ref)
 
 
 @pytest.mark.parametrize("case", GP_CASES)

@@ -35,7 +35,8 @@ from repro_torch.core import (GPConfig, fit, gp_from_arrays, posterior_mean,
                               posterior_var)
 from repro_torch.core import bayesopt as bo
 from torch_port_inputs import OMEGA, points
-from torch_port_jax_ref import _jax_arrays, _rel, fresh_jax_caches  # noqa: F401
+from torch_port_jax_ref import (_jax_arrays, _rel,  # noqa: F401
+                                fresh_jax_caches, shared_ref)
 
 jax.config.update("jax_enable_x64", True)
 torch.set_num_threads(2)
@@ -63,9 +64,14 @@ def _arrays(gp):
 
 
 @pytest.fixture(scope="module")
-def carried():
+def carried(shared_ref):
     """The same mutations through both packages from one carried state:
-    {stage: (port arrays, JAX arrays, port mean/var, JAX mean/var, k)}."""
+    {stage: (port arrays, JAX arrays, port mean/var, JAX mean/var, k)};
+    computed once per run (``shared_ref``)."""
+    return shared_ref(("test_torch_streaming", "carried"), _carried)
+
+
+def _carried():
     X, Y, Xq = _data(N, 21)
     om = np.full(D, OMEGA)
     jgp = jax_fit(JaxGPConfig(q=0, solver_iters=ITERS, backend="jax",

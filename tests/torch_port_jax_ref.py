@@ -2,9 +2,15 @@
 
 One JAX fit (pallas backend, interpret mode) and one 40-query mean/variance
 per case, plus the port's own CPU fit of the same seeded data; the checks
-the test files share.
+the test files share; and :func:`shared_ref`, which computes a JAX-side
+result once per test run, however many workers ask for it.
 """
 from __future__ import annotations
+
+import fcntl
+import hashlib
+import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +49,46 @@ def fresh_jax_caches():
     jax.clear_caches()
 
 
+@pytest.fixture(scope="session")
+def shared_ref(request, tmp_path_factory):
+    """``get(key, compute)``: ``compute()``'s result for ``key`` (a repr-able
+    key naming the test module and the result; the result picklable),
+    computed once per test run. In one process it is cached in memory;
+    under pytest-xdist the first worker that asks computes it under a file
+    lock in the run's shared temporary directory (the parent of the
+    workers' own, pytest-xdist's documented pattern) and the others read
+    its file. The JAX references are deterministic, so which worker
+    computes one does not matter, and a run computes each once, not once
+    per worker that holds one of its tests."""
+    local: dict = {}
+    root = None
+    if hasattr(request.config, "workerinput"):
+        root = tmp_path_factory.getbasetemp().parent / "torch_port_ref"
+        root.mkdir(exist_ok=True)
+
+    def get(key, compute):
+        if key in local:
+            return local[key]
+        if root is None:
+            local[key] = compute()
+            return local[key]
+        name = hashlib.sha256(repr(key).encode()).hexdigest()[:32]
+        path = root / f"{name}.pkl"
+        with open(root / f"{name}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # released when lock closes
+            if path.exists():
+                out = pickle.loads(path.read_bytes())
+            else:
+                out = compute()
+                tmp = root / f"{name}.tmp"
+                tmp.write_bytes(pickle.dumps(out))
+                os.replace(tmp, path)
+        local[key] = out
+        return out
+
+    return get
+
+
 def _data(n, seed, ties=False):
     rng = np.random.default_rng(seed)
     X = points(rng, n, D)
@@ -66,10 +112,25 @@ def _jax_arrays(gp):
     return out
 
 
-def fit_cache():
+def _jax_case(n, q, ties, solver, jax_backend, precond):
+    """The JAX fit of one seeded case, and its arrays, verdict and 40-query
+    mean and variance."""
+    X, Y, Xq = _data(n, 100 + n + q + ties, ties)
+    jgp = jax_fit(JaxGPConfig(q=q, solver=solver, solver_iters=ITERS,
+                              precond=precond, backend=jax_backend),
+                  jnp.asarray(X), jnp.asarray(Y),
+                  jnp.asarray(np.full(D, OMEGA)), SIGMA)
+    return jgp, dict(arrays=_jax_arrays(jgp), verdict=int(jgp.health.verdict),
+                     mean=np.asarray(jax_mean(jgp, jnp.asarray(Xq))),
+                     var=np.asarray(jax_var(jgp, jnp.asarray(Xq))))
+
+
+def fit_cache(shared=None):
     """``get(n, q, ties=False, solver="pcg", jax_backend="pallas",
     precond="none")``: the JAX fit (on ``jax_backend``) and the port's CPU
-    fit of one seeded case, cached; ``ref["gp"]`` is the JAX GP. The seed
+    fit of one seeded case, cached. With ``shared`` (the
+    :func:`shared_ref` fixture's getter) the JAX side is computed once per
+    run; without it ``ref["gp"]`` is also the JAX GP itself. The seed
     depends on (n, q, ties) only, so the solvers of one case see the same
     data."""
     cache = {}
@@ -79,18 +140,15 @@ def fit_cache():
         key = (n, q, ties, solver, jax_backend, precond)
         if key not in cache:
             X, Y, Xq = _data(n, 100 + n + q + ties, ties)
-            omega = np.full(D, OMEGA)
-            jgp = jax_fit(JaxGPConfig(q=q, solver=solver, solver_iters=ITERS,
-                                      precond=precond, backend=jax_backend),
-                          jnp.asarray(X), jnp.asarray(Y), jnp.asarray(omega),
-                          SIGMA)
-            ref = dict(arrays=_jax_arrays(jgp), gp=jgp,
-                       verdict=int(jgp.health.verdict),
-                       mean=np.asarray(jax_mean(jgp, jnp.asarray(Xq))),
-                       var=np.asarray(jax_var(jgp, jnp.asarray(Xq))))
+            if shared is None:
+                jgp, ref = _jax_case(*key)
+                ref["gp"] = jgp
+            else:
+                ref = shared(("fit_cache",) + key,
+                             lambda: _jax_case(*key)[1])
             cfg = GPConfig(q=q, solver=solver, solver_iters=ITERS,
                            precond=precond)
-            gp = fit(cfg, X, Y, omega, SIGMA, device="cpu")
+            gp = fit(cfg, X, Y, np.full(D, OMEGA), SIGMA, device="cpu")
             cache[key] = (cfg, gp, Xq, ref)
         return cache[key]
 
