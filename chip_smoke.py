@@ -96,6 +96,13 @@ one process per source), then:
    kernels' rows at T = 64 (npad 2048), T = 4 (n = 30000) and q = 3, each
    lane bit for bit against its one-system launch; card vs CPU at T = 4,
    n = 500 for Jacobi, Gauss-Seidel, "off" and kmg.
+   The pivoted LU route (``pivot_lu_phase``): ``GPConfig(pivot=True,
+   solve_alg="lu")`` at n = 30000 (kmg, unfused) through ``fit`` ->
+   mean(100) -> var(100) -> ``log_likelihood`` -> ``mll_gradients``, with
+   ``banded_lu_pivot`` launched and no block-CR or fused kernel; the
+   kernel against its plain version on the path's SAPhi, a (2, 2) band,
+   an asymmetric band that forces swaps and the q = 3 patch shape
+   (``pivot_kernel_rows``).
    The health ladder (``health_phase``): faults injected into the pcg
    "whole" GP and a default ``GPConfig()`` (kmg) GP at n = 30000 and
    repaired by ``health.ladder.repair``, each trail held to the rungs the
@@ -128,7 +135,11 @@ one process per source), then:
    gradients against central differences of its own mean and variance at
    q = 0 and 1 (1e-4), and the dense local cache against the operator
    path (n = 512, D = 5, q = 1; 1e-8); streaming from one carried padded
-   state (pcg 4 + 4 mutations, kmg 1 + 1; ``stream_consistency``). The
+   state (pcg 4 + 4 mutations, kmg 1 + 1; ``stream_consistency``); the
+   pivoted LU route (``pivot_consistency``: Schwefel mean, variance,
+   likelihood and the gradients' B solves from the same factors, kmg at
+   n = 1500, jittered q = 0 gradients and q = 1, 4 + 4 mutations of
+   ``solve_alg="lu"`` GPs, unpivoted and pivoted). The
    q = 3 and q = 2 card-vs-CPU checks run at n = 2000 and 4000
    (``N_Q3_CHECK``, ``N_Q2_CHECK``).
 4. every single-GP output of ``scripts/single_bits.py`` bit for bit
@@ -207,7 +218,9 @@ def _import_port():
     from repro_torch.health.verdict import DRIFT_TOL, verdict_name
     from repro_torch.kernels import _build
     from repro_torch.kernels.band_matmul import band_matmul, band_matmul_plain
-    from repro_torch.kernels.banded_lu import banded_lu, banded_lu_plain
+    from repro_torch.kernels.banded_lu import (banded_lu, banded_lu_pivot,
+                                               banded_lu_pivot_plain,
+                                               banded_lu_plain)
     from repro_torch.kernels.banded_matvec import (banded_matvec,
                                                    banded_matvec_plain)
     from repro_torch.kernels.block_cr import (
@@ -2137,9 +2150,11 @@ def bo_default_phase(P, gp, f, bounds, dev, total):
         raise RuntimeError("default bayes_opt_loop: bad history")
 
 
-def _stream_cases(P):
+def _stream_cases(P, lu=False):
     """The streaming consistency cases: the Schwefel data at N_CHECK, the
-    mutations' points, the queries, and (tag, config, mutations)."""
+    mutations' points, the queries, and (tag, config, mutations); with
+    ``lu`` the ``solve_alg="lu"`` GPs, unpivoted and pivoted, whose
+    Woodbury patch solves take the pivoted banded LU."""
     D = D_PATH
     Xc, Yc, f, bc = P["sample_test_function"]("schwefel", N_CHECK, D, seed=0)
     r = np.random.default_rng(12)
@@ -2150,6 +2165,10 @@ def _stream_cases(P):
     cases = (("pcg whole", P["GPConfig"](q=0, solver_iters=40,
                                          precond="none"), 4),
              ("kmg", P["GPConfig"](q=0, precond="kmg"), 1))
+    if lu:
+        cases = tuple((f"lu pivot={pv}", P["GPConfig"](
+            q=0, solver_iters=40, precond="none", pivot=pv, solve_alg="lu"),
+            4) for pv in (False, True))
     return (Xc, Yc, omc, Xn, Yn, Xq), cases
 
 
@@ -2163,11 +2182,11 @@ def _mutated(P, h, Xn, Yn, muts, d):
     return h
 
 
-def _stream_cpu(P):
+def _stream_cpu(P, lu=False):
     """The CPU side of :func:`stream_consistency` (a worker's): per case the
     padded fit's arrays (the card's starting state) and, after the
     mutations, the mean, variance and windowed band."""
-    (Xc, Yc, omc, Xn, Yn, Xq), cases = _stream_cases(P)
+    (Xc, Yc, omc, Xn, Yn, Xq), cases = _stream_cases(P, lu)
     out = {}
     for tag, cfg, muts in cases:
         g = P["fit"](cfg, Xc, Yc, omc, 1.0, device="cpu", capacity=4096)
@@ -2181,15 +2200,16 @@ def _stream_cpu(P):
     return out
 
 
-def stream_consistency(P, dev, ref):
+def stream_consistency(P, dev, ref, lu=False):
     """Card against the plain CPU port at n = N_CHECK from ONE carried
     state (the CPU's padded fit rebuilt on the card): 4 inserts and 4
     evicts with pcg "whole", 1 and 1 with kmg (its plain V-cycles bound
-    the CPU side's time), on both sides (the CPU's in a worker,
+    the CPU side's time), or with ``lu`` 4 and 4 for each of the
+    ``solve_alg="lu"`` GPs, on both sides (the CPU's in a worker,
     :func:`_stream_cpu`); mean, variance and the windowed band within
     1e-7."""
     D = D_PATH
-    (_, _, _, Xn, Yn, Xq), cases = _stream_cases(P)
+    (_, _, _, Xn, Yn, Xq), cases = _stream_cases(P, lu)
     for tag, cfg, muts in cases:
         r = ref[tag]
         g = _mutated(P, P["gp_from_arrays"](r["start"], cfg, dev), Xn, Yn,
@@ -3464,6 +3484,285 @@ def health_phase(P, dev, gp, X, Y, omega, sigma, Xq, bounds, small):
 
 
 # ---------------------------------------------------------------------------
+# the pivoted LU route: GPConfig(pivot=True, solve_alg="lu")
+# ---------------------------------------------------------------------------
+
+# the kmg card-vs-CPU check's size: its CPU side runs the plain pivoted LU's
+# row loop in every V-cycle
+N_PIVOT_KMG = 1500
+
+
+def _pivot_cfgs(P):
+    """The pivoted LU checks' configurations (section 3)."""
+    G = P["GPConfig"]
+    kw = dict(pivot=True, solve_alg="lu")
+    return dict(pcg=G(q=0, solver_iters=40, precond="none", **kw),
+                kmg=G(q=0, precond="kmg", **kw),
+                q1=G(q=1, solver_iters=40, precond="none", **kw))
+
+
+def _lu_backward_err(P, band, x, rhs, lo, hi):
+    """Normwise backward error |M x - r| / (|M| |x| + |r|), max norms."""
+    res = P["banded_matvec_plain"](band, x, lo, hi) - rhs
+    return float(res.abs().max() / (band.abs().sum(-1).max() * x.abs().max()
+                                    + rhs.abs().max()))
+
+
+def _swap_band(rng, G, n, lo, hi, dev):
+    """A well-conditioned band on which partial pivoting swaps: a dominant
+    band's rows scaled by 1 and 50 in turn (the scaled rows' off-diagonals
+    outgrow the diagonals above them), and a zero leading diagonal entry,
+    which leaves the unpivoted LU nothing to divide by."""
+    bd = _band(rng, G, n, lo, hi, "cpu")
+    bd = bd * torch.where(torch.arange(n) % 2 == 1, 50.0, 1.0)[None, :, None]
+    bd[:, 0, lo] = 0.0
+    return bd.to(dev)
+
+
+def pivot_kernel_rows(P, rng, dev, gp):
+    """``banded_lu_pivot`` against its plain version on the same CUDA
+    tensors: the pivoted path's own SAPhi (lo = hi = 1, G = 10, n = 30000,
+    B = 32: the kernels line's row), a (2, 2) band (SAPhi at q = 1, the
+    gradients' B at q = 0; B = 16 probes), an asymmetric (2, 1) band that
+    forces swaps, and the q = 3 insert patch's shape (half-width 8, 2 D
+    bands of patch_size rows, 12 q + 17 columns). Gates: x within 1e-10
+    relative on the well-conditioned bands (all but the path's SAPhi,
+    whose conditioning follows the Schwefel points); on every band the
+    kernel's backward error within 10x the plain version's (the kernel
+    rounds each product and difference as the plain version does, so its
+    pivots are the plain version's; were two candidates to differ only by
+    rounding, the choices could part, and this gate decides); the
+    log-determinant within 1e-12 of max(|plain|, 1)."""
+    D, n, B = D_PATH, N_PATH, B_PATH
+    Pn = P["patch_size"](3, STREAM_CAP)
+    eps = float(torch.finfo(torch.float64).eps)
+    cases = (("path SAPhi (1,1)", gp.ops.SAPhi.data, 1, 1, B, False),
+             ("(2,2)", _band(rng, D, n, 2, 2, dev), 2, 2, 16, True),
+             ("swaps (2,1)", _swap_band(rng, D, n, 2, 1, dev), 2, 1, 8, True),
+             ("patch (8,8)", _swap_band(rng, 2 * D, Pn, 8, 8, dev), 8, 8,
+              53, True))
+    rows = []
+    for tag, bd, lo, hi, Bc, well in cases:
+        G, nn, wb = bd.shape
+        rhs = torch.as_tensor(rng.standard_normal((G, nn, Bc)), device=dev)
+        ms, (x, ld) = _event_ms(lambda: P["banded_lu_pivot"](bd, rhs, lo, hi),
+                                reps=5)
+        pms, (xp, ldp, swaps) = _event_ms(
+            lambda: P["banded_lu_pivot_plain"](bd, rhs, lo, hi, swaps=True),
+            reps=1, warmup=0)
+        err, rel = _errs(x, xp)
+        ld_err = float((ld - ldp).abs().max()
+                       / max(float(ldp.abs().max()), 1.0))
+        be_k = _lu_backward_err(P, bd, x, rhs, lo, hi)
+        be_p = _lu_backward_err(P, bd, xp, rhs, lo, hi)
+        wu = lo + hi + 1
+        nbytes = 8 * (G * nn * wb + 2 * G * nn * Bc + G)
+        flops = G * nn * (lo + 2 * lo * wu + 1) + G * nn * Bc * (
+            2 * lo + 2 * (wu - 1) + 1)
+        b_ms, b_by = _bound(nbytes, flops)
+        tol = 1e-10 if well else float("inf")
+        print(f"kernel banded_lu_pivot {tag} G={G} n={nn} B={Bc}: "
+              f"max_abs_err={err:.3e} max_rel_err={rel:.3e} (tol "
+              f"{tol:.0e}); bitwise {torch.equal(x, xp)}; swaps "
+              f"{int(swaps.sum())} of {G * nn}; backward error kernel "
+              f"{be_k:.3e} plain {be_p:.3e}; logdet err {ld_err:.3e} (tol "
+              f"1e-12); kernel_ms={ms:.4f} plain_ms={pms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+        if not (rel <= tol and be_k <= 10.0 * max(be_p, eps)
+                and ld_err <= 1e-12 and bool(torch.isfinite(x).all())):
+            raise RuntimeError(f"banded_lu_pivot {tag}: rel {rel:.3e}, "
+                               f"backward {be_k:.3e} vs {be_p:.3e}, logdet "
+                               f"{ld_err:.3e}")
+        if not rows:
+            rows.append(dict(
+                name="banded_lu_pivot", route="cuda",
+                source="src/repro_torch/csrc/banded_lu_pivot.cu",
+                replaces="src/repro/core/banded.py:304 (a lax.scan; no "
+                         "Pallas kernel)",
+                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None))
+        del bd, rhs, x, xp
+    return rows
+
+
+def pivot_lu_phase(P, dev, X, Y, omega, sigma, Xq, f):
+    """``GPConfig(pivot=True, solve_alg="lu")`` as users write it, at the
+    main path's point: ``precond`` resolves to kmg and ``fused`` to "off",
+    and every banded solve and log-determinant of width >= 1 runs the
+    pivoted banded LU. fit -> mean(100) -> var(100) -> ``log_likelihood``
+    -> ``mll_gradients``, with walls, peak memory and launches; no block-CR
+    or fused kernel may launch. Then the kernel rows
+    (:func:`pivot_kernel_rows`). Returns (rows, the path's counts)."""
+    _build = P["_build"]
+    t0 = time.perf_counter()
+    D, n = D_PATH, N_PATH
+    cfg = P["GPConfig"](pivot=True, solve_alg="lu")
+    gen = torch.Generator().manual_seed(9)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    gp, t_fit = _sync_time(lambda: P["fit"](cfg, X, Y, omega, sigma))
+    mu, t_mean = _sync_time(lambda: P["posterior_mean"](gp, Xq))
+    var, t_var = _sync_time(lambda: P["posterior_var"](gp, Xq))
+    (ll, ll_v), t_ll = _sync_time(
+        lambda: P["log_likelihood"](gp, gen, return_verdict=True))
+    (g_om, g_sg, info), t_grad = _sync_time(
+        lambda: P["mll_gradients"](gp, gen, return_info=True))
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    mu_np, var_np = mu.cpu().numpy(), var.cpu().numpy()
+    verdicts = {k: P["verdict_name"](v) for k, v in (
+        ("fit", gp.health.verdict), ("log_likelihood", ll_v),
+        ("mll_gradients", info.verdict))}
+    print(f"pivoted LU path GPConfig(pivot=True, solve_alg='lu') n={n} "
+          f"D={D}: precond {gp.config.precond}, fused {gp.config.fused}: "
+          f"fit {t_fit * 1e3:.1f} ms, posterior_mean(100) "
+          f"{t_mean * 1e3:.1f} ms, posterior_var(100) {t_var * 1e3:.1f} ms, "
+          f"log_likelihood {t_ll * 1e3:.1f} ms (value {float(ll):.6f}), "
+          f"mll_gradients {t_grad * 1e3:.1f} ms; RMSE "
+          f"{float(np.sqrt(np.mean((mu_np - f(Xq)) ** 2))):.4f}; verdicts "
+          f"{verdicts}; peak memory {peak / 2**20:.1f} MiB; launches "
+          f"{counts}", flush=True)
+    vals = torch.cat([ll.reshape(1), g_om, g_sg.reshape(1)]).cpu()
+    if not (gp.config.precond == "kmg" and gp.config.fused == "off"
+            and np.isfinite(mu_np).all() and np.isfinite(var_np).all()
+            and (var_np > 0).all() and bool(torch.isfinite(vals).all())
+            and all(v in ("OK", "STALLED") for v in verdicts.values())):
+        raise RuntimeError("pivoted LU path: not kmg/off, not finite, or "
+                           "diverged")
+    _require_launched("pivoted LU path", counts,
+                      ("banded_lu_pivot", "banded_lu", "banded_matvec",
+                       "band_matmul", "rgf_blocks"))
+    bad = [k for k, v in counts.items()
+           if v and k.startswith(("cr_", "mega_", "fused_"))]
+    if bad:
+        raise RuntimeError(f"the pivoted LU path launched {bad}")
+    rows = pivot_kernel_rows(P, np.random.default_rng(26), dev, gp)
+    del gp
+    print(f"pivoted LU phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows, counts
+
+
+def _pivot_cpu(P, name):
+    """The CPU side of :func:`pivot_consistency` (a worker's)."""
+    cfgs, draws = _pivot_cfgs(P), _draws(P)
+    mean, var = P["posterior_mean"], P["posterior_var"]
+
+    def fit(cfg, X, Y, om):
+        return P["fit"](cfg, X, Y, om, 1.0, device="cpu")
+
+    out = {}
+    if name == "pivot":
+        Xc, Yc, omc, Xqc = _schwefel_check(P)
+        g = fit(cfgs["pcg"], Xc, Yc, omc)
+        out["gp"] = _gp_arrays(P, g)
+        out["mean"] = _np(mean(g, Xqc, device="cpu"))
+        out["var"] = _np(var(g, Xqc[:B_PATH], device="cpu"))
+        out["ll"] = _np(P["_log_likelihood"](g, draws["schwefel pm"],
+                                             draws["schwefel pv"]))
+        out["xpu"] = _np(P["banded_lu_pivot_plain"](
+            g.B.data, _same_factors_rhs(P, g, draws["schwefel V"]), g.B.lo,
+            g.B.hi)[0])
+        k = N_PIVOT_KMG
+        gk = fit(cfgs["kmg"], Xc[:k], Yc[:k], omc)
+        out["kmg mean"] = _np(mean(gk, Xqc, device="cpu"))
+        out["kmg var"] = _np(var(gk, Xqc[:8], device="cpu"))
+    elif name == "pivot jittered":
+        (Xj, Yj, Xqj), _ = _jittered_checks()
+        om4 = np.full(D_PATH, 4.0)
+        out["grads"] = _np(_grads(P, fit(cfgs["pcg"], Xj, Yj, om4),
+                                  draws["jittered V"]))
+        g1 = fit(cfgs["q1"], Xj, Yj, om4)
+        out["q1 mean"] = _np(mean(g1, Xqj, device="cpu"))
+        out["q1 var"] = _np(var(g1, Xqj[:8], device="cpu"))
+    else:
+        out = _stream_cpu(P, lu=True)
+    return out
+
+
+def pivot_consistency(P, dev, refs):
+    """The pivoted LU route, card against the plain CPU port (the CPU side
+    from the workers, :func:`_pivot_cpu`), within 1e-7: at n = N_CHECK on
+    the Schwefel data with ``precond="none"`` the mean and variance, the
+    log-likelihood (the same probes) from the CPU fit's caches (that of
+    each side's own fit printed), and the gradients' B solves from the
+    same factors (B is ill-conditioned here, ROADMAP Queue 3: the kernel's
+    backward error within 10x the plain version's is the gate); kmg at
+    N_PIVOT_KMG; on the jittered grid the q = 0 gradients and a q = 1 mean
+    and variance; 4 inserts and 4 evicts of a ``solve_alg="lu"`` GP,
+    unpivoted and pivoted, from one carried state."""
+    D, B = D_PATH, B_PATH
+    cfgs, draws = _pivot_cfgs(P), _draws(P)
+    T = torch.as_tensor
+    r = refs("pivot")
+    Xc, Yc, omc, Xqc = _schwefel_check(P)
+    g = P["fit"](cfgs["pcg"], Xc, Yc, omc, 1.0)
+    tag = f"pivoted LU n={N_CHECK} D={D}"
+    _check(f"{tag} mean", P["posterior_mean"](g, Xqc), T(r["mean"]))
+    _check(f"{tag} var", P["posterior_var"](g, Xqc[:B]), T(r["var"]))
+    pm, pv = draws["schwefel pm"].to(dev), draws["schwefel pv"].to(dev)
+    # The likelihood's quadratic term Y^T Y / s^2 - Y^T u / s^4 cancels
+    # about |Y|^2 / |ll| here (Schwefel values ~1e3, sigma = 1), so it
+    # carries the two fits' gap in u = Mhat^{-1} S Y (their 40 PCG
+    # iterations round apart) times that: printed, not a gate. The gate is
+    # the likelihood from the same fit caches (the CPU fit rebuilt on the
+    # card), which holds the log-determinants' kernels and the estimator's
+    # pivoted block solves.
+    ll_own = P["_log_likelihood"](g, pm, pv)
+    gap = float((ll_own.cpu() - T(r["ll"])).abs() / T(r["ll"]).abs())
+    yy = float((g.Y @ g.Y).cpu()) / float(T(r["ll"]).abs())
+    u_cpu = T(r["gp"]["u_sy"])
+    u_gap = float((g.u_sy.cpu() - u_cpu).abs().max() / u_cpu.abs().max())
+    print(f"{tag} log_likelihood of the card's own fit: card vs cpu max rel "
+          f"{gap:.3e} (not a gate: |Y|^2 / |ll| = {yy:.3e}, the fits' u_sy "
+          f"max rel {u_gap:.3e})", flush=True)
+    del g
+    g_cpu = P["gp_from_arrays"](r["gp"], cfgs["pcg"], "cpu")
+    _check(f"{tag} log_likelihood (the CPU fit's caches)",
+           P["_log_likelihood"](_gp_on(P, g_cpu, dev), pm, pv), T(r["ll"]))
+    Bb = g_cpu.B
+    rhs = _same_factors_rhs(P, g_cpu, draws["schwefel V"])
+    Bd, rd = Bb.data.to(dev), rhs.contiguous().to(dev)
+    xs = {"kernel": P["banded_lu_pivot"](Bd, rd, Bb.lo, Bb.hi)[0].cpu(),
+          "plain card": P["banded_lu_pivot_plain"](Bd, rd, Bb.lo,
+                                                   Bb.hi)[0].cpu(),
+          "plain cpu": T(r["xpu"])}
+    be = {k: _lu_backward_err(P, Bb.data, x, rhs, Bb.lo, Bb.hi)
+          for k, x in xs.items()}
+    gap = float((xs["kernel"] - xs["plain cpu"]).abs().max()
+                / xs["plain cpu"].abs().max())
+    print(f"{tag} gradients' B ({Bb.lo},{Bb.hi}) solves from the same "
+          f"factors: kernel vs plain cpu max rel {gap:.3e} (conditioning; "
+          f"not a gate), kernel bitwise the plain card's "
+          f"{torch.equal(xs['kernel'], xs['plain card'])}; backward errors "
+          + ", ".join(f"{k} {v:.3e}" for k, v in be.items()), flush=True)
+    eps = float(torch.finfo(torch.float64).eps)
+    if not be["kernel"] <= 10.0 * max(be["plain card"], be["plain cpu"], eps):
+        raise RuntimeError(f"banded_lu_pivot on the Schwefel B: backward "
+                           f"error {be} above the plain version's")
+    k = N_PIVOT_KMG
+    gk = P["fit"](cfgs["kmg"], Xc[:k], Yc[:k], omc, 1.0)
+    _check(f"pivoted LU kmg n={k} D={D} mean", P["posterior_mean"](gk, Xqc),
+           T(r["kmg mean"]))
+    _check(f"pivoted LU kmg n={k} D={D} var", P["posterior_var"](gk, Xqc[:8]),
+           T(r["kmg var"]))
+    del gk
+    r = refs("pivot jittered")
+    (Xj, Yj, Xqj), _ = _jittered_checks()
+    om4 = np.full(D, 4.0)
+    g0 = P["fit"](cfgs["pcg"], Xj, Yj, om4, 1.0)
+    _check(f"pivoted LU jittered n={N_Q1} D={D} gradients",
+           _grads(P, g0, draws["jittered V"].to(dev)), T(r["grads"]))
+    del g0
+    g1 = P["fit"](cfgs["q1"], Xj, Yj, om4, 1.0)
+    _check(f"pivoted LU q=1 n={N_Q1} D={D} mean", P["posterior_mean"](g1, Xqj),
+           T(r["q1 mean"]))
+    _check(f"pivoted LU q=1 n={N_Q1} D={D} var",
+           P["posterior_var"](g1, Xqj[:8]), T(r["q1 var"]))
+    del g1
+    stream_consistency(P, dev, refs("pivot stream"), lu=True)
+
+
+# ---------------------------------------------------------------------------
 # consistency (section 3): the card against the plain CPU port. The CPU side
 # (plain fits, solves, queries, likelihoods, gradients) runs in worker
 # processes started at the top of main(), while the card phases run; the
@@ -3473,8 +3772,8 @@ def health_phase(P, dev, gp, X, Y, omega, sigma, Xq, bounds, small):
 # the worker processes of the CPU side, and the sections they compute (the
 # longest first, so that they end together)
 REF_WORKERS = 3
-REF_SECTIONS = ("fleet", "q3", "jittered", "schwefel", "q2", "relaxation",
-                "stream")
+REF_SECTIONS = ("fleet", "pivot jittered", "pivot", "q3", "pivot stream",
+                "jittered", "schwefel", "q2", "relaxation", "stream")
 _PORT = None
 
 
@@ -3632,6 +3931,8 @@ def _cpu_section(P, name):
             g.B.data, _same_factors_rhs(P, g, V3), g.B.lo)[0])
     elif name == "fleet":
         out = _fleet_solvers_cpu(P)
+    elif name.startswith("pivot"):
+        out = _pivot_cpu(P, name)
     else:
         raise ValueError(f"unknown consistency section {name!r}")
     return out
@@ -3869,6 +4170,8 @@ def consistency(P, dev, refs):
         raise RuntimeError(f"q = 3 gradients: backward error {be3}")
     del g3, g3cpu
     _stamp("consistency: q = 3")
+    pivot_consistency(P, dev, refs)
+    _stamp("consistency: the pivoted LU route")
     print("cpu references, seconds in the workers: " + ", ".join(
         f"{k} {v:.1f}" for k, v in refs.seconds.items()), flush=True)
 
@@ -3952,7 +4255,8 @@ def _card_main(P, refs):
                               ("kp_gram.cu", "kp_gram", "q"),
                               ("mega_pcg.cu", "mega_pcg", "PIVOT, MAXW"),
                               ("jacobi.cu", "jacobi", "PIVOT, MAXW"),
-                              ("gauss_seidel.cu", "gs", "PIVOT, MAXW")):
+                              ("gauss_seidel.cu", "gs", "PIVOT, MAXW"),
+                              ("banded_lu_pivot.cu", "lu_pivot", "L, L")):
         print(f"ptxas {src} ({arg}, kernel, registers, spill stores, spill "
               "loads): " + "; ".join(
                   f"{w} {k} {r} {st} {ld}"
@@ -4359,10 +4663,15 @@ def _card_main(P, refs):
     counts_h = health_phase(P, dev, gp, X, Y, omega, sigma, Xq, bounds,
                             small)
     del small
+    # --- the pivoted LU route: GPConfig(pivot=True, solve_alg="lu") at the
+    # main path's point, and the pivoted banded LU kernel's rows ----------
+    pivot_rows, counts_p = pivot_lu_phase(P, dev, X, Y, omega, sigma, Xq, f)
+    rows += pivot_rows
+    _stamp("pivoted LU route")
 
     all_counts = [counts, counts_l, *relax_counts, counts_k, counts_d,
                   counts_o, counts_t, counts_bo, counts_s, *counts_3,
-                  counts_f, counts_fs, counts_h]
+                  counts_f, counts_fs, counts_h, counts_p]
     for row in rows:
         row["launches"] = sum(c[row["name"]] for c in all_counts)
 

@@ -14,11 +14,9 @@ Device rule: ``fit``, ``posterior_mean``, ``posterior_var`` and
 ``device="cpu"``; with no GPU and no such argument they raise. The
 likelihood and its gradients run where the fitted GP lives. On CUDA every
 banded kernel of the path is a hand-written CUDA kernel; on the CPU the
-plain versions run. Paths that are not ported yet raise
-``NotImplementedError`` at ``fit`` (see :class:`GPConfig`). With
-``precond="kmg"`` (the "auto" choice at q == 0 and n >= 4096, as in the
-reference) ``fit`` builds the coarse hierarchy (``gp.hier``) and every
-solve of the GP runs the V-cycle preconditioner.
+plain versions run. With ``precond="kmg"`` (the "auto" choice at q == 0
+and n >= 4096, as in the reference) ``fit`` builds the coarse hierarchy
+(``gp.hier``) and every solve of the GP runs the V-cycle preconditioner.
 
 Capacity padding: ``fit(..., capacity=)`` / :func:`with_capacity` return a
 GP whose row-indexed tensors have ``capacity`` rows with ``n_active`` (a
@@ -79,9 +77,11 @@ class GPConfig:
     whole-solve launch per solve), "on" (a host loop of one-iteration
     launches) or "off" (the unfused host loops). ``precond`` "auto"
     resolves at ``fit`` to "kmg" at q == 0 and n >= 4096, else "none".
-    Values whose path is not ported raise ``NotImplementedError`` at
-    ``fit``: ``pivot=True`` with ``solve_alg="lu"`` (the pivoted gbsv
-    scan). ``backend``: "auto" (by tensor device) | "cuda".
+    ``pivot=True`` pivots every banded solve and log-determinant: block CR
+    with block partial pivoting on the "cr" route, the pivoted banded LU
+    (the reference's gbsv-style scan) with ``solve_alg="lu"``, under which
+    "auto" fuses nothing ("off"). ``backend``: "auto" (by tensor device) |
+    "cuda".
     """
 
     q: int = 0
@@ -191,19 +191,13 @@ def _as_f64(x, device) -> torch.Tensor:
 
 
 def resolve_config(config: GPConfig, n: int, device) -> GPConfig:
-    """Bake every "auto" to its concrete value and reject unported paths."""
+    """Bake every "auto" to its concrete value and reject unknown values."""
     if config.backend not in _kops.BACKENDS:
         raise ValueError(f"unknown backend {config.backend!r}; expected one "
                          f"of {_kops.BACKENDS}")
     _kops.resolve_backend(config.backend, device)
     if config.q not in mk.SUPPORTED_Q:
         raise ValueError(f"q={config.q} not in {mk.SUPPORTED_Q}")
-    if config.pivot and config.solve_alg == "lu":
-        raise NotImplementedError(
-            "pivot=True with solve_alg='lu' needs the reference's pivoted "
-            "gbsv scan on the LU route, which is not ported (ROADMAP Queue "
-            "1, pivoted solves); pivot=True runs with solve_alg 'auto' or "
-            "'cr'")
     if config.logdet_method not in LOGDET_METHODS:
         raise ValueError(f"unknown logdet_method {config.logdet_method!r}; "
                          f"expected one of {LOGDET_METHODS}")
@@ -571,18 +565,15 @@ def _logdet_mhat(gp: AdditiveGP, pm_v0, probe_v):
     kw = dict(order=c.logdet_order, probes=probe_v.shape[-1],
               power_iters=c.power_iters, dtype=gp.Y.dtype, probe_v=probe_v,
               power_v0=pm_v0)
+    lk = dict(pivot=c.pivot, backend=c.backend, alg=c.solve_alg)
     if c.logdet_method == "taylor":
-        mv = lambda u: mhat_matvec(gp.ops, u, backend=c.backend,
-                                   alg=c.solve_alg)
+        mv = lambda u: mhat_matvec(gp.ops, u, **lk)
         return st.logdet_taylor(mv, dim, (D, n), None, **kw)
     # taylor_pc: C = Khat^{-1} + sigma^{-2} I (block diagonal), log|C| exact:
     # log|K_d^{-1} + s^{-2} I| = log|A_d + s^{-2} Phi_d| - log|Phi_d|
-    lk = dict(pivot=c.pivot, backend=c.backend, alg=c.solve_alg)
     APhi = add(gp.ops.A, scale(gp.ops.Phi, 1.0 / gp.sigma ** 2))
     ld_c = logdet(APhi, **lk).sum() - logdet(gp.ops.Phi, **lk).sum()
-    nv = lambda u: gp.ops.block_solve(
-        mhat_matvec(gp.ops, u, backend=c.backend, alg=c.solve_alg),
-        backend=c.backend, alg=c.solve_alg)
+    nv = lambda u: gp.ops.block_solve(mhat_matvec(gp.ops, u, **lk), **lk)
     return ld_c + st.logdet_taylor(nv, dim, (D, n), None, **kw)
 
 

@@ -25,7 +25,8 @@ import torch
 from ..masking import canonical_band
 
 __all__ = ["Banded", "from_dense", "to_dense", "matvec", "transpose",
-           "band_band_matmul", "solve", "logdet", "add", "scale", "mask_band"]
+           "band_band_matmul", "solve", "solve_nopivot", "logdet", "add",
+           "scale", "mask_band"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,16 +179,26 @@ def scale(a: Banded, s) -> Banded:
 
 def solve(b: Banded, rhs: torch.Tensor, pivot: bool = True, *,
           backend: str | None = None, alg: str | None = None):
-    """Solve M x = rhs; dispatches through ``ops``.
+    """Solve M x = rhs; dispatches through ``ops``. Default uses partial
+    pivoting (robust).
 
     ``pivot=True`` runs the pivoted block-CR mode where ``ops`` resolves the
-    "cr" route (lo == hi >= 1); on the "lu" route it raises
-    ``NotImplementedError`` (the reference's pivoted gbsv scan is not ported).
+    "cr" route (lo == hi >= 1), and the pivoted banded LU (the reference's
+    gbsv-style scan, ``kernels.banded_lu.banded_lu_pivot``) on the "lu"
+    route (lo != hi, or ``alg="lu"``), where lo >= 1.
     """
     from ..kernels import ops as _ops
 
     return _ops.banded_solve(b.data, rhs, b.lo, b.hi, pivot=pivot,
                              backend=backend, alg=alg, n_active=b.n_active)
+
+
+def solve_nopivot(b: Banded, rhs: torch.Tensor, *,
+                  backend: str | None = None):
+    """Solve M x = rhs by LU without pivoting (fast; requires a stable LU):
+    the LU kernel on any (lo, hi), as the reference's scan. A padded band
+    is canonicalized first, so the active prefix is exact."""
+    return solve(b, rhs, pivot=False, backend=backend, alg="lu")
 
 
 def logdet(b: Banded, pivot: bool = True, *, backend: str | None = None,

@@ -164,21 +164,24 @@ def _gather_patch(data, ps, P: int, h: int):
                        torch.zeros((), dtype=data.dtype, device=dev))
 
 
-def _solve_windows(Hdata, hs: int, E, F_, backend: str | None):
+def _solve_windows(Hdata, hs: int, E, F_, backend: str | None,
+                   alg: str | None):
     """Patch columns ``X = H^{-1} E`` and rows ``Y^T = (H^{-T} F)^T``: the H
-    and H^T systems as ONE stacked pivoted block-CR solve (a leading batch
-    of 2), right-hand sides zero-padded to a common column count."""
+    and H^T systems as ONE stacked pivoted solve (a leading batch of 2),
+    right-hand sides zero-padded to a common column count. ``alg`` is the
+    GP's solve alg, as in the reference: "auto" resolves to block CR on
+    these symmetric bands, "lu" to the pivoted banded LU."""
     r, c = E.shape[-1], F_.shape[-1]
     w = max(r, c)
     Hpair = torch.stack([Hdata, transpose(Banded(Hdata, hs, hs)).data])
     rhs = torch.stack([F.pad(E, (0, w - r)), F.pad(F_, (0, w - c))])
     out = solve(Banded(Hpair, hs, hs), rhs, pivot=True, backend=backend,
-                alg="cr")
+                alg=alg)
     return out[0][..., :r], out[1][..., :c].transpose(1, 2)
 
 
 def _woodbury(Hsolve, hs: int, delta, hd: int, p, q: int, sign: float,
-              backend: str | None):
+              backend: str | None, alg: str | None):
     """Shared window Woodbury: ``X``, ``V`` with correction ``sign * X V``.
 
     ``(H + E M F^T)^{-1} = H^{-1} - X (I + M F^T X)^{-1} M Y^T``,
@@ -196,7 +199,7 @@ def _woodbury(Hsolve, hs: int, delta, hd: int, p, q: int, sign: float,
     Hp = _gather_patch(Hsolve, ps, P, hs)
     E = _onehot_cols(wr - ps[:, None], vr, P, Hsolve.dtype)
     Fc = _onehot_cols(wc - ps[:, None], vc, P, Hsolve.dtype)
-    X, Yt = _solve_windows(Hp, hs, E, Fc, backend)
+    X, Yt = _solve_windows(Hp, hs, E, Fc, backend, alg)
     r = M.shape[1]
     X_wc = torch.gather(X, 1, (wc - ps[:, None])[:, :, None].expand(-1, -1,
                                                                     r))
@@ -247,20 +250,23 @@ def _per_tenant_max(x, tenants: int | None):
 
 def gband_insert(Hband_old: Banded, A: Banded, Phi: Banded,
                  Gband_old: Banded, p, k_new, q: int, *,
-                 backend: str | None = None, tenants: int | None = None):
+                 backend: str | None = None, alg: str | None = None,
+                 tenants: int | None = None):
     """Windowed ``(Gband, Hband, drift)`` after inserting at sorted
     positions ``p`` (D,): ``Hband_old``/``Gband_old`` the cached pre-insert
     canonical bands (D, C, 2h+1), ``A``/``Phi`` the post-insert factors,
     ``k_new`` the new active count (0-d tensor). ``drift`` is this
     mutation's :func:`_drift_estimate`, the largest over the dimensions.
-    A fleet passes its tenants' dimensions flattened (T D leading rows,
+    ``alg`` is the GP's solve alg, which routes the patch solve. A fleet
+    passes its tenants' dimensions flattened (T D leading rows,
     ``k_new`` and the bands' counts per dimension) and ``tenants`` = T:
     the scales and the drift are then per tenant, drift (T,)."""
     h = A.lo + Phi.lo  # 2q + 1
     Hs = _splice_band(Hband_old.canonical().data, h, p, hout=h + 1)
     Hnew = _new_hband(A, Phi, k_new, backend)
     delta = _widen(Hnew, 1) - Hs
-    X, V, _, ps = _woodbury(Hs, h + 1, delta, h + 1, p, q, -1.0, backend)
+    X, V, _, ps = _woodbury(Hs, h + 1, delta, h + 1, p, q, -1.0, backend,
+                            alg)
     Gs = _splice_band(Gband_old.canonical().data, h, p)
     corr = _low_rank_band(X, V, h)
     drift = _per_tenant_max(_drift_estimate(
@@ -280,7 +286,8 @@ def _per_dim_scale(G, tenants: int | None):
 
 def gband_evict(Hband_old: Banded, A: Banded, Phi: Banded,
                 Gband_old: Banded, p, k_new, q: int, *,
-                backend: str | None = None, tenants: int | None = None):
+                backend: str | None = None, alg: str | None = None,
+                tenants: int | None = None):
     """Windowed ``(Gband, Hband, drift)`` after evicting sorted positions
     ``p`` (D,); arguments as :func:`gband_insert` (``A``/``Phi`` the
     post-evict factors), the solves against the cached ``Hband_old``."""
@@ -291,7 +298,8 @@ def gband_evict(Hband_old: Banded, A: Banded, Phi: Banded,
     Hnew = _new_hband(A, Phi, k_new, backend)
     Hs = _splice_band(Hnew, h, p, hout=h + 1)
     delta = _widen(Hold, 1) - Hs
-    X, V, Yt, pstart = _woodbury(Hold, h, delta, h + 1, p, q, 1.0, backend)
+    X, V, Yt, pstart = _woodbury(Hold, h, delta, h + 1, p, q, 1.0, backend,
+                                 alg)
     Gold = Gband_old.canonical().data
     corr = _low_rank_band(X, V, h)
     drift = _per_tenant_max(_drift_estimate(

@@ -13,9 +13,22 @@ import math
 
 import torch
 
-__all__ = ["SUPPORTED_Q", "matern", "matern_domega", "matern_dx"]
+__all__ = ["SUPPORTED_Q", "nu_from_q", "q_from_nu", "matern",
+           "matern_domega", "matern_dx", "gram", "cross"]
 
 SUPPORTED_Q = (0, 1, 2, 3)
+
+
+def nu_from_q(q: int) -> float:
+    return q + 0.5
+
+
+def q_from_nu(nu: float) -> int:
+    q = int(round(nu - 0.5))
+    if abs(nu - (q + 0.5)) > 1e-12 or q not in SUPPORTED_Q:
+        raise ValueError(f"nu={nu} is not a supported half-integer (q in "
+                         f"{SUPPORTED_Q})")
+    return q
 
 
 def _poly_coeffs(q: int) -> list[float]:
@@ -69,3 +82,13 @@ def matern_dx(q: int, omega, x, y):
     for m in range(q, 0, -1):
         dp = dp * u + coeffs[m] * m * (2.0 ** m)
     return torch.sign(d) * omega * torch.exp(-u) * (dp - p)
+
+
+def gram(q: int, omega, xs):
+    """Full covariance matrix k(xs, xs), O(n^2): the dense oracle's."""
+    return matern(q, omega, xs[:, None], xs[None, :])
+
+
+def cross(q: int, omega, xs, xq):
+    """Cross covariance k(xs, xq), shape (len(xs), len(xq))."""
+    return matern(q, omega, xs[:, None], xq[None, :])

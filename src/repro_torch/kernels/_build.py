@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("banded_lu.cu", "band_matmul.cu", "rgf.cu", "mega_pcg.cu",
            "banded_matvec.cu", "block_cr.cu", "jacobi.cu", "gauss_seidel.cu",
-           "kp_gram.cu")
+           "kp_gram.cu", "banded_lu_pivot.cu")
 HEADERS = ("common.cuh", "cr.cuh", "sweep.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -53,7 +53,7 @@ KERNELS = ("banded_lu", "band_matmul", "rgf_blocks", "mega_pcg",
            "fused_jacobi_iter_fleet", "mega_jacobi_fleet_w4",
            "fused_jacobi_iter_fleet_w4", "mega_gauss_seidel_fleet",
            "fused_gauss_seidel_iter_fleet", "mega_gauss_seidel_fleet_w4",
-           "fused_gauss_seidel_iter_fleet_w4")
+           "fused_gauss_seidel_iter_fleet_w4", "banded_lu_pivot")
 
 _c_int, _c_ll, _c_dbl, _ptr = (ctypes.c_int, ctypes.c_longlong,
                                 ctypes.c_double, ctypes.c_void_p)
@@ -61,6 +61,7 @@ _c_int, _c_ll, _c_dbl, _ptr = (ctypes.c_int, ctypes.c_longlong,
 # c_void_p so ctypes never truncates them to 32 bits
 _SIGNATURES = {
     "repro_banded_lu_f64": (_c_int, [_ptr] * 7 + [_c_int] * 5 + [_ptr]),
+    "repro_banded_lu_pivot_f64": (_c_int, [_ptr] * 6 + [_c_int] * 5 + [_ptr]),
     "repro_band_matmul_f64": (_c_int, [_ptr, _ptr, _ptr, _c_int, _c_int,
                                        _c_int, _c_int, _c_int, _c_int, _ptr]),
     "repro_rgf_workspace": (_c_ll, [_c_int] * 3),

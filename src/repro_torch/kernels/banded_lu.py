@@ -1,10 +1,20 @@
-"""Banded LU solve (no pivoting) + log-determinant: CUDA kernel and plain version.
+"""Banded LU solves + log-determinants: CUDA kernels and plain versions.
 
-Counterpart of ``repro.kernels.banded_lu.banded_lu_pallas``: forward
+:func:`banded_lu` is the counterpart of
+``repro.kernels.banded_lu.banded_lu_pallas`` (no pivoting): forward
 elimination with ``lo`` multipliers per row, back substitution with ``hi``
-terms per row, and ``log|det| = sum_i log|U[i, 0]|`` from the same pass.
-The CUDA kernel is ``csrc/banded_lu.cu``; the wrapper launches it for CUDA
-tensors and runs :func:`banded_lu_plain` for CPU tensors.
+terms per row, and ``log|det| = sum_i log|U[i, 0]|`` from the same pass
+(``csrc/banded_lu.cu``).
+
+:func:`banded_lu_pivot` is the LU route with partial pivoting, the
+counterpart of the reference's LAPACK gbsv-style scan
+(``repro.core.banded._lu_pivot_scan``, ``_solve_pivot_single``,
+``_logdet_scan``), which has no Pallas kernel: each column's pivot is the
+first largest magnitude among the ``lo + 1`` candidate rows, and U's upper
+width grows to ``lo + hi`` (``csrc/banded_lu_pivot.cu``).
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -13,9 +23,13 @@ import torch
 from . import _build
 from .ops import resolve_backend
 
-__all__ = ["banded_lu", "banded_lu_plain"]
+__all__ = ["banded_lu", "banded_lu_plain", "banded_lu_pivot",
+           "banded_lu_pivot_plain"]
 
 MAX_HALF_WIDTH = 7  # lo, hi <= 7 in the kernel (csrc/banded_lu.cu MAXW - 1)
+# lo, hi <= 8 in the pivoted kernel (csrc/banded_lu_pivot.cu MAXL): the
+# kmg/AΦ bands at q = 3 (7) and the q = 3 streaming patch (8)
+MAX_PIVOT_HALF_WIDTH = 8
 
 
 def banded_lu_plain(band: torch.Tensor, rhs, lo: int, hi: int,
@@ -128,3 +142,129 @@ def banded_lu(band: torch.Tensor, rhs, lo: int, hi: int,
     _build.check(err, "banded_lu")
     _build.count_launch("banded_lu")
     return (x if solve else None), (ld if logdet else None)
+
+
+def banded_lu_pivot_plain(band: torch.Tensor, rhs, lo: int, hi: int,
+                          solve: bool = True, logdet: bool = True,
+                          swaps: bool = False):
+    """band (G, n, lo+hi+1), rhs (G, n, B) -> (x (G, n, B), logdet (G,))
+    by LU with partial pivoting, plus the swap flags (G, n) with
+    ``swaps=True``.
+
+    The reference's gbsv scan step for step, batched over G and the
+    right-hand-side columns: a working window of the ``lo + 1`` candidate
+    rows of column k (the first ``lo + 1`` rows to start); the pivot is the
+    first largest ``|R[:, 0]|`` (``argmax``'s tie rule); row 0 and the
+    pivot row swap, rows 1..lo are eliminated (each product and difference
+    rounded on its own), row 0 is U's row k (width ``lo + hi + 1``), and
+    the window shifts one column left and takes row ``k + lo + 1``; a row
+    past n enters as zeros with 1 on its diagonal. The reference's window
+    is ``2 lo + hi + 1`` wide, but its columns past ``lo + hi`` only ever
+    hold zeros; here the window keeps one of them, which the shift moves
+    into place, and the right-hand side rides in the same rows. Back
+    substitution runs over U with upper width ``lo + hi``; ``log|det| =
+    sum_k log|U[k, 0]|``. At lo = 0 nothing pivots: it is the unpivoted LU.
+    ``solve=False`` (rhs may be None) returns x as None, ``logdet=False``
+    the log-determinant as None.
+    """
+    G, n, _ = band.shape
+    if not solve:
+        rhs = band.new_zeros((G, n, 0))
+    B = rhs.shape[-1]
+    dtype = torch.promote_types(band.dtype, rhs.dtype)
+    band, rhs = band.to(dtype), rhs.to(dtype)
+    wu, L = lo + hi + 1, lo + 1
+    W = wu + 1 + B  # a window row: [U columns (wu) | zero | right-hand side]
+    dev = band.device
+    # the row that enters at step k: row k + lo + 1, or a unit row past n
+    inc = band.new_zeros((G, n, W))
+    m = max(n - L, 0)
+    inc[:, :m, :wu] = band[:, L:]
+    inc[:, m:, lo] = 1.0
+    inc[:, :m, wu + 1:] = rhs[:, L:]
+    win = band.new_zeros((G, L, W))
+    for j in range(L):  # row j covers columns j - lo .. j + hi
+        if j < n:
+            c0 = max(0, lo - j)
+            win[:, j, j - lo + c0:j + hi + 1] = band[:, j, c0:]
+            win[:, j, wu + 1:] = rhs[:, j]
+        else:
+            win[:, j, j] = 1.0
+    ar = torch.arange(L, device=dev)
+    # perms[t]: the row order after swapping rows 0 and t
+    perms = torch.where(ar == 0, ar[:, None],
+                        torch.where(ar == ar[:, None], 0, ar))
+    rows_in = inc[:, :, None].unbind(1)
+    tops, picks = [], []
+    for k in range(n):
+        t = win[:, :, 0].abs().argmax(dim=1)
+        picks.append(t)
+        win = win.gather(1, perms[t][:, :, None].expand(G, L, W))
+        top, rest = win[:, :1], win[:, 1:]
+        rest = rest - (rest[:, :, :1] / top[:, :, :1]) * top
+        tops.append(top)
+        # shift one column left: U columns 1 .. wu-1 and the zero column,
+        # then the zero column again and the right-hand side
+        win = torch.cat([torch.cat([rest[:, :, 1:wu + 1], rest[:, :, wu:]],
+                                   2), rows_in[k]], 1)
+    P = torch.cat(tops, 1)  # (G, n, W): U rows and forward-solved rhs
+    U = P[:, :, :wu]
+    ld = torch.log(torch.abs(U[:, :, 0])).sum(dim=1) if logdet else None
+    x = None
+    if solve:
+        ubw = wu - 1
+        u_rows = U.permute(1, 2, 0)[..., None].unbind(0)  # n x (wu, G, 1)
+        ys = P[:, :, wu + 1:].unbind(1)
+        nxt = [band.new_zeros((G, B))] * ubw  # x[i+1 .. i+ubw]
+        xs = [None] * n
+        for i in range(n - 1, -1, -1):
+            u, acc = u_rows[i], ys[i]
+            for s in range(1, ubw + 1):
+                acc = acc - u[s] * nxt[s - 1]
+            xs[i] = acc / u[0]
+            nxt = [xs[i]] + nxt[:-1]
+        x = torch.stack(xs, 1)
+    return (x, ld, torch.stack(picks, 1) != 0) if swaps else (x, ld)
+
+
+def banded_lu_pivot(band: torch.Tensor, rhs, lo: int, hi: int,
+                    backend: str | None = None, solve: bool = True,
+                    logdet: bool = True):
+    """Solve M x = rhs by LU with partial pivoting and return ``(x,
+    log|det M|)``; band (G, n, lo+hi+1), rhs (G, n, B), float64, lo, hi <=
+    8. ``solve=False`` (rhs may be None) returns x as None (the kernel
+    then only factors), ``logdet=False`` the log-determinant as None.
+    CUDA tensors launch ``csrc/banded_lu_pivot.cu``: one block a matrix,
+    its U, multipliers and pivot rows in scratch this wrapper allocates."""
+    if not (solve or logdet):
+        raise ValueError("banded_lu_pivot: nothing to compute")
+    if resolve_backend(backend, band.device) == "plain":
+        return banded_lu_pivot_plain(band, rhs, lo, hi, solve=solve,
+                                     logdet=logdet)
+    if not (0 <= lo <= MAX_PIVOT_HALF_WIDTH
+            and 0 <= hi <= MAX_PIVOT_HALF_WIDTH):
+        raise ValueError(f"banded_lu_pivot kernel takes lo, hi <= "
+                         f"{MAX_PIVOT_HALF_WIDTH}")
+    G, n, _ = band.shape
+    dev = band.device
+    f64 = torch.float64
+    _build.expect(band, "band", f64, (G, n, lo + hi + 1), dev)
+    B = 0
+    if solve:
+        B = rhs.shape[-1]
+        _build.expect(rhs, "rhs", f64, (G, n, B), dev)
+    x = torch.empty_like(rhs) if solve else None
+    ld = torch.empty((G,), dtype=f64, device=dev) if logdet else None
+    # U rows (lo+hi+1) and multipliers (lo) of every step, then its pivot
+    # row's offset in the window
+    work = torch.empty((G * n * (2 * lo + hi + 1),), dtype=f64, device=dev)
+    picks = torch.empty((G * n,), dtype=torch.uint8, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    lib = _build.load_library()
+    err = lib.repro_banded_lu_pivot_f64(
+        band.data_ptr(), ptr(rhs if solve else None), ptr(x), ptr(ld),
+        work.data_ptr(), picks.data_ptr(), G, n, lo, hi, B,
+        _build.stream_handle(dev))
+    _build.check(err, "banded_lu_pivot")
+    _build.count_launch("banded_lu_pivot")
+    return x, ld

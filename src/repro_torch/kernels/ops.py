@@ -7,16 +7,15 @@ tensors an op is given:
     tensors, the plain PyTorch versions for CPU tensors;
   * ``"cuda"`` — the CUDA kernels; CPU tensors raise.
 
-A CUDA tensor never reaches a plain version: an op whose kernel is not
-ported yet raises ``NotImplementedError`` on CUDA tensors. There are no
-environment knobs.
+A CUDA tensor never reaches a plain version. There are no environment
+knobs.
 
 Solve algorithms follow the reference's rule (``resolve_solve_alg``):
 block cyclic reduction ("cr") when ``lo == hi >= 1``, the LU kernel ("lu")
 otherwise. ``pivot=True`` runs the pivoted block-CR mode on the "cr" route
-and is a no-op on a diagonal band (``lo == hi == 0``); on the rest of the
-"lu" route (``lo != hi``, or ``alg="lu"`` with ``w >= 1``) it raises, since
-the reference's pivoted gbsv scan is not ported.
+and the pivoted banded LU (``banded_lu_pivot``, the reference's gbsv-style
+scan) on the "lu" route where ``lo >= 1``; with ``lo == 0`` nothing can
+pivot and the LU kernel runs.
 
 A band solved many times keeps its block-CR factor: ``banded_factor``
 makes it once (one factor launch on CUDA tensors) where the route is "cr",
@@ -161,14 +160,12 @@ def _flatten_batch(arrs, core_dims):
     return batch, flats
 
 
-def _no_lu_pivot(pivot: bool, lo: int, hi: int):
-    """Pivoting is a no-op on a diagonal band; elsewhere on the LU route it
-    needs the reference's pivoted gbsv scan."""
-    if pivot and (lo, hi) != (0, 0):
-        raise NotImplementedError(
-            f"pivot=True on the LU route (band lo={lo}, hi={hi}: lo != hi, "
-            "or solve alg 'lu') needs the reference's pivoted gbsv scan, "
-            "which is not ported (ROADMAP Queue 1, pivoted solves)")
+def _route(alg: str | None, lo: int, hi: int, pivot: bool) -> str:
+    """"cr", "lu_pivot" (the pivoted banded LU) or "lu" for a solve or
+    log-determinant of a (lo, hi) band."""
+    if resolve_solve_alg(alg, lo, hi) == "cr":
+        return "cr"
+    return "lu_pivot" if pivot and lo > 0 else "lu"
 
 
 def banded_matvec(band, x, lo: int, hi: int, backend: str | None = None,
@@ -192,12 +189,10 @@ def banded_solve(band, rhs, lo: int, hi: int, pivot: bool = False,
                  backend: str | None = None, alg: str | None = None,
                  n_active=None):
     """Solve M x = rhs. band (..., n, w); rhs (..., n) or (..., n, k)."""
-    from .banded_lu import banded_lu
+    from .banded_lu import banded_lu, banded_lu_pivot
     from .block_cr import block_cr_solve
 
-    use_cr = resolve_solve_alg(alg, lo, hi) == "cr"
-    if not use_cr:
-        _no_lu_pivot(pivot, lo, hi)
+    route = _route(alg, lo, hi, pivot)
     n = band.shape[-2]
     vec_in = rhs.shape[-1] == n and rhs.ndim == band.ndim - 1
     if n_active is not None:
@@ -205,8 +200,10 @@ def banded_solve(band, rhs, lo: int, hi: int, pivot: bool = False,
         rhs = mask_rows(rhs, n_active, axis=-1 if vec_in else -2)
     rb = rhs[..., None] if vec_in else rhs
     batch, (bf, rf) = _flatten_batch((band, rb), (2, 2))
-    if use_cr:
+    if route == "cr":
         x = block_cr_solve(bf, rf, lo, pivot=pivot, backend=backend)
+    elif route == "lu_pivot":
+        x, _ = banded_lu_pivot(bf, rf, lo, hi, backend=backend, logdet=False)
     else:
         x, _ = banded_lu(bf, rf, lo, hi, backend=backend, logdet=False)
     out = x.reshape(batch + x.shape[-2:])
@@ -218,16 +215,17 @@ def banded_logdet(band, lo: int, hi: int, pivot: bool = False,
                   n_active=None):
     """log |det M|, batched over the leading dims of band; a canonical
     padding tail adds exactly log|I| = 0."""
-    from .banded_lu import banded_lu
+    from .banded_lu import banded_lu, banded_lu_pivot
     from .block_cr import block_cr_logdet
 
     band = canonical_band(band, lo, hi, n_active)
-    use_cr = resolve_solve_alg(alg, lo, hi) == "cr"
-    if not use_cr:
-        _no_lu_pivot(pivot, lo, hi)
+    route = _route(alg, lo, hi, pivot)
     batch, (bf,) = _flatten_batch((band,), (2,))
-    if use_cr:
+    if route == "cr":
         ld = block_cr_logdet(bf, lo, pivot=pivot, backend=backend)
+    elif route == "lu_pivot":
+        _, ld = banded_lu_pivot(bf, None, lo, hi, backend=backend,
+                                solve=False)
     else:
         _, ld = banded_lu(bf, None, lo, hi, backend=backend, solve=False)
     return ld.reshape(batch)

@@ -229,7 +229,7 @@ def _mutated_gband(gp: AdditiveGP, ops: DimOps, p, k1, evicting: bool):
         G, H, drift = fn(*(_flat_band(b, lead) for b in (
             gp.Hband, ops.A, ops.Phi, gp.Gband)), p,
             _dim_counts(k1, lead, gp.D), config.q, backend=config.backend,
-            tenants=lead[0] if lead else None)
+            alg=config.solve_alg, tenants=lead[0] if lead else None)
         if lead:
             G, H = (Banded(b.data.reshape(lead + (gp.D,) + b.data.shape[-2:]),
                            b.lo, b.hi, k1) for b in (G, H))

@@ -17,7 +17,9 @@ from repro_torch.core import (GPConfig, fit, log_likelihood, mll_gradients,
 from repro_torch.core.band_inverse import _to_blocks
 from repro_torch.kernels import _build, ops
 from repro_torch.kernels.band_matmul import band_matmul, band_matmul_plain
-from repro_torch.kernels.banded_lu import banded_lu, banded_lu_plain
+from repro_torch.kernels.banded_lu import (banded_lu, banded_lu_pivot,
+                                           banded_lu_pivot_plain,
+                                           banded_lu_plain)
 from repro_torch.kernels.banded_matvec import (banded_matvec,
                                                banded_matvec_plain)
 from repro_torch.core.backfitting import SolveConfig, solve_mhat
@@ -815,6 +817,48 @@ def test_mega_pcg_pivot_kernel(dev):
     x, _, it = mega_pcg_solve(*args, **kw)
     xr, _, itr = mega_pcg_plain(*args, **kw)
     assert _rel(x, xr) < 1e-9 and int(it) == int(itr) == 60
+
+
+def test_banded_lu_pivot_kernel(dev):
+    """The pivoted banded LU kernel against its plain version on the same
+    CUDA tensors, one launch a call, on bands whose scaled rows (and zero
+    leading diagonal, where lo, hi >= 1) force swaps: x within 1e-12 (the
+    kernel rounds each product and difference as the plain version does),
+    the log-determinant within 1e-12; the factor-only call gives the same
+    log-determinant; ``ops`` and ``core.banded.solve`` reach the kernel.
+    The shapes (lo, hi, n, B) run as a loop in this one test: B = 130 is
+    more columns than the block's 128 threads, n = 5 < lo + 1 starts with
+    rows past n."""
+    from repro_torch.core.banded import Banded, solve
+
+    rng = np.random.default_rng(70)
+    for lo, hi, n, B in [(1, 1, 300, 1), (1, 1, 300, 32), (2, 2, 300, 5),
+                         (2, 1, 300, 130), (1, 2, 257, 40), (0, 2, 300, 3),
+                         (2, 0, 300, 3), (3, 3, 300, 16), (4, 4, 200, 8),
+                         (7, 7, 200, 53), (8, 8, 200, 53), (8, 8, 5, 2)]:
+        bd = band(rng, 3, n, lo, hi)
+        bd *= np.where(np.arange(n) % 2 == 1, 50.0, 1.0)[None, :, None]
+        if lo and hi:
+            bd[:, 0, lo] = 0.0
+        bd = torch.as_tensor(bd, device=dev)
+        rhs = torch.as_tensor(rng.standard_normal((3, n, B)), device=dev)
+        _build.reset_launch_counts()
+        x, ld = banded_lu_pivot(bd, rhs, lo, hi)
+        _, ldo = banded_lu_pivot(bd, None, lo, hi, solve=False)
+        assert _build.launch_counts()["banded_lu_pivot"] == 2
+        xr, ldr = banded_lu_pivot_plain(bd, rhs, lo, hi)
+        assert _rel(x, xr) < 1e-12, (lo, hi, n, B)
+        assert _rel(ld, ldr) < 1e-12 and torch.equal(ld, ldo), (lo, hi)
+        if lo == 0:
+            continue
+        _build.reset_launch_counts()
+        xo = ops.banded_solve(bd, rhs, lo, hi, pivot=True, alg="lu")
+        ldd = ops.banded_logdet(bd, lo, hi, pivot=True, alg="lu")
+        assert torch.equal(xo, x) and torch.equal(ldd, ld)
+        if lo != hi:  # solve's defaults: pivot=True, alg "auto" -> "lu"
+            assert torch.equal(solve(Banded(bd, lo, hi), rhs), x)
+        assert _build.launch_counts()["banded_lu_pivot"] == (
+            2 if lo == hi else 3)
 
 
 # banded_lu at lo = hi = 0 (one launch) and the factored block CR of the

@@ -5,9 +5,11 @@
   and a scan of their sources finds no such import.
 * Device rule: the entry points run on CUDA unless told ``device="cpu"``,
   and raise without a GPU; ``backend="cuda"`` on CPU tensors raises.
-* Configurations whose path is not ported raise ``NotImplementedError``;
-  those ported since (pcg with ``fused="on"``, kmg, q = 3 on CUDA, fused,
-  the streaming branch of ``bayes_opt_loop``) resolve or run.
+* The configurations that once raised ``NotImplementedError`` (the
+  pivoted LU route, pcg with ``fused="on"``, kmg, q = 3 on CUDA, fused,
+  the streaming branch of ``bayes_opt_loop``) resolve as the reference
+  resolves them, or run: the port refuses no configuration the reference
+  takes.
 """
 from __future__ import annotations
 
@@ -115,22 +117,25 @@ def test_cuda_backend_on_cpu_tensors_raises():
             device="cpu")
 
 
-def _case(i, cfg, n, device, resolves_to=None):
+def _case(i, cfg, n, device, resolves_to):
     return pytest.param(cfg, n, device, resolves_to, id=f"cfg{i}-{n}-{device}")
 
 
 @pytest.mark.parametrize("cfg,n,device,resolves_to", [
-    # the pivoted LU route (gbsv scan), from each solver
+    # ported since: the pivoted LU route (the gbsv scan) from each solver,
+    # unfused under solve_alg="lu"; the per-iteration pcg kernel; kmg
     _case(0, GPConfig(solver="jacobi", pivot=True, solve_alg="lu", q=1,
-                      precond="none"), 20, "cpu"),
+                      precond="none"), 20, "cpu",
+          dict(fused="off", precond="none")),
     _case(1, GPConfig(solver="gauss_seidel", pivot=True, solve_alg="lu", q=1,
-                      precond="none"), 20, "cpu"),
-    # ported since: the per-iteration pcg kernel, and kmg (unfused)
+                      precond="none"), 20, "cpu",
+          dict(fused="off", precond="none")),
     _case(2, GPConfig(fused="on", precond="none"), 20, "cpu",
           dict(fused="on", precond="none")),
     _case(3, GPConfig(fused="on", q=1, precond="none"), 20, "cpu",
           dict(fused="on", precond="none")),
-    _case(4, GPConfig(pivot=True, solve_alg="lu", precond="none"), 20, "cpu"),
+    _case(4, GPConfig(pivot=True, solve_alg="lu", precond="none"), 20, "cpu",
+          dict(fused="off", precond="none")),
     _case(5, GPConfig(precond="kmg"), 20, "cpu",
           dict(fused="off", precond="kmg")),
     # "auto" resolves to kmg at q = 0, n >= 4096
@@ -147,8 +152,8 @@ def _case(i, cfg, n, device, resolves_to=None):
     _case(10, BOConfig(incremental=False, use_engine=True), 20, "cpu", {}),
 ])
 def test_unported_paths_raise(cfg, n, device, resolves_to):
-    """The unported paths raise; the cases ported since resolve as the
-    reference resolves them, or run."""
+    """(Named from when some paths raised.) Every case, each once
+    unported, resolves as the reference resolves it, or runs."""
     if isinstance(cfg, BOConfig):
         gp, X, _, _ = bayes_opt_loop(
             lambda x: float(np.sum(x)), np.array([[0., 1.]]), 1,
@@ -156,10 +161,6 @@ def test_unported_paths_raise(cfg, n, device, resolves_to):
             dataclasses.replace(cfg, ascent_steps=2, n_starts=4), torch.Generator(),
             n_init=n, device=device)
         assert X.shape == (n + 1, 1) and gp.num_points() == n + 1
-        return
-    if resolves_to is None:
-        with pytest.raises(NotImplementedError):
-            resolve_config(cfg, n, device)
         return
     got = resolve_config(cfg, n, device)
     assert {k: getattr(got, k) for k in resolves_to} == resolves_to

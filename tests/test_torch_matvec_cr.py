@@ -7,7 +7,8 @@ and against the dense oracles of ``repro_torch.kernels.ref``, on the same
 seeded float64 inputs: the matvec to 1e-13 relative, the block-CR solve and
 log-determinant to 1e-12 (a direct method; the pivoted mode swaps rows
 inside the w x w blocks, which reorders the rounding). Also here: the ops
-routing of ``pivot``, and the column chunks of the whole-PCG solve.
+routing of ``pivot`` (the LU route's pivoted solves against the
+reference's scan), and the column chunks of the whole-PCG solve.
 """
 from __future__ import annotations
 
@@ -17,9 +18,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import banded as jbanded
 from repro.kernels.banded_matvec import banded_matvec_pallas
 from repro.kernels.block_cr import block_cr_pallas
 from repro_torch.kernels import fused_sweep, mega_solve, ops, ref
+from repro_torch.kernels.banded_lu import banded_lu_pivot_plain
 from repro_torch.kernels.banded_matvec import banded_matvec
 from repro_torch.kernels.block_cr import block_cr
 from repro_torch.kernels.mega_solve import MegaSolve, mega_pcg_plain
@@ -98,17 +101,25 @@ def test_pivoted_block_mode_survives_a_dead_pivot():
 
 
 def test_pivot_on_the_lu_route_raises():
-    """The LU route's pivoted gbsv scan is not ported: an asymmetric band,
-    or alg="lu" on w >= 1, raises; on a diagonal band pivoting is a no-op
-    and the LU kernel runs."""
+    """(Named from when the route raised.) The LU route's pivoted gbsv
+    scan is ported: an asymmetric band, or alg="lu" on w >= 1, solves and
+    takes its log-determinant through the pivoted banded LU, its plain twin
+    on CPU tensors bit for bit, within 1e-12 of the reference's scan; on a
+    diagonal band pivoting is a no-op and the LU kernel runs."""
     rng = np.random.default_rng(98)
     bd = torch.as_tensor(band(rng, 1, 20, 1, 2))
     rhs = torch.as_tensor(rng.standard_normal((1, 20, 2)))
-    with pytest.raises(NotImplementedError, match="gbsv"):
-        ops.banded_solve(bd, rhs, 1, 2, pivot=True)
-    with pytest.raises(NotImplementedError, match="gbsv"):
-        ops.banded_logdet(torch.as_tensor(band(rng, 1, 20, 1, 1)), 1, 1,
-                          pivot=True, alg="lu")
+    x = ops.banded_solve(bd, rhs, 1, 2, pivot=True)
+    assert torch.equal(x, banded_lu_pivot_plain(bd, rhs, 1, 2)[0])
+    xj = jbanded._solve_scan(jbanded.Banded(jnp.asarray(bd.numpy()), 1, 2),
+                             jnp.asarray(rhs.numpy()), pivot=True)
+    assert _rel(x, xj) < 1e-12
+    sym = torch.as_tensor(band(rng, 1, 20, 1, 1))
+    ld = ops.banded_logdet(sym, 1, 1, pivot=True, alg="lu")
+    assert torch.equal(ld, banded_lu_pivot_plain(sym, None, 1, 1,
+                                                 solve=False)[1])
+    ldj = jbanded._logdet_scan(jbanded.Banded(jnp.asarray(sym.numpy()), 1, 1))
+    assert _rel(ld, ldj) < 1e-12
     diag = torch.as_tensor(band(rng, 1, 20, 0, 0))
     assert torch.equal(ops.banded_logdet(diag, 0, 0, pivot=True),
                        ops.banded_logdet(diag, 0, 0))

@@ -112,22 +112,45 @@ def _jax_arrays(gp):
     return out
 
 
-def _jax_case(n, q, ties, solver, jax_backend, precond):
+def _jax_case(n, q, ties, solver, jax_backend, precond, pivot=False,
+              solve_alg="auto", iters=ITERS, learning=False):
     """The JAX fit of one seeded case, and its arrays, verdict and 40-query
-    mean and variance."""
+    mean and variance; with ``learning`` also its log-likelihood (key 7)
+    and gradients (key 8), with the probes they drew (``probes``: the
+    power method's restarts, the log-determinant's probes, the gradients'
+    Hutchinson block)."""
     X, Y, Xq = _data(n, 100 + n + q + ties, ties)
-    jgp = jax_fit(JaxGPConfig(q=q, solver=solver, solver_iters=ITERS,
-                              precond=precond, backend=jax_backend),
+    jgp = jax_fit(JaxGPConfig(q=q, solver=solver, solver_iters=iters,
+                              precond=precond, backend=jax_backend,
+                              pivot=pivot, solve_alg=solve_alg),
                   jnp.asarray(X), jnp.asarray(Y),
                   jnp.asarray(np.full(D, OMEGA)), SIGMA)
-    return jgp, dict(arrays=_jax_arrays(jgp), verdict=int(jgp.health.verdict),
-                     mean=np.asarray(jax_mean(jgp, jnp.asarray(Xq))),
-                     var=np.asarray(jax_var(jgp, jnp.asarray(Xq))))
+    ref = dict(arrays=_jax_arrays(jgp), verdict=int(jgp.health.verdict),
+               mean=np.asarray(jax_mean(jgp, jnp.asarray(Xq))),
+               var=np.asarray(jax_var(jgp, jnp.asarray(Xq))))
+    if learning:
+        from repro.core import log_likelihood, mll_gradients
+        from repro.core.additive_gp import _probe_block
+        from repro.core.stochastic import rademacher_rows
+
+        key = jax.random.PRNGKey(7)
+        k1, k2 = jax.random.split(key)
+        gkey = jax.random.PRNGKey(8)
+        ref["probes"] = (
+            np.array(_probe_block(jgp, k1, 4)),
+            np.array(_probe_block(jgp, k2, jgp.config.logdet_probes)),
+            np.array(rademacher_rows(gkey, n, (jgp.config.trace_probes,),
+                                     dtype=jnp.float64)))
+        ref["ll"] = float(log_likelihood(jgp, key))
+        g_om, g_sg = mll_gradients(jgp, gkey)
+        ref["grads"] = np.concatenate([np.asarray(g_om), [float(g_sg)]])
+    return jgp, ref
 
 
 def fit_cache(shared=None):
     """``get(n, q, ties=False, solver="pcg", jax_backend="pallas",
-    precond="none")``: the JAX fit (on ``jax_backend``) and the port's CPU
+    precond="none", pivot=False, solve_alg="auto", iters=ITERS,
+    learning=False)``: the JAX fit (on ``jax_backend``) and the port's CPU
     fit of one seeded case, cached. With ``shared`` (the
     :func:`shared_ref` fixture's getter) the JAX side is computed once per
     run; without it ``ref["gp"]`` is also the JAX GP itself. The seed
@@ -136,8 +159,10 @@ def fit_cache(shared=None):
     cache = {}
 
     def get(n, q, ties=False, solver="pcg", jax_backend="pallas",
-            precond="none"):
-        key = (n, q, ties, solver, jax_backend, precond)
+            precond="none", pivot=False, solve_alg="auto", iters=ITERS,
+            learning=False):
+        key = (n, q, ties, solver, jax_backend, precond, pivot, solve_alg,
+               iters, learning)
         if key not in cache:
             X, Y, Xq = _data(n, 100 + n + q + ties, ties)
             if shared is None:
@@ -146,8 +171,8 @@ def fit_cache(shared=None):
             else:
                 ref = shared(("fit_cache",) + key,
                              lambda: _jax_case(*key)[1])
-            cfg = GPConfig(q=q, solver=solver, solver_iters=ITERS,
-                           precond=precond)
+            cfg = GPConfig(q=q, solver=solver, solver_iters=iters,
+                           precond=precond, pivot=pivot, solve_alg=solve_alg)
             gp = fit(cfg, X, Y, np.full(D, OMEGA), SIGMA, device="cpu")
             cache[key] = (cfg, gp, Xq, ref)
         return cache[key]
