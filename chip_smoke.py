@@ -1,7 +1,7 @@
 """Drive the PyTorch port's serving, hyperparameter-learning, relaxation,
 default-configuration (kernel multigrid), per-iteration PCG, Bayesian
-optimisation, streaming, q = 3 and fleet paths on one NVIDIA GPU and check
-them.
+optimisation, streaming, q = 3, fleet, health, pivoted-LU and substrate
+paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -103,6 +103,14 @@ one process per source), then:
    kernel against its plain version on the path's SAPhi, a (2, 2) band,
    an asymmetric band that forces swaps and the q = 3 patch shape
    (``pivot_kernel_rows``).
+   The substrate (``substrate_phase``): a one-rank NCCL process group and
+   ``elastic_mesh(model=1)``; the T = 64 fleet's data placed on that
+   ``DeviceMesh`` by ``fleet_pspecs`` / ``device_put``, fitted and
+   queried on the rank's local shards, bit for bit the unplaced fleet
+   with the same launches; the fitted fleet checkpointed and moved by
+   ``reshard_tree`` onto a fresh ``elastic_mesh(model=1, ranks=[0])``,
+   queried bit for bit; ``ServeEngine`` (a greedy stub) and
+   ``ShardedBatches`` on the card.
    The health ladder (``health_phase``): faults injected into the pcg
    "whole" GP and a default ``GPConfig()`` (kmg) GP at n = 30000 and
    repaired by ``health.ladder.repair``, each trail held to the rungs the
@@ -210,7 +218,11 @@ def _import_port():
     from repro_torch.core.stochastic import rademacher_rows
     from repro_torch.core.banded import Banded, add, scale, transpose
     from repro_torch.core.kernel_packets import gkp_factors, kp_factors
-    from repro_torch.data import sample_test_function
+    from repro_torch.data import ShardedBatches, sample_test_function
+    from repro_torch.distributed.elastic import elastic_mesh, reshard_tree
+    from repro_torch.distributed.sharding import (batch_pspecs, device_put,
+                                                  fleet_pspecs, mesh_shape)
+    from repro_torch.serving.engine import Request, ServeEngine
     from repro_torch import health
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.checkpoint.checkpointer import flatten
@@ -4177,6 +4189,240 @@ def consistency(P, dev, refs):
 
 
 
+# ---------------------------------------------------------------------------
+# the substrate: a fleet placed on a one-rank NCCL DeviceMesh, the elastic
+# restart onto a fresh mesh, the decode engine and the sharded pipeline
+# ---------------------------------------------------------------------------
+
+SUBSTRATE_N = 1500  # each tenant's points in the placed fit (fleet_fit's n)
+SUBSTRATE_KERNELS = ("mega_pcg_fleet", "banded_lu", "band_matmul",
+                     "rgf_blocks")
+
+
+class _DecodeStub:
+    """``tests/test_substrate.py``'s decode-only stub model on the card:
+    greedy next token = (token + 1) % vocab."""
+
+    vocab = 17
+
+    def __init__(self, dev):
+        self.dev = dev
+
+    def init_cache(self, B, ctx):
+        return {"pos": torch.zeros((B,), dtype=torch.int32, device=self.dev)}
+
+    def decode_step(self, params, cache, tokens, pos, par):
+        if tokens.device != self.dev or pos.device != self.dev:
+            raise RuntimeError(f"decode step got tokens on {tokens.device}")
+        nxt = (tokens[:, 0].long() + 1) % self.vocab
+        logits = torch.nn.functional.one_hot(nxt, self.vocab).double()
+        return logits[:, None, :] * 10.0, cache
+
+
+def _bitwise(P, a, b) -> bool:
+    """Two GP trees of one structure hold the same tensors bit for bit."""
+    same = []
+    P["fleet"].tree_map(lambda x, y: same.append(
+        x.shape == y.shape and torch.equal(x, y)), a, b)
+    return bool(same) and all(same)
+
+
+def substrate_phase(P, dev):
+    """A GP fleet on a torch ``DeviceMesh`` (``repro_torch.distributed``):
+
+    1. a one-rank NCCL process group (a ``FileStore`` in a temporary
+       directory; NCCL's sockets on the loopback interface) and
+       ``elastic_mesh(model=1)``, a (1, 1) ("data", "model") CUDA mesh;
+    2. ``fleet_phase``'s service of many small GPs (T = 64 Schwefel
+       tenants, ``SUBSTRATE_N`` points each in capacity 2048, D = 10,
+       ``GPConfig()``: pcg "whole"): the per-tenant data placed by
+       ``fleet_pspecs`` / ``device_put``, ``fleet_fit`` and the queries (32
+       a tenant) on the rank's local shards, the gathered mean and variance
+       and the fitted fleet bit for bit the unplaced fleet's, with the same
+       launches kernel by kernel;
+    3. the fitted fleet checkpointed, restored and moved by
+       ``reshard_tree`` onto a fresh ``elastic_mesh(model=1, ranks=[0])``
+       (the restart after a lost device), queried again bit for bit;
+    4. ``ServeEngine`` with the greedy stub on CUDA tensors (6 requests in
+       4 slots) and ``ShardedBatches(device="cuda", sharding=...)``, batch
+       3 equal to the CPU's.
+
+    Returns the launches by kernel over the phase."""
+    import shutil
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    _build, fl = P["_build"], P["fleet"]
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(_build.KERNELS, 0)
+
+    def op(fn):
+        out, rec = _op(P, fn)
+        for k, v in rec["launches"].items():
+            total[k] += v
+        return out, rec
+
+    tmp = tempfile.mkdtemp(prefix="substrate_")
+    env_old = os.environ.get("NCCL_SOCKET_IFNAME")
+    os.environ["NCCL_SOCKET_IFNAME"] = "lo"
+    try:
+        # -- 1. the process group and the mesh --------------------------------
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, device_id=dev)
+        mesh = P["elastic_mesh"](model=1)
+        probe = torch.ones(1, device=dev)
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+        t_init = (time.perf_counter() - t0) * 1e3
+        shape = P["mesh_shape"](mesh)
+        print(f"substrate: NCCL process group (1 rank, FileStore), "
+              f"elastic_mesh(model=1) -> {shape} {mesh.device_type} mesh and "
+              f"a first all_reduce: {t_init:.1f} ms (backend "
+              f"{dist.get_backend()})", flush=True)
+        if (shape != {"data": 1, "model": 1} or mesh.device_type != dev.type
+                or dist.get_backend() != "nccl" or float(probe) != 1.0):
+            raise RuntimeError("substrate: the one-rank NCCL mesh is wrong")
+
+        # -- 2. the placed fleet against the unplaced one --------------------
+        T, D = FLEET_T, D_PATH
+        Xs, Ys, Xq, bounds = _fleet_data(P, T, np.full(T, SUBSTRATE_N), D,
+                                         seed=500)
+        omega = 8.0 / (bounds[:, 1] - bounds[:, 0])
+        data = {"X": np.stack(Xs), "Y": np.stack(Ys),
+                "omega": np.tile(omega, (T, 1)), "sigma": np.ones(T),
+                "Xq": Xq}
+        data = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+        cfg = P["GPConfig"]()
+        runs = {}
+        for tag in ("unplaced", "placed"):
+            rec = {}
+            if tag == "placed":
+                placed, rec["place"] = op(lambda: P["device_put"](
+                    data, P["fleet_pspecs"](data, mesh, T=T)))
+                src = {k: v.to_local() for k, v in placed.items()}
+            else:
+                src = data
+            fleet, rec["fleet_fit"] = op(lambda: fl.fleet_fit(
+                cfg, src["X"], src["Y"], src["omega"], src["sigma"],
+                FLEET_CAP))
+            mu, rec["fleet_posterior_mean"] = op(
+                lambda: fl.fleet_posterior_mean(fleet, src["Xq"]))
+            var, rec["fleet_posterior_var"] = op(
+                lambda: fl.fleet_posterior_var(fleet, src["Xq"]))
+            if tag == "placed":
+                like = placed["Xq"]
+                mu, var = (DTensor.from_local(t, mesh, like.placements)
+                           .full_tensor() for t in (mu, var))
+            runs[tag] = dict(rec=rec, fleet=fleet, mu=mu, var=var)
+        a, b = runs["placed"], runs["unplaced"]
+        same = (_bitwise(P, a["fleet"], b["fleet"])
+                and torch.equal(a["mu"], b["mu"])
+                and torch.equal(a["var"], b["var"]))
+        ops = ("fleet_fit", "fleet_posterior_mean", "fleet_posterior_var")
+        launches_same = all(a["rec"][o]["launches"] == b["rec"][o]["launches"]
+                            for o in ops)
+        print(f"substrate: fleet T={T} (Schwefel, n={SUBSTRATE_N} each in "
+              f"capacity {FLEET_CAP}, D={D}, GPConfig() -> "
+              f"{a['fleet'].config.solver} {a['fleet'].config.fused}) placed "
+              f"by fleet_pspecs on the (1, 1) mesh: device_put "
+              f"{a['rec']['place']['ms']:.1f} ms; " + "; ".join(
+                  f"{o} {a['rec'][o]['ms']:.1f} ms (unplaced "
+                  f"{b['rec'][o]['ms']:.1f} ms), launches "
+                  f"{a['rec'][o]['launches']}" for o in ops)
+              + f"; launches equal to the unplaced fleet's, kernel by "
+              f"kernel: {launches_same}; fit, mean and variance bit for bit: "
+              f"{same}", flush=True)
+        if not (same and launches_same):
+            raise RuntimeError("substrate: the placed fleet differs from the "
+                               "unplaced one")
+        used = {k: a["rec"]["fleet_fit"]["launches"].get(k, 0)
+                + a["rec"]["fleet_posterior_var"]["launches"].get(k, 0)
+                for k in _build.KERNELS}
+        _require_launched("placed fleet's fit and variance", used,
+                          SUBSTRATE_KERNELS)
+        if not (bool(torch.isfinite(a["mu"]).all())
+                and bool((a["var"] > 0).all())):
+            raise RuntimeError("substrate: placed fleet's queries are not "
+                               "finite/positive")
+
+        # -- 3. restart after a lost device: checkpoint, restore, reshard ----
+        fitted = a["fleet"]
+        ck = P["Checkpointer"](os.path.join(tmp, "ckpt"), keep=1)
+        _, r_save = op(lambda: ck.save(1, fitted, blocking=True))
+        (restored, step), r_restore = op(lambda: ck.restore(fitted))
+        mesh2 = P["elastic_mesh"](model=1, ranks=[0])
+        axes = fl.tree_map(lambda t: ("tenant",) + (None,) * (t.ndim - 1),
+                           restored)
+        moved, r_move = op(lambda: P["reshard_tree"](restored, axes, mesh2))
+        local = fl.tree_map(lambda t: t.to_local(), moved)
+        xq = P["device_put"](data["Xq"], P["fleet_pspecs"](data["Xq"], mesh2,
+                                                           T=T))
+        mu2, r_mean2 = op(lambda: fl.fleet_posterior_mean(local,
+                                                          xq.to_local()))
+        var2, r_var2 = op(lambda: fl.fleet_posterior_var(local,
+                                                         xq.to_local()))
+        mu2, var2 = (DTensor.from_local(t, mesh2, xq.placements).full_tensor()
+                     for t in (mu2, var2))
+        same2 = (step == 1 and torch.equal(mu2, b["mu"])
+                 and torch.equal(var2, b["var"]))
+        print(f"substrate: restart on elastic_mesh(model=1, ranks=[0]) -> "
+              f"{P['mesh_shape'](mesh2)}: Checkpointer.save "
+              f"{r_save['ms']:.1f} ms, restore {r_restore['ms']:.1f} ms "
+              f"(launches {r_restore['launches']}), reshard_tree "
+              f"{r_move['ms']:.1f} ms, mean {r_mean2['ms']:.1f} ms, var "
+              f"{r_var2['ms']:.1f} ms; queries bit for bit: {same2}",
+              flush=True)
+        if not same2:
+            raise RuntimeError("substrate: the restored fleet's queries "
+                               "differ")
+
+        # -- 4. the decode engine and the sharded pipeline on the card -------
+        eng = P["ServeEngine"](_DecodeStub(dev), params={}, par=None,
+                               batch_slots=4, ctx=64, eos_id=-1)
+        for rid in range(6):
+            eng.submit(P["Request"](rid=rid, prompt=[1 + rid, 2, 3],
+                                    max_new=5))
+        t0 = time.perf_counter()
+        done = eng.run_until_done(max_ticks=200)
+        t_serve = (time.perf_counter() - t0) * 1e3
+        serve_ok = (eng.device.type == dev.type and len(done) == 6
+                    and all(len(r.out) == 5 and r.out[:2] == [4, 5]
+                            for r in done))
+        ab = {k: torch.empty((8, 16), dtype=torch.int32, device="meta")
+              for k in ("tokens", "labels")}
+        it = P["ShardedBatches"](100, 16, 8, seed=3,
+                                 sharding=P["batch_pspecs"](ab, mesh))
+        b3 = [next(it) for _ in range(4)][3]
+        c3 = next(P["ShardedBatches"](100, 16, 8, seed=3, start_step=3,
+                                      device="cpu"))
+        batch_ok = all(
+            b3[k].to_local().device.type == dev.type
+            and torch.equal(b3[k].to_local().cpu(), c3[k]) for k in c3)
+        print(f"substrate: ServeEngine on {eng.device} (greedy stub, 6 "
+              f"requests in 4 slots): {len(done)} done in "
+              f"{int(eng.pos.max())} ticks, {t_serve:.1f} ms, outputs as "
+              f"the reference's test expects: {serve_ok}; ShardedBatches on "
+              f"the mesh, batch 3 equal to the CPU's: {batch_ok}",
+              flush=True)
+        if not (serve_ok and batch_ok):
+            raise RuntimeError("substrate: engine or pipeline on the card "
+                               "differs")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if env_old is None:
+            os.environ.pop("NCCL_SOCKET_IFNAME", None)
+        else:
+            os.environ["NCCL_SOCKET_IFNAME"] = env_old
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"substrate phase: {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {({k: v for k, v in total.items() if v})}", flush=True)
+    return total
+
+
 def single_bits_phase():
     """Every single-GP output that ``scripts/single_bits.py`` records (71
     outputs of the paths this script drives for one GP) against the
@@ -4668,10 +4914,14 @@ def _card_main(P, refs):
     pivot_rows, counts_p = pivot_lu_phase(P, dev, X, Y, omega, sigma, Xq, f)
     rows += pivot_rows
     _stamp("pivoted LU route")
+    # --- the substrate: the fleet on a one-rank NCCL DeviceMesh, the
+    # elastic restart, the decode engine and the sharded pipeline ---------
+    counts_sub = substrate_phase(P, dev)
+    _stamp("substrate")
 
     all_counts = [counts, counts_l, *relax_counts, counts_k, counts_d,
                   counts_o, counts_t, counts_bo, counts_s, *counts_3,
-                  counts_f, counts_fs, counts_h, counts_p]
+                  counts_f, counts_fs, counts_h, counts_p, counts_sub]
     for row in rows:
         row["launches"] = sum(c[row["name"]] for c in all_counts)
 

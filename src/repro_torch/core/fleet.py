@@ -55,48 +55,66 @@ __all__ = ["GPFleet", "stack_gps", "fleet_fit", "fleet_posterior_mean",
            "set_tenant_gp", "select_tenants", "replicate_gp", "tree_map"]
 
 
+def _lead_view(f: BandFactor):
+    """A factor's data viewed ``batch + (size,)``, its tenant axis first
+    (data that is not a tensor, or is so viewed already, as it is)."""
+    d = f.data
+    if torch.is_tensor(d) and tuple(d.shape[:-1]) != f.batch:
+        return d.reshape(f.batch + d.shape[-1:])
+    return d
+
+
 def tree_map(fn, *objs):
     """``fn`` over the tensors of one or more GPs of one structure (the
-    same fields set), rebuilding the GP: ``AdditiveGP``, its ``DimOps`` (its
-    block-CR factors mapped over their (tenant, dimension) batch, no new
-    factor made), its kmg hierarchy (a tuple of ``CoarseLevel``, whose
-    restriction maps are first widened to their common width,
-    ``pad_restriction``), ``Banded``, ``HealthState``, tensors; configs,
-    widths and flags pass through from the first."""
+    same fields set), rebuilding the GP: ``GPFleet``, ``AdditiveGP``, its
+    ``DimOps`` (its block-CR factors mapped over their (tenant, dimension)
+    batch, no new factor made), its kmg hierarchy (a tuple of
+    ``CoarseLevel``, whose restriction maps are first widened to their
+    common width, ``pad_restriction``), ``Banded``, ``HealthState``, dicts,
+    lists, tuples, tensors; configs, widths and flags pass through from the
+    first. Every tensor ``fn`` sees is tenant-first. The dataclasses are
+    rebuilt field by field, not through their constructors, so ``fn`` may
+    return what is not a plain tensor (a ``distributed.sharding.Sharding``,
+    an axes tuple, a ``DTensor``); a factor whose mapped data is not a plain
+    tensor keeps it in the tenant-first view."""
     o = objs[0]
     if o is None:
         return None
     if torch.is_tensor(o):
         return fn(*objs)
     if isinstance(o, BandFactor):
-        data = fn(*(f.data.reshape(f.batch + f.data.shape[-1:])
-                    for f in objs))
-        return BandFactor(data.reshape((-1,) + data.shape[-1:]),
-                          tuple(data.shape[:-1]), o.n, o.w, o.pivot,
+        data = fn(*(_lead_view(f) for f in objs))
+        batch = tuple(data.shape[:-1]) if torch.is_tensor(data) else o.batch
+        if type(data) is torch.Tensor:
+            data = data.reshape((-1,) + data.shape[-1:])
+        return BandFactor(data, batch, o.n, o.w, o.pivot,
                           tree_map(fn, *(f.n_active for f in objs)))
-    if isinstance(o, DimOps):
-        new = object.__new__(DimOps)
-        for f in dataclasses.fields(DimOps):
-            object.__setattr__(new, f.name, tree_map(
-                fn, *(getattr(x, f.name) for x in objs)))
-        # a factor made for the DimOps' own count keeps that one object, as
-        # DimOps makes it (FusedSweep takes a factor whose count it is)
-        for name in ("phi_factor", "saphi_factor"):
-            f_old, f_new = getattr(o, name), getattr(new, name)
-            if f_old is not None and f_old.n_active is o.n_active:
-                object.__setattr__(new, name, dataclasses.replace(
-                    f_new, n_active=new.n_active))
-        return new
-    if isinstance(o, CoarseLevel):
+    if isinstance(o, CoarseLevel) and all(torch.is_tensor(x.r_idx)
+                                          for x in objs):
         K = max(x.r_idx.shape[-1] for x in objs)
         objs = [pad_restriction(x, K) for x in objs]
         o = objs[0]
-    if isinstance(o, (AdditiveGP, Banded, HealthState, CoarseLevel)):
-        return dataclasses.replace(o, **{
-            f.name: tree_map(fn, *(getattr(x, f.name) for x in objs))
-            for f in dataclasses.fields(o) if f.init})
+    if isinstance(o, (GPFleet, AdditiveGP, DimOps, Banded, HealthState,
+                      CoarseLevel)):
+        new = object.__new__(type(o))
+        for f in dataclasses.fields(o):
+            object.__setattr__(new, f.name, tree_map(
+                fn, *(getattr(x, f.name) for x in objs)))
+        if isinstance(o, DimOps):
+            # a factor made for the DimOps' own count keeps that one object,
+            # as DimOps makes it (FusedSweep takes a factor whose count it is)
+            for name in ("phi_factor", "saphi_factor"):
+                f_old, f_new = getattr(o, name), getattr(new, name)
+                if f_old is not None and f_old.n_active is o.n_active:
+                    object.__setattr__(new, name, dataclasses.replace(
+                        f_new, n_active=new.n_active))
+        return new
+    if isinstance(o, dict):
+        return {k: tree_map(fn, *(x[k] for x in objs)) for k in o}
     if isinstance(o, tuple):
         return tuple(tree_map(fn, *parts) for parts in zip(*objs))
+    if isinstance(o, list):
+        return [tree_map(fn, *parts) for parts in zip(*objs)]
     return o
 
 

@@ -64,14 +64,20 @@ def test_every_module_imports_without_jax():
             "repro_torch.streaming.gp_engine", "repro_torch.core.fleet",
             "repro_torch.streaming.fleet_engine",
             "repro_torch.health.ladder", "repro_torch.health.inject",
-            "repro_torch.checkpoint.checkpointer"} <= set(_modules())
+            "repro_torch.checkpoint.checkpointer",
+            "repro_torch.distributed", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.elastic", "repro_torch.launch.mesh",
+            "repro_torch.data.pipeline", "repro_torch.serving",
+            "repro_torch.serving.engine"} <= set(_modules())
 
 
 def test_sources_name_no_jax_or_reference_import():
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "single_bits.py",
         ROOT / "scripts" / "fleet_profile.py",
-        ROOT / "scripts" / "lane_gap.py"]
+        ROOT / "scripts" / "lane_gap.py",
+        ROOT / "examples" / "bayesopt_schwefel_torch.py",
+        ROOT / "tests" / "torch_dist_worker.py"]
     offenders = [str(f) for f in files if _FORBIDDEN.search(f.read_text())]
     assert offenders == []
 
@@ -102,6 +108,50 @@ def test_fit_without_device_needs_a_gpu(monkeypatch):
         posterior_mean(gp, X[:3])
     with pytest.raises(RuntimeError):
         posterior_var(gp, X[:3])
+
+
+class _Stub:
+    vocab = 5
+
+    def init_cache(self, B, ctx):
+        return {}
+
+    def decode_step(self, params, cache, tokens, pos, par):
+        nxt = (tokens[:, 0].long() + 1) % self.vocab
+        return torch.nn.functional.one_hot(nxt, self.vocab)[:, None], cache
+
+
+def test_substrate_defaults_need_a_gpu(monkeypatch, tmp_path):
+    """elastic_mesh, ShardedBatches and ServeEngine run on CUDA unless told
+    "cpu", and raise without a GPU."""
+    import torch.distributed as dist
+
+    from repro_torch.data import ShardedBatches
+    from repro_torch.distributed.elastic import elastic_mesh
+    from repro_torch.distributed.sharding import mesh_shape
+    from repro_torch.serving.engine import Request, ServeEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedBatches(10, 4, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(_Stub(), {}, None, batch_slots=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        elastic_mesh(model=1, ranks=[0])
+    b = next(ShardedBatches(10, 4, 2, device="cpu"))
+    assert b["tokens"].device.type == "cpu" and b["tokens"].shape == (2, 4)
+    eng = ServeEngine(_Stub(), {}, None, batch_slots=2, eos_id=-1,
+                      device="cpu")
+    eng.submit(Request(rid=0, prompt=[1], max_new=2))
+    assert [r.out for r in eng.run_until_done()] == [[2, 3]]
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = elastic_mesh(model=1, device_type="cpu")
+        assert mesh.device_type == "cpu"
+        assert mesh_shape(mesh) == {"data": 1, "model": 1}
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cuda_backend_on_cpu_tensors_raises():
